@@ -1,0 +1,15 @@
+"""hgaprec_tpu_torch — the PyTorch/CUDA port of hgaprec_tpu.
+
+Hierarchical Gamma-Poisson factorization (Gopalan, Hofman & Blei,
+arXiv:1311.1704) trained by CAVI, for one NVIDIA H100. Module paths follow
+`hgaprec_tpu/`, so each module's counterpart is found at the same place.
+Plain tensor code is PyTorch; the dense CAVI sweep is a hand-written CUDA
+kernel (`csrc/dense_fused.cu`, bound in `ops/dense_fused.py`). The package
+imports torch and numpy only, never jax.
+"""
+
+__version__ = "0.1.0"
+
+from hgaprec_tpu_torch.config import ModelConfig, RunConfig
+
+__all__ = ["ModelConfig", "RunConfig", "__version__"]

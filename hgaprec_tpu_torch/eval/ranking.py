@@ -1,0 +1,246 @@
+"""Ranking-based evaluation (port of `hgaprec_tpu/eval/ranking.py`, host path).
+
+Scores come from the model's device; ranking runs on the host, for
+catalogs up to DEVICE_TOPK_THRESHOLD items. The reference's bookkeeping
+and file contracts:
+
+  * compute_precision (hgaprec.cc:1703-1848): p@10/p@100 over sampled
+    users, score 0 for train+validation items, top-100 rows appended to
+    ranking.tsv when saving.
+  * compute_itemrank (hgaprec.cc:1607-1701): itemrank.tsv + meanrank.txt.
+    NOTE the reference computes `1 / (j+1)` in *integer* arithmetic
+    (hgaprec.cc:1683), so its "reciprocal rank" only credits rank-0 hits;
+    we reproduce that in meanrank.txt for parity and additionally report
+    the true MRR in meanrank_true.txt.
+
+MSR's pred.csv, RMSE and the streamed device top-k for wider catalogs are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, TextIO
+
+import numpy as np
+import torch
+
+from hgaprec_tpu_torch.data.ratings import CountMap, RatingsStore
+from hgaprec_tpu_torch.eval.score import Scorer, user_scores
+
+# above this catalog size the JAX package streams a device top-k instead
+# of ranking the [users, M] host matrix
+DEVICE_TOPK_THRESHOLD = 65536
+
+
+def sample_users(rng: np.random.Generator, n: int, count: int = 1000
+                 ) -> np.ndarray:
+    """hgaprec.cc:1715-1721: draw users (with replacement) into a set
+    until it holds min(count, n/2); do-while semantics: at least one."""
+    limit = min(count, n // 2)
+    users = {int(rng.integers(0, n))}
+    while len(users) < limit:
+        users.add(int(rng.integers(0, n)))
+    return np.asarray(sorted(users), dtype=np.int32)
+
+
+class EvalIndex:
+    """Per-user item arrays for validation masking and test lookups."""
+
+    def __init__(self, validation: CountMap, test: CountMap,
+                 store: RatingsStore):
+        self.val_by_user: Dict[int, np.ndarray] = _group(validation)
+        self.test_by_user: Dict[int, list] = {}
+        for (u, m), v in test.items():
+            self.test_by_user.setdefault(u, []).append((m, v))
+        # flat sorted (u * M + m) keys for vectorized hit counting
+        if test:
+            ks = np.asarray([u * store.m + m for (u, m) in test.keys()],
+                            np.int64)
+            vs = np.asarray(list(test.values()))
+            hit = np.asarray([store.test_hit(int(v)) for v in vs], bool)
+            self.hit_keys = np.sort(ks[hit])
+        else:
+            self.hit_keys = np.zeros(0, np.int64)
+
+    def val_items(self, n: int) -> np.ndarray:
+        return self.val_by_user.get(n, _EMPTY)
+
+
+_EMPTY = np.zeros(0, np.int64)
+
+
+def _group(cmap: CountMap) -> Dict[int, np.ndarray]:
+    tmp: Dict[int, list] = {}
+    for (u, m) in cmap.keys():
+        tmp.setdefault(u, []).append(m)
+    return {u: np.asarray(sorted(v), np.int64) for u, v in tmp.items()}
+
+
+def masked_user_scores(sc: Scorer, store: RatingsStore, index: EvalIndex,
+                       users: np.ndarray) -> np.ndarray:
+    """[S, M] host scores with train+validation entries forced to 0.0
+    (hgaprec.cc:1729-1737)."""
+    s = user_scores(sc, users).to("cpu", torch.float64).numpy()
+    cols = build_mask_matrix(store, index, users)
+    rows = np.broadcast_to(np.arange(cols.shape[0])[:, None], cols.shape)
+    live = cols >= 0
+    s[rows[live], cols[live]] = 0.0
+    return s
+
+
+def build_mask_matrix(store: RatingsStore, index: EvalIndex,
+                      users: np.ndarray) -> np.ndarray:
+    """i32[S, D] of global item ids to zero-score, padded with -1e9.
+
+    Vectorized over the store's user CSR (row_ptr/coo_i): one fancy-index
+    fill for all train items plus one for the (tiny) validation lists.
+    Train/validation duplicates are left in place (masking the same
+    column twice is a no-op).
+    """
+    users = np.asarray(users, np.int64)
+    s_count = users.size
+    pad_val = -(10 ** 9)
+    rp = store.row_ptr
+    starts = rp[users]
+    cnt_t = (rp[users + 1] - starts).astype(np.int64)
+    val_lists = [index.val_items(int(n)) for n in users]
+    cnt_v = np.fromiter((v.size for v in val_lists), np.int64,
+                        count=s_count) if s_count else np.zeros(0, np.int64)
+    d = int((cnt_t + cnt_v).max()) if s_count else 1
+    d = max(d, 1)
+    cols = np.full((s_count, d), pad_val, np.int32)
+    # flat fill of every user's train-item slice
+    tot_t = int(cnt_t.sum())
+    if tot_t:
+        row_t = np.repeat(np.arange(s_count), cnt_t)
+        within = np.arange(tot_t) - np.repeat(
+            np.cumsum(cnt_t) - cnt_t, cnt_t)
+        flat = np.repeat(starts, cnt_t) + within
+        cols[row_t, within] = store.coo_i[flat]
+    tot_v = int(cnt_v.sum())
+    if tot_v:
+        row_v = np.repeat(np.arange(s_count), cnt_v)
+        within_v = np.arange(tot_v) - np.repeat(
+            np.cumsum(cnt_v) - cnt_v, cnt_v)
+        cols[row_v, cnt_t[row_v] + within_v] = np.concatenate(
+            [v for v in val_lists if v.size])
+    return cols
+
+
+def top_candidates(sc: Scorer, store: RatingsStore, index: EvalIndex,
+                   users: np.ndarray, topn: int):
+    """(values [S, topn], ids [S, topn]) of the masked ranking: a host
+    stable argsort over the full score rows."""
+    if store.m > DEVICE_TOPK_THRESHOLD:
+        raise NotImplementedError(
+            f"ranking over {store.m} items needs the streamed device top-k, "
+            "not ported yet (ROADMAP queue 1, item 12)")
+    topn_eff = min(topn, store.m)
+    scores = masked_user_scores(sc, store, index, users)
+    top_idx = np.argsort(-scores, axis=1, kind="stable")[:, :topn_eff]
+    return np.take_along_axis(scores, top_idx, axis=1), top_idx
+
+
+def compute_precision(sc: Scorer, store: RatingsStore, index: EvalIndex,
+                      users: np.ndarray,
+                      precision_file: Optional[TextIO],
+                      ranking_path: Optional[str] = None,
+                      topn: int = 100) -> Dict[str, float]:
+    """One precision report; optionally writes ranking.tsv."""
+    top_vals, top_idx = top_candidates(sc, store, index, users, topn)
+    topn_eff = top_idx.shape[1]
+    # vectorized hit lookup against the sorted (u*M + m) test-hit keys —
+    # same predicate as the reference's per-candidate map lookup +
+    # test_hit threshold (hgaprec.cc:1764-1800)
+    keys = (users.astype(np.int64)[:, None] * store.m
+            + top_idx.astype(np.int64))
+    hk = index.hit_keys
+    if hk.size:
+        pos = np.minimum(np.searchsorted(hk, keys), hk.size - 1)
+        hit_mat = hk[pos] == keys
+    else:
+        hit_mat = np.zeros(keys.shape, bool)
+    total_users = len(users)
+    p10 = float(np.mean(hit_mat[:, :min(10, topn_eff)].sum(axis=1) / 10.0))
+    p100 = float(np.mean(hit_mat[:, :min(100, topn_eff)].sum(axis=1)
+                         / 100.0))
+    if ranking_path:
+        with open(ranking_path, "w") as f:
+            for r, n in enumerate(users):
+                n = int(n)
+                for j in range(topn_eff):
+                    mm = int(top_idx[r, j])
+                    if store.r(n, mm) == 0:
+                        f.write(f"{store.seq2user[n]}\t{store.seq2movie[mm]}"
+                                f"\t{top_vals[r, j]:.5f}\t"
+                                f"{int(hit_mat[r, j])}\n")
+    if precision_file is not None:
+        precision_file.write(f"{total_users}\t{p10:.5f}\t{p100:.5f}\n")
+        precision_file.flush()
+    return {"users": total_users, "p10": p10, "p100": p100}
+
+
+def compute_itemrank(sc: Scorer, store: RatingsStore, index: EvalIndex,
+                     users: np.ndarray, outdir: str) -> Dict[str, float]:
+    """itemrank.tsv + meanrank.txt (hgaprec.cc:1607-1701): host argsort
+    of the [S, M] masked score matrix."""
+    item_deg = store.item_degrees()
+    # flatten (user-row, item, value) over hit test items
+    pairs_u, pairs_m, rows_of = [], [], {}
+    for n in users:
+        n = int(n)
+        for mm, v in index.test_by_user.get(n, ()):
+            if store.test_hit(v):
+                rows_of.setdefault(n, []).append(len(pairs_u))
+                pairs_u.append(n)
+                pairs_m.append(mm)
+    if pairs_u and store.m > DEVICE_TOPK_THRESHOLD:
+        raise NotImplementedError(
+            f"item ranks over {store.m} items need the streamed device rank "
+            "counter, not ported yet (ROADMAP queue 1, item 12)")
+    if pairs_u:
+        scores = masked_user_scores(sc, store, index, users)
+        row_ix = {int(n): r for r, n in enumerate(users)}
+        ranks = np.zeros(len(pairs_u), np.int64)
+        tscores = np.zeros(len(pairs_u), np.float64)
+        for r, n in enumerate(users):
+            n = int(n)
+            if n not in rows_of:
+                continue
+            order = np.argsort(-scores[r], kind="stable")
+            rank_of = np.empty_like(order)
+            rank_of[order] = np.arange(order.size)
+            for p in rows_of[n]:
+                ranks[p] = rank_of[pairs_m[p]]
+                tscores[p] = scores[row_ix[n], pairs_m[p]]
+    sum_rank = sum_rr_ref = sum_rr_true = 0.0
+    total_users = 0
+    with open(os.path.join(outdir, "itemrank.tsv"), "w") as f:
+        for n, prows in rows_of.items():
+            # items not in training (validation/test count as ranked,
+            # hgaprec.cc:1666-1667)
+            nranked = store.m - store.items_of_user(n).size
+            ntest = 0
+            rank_ui = rr_ref = rr_true = 0.0
+            for p in prows:
+                j = int(ranks[p])
+                mm = pairs_m[p]
+                ntest += 1
+                f.write(f"{n}\t{mm}\t{tscores[p]:.5f}\t{j}\t"
+                        f"{int(item_deg[mm])}\n")
+                rank_ui += j + 1
+                rr_ref += 1 // (j + 1)        # hgaprec.cc:1683 int division
+                rr_true += 1.0 / (j + 1)
+            if ntest > 0 and nranked > 0:
+                sum_rank += (rank_ui / nranked) / ntest
+                sum_rr_ref += rr_ref / ntest
+                sum_rr_true += rr_true / ntest
+                total_users += 1
+    tu = max(total_users, 1)
+    with open(os.path.join(outdir, "meanrank.txt"), "w") as f:
+        f.write(f"{total_users}\t{sum_rank / tu:.5f}\t{sum_rr_ref / tu:.5f}\n")
+    with open(os.path.join(outdir, "meanrank_true.txt"), "w") as f:
+        f.write(f"{total_users}\t{sum_rank / tu:.5f}\t{sum_rr_true / tu:.5f}\n")
+    return {"users": total_users, "meanrank": sum_rank / tu,
+            "mrr": sum_rr_true / tu}

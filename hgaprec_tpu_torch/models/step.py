@@ -1,0 +1,136 @@
+"""One CAVI iteration per model variant (port of `hgaprec_tpu/models/step.py`).
+
+Update *ordering* within an iteration is part of the algorithm and is kept
+exactly as the reference stages it:
+
+  * vb() (hgaprec.cc:919-980): theta rate uses old beta; theta swaps; beta
+    rate uses the *new* theta (asymmetric staleness).
+  * vb_bias() (1219-1319): same, plus bias shape slots; -novb switches to
+    fully synchronous swaps (all rates from old expectations).
+  * vb_hier() (1321-1436): per-row prior rates injected from the scale
+    variables (set_prior_rate, gpbase.hh:163-173); scales update last from
+    the *new* factor expectations.
+
+The step writes its result into the state's own tensors (the JAX package
+donates them to the jitted step instead), so a run keeps one set of state
+buffers. Every old value a later update reads is consumed or copied before
+its buffer is overwritten. The MLE and Canny variants are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hgaprec_tpu_torch import config as C
+from hgaprec_tpu_torch.config import ModelConfig
+from hgaprec_tpu_torch.data.device import DeviceData
+from hgaprec_tpu_torch.models.state import Gam, ModelState
+from hgaprec_tpu_torch.ops.gamma import expectations
+from hgaprec_tpu_torch.ops.sweep import sweep
+
+
+def _update(g: Gam, shape, rate) -> None:
+    """Write a fresh posterior and its expectations into g's buffers."""
+    e, elog = expectations(shape, rate)
+    g.shape.copy_(shape)
+    g.rate.copy_(rate)
+    g.e.copy_(e)
+    g.elog.copy_(elog)
+
+
+def _bias_updates(cfg: ModelConfig, state: ModelState, res) -> None:
+    """Bias Gamma(0.3, 0.3) updates: shape += y*phi[bias slot], rate =
+    prior + count of opposite-side entities (update_rate_next_all,
+    hgaprec.cc:1265-1270, gpbase.hh:231-237)."""
+    _update(state.theta_bias, 0.3 + res.acc_bias_a,
+            torch.full_like(state.theta_bias.rate, 0.3 + cfg.m))
+    _update(state.beta_bias, 0.3 + res.acc_bias_b,
+            torch.full_like(state.beta_bias.rate, 0.3 + cfg.n))
+
+
+def _resolve_mode(cfg: ModelConfig, data: DeviceData) -> str:
+    mode = cfg.resolve_sweep()
+    if (cfg.sweep == C.SWEEP_AUTO and mode == C.SWEEP_SEGMENT
+            and data.dense_y is not None):
+        mode = C.SWEEP_DENSE       # densified despite a wide catalog
+    return mode
+
+
+def cavi_step(state: ModelState, data: DeviceData,
+              cfg: ModelConfig) -> ModelState:
+    """One CAVI iteration, written into `state`'s tensors; returns it."""
+    mode = _resolve_mode(cfg, data)
+    if cfg.variant == C.VARIANT_BPF:
+        _step_bpf(state, data, cfg, mode)
+    elif cfg.variant == C.VARIANT_HPF:
+        _step_hpf(state, data, cfg, mode)
+    else:
+        raise NotImplementedError(
+            f"variant {cfg.variant!r} is not ported yet (ROADMAP queue 1, "
+            "item 7: MLE/Canny)")
+    return state
+
+
+def _sweep(state: ModelState, data: DeviceData, cfg: ModelConfig, mode):
+    eb_u = state.theta_bias.elog if cfg.bias else None
+    eb_i = state.beta_bias.elog if cfg.bias else None
+    return sweep(state.theta.elog, state.beta.elog, eb_u, eb_i, data, mode,
+                 cfg.item_block, cfg.user_block, cfg.matmul_precision)
+
+
+def _step_bpf(state, data, cfg, mode):
+    res = _sweep(state, data, cfg, mode)
+    betasum = state.beta.e.sum(0)                  # old beta [K]
+    old_thetasum = None if cfg.vb else state.theta.e.sum(0)
+    _update(state.theta, cfg.a + res.acc_a, cfg.b + betasum)
+    # vb: beta rate from the NEW theta; -novb: from the old one
+    thetasum = state.theta.e.sum(0) if cfg.vb else old_thetasum
+    _update(state.beta, cfg.c + res.acc_b, cfg.d + thetasum)
+    if cfg.bias:
+        _bias_updates(cfg, state, res)
+
+
+def _step_hpf(state, data, cfg, mode):
+    res = _sweep(state, data, cfg, mode)
+    xi, eta = state.theta_rate, state.beta_rate
+    # prior rates in effect for this update, kept for the hier ELBO term
+    state.theta_prior_e.copy_(xi.e)
+    state.theta_prior_elog.copy_(xi.elog)
+    state.beta_prior_e.copy_(eta.e)
+    state.beta_prior_elog.copy_(eta.elog)
+    # theta: prior rate := E[xi] per row (replacing b), plus old-beta colsum
+    betarowsum = state.beta.e.sum(0)
+    _update(state.theta, cfg.a + res.acc_a,
+            xi.e[:, None] + betarowsum[None, :])
+    # beta: symmetric with the NEW theta (hgaprec.cc:1380-1386)
+    thetarowsum = state.theta.e.sum(0)
+    _update(state.beta, cfg.c + res.acc_b,
+            eta.e[:, None] + thetarowsum[None, :])
+    if cfg.bias:
+        _bias_updates(cfg, state, res)
+    # scales last, from NEW factor expectations (hgaprec.cc:1398-1414):
+    # shape = prior + K*prior; rate = prior + row-sums of E.
+    _update(xi, torch.full_like(xi.shape, cfg.ap + cfg.k * cfg.ap),
+            cfg.bp + state.theta.e.sum(1))
+    _update(eta, torch.full_like(eta.shape, cfg.cp + cfg.k * cfg.cp),
+            cfg.dp + state.beta.e.sum(1))
+
+
+def make_step(cfg: ModelConfig):
+    """Return `step(state, data) -> state` for this config."""
+    def step(state: ModelState, data: DeviceData) -> ModelState:
+        return cavi_step(state, data, cfg)
+    return step
+
+
+def make_multi_step(cfg: ModelConfig):
+    """Return `multi_step(state, data, n_steps) -> state`: `n_steps` CAVI
+    iterations back to back, with no host synchronisation in between.
+    (The JAX package fuses them into one dispatch; replaying a captured
+    CUDA graph is the counterpart, a later step.)"""
+    def multi_step(state: ModelState, data: DeviceData,
+                   n_steps: int) -> ModelState:
+        for _ in range(n_steps):
+            cavi_step(state, data, cfg)
+        return state
+    return multi_step

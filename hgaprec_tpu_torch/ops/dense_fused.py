@@ -1,0 +1,206 @@
+"""Fused dense CAVI sweep: the CUDA kernel's wrapper and its plain version.
+
+Port of `hgaprec_tpu/ops/dense_pallas.py::fused_dense_sweep`. For linear
+factors A = exp(Elog theta) [N, K], B = exp(Elog beta) [M, K] and the
+uint8 count matrix Y, with W = Y / max(A B^T, 1e-30):
+
+    raw_a = W B,  raw_b = W^T A     [, rowsum W, colsum W with bias]
+
+The caller multiplies by A and B (and the bias expectations) to get the
+CAVI sufficient statistics (ops/sweep.py).
+
+The kernel (`csrc/dense_fused.cu`) replaces the TPU kernel
+`hgaprec_tpu/ops/dense_pallas.py::_kernel`. A sweep costs 8 N M kp FLOPs
+(four products of 2 N M kp: both of the kernel's two deterministic passes
+recompute S) against two uint8 reads of Y, about 400 FLOPs per byte at
+K = 100, so it is compute-bound on the H100. The two-pass design trades
+the fourth product for sums without atomics and no item-count limit.
+
+On a CUDA tensor `fused_dense_sweep` launches the kernel or raises; only
+a CPU tensor takes `fused_dense_sweep_reference`, the same function in
+blocked torch ops.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from hgaprec_tpu_torch.ops import build
+
+KP_MAX = 256           # widest packed factor row the kernel takes
+TILE = 64              # the kernel's tile edge, users and items alike
+MIN_CHUNK = 16         # fewest moving tiles one CTA sweeps when split
+_CLAMP = 1e-30
+
+
+def _pack(a_lin, b_lin, ba_lin, bb_lin, width=None, dtype=torch.float32):
+    """a = [A | ba | 1], b = [B | 1 | bb]: the score then includes both
+    biases, and W b, W^T a deliver rowsum(W) in column k of raw_a and
+    colsum(W) in column k+1 of raw_b (dense_pallas.py:139-152). `width`
+    zero-pads the rows (the kernel loads them in 16-byte chunks)."""
+    n, k = a_lin.shape
+    m = b_lin.shape[0]
+    kaug = k + 2 if ba_lin is not None else k
+    width = width or kaug
+    a = torch.zeros((n, width), dtype=dtype, device=a_lin.device)
+    b = torch.zeros((m, width), dtype=dtype, device=b_lin.device)
+    a[:, :k] = a_lin
+    b[:, :k] = b_lin
+    if ba_lin is not None:
+        a[:, k] = ba_lin
+        a[:, k + 1] = 1.0
+        b[:, k] = 1.0
+        b[:, k + 1] = bb_lin
+    return a, b
+
+
+def _unpack(acc_a, acc_b, k: int, bias: bool):
+    if bias:
+        return acc_a[:, :k], acc_b[:, :k], acc_a[:, k], acc_b[:, k + 1]
+    return acc_a[:, :k], acc_b[:, :k]
+
+
+def splits_for(n: int, m: int, sms: int) -> Tuple[int, int]:
+    """(split_a, split_b): chunks per user-role and item-role CTA loop.
+
+    One CTA per stationary tile leaves most of the card idle when N and M
+    are small (ML-1M: 96 + 58 CTAs for 2 x 132 resident slots), so each
+    role's moving loop is cut into chunks of at least MIN_CHUNK tiles,
+    aiming at about four CTAs per resident slot. At Netflix shape the
+    chunks are thousands of tiles long and the item role splits in two."""
+    tiles_a, tiles_b = -(-n // TILE), -(-m // TILE)
+    slots = 2 * sms
+    chunk = max(MIN_CHUNK, -(-2 * tiles_a * tiles_b // (4 * slots)))
+    return -(-tiles_b // chunk), -(-tiles_a // chunk)
+
+
+def _check(a_lin, b_lin, dense_y, ba_lin, bb_lin):
+    if a_lin.dim() != 2 or b_lin.dim() != 2 or a_lin.shape[1] != b_lin.shape[1]:
+        raise ValueError(f"a_lin {tuple(a_lin.shape)} and b_lin "
+                         f"{tuple(b_lin.shape)} must be [N, K] and [M, K]")
+    n, m = a_lin.shape[0], b_lin.shape[0]
+    if dense_y.dim() != 2 or dense_y.dtype != torch.uint8:
+        raise ValueError(f"dense_y must be a 2-D uint8 tensor, got "
+                         f"{dense_y.dtype} {tuple(dense_y.shape)}")
+    if dense_y.shape[0] < n or dense_y.shape[1] < m:
+        raise ValueError(f"dense_y {tuple(dense_y.shape)} smaller than "
+                         f"[{n}, {m}]")
+    if (ba_lin is None) != (bb_lin is None):
+        raise ValueError("pass both bias vectors or neither")
+    vecs = [a_lin, b_lin] + ([ba_lin, bb_lin] if ba_lin is not None else [])
+    if ba_lin is not None and (tuple(ba_lin.shape) != (n,)
+                               or tuple(bb_lin.shape) != (m,)):
+        raise ValueError(f"bias shapes {tuple(ba_lin.shape)}, "
+                         f"{tuple(bb_lin.shape)} != ({n},), ({m},)")
+    for t in vecs:
+        if t.dtype != torch.float32:
+            raise ValueError(f"factors must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("factor tensors must be contiguous")
+        if t.device != dense_y.device:
+            raise ValueError(f"tensors on {t.device} and {dense_y.device}")
+    if dense_y.stride(1) != 1:
+        raise ValueError("dense_y rows must be contiguous (stride(1) == 1)")
+
+
+def fused_dense_sweep(a_lin: torch.Tensor, b_lin: torch.Tensor,
+                      dense_y: torch.Tensor,
+                      ba_lin: Optional[torch.Tensor] = None,
+                      bb_lin: Optional[torch.Tensor] = None,
+                      *, bf16: bool = False) -> Tuple[torch.Tensor, ...]:
+    """(W B, W^T A[, rowsum W, colsum W]) with W = Y / (A B^T [+ biases]).
+
+    a_lin f32 [N, K], b_lin f32 [M, K], dense_y u8 [>= N, >= M] (rows may
+    be padded, rows may be wider than M), ba_lin/bb_lin optional f32 [N],
+    [M]. bf16=True reads A and B as bf16 and rounds W to bf16 before the
+    contraction products, accumulating in f32. Returns 2 or 4 f32 tensors.
+    """
+    _check(a_lin, b_lin, dense_y, ba_lin, bb_lin)
+    if dense_y.device.type == "cpu":
+        return fused_dense_sweep_reference(a_lin, b_lin, dense_y, ba_lin,
+                                           bb_lin, bf16=bf16)
+    if dense_y.device.type != "cuda":
+        raise ValueError(f"no kernel for device {dense_y.device}")
+    n, k = a_lin.shape
+    m = b_lin.shape[0]
+    bias = ba_lin is not None
+    quantum = 16 if bf16 else 4       # whole 16-byte chunks per row
+    kq = -(-(k + 2 if bias else k) // quantum) * quantum
+    if kq > KP_MAX:
+        raise ValueError(f"packed factor width {kq} > {KP_MAX}")
+    a, b = _pack(a_lin, b_lin, ba_lin, bb_lin, kq,
+                 torch.bfloat16 if bf16 else torch.float32)
+    acc_a = torch.empty((n, kq), dtype=torch.float32, device=a.device)
+    acc_b = torch.empty((m, kq), dtype=torch.float32, device=a.device)
+    if n == 0 or m == 0:
+        return _unpack(acc_a.zero_(), acc_b.zero_(), k, bias)
+    split_a, split_b = splits_for(
+        n, m, torch.cuda.get_device_properties(a.device).multi_processor_count)
+    part_a = (torch.empty((split_a, n, kq), dtype=torch.float32,
+                          device=a.device) if split_a > 1 else None)
+    part_b = (torch.empty((split_b, m, kq), dtype=torch.float32,
+                          device=a.device) if split_b > 1 else None)
+    lib = build.load_library()
+    fn = lib.hpf_dense_fused_sweep_bf16 if bf16 else \
+        lib.hpf_dense_fused_sweep_f32
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), b.data_ptr(), dense_y.data_ptr(),
+                 acc_a.data_ptr(), acc_b.data_ptr(),
+                 None if part_a is None else part_a.data_ptr(),
+                 None if part_b is None else part_b.data_ptr(), n, m, kq,
+                 dense_y.stride(0), split_a, split_b, stream)
+    if err != 0:
+        raise RuntimeError(f"dense fused sweep launch failed: cudaError {err}"
+                           f" (n={n}, m={m}, kq={kq}, bf16={bf16}, splits="
+                           f"{split_a}, {split_b})")
+    fused_dense_sweep.launches += 1
+    return _unpack(acc_a, acc_b, k, bias)
+
+
+fused_dense_sweep.launches = 0
+
+
+def fused_dense_sweep_reference(a_lin: torch.Tensor, b_lin: torch.Tensor,
+                                dense_y: torch.Tensor,
+                                ba_lin: Optional[torch.Tensor] = None,
+                                bb_lin: Optional[torch.Tensor] = None,
+                                *, bf16: bool = False,
+                                user_block: int = 8192,
+                                item_block: int = 4096
+                                ) -> Tuple[torch.Tensor, ...]:
+    """The kernel's function in blocked torch ops (same contract).
+
+    Blocks of users x items bound the [block, block] score tile, so the
+    plain version also runs at Netflix shape. bf16 rounding is emulated
+    in f32 arithmetic (A, B and W rounded to bf16 where the kernel rounds
+    them), so the result does not depend on a bf16 product's summation
+    order."""
+    n, k = a_lin.shape
+    m = b_lin.shape[0]
+    bias = ba_lin is not None
+    a, b = _pack(a_lin, b_lin, ba_lin, bb_lin)
+    if bf16:
+        a = a.to(torch.bfloat16).float()
+        b = b.to(torch.bfloat16).float()
+    acc_a = torch.zeros((n, a.shape[1]), dtype=torch.float32, device=a.device)
+    acc_b = torch.zeros((m, a.shape[1]), dtype=torch.float32, device=a.device)
+    for u0 in range(0, n, user_block):
+        u1 = min(u0 + user_block, n)
+        a_u = a[u0:u1]
+        for c0 in range(0, m, item_block):
+            c1 = min(c0 + item_block, m)
+            b_c = b[c0:c1]
+            y = dense_y[u0:u1, c0:c1].float()
+            w = y / torch.clamp_min(a_u @ b_c.T, _CLAMP)
+            if bf16:
+                w = w.to(torch.bfloat16).float()
+            acc_a[u0:u1] += w @ b_c
+            acc_b[c0:c1] += w.T @ a_u
+    return _unpack(acc_a, acc_b, k, bias)

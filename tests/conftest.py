@@ -39,6 +39,8 @@ import pytest
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (runs the port's CUDA kernels)")
 
 
 @pytest.fixture

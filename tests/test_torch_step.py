@@ -1,0 +1,112 @@
+"""Port CAVI step == JAX CAVI step and the f64 reference model.
+
+Both packages start from the same JAX init_state (carried over with
+state_from_numpy) and take 3 steps on the same data. The port is held to
+the JAX dense step at rtol=5e-4, atol=1e-6 (the bound of
+tests/test_dense_pallas.py::test_step_parity_dense_pallas) and to the f64
+oracle tests/reference_impl.py at rtol=5e-3, atol=1e-5 (the bound of
+tests/test_step_golden.py: f32 state iterated against f64).
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+import reference_impl as R
+from conftest import make_synthetic
+from hgaprec_tpu.config import ModelConfig as JCfg
+from hgaprec_tpu.data.device import build_device_data as j_build
+from hgaprec_tpu.io.checkpoint import save_npz as j_save_npz
+from hgaprec_tpu.models.state import init_state as j_init
+from hgaprec_tpu.models.step import make_step as j_make_step
+from hgaprec_tpu_torch.config import ModelConfig as TCfg
+from hgaprec_tpu_torch.data.device import build_device_data as t_build
+from hgaprec_tpu_torch.data.ratings import RatingsStore as TStore
+from hgaprec_tpu_torch.models.state import state_from_numpy, state_to_numpy
+from hgaprec_tpu_torch.models.step import make_multi_step, make_step
+
+CASES = [("hpf", {}), ("bpf", {}), ("bpf", {"bias": True}),
+         ("bpf", {"bias": True, "vb": False}), ("hpf", {"bias": True})]
+
+
+def port_store(js):
+    """The port's store holding exactly the JAX store's ids and COO."""
+    ts = TStore(js.n, js.m, js.binary, js.rating_threshold)
+    for f in ("user2seq", "seq2user", "movie2seq", "seq2movie"):
+        setattr(ts, f, dict(getattr(js, f)))
+    ts._u, ts._i, ts._y = list(js.coo_u), list(js.coo_i), list(js.coo_y)
+    ts.finalize()
+    return ts
+
+
+def _arrays(tmp_path, jstate):
+    path = os.path.join(str(tmp_path), "s.npz")
+    j_save_npz(path, jstate, 0)
+    z = np.load(path)
+    return {k: z[k] for k in z.files if k != "iteration"}
+
+
+def _cfg_dict(cfg):
+    return dict(a=cfg.a, b=cfg.b, c=cfg.c, d=cfg.d, ap=cfg.ap, bp=cfg.bp,
+                cp=cfg.cp, dp=cfg.dp, vb=cfg.vb)
+
+
+@pytest.mark.parametrize("variant,kw", CASES)
+def test_step_matches_jax_and_oracle(tmp_path, rng, variant, kw):
+    js, _, _ = make_synthetic(rng, n=25, m=19, density=0.4)
+    jcfg = JCfg(n=js.n, m=js.m, k=4, variant=variant, sweep="dense", **kw)
+    tcfg = TCfg(n=js.n, m=js.m, k=4, variant=variant, sweep="dense", **kw)
+    jstate = j_init(jcfg, seed=7)
+    tstate = state_from_numpy(_arrays(tmp_path, jstate), tcfg, "cpu")
+    oracle = R.state_from_jax(jstate, variant, jcfg.bias, jcfg.hier)
+    jdata = j_build(js, pad_multiple=128)
+    tdata = t_build(port_store(js), "cpu", pad_multiple=128)
+    coo = list(zip(js.coo_u.tolist(), js.coo_i.tolist(),
+                   js.coo_y.tolist()))
+    ref_step = R.hpf_step if variant == "hpf" else R.bpf_step
+    jstep, tstep = j_make_step(jcfg), make_step(tcfg)
+    for _ in range(3):
+        jstate = jstep(jstate, jdata)
+        tstate = tstep(tstate, tdata)
+        oracle = ref_step(oracle, coo, _cfg_dict(jcfg))
+
+    want = _arrays(tmp_path, jstate)
+    got = state_to_numpy(tstate)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=5e-4,
+                                   atol=1e-6, err_msg=key)
+    pairs = [("theta.e", "theta_e"), ("beta.e", "beta_e"),
+             ("theta.elog", "theta_elog")]
+    if variant == "hpf":
+        pairs += [("theta_rate.e", "xi_e"), ("beta_rate.e", "eta_e")]
+    if tcfg.bias:
+        pairs += [("theta_bias.e", "tbias_e"), ("beta_bias.e", "bbias_e")]
+    for key, okey in pairs:
+        np.testing.assert_allclose(got[key].astype(np.float64), oracle[okey],
+                                   rtol=5e-3, atol=1e-5, err_msg=key)
+
+
+def test_multi_step_equals_repeated_step(rng):
+    js, _, _ = make_synthetic(rng, n=20, m=15, density=0.4)
+    cfg = TCfg(n=js.n, m=js.m, k=3, variant="hpf")
+    data = t_build(port_store(js), "cpu")
+    from hgaprec_tpu_torch.models.state import init_state
+    a = init_state(cfg, seed=1)
+    b = init_state(cfg, seed=1)
+    a = make_multi_step(cfg)(a, data, 4)
+    step = make_step(cfg)
+    for _ in range(4):
+        b = step(b, data)
+    for key, v in state_to_numpy(a).items():
+        np.testing.assert_array_equal(v, state_to_numpy(b)[key], key)
+
+
+@pytest.mark.parametrize("variant", ["mle_user", "mle_item", "canny"])
+def test_unported_variants_raise(rng, variant):
+    js, _, _ = make_synthetic(rng, n=10, m=8, density=0.5)
+    cfg = TCfg(n=js.n, m=js.m, k=2, variant=variant)
+    from hgaprec_tpu_torch.models.state import init_state
+    with pytest.raises(NotImplementedError, match="MLE/Canny"):
+        make_step(cfg)(init_state(cfg), t_build(port_store(js), "cpu"))
