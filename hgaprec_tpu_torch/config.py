@@ -17,10 +17,11 @@ import os
 from typing import Optional
 
 # Execution paths for the phi sweep (hot loop). The port runs the dense
-# pair; "segment", "segment-chunked" and "hybrid" are later slices.
+# pair and the hybrid; "segment" and "segment-chunked" are a later slice.
 SWEEP_DENSE = "dense"      # blocked dense sweep over a uint8 count matrix
 SWEEP_DENSE_PALLAS = "dense-pallas"  # name kept: the fused-kernel request
 SWEEP_SEGMENT = "segment"
+SWEEP_HYBRID = "hybrid"    # dense head (top-degree items) + sparse tail
 SWEEP_AUTO = "auto"
 
 VARIANT_BPF = "bpf"            # vb()        hgaprec.cc:919-980
@@ -36,7 +37,15 @@ _PRECISIONS = ("highest", "default")
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Static model description."""
+    """Static model description.
+
+    Tail precision policy (hybrid sweep): the tail follows
+    `matmul_precision` like the head. "default" rounds the
+    bias-augmented factor tables to bf16 once and computes dots, weights
+    and sums in f32; "highest" keeps f32 tables, so it is true f32 end
+    to end. This departs from the reference, whose TPU tail runs bf16
+    tables even under "highest" (hgaprec_tpu/ops/sweep.py:316-323).
+    """
 
     n: int                    # users
     m: int                    # items
@@ -59,17 +68,21 @@ class ModelConfig:
     # "default": bf16 inputs with f32 accumulation in the sweep kernel.
     matmul_precision: str = "highest"
     sweep: str = SWEEP_AUTO
-    # Hybrid-mode tail implementation. Only "auto" exists until the
-    # hybrid path is ported.
+    # Hybrid-mode tail implementation. Only "auto" exists: the tail kernel
+    # (ops/tail_fused.py) on a CUDA tensor, its plain version on a CPU
+    # tensor. The JAX values "pallas"/"mxu" name TPU implementations.
     tail_impl: str = "auto"
     # Plain dense path: block sizes for streaming the [N, M] products.
     item_block: int = 4096
     user_block: int = 8192
     # Data layout at Trainer build time: catalogs whose uint8 count
-    # matrix exceeds dense_limit_bytes need the hybrid layout with up to
-    # hybrid_head_items dense head items (not ported yet: they raise).
+    # matrix exceeds dense_limit_bytes get the hybrid head/tail layout
+    # with up to hybrid_head_items top-degree items in the dense head
+    # block, clipped to a head_limit_bytes byte budget (the JAX meaning
+    # and defaults, hgaprec_tpu/config.py:78-92).
     hybrid_head_items: int = 8192
     dense_limit_bytes: int = 10 << 30
+    head_limit_bytes: int = 4 << 30
 
     def __post_init__(self):
         if self.variant not in _VARIANTS:

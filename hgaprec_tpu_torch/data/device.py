@@ -1,6 +1,7 @@
-"""Device-resident training data: padded dual-sorted COO + dense uint8 Y.
+"""Device-resident training data: padded dual-sorted COO, dense uint8 Y,
+and the hybrid head/tail split.
 
-Counterpart of `hgaprec_tpu/data/device.py`, dense half only. The COO is
+Counterpart of `hgaprec_tpu/data/device.py`. The COO is
 padded to a block multiple and kept in two sort orders (user-major, and a
 permutation into item-major order), as the JAX package keeps it; the ELBO
 and the segment sweeps will read it. The dense sweep reads `dense_y`, the
@@ -11,6 +12,12 @@ the JAX layout does (ML-1M: 6040 -> 6144 rows). Its shape keeps M columns:
 the CUDA sweep kernel masks the ragged item edge itself. Its row *stride*
 is rounded up to 16 bytes (`dense_count_matrix`), so the kernel loads Y in
 16-byte runs; nothing pads or copies Y per step.
+
+Catalogs too wide to densify get the hybrid layout (device.py:85-125 of
+the JAX package): the top-T items by degree form a dense uint8 head block
+[npad, T] that the same kernel sweeps, and the remaining nonzeros form the
+tail stream (ops/tail.py::TailStream). Both Y blocks are scattered on the
+device, so the host never holds a multi-GB matrix.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import numpy as np
 import torch
 
 from hgaprec_tpu_torch.data.ratings import RatingsStore
+from hgaprec_tpu_torch.ops.tail import TailStream, build_tail_stream
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +43,11 @@ class DeviceData:
     i_ids_sorted: torch.Tensor   # i32[P]
     u_ids_by_item: torch.Tensor  # i32[P] = u_ids[item_order]
     dense_y: Optional[torch.Tensor]  # u8[N(padded), M] or None
+    # hybrid head/tail split (ops/sweep.py::sweep_hybrid): column j of the
+    # head block is item head_items[j]; the tail holds the other nonzeros
+    head_items: Optional[torch.Tensor] = None     # i32[T]
+    head_dense_y: Optional[torch.Tensor] = None   # u8[npad, T]
+    tail: Optional[TailStream] = None
 
     @property
     def nnz_padded(self) -> int:
@@ -49,32 +62,77 @@ def dense_count_matrix(rows: int, m: int, device) -> torch.Tensor:
                        device=device)[:, :m]
 
 
+def head_width(n: int, m: int, hybrid_head_items: int,
+               head_limit_bytes: int, dense_row_multiple: int = 512) -> int:
+    """Head items T for the hybrid layout (device.py:88-100 of the JAX
+    package): min(hybrid_head_items, m), clipped to the byte budget over
+    npad rows and to a multiple of 512 columns; 0 (no head) when the
+    budget cannot fit min(T, 512) columns."""
+    if hybrid_head_items <= 0 or m <= 0:
+        return 0
+    t = min(hybrid_head_items, m)
+    npad = -(-max(n, 1) // dense_row_multiple) * dense_row_multiple
+    budget = head_limit_bytes // max(npad, 1)
+    if budget < min(t, 512):
+        return 0
+    t = min(t, budget)
+    if t >= 512:
+        t = (t // 512) * 512
+    return t
+
+
+def _scatter_counts(rows: int, cols: int, u: np.ndarray, c: np.ndarray,
+                    y: np.ndarray, device) -> torch.Tensor:
+    """uint8 [rows, cols] (16-byte row stride) holding min(y, 255) at
+    (u, c), scattered on the device."""
+    out = dense_count_matrix(rows, cols, device)
+    out[torch.from_numpy(u.astype(np.int64)).to(device),
+        torch.from_numpy(c.astype(np.int64)).to(device)] = \
+        torch.from_numpy(np.minimum(y, 255).astype(np.uint8)).to(device)
+    return out
+
+
 def build_device_data(store: RatingsStore, device, *,
                       pad_multiple: int = 1024,
                       dense_row_multiple: int = 512,
                       dense_limit_bytes: int = 10 << 30,
-                      hybrid_head_items: int = 0) -> DeviceData:
+                      hybrid_head_items: int = 0,
+                      head_limit_bytes: int = 4 << 30) -> DeviceData:
     """Build the static-shape device tensors from a finalized host store.
 
-    Catalogs too wide to densify (n * m > dense_limit_bytes) and the
-    hybrid head/tail layout (hybrid_head_items > 0) belong to the
-    big-sparse slice, which is not ported yet: both raise."""
-    if hybrid_head_items > 0:
-        raise NotImplementedError(
-            "hybrid head/tail layout is not ported yet (ROADMAP queue 1, "
-            "item 12: big-sparse hybrid)")
+    `dense_y` is built when the catalog densifies (n * m <=
+    dense_limit_bytes). hybrid_head_items > 0 additionally splits the
+    nonzeros into a head block over the top-T items by degree and a tail
+    stream; when the head budget cannot fit 512 columns no head is built,
+    and a catalog that neither densifies nor gets a head keeps only the
+    COO (the JAX package's layout rules)."""
     n, m = store.n, store.m
-    if n * m > dense_limit_bytes:
-        raise NotImplementedError(
-            f"catalog {n} x {m} does not densify under dense_limit_bytes="
-            f"{dense_limit_bytes}; the hybrid/segment sweeps are not ported "
-            "yet (ROADMAP queue 1, items 12-13)")
     u = store.coo_u.astype(np.int32)
     i = store.coo_i.astype(np.int32)
     y = store.coo_y.astype(np.float32)
     nnz = u.size
     p = max(pad_multiple, -(-max(nnz, 1) // pad_multiple) * pad_multiple)
     pad = p - nnz
+
+    head_items = head_dense = tail = None
+    t = head_width(n, m, hybrid_head_items, head_limit_bytes,
+                   dense_row_multiple) if nnz > 0 else 0
+    if t > 0:
+        deg = np.bincount(store.coo_i, minlength=m)
+        head_ids = np.sort(np.argsort(-deg, kind="stable")[:t])
+        head_ids = head_ids.astype(np.int32)
+        col_of = np.full(m, -1, np.int32)
+        col_of[head_ids] = np.arange(head_ids.size, dtype=np.int32)
+        in_head = col_of[store.coo_i] >= 0
+        npad = -(-max(n, 1) // dense_row_multiple) * dense_row_multiple
+        head_dense = _scatter_counts(npad, head_ids.size,
+                                     store.coo_u[in_head],
+                                     col_of[store.coo_i[in_head]],
+                                     store.coo_y[in_head], device)
+        head_items = torch.from_numpy(head_ids).to(device)
+        tail = build_tail_stream(u[~in_head], i[~in_head], y[~in_head],
+                                 device)
+
     # pad with max ids so both sort orders remain ascending
     u = np.concatenate([u, np.full(pad, max(n - 1, 0), np.int32)])
     i = np.concatenate([i, np.full(pad, max(m - 1, 0), np.int32)])
@@ -82,16 +140,13 @@ def build_device_data(store: RatingsStore, device, *,
     item_order = np.lexsort((u, i)).astype(np.int32)
 
     dense_y = None
-    if n > 0 and m > 0:
+    if n * m <= dense_limit_bytes and n > 0 and m > 0:
         big = n * m > (1 << 28)
         npad = (-(-n // dense_row_multiple) * dense_row_multiple
                 if (big or n > 4096) else n)
         # scatter on the device: the host never holds the [N, M] matrix
-        dense_y = dense_count_matrix(npad, m, device)
-        dense_y[torch.from_numpy(store.coo_u.astype(np.int64)).to(device),
-                torch.from_numpy(store.coo_i.astype(np.int64)).to(device)] = \
-            torch.from_numpy(np.minimum(store.coo_y, 255).astype(np.uint8)
-                             ).to(device)
+        dense_y = _scatter_counts(npad, m, store.coo_u, store.coo_i,
+                                  store.coo_y, device)
 
     def dev(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
@@ -102,4 +157,7 @@ def build_device_data(store: RatingsStore, device, *,
         i_ids_sorted=dev(i[item_order]),
         u_ids_by_item=dev(u[item_order]),
         dense_y=dense_y,
+        head_items=head_items,
+        head_dense_y=head_dense,
+        tail=tail,
     )

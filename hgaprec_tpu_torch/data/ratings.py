@@ -25,6 +25,8 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
+from hgaprec_tpu_torch.data import native
+
 # A test/validation map: {(user_seq, item_seq) -> rating}, the reference's
 # CountMap (env.hh typedef; loaded at hgaprec.cc:110-152).
 CountMap = Dict[Tuple[int, int], int]
@@ -33,11 +35,13 @@ CountMap = Dict[Tuple[int, int], int]
 def _parse_tsv(path: str) -> np.ndarray:
     """Parse `uid \t mid \t rating` rows to an int64 [R, 3] array.
 
-    Mirrors fscanf("%u\t%u\t%u\n") (ratings.cc:70). Tries the vectorized
-    NumPy tokenizer, then a line-by-line fallback. Extra columns are
-    ignored. (The JAX package also has a native mmap parser; its port is
-    a later step.)
+    Mirrors fscanf("%u\t%u\t%u\n") (ratings.cc:70). Tries the native
+    mmap parser (data/native.py), then the vectorized NumPy tokenizer,
+    then a line-by-line fallback. Extra columns are ignored.
     """
+    out = native.parse_tsv3(path)
+    if out is not None:
+        return out
     out = _fast_parse_3col(path)
     if out is not None:
         return out
@@ -144,17 +148,9 @@ class RatingsStore:
         per-row loop would not scale to Netflix/EchoNest row counts.
         """
         data = _parse_tsv(path)
-        if cmap is None and not self.user2seq and data.shape[0] > 10000:
-            # capacity caps couple user/item minting row by row (a row
-            # dropped for one side's capacity does not mint the other
-            # side's id, ratings.cc:80-84); vectorize only when the caps
-            # cannot bind, else keep the exact sequential semantics.
-            y_col = data[:, 2]
-            live = (y_col >= self.rating_threshold) if self.binary                 else (y_col > 0)
-            if (np.unique(data[live, 0]).size <= self.max_n and
-                    np.unique(data[live, 1]).size <= self.max_m):
-                self._ingest_vectorized(data)
-                return
+        if cmap is None and self._ingest_fast(data):
+            return
+        self._as_lists()
         for uid, mid, rating in data:
             uid, mid, rating = int(uid), int(mid), int(rating)
             # capacity check precedes the rating-class filter (ratings.cc:80-87)
@@ -171,6 +167,30 @@ class RatingsStore:
                 self._y.append(y)
             else:
                 cmap[(un, mn)] = y
+
+    def _ingest_fast(self, data: np.ndarray) -> bool:
+        """Take the vectorized path for a first training ingest of more
+        than 10,000 rows when the capacity caps cannot bind: the caps
+        couple user/item minting row by row (a row dropped for one side's
+        capacity does not mint the other side's id, ratings.cc:80-84), so
+        only then is the result the scalar path's. Returns whether it
+        ingested."""
+        if self.user2seq or data.shape[0] <= 10000:
+            return False
+        y_col = data[:, 2]
+        live = (y_col >= self.rating_threshold) if self.binary \
+            else (y_col > 0)
+        if (np.unique(data[live, 0]).size <= self.max_n and
+                np.unique(data[live, 1]).size <= self.max_m):
+            self._ingest_vectorized(data)
+            return True
+        return False
+
+    def _as_lists(self) -> None:
+        # the scalar paths append; a vectorized ingest left ndarrays
+        if isinstance(self._u, np.ndarray):
+            self._u, self._i, self._y = (self._u.tolist(), self._i.tolist(),
+                                         self._y.tolist())
 
     def _ingest_vectorized(self, data: np.ndarray) -> None:
         """First-seen-order remap + filters, NumPy-vectorized. Matches the
@@ -216,8 +236,17 @@ class RatingsStore:
 
     def add_training(self, u_ext: Iterable[int], i_ext: Iterable[int],
                      y: Iterable[int]) -> None:
-        """Programmatic ingest (synthetic data, tests)."""
-        for a, b, c in zip(u_ext, i_ext, y):
+        """Programmatic ingest (synthetic data, tests, in-memory catalogs).
+        A first ingest of more than 10,000 rows takes the vectorized path
+        where its result is the per-row loop's (`_ingest_fast`), so a
+        45M-nonzero catalog ingests in seconds."""
+        u_ext, i_ext, y = (np.asarray(v) for v in (u_ext, i_ext, y))
+        if u_ext.size > 10000:
+            data = np.stack([u_ext, i_ext, y], axis=1).astype(np.int64)
+            if self._ingest_fast(data):
+                return
+        self._as_lists()
+        for a, b, c in zip(u_ext.tolist(), i_ext.tolist(), y.tolist()):
             a, b, c = int(a), int(b), int(c)
             if ((a not in self.user2seq and self.n >= self.max_n) or
                     (b not in self.movie2seq and self.m >= self.max_m)):

@@ -1,8 +1,10 @@
-"""Ranking-based evaluation (port of `hgaprec_tpu/eval/ranking.py`, host path).
+"""Ranking-based evaluation (port of `hgaprec_tpu/eval/ranking.py`).
 
-Scores come from the model's device; ranking runs on the host, for
-catalogs up to DEVICE_TOPK_THRESHOLD items. The reference's bookkeeping
-and file contracts:
+Scores come from the model's device. Up to DEVICE_TOPK_THRESHOLD items
+ranking runs on the host over full score rows; above it the streamed
+top-k and rank counter of eval/topk.py run on the scores' device and the
+[users, M] matrix never exists. The reference's bookkeeping and file
+contracts:
 
   * compute_precision (hgaprec.cc:1703-1848): p@10/p@100 over sampled
     users, score 0 for train+validation items, top-100 rows appended to
@@ -13,8 +15,7 @@ and file contracts:
     we reproduce that in meanrank.txt for parity and additionally report
     the true MRR in meanrank_true.txt.
 
-MSR's pred.csv, RMSE and the streamed device top-k for wider catalogs are
-not ported yet.
+MSR's pred.csv and RMSE are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,9 +28,10 @@ import torch
 
 from hgaprec_tpu_torch.data.ratings import CountMap, RatingsStore
 from hgaprec_tpu_torch.eval.score import Scorer, user_scores
+from hgaprec_tpu_torch.eval.topk import item_ranks, masked_topk
 
-# above this catalog size the JAX package streams a device top-k instead
-# of ranking the [users, M] host matrix
+# above this catalog size the [users, M] host matrix is replaced by the
+# streamed device top-k (eval/topk.py)
 DEVICE_TOPK_THRESHOLD = 65536
 
 
@@ -90,13 +92,13 @@ def masked_user_scores(sc: Scorer, store: RatingsStore, index: EvalIndex,
 
 
 def build_mask_matrix(store: RatingsStore, index: EvalIndex,
-                      users: np.ndarray) -> np.ndarray:
+                      users: np.ndarray, round_to: int = 1) -> np.ndarray:
     """i32[S, D] of global item ids to zero-score, padded with -1e9.
 
     Vectorized over the store's user CSR (row_ptr/coo_i): one fancy-index
     fill for all train items plus one for the (tiny) validation lists.
     Train/validation duplicates are left in place (masking the same
-    column twice is a no-op).
+    column twice is a no-op); `round_to` pads D up to a multiple.
     """
     users = np.asarray(users, np.int64)
     s_count = users.size
@@ -108,7 +110,7 @@ def build_mask_matrix(store: RatingsStore, index: EvalIndex,
     cnt_v = np.fromiter((v.size for v in val_lists), np.int64,
                         count=s_count) if s_count else np.zeros(0, np.int64)
     d = int((cnt_t + cnt_v).max()) if s_count else 1
-    d = max(d, 1)
+    d = -(-max(d, 1) // round_to) * round_to
     cols = np.full((s_count, d), pad_val, np.int32)
     # flat fill of every user's train-item slice
     tot_t = int(cnt_t.sum())
@@ -131,12 +133,11 @@ def build_mask_matrix(store: RatingsStore, index: EvalIndex,
 def top_candidates(sc: Scorer, store: RatingsStore, index: EvalIndex,
                    users: np.ndarray, topn: int):
     """(values [S, topn], ids [S, topn]) of the masked ranking: a host
-    stable argsort over the full score rows."""
-    if store.m > DEVICE_TOPK_THRESHOLD:
-        raise NotImplementedError(
-            f"ranking over {store.m} items needs the streamed device top-k, "
-            "not ported yet (ROADMAP queue 1, item 12)")
+    stable argsort over the full score rows, or the streamed top-k above
+    DEVICE_TOPK_THRESHOLD items."""
     topn_eff = min(topn, store.m)
+    if store.m > DEVICE_TOPK_THRESHOLD:
+        return masked_topk(sc, store, index, users, k=topn_eff)
     scores = masked_user_scores(sc, store, index, users)
     top_idx = np.argsort(-scores, axis=1, kind="stable")[:, :topn_eff]
     return np.take_along_axis(scores, top_idx, axis=1), top_idx
@@ -183,8 +184,12 @@ def compute_precision(sc: Scorer, store: RatingsStore, index: EvalIndex,
 
 def compute_itemrank(sc: Scorer, store: RatingsStore, index: EvalIndex,
                      users: np.ndarray, outdir: str) -> Dict[str, float]:
-    """itemrank.tsv + meanrank.txt (hgaprec.cc:1607-1701): host argsort
-    of the [S, M] masked score matrix."""
+    """itemrank.tsv + meanrank.txt (hgaprec.cc:1607-1701).
+
+    Small catalogs: host argsort of the [S, M] masked score matrix. Above
+    DEVICE_TOPK_THRESHOLD items the per-(user, test item) ranks come from
+    the streamed rank counter (eval/topk.py::item_ranks), the same
+    position a stable argsort gives."""
     item_deg = store.item_degrees()
     # flatten (user-row, item, value) over hit test items
     pairs_u, pairs_m, rows_of = [], [], {}
@@ -196,10 +201,9 @@ def compute_itemrank(sc: Scorer, store: RatingsStore, index: EvalIndex,
                 pairs_u.append(n)
                 pairs_m.append(mm)
     if pairs_u and store.m > DEVICE_TOPK_THRESHOLD:
-        raise NotImplementedError(
-            f"item ranks over {store.m} items need the streamed device rank "
-            "counter, not ported yet (ROADMAP queue 1, item 12)")
-    if pairs_u:
+        ranks, tscores = item_ranks(sc, store, index, np.asarray(pairs_u),
+                                    np.asarray(pairs_m))
+    elif pairs_u:
         scores = masked_user_scores(sc, store, index, users)
         row_ix = {int(n): r for r, n in enumerate(users)}
         ranks = np.zeros(len(pairs_u), np.int64)

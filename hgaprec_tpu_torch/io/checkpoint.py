@@ -10,6 +10,9 @@ Two formats, with the JAX package's file names and keys:
     `theta.shape`, `theta.rate`, `theta.e`, `theta.elog`, ...,
     `theta_prior_e`, ...; each package loads the other's.
 
+The TSV writer is the threaded native one (`data/native.py`) where g++
+builds it, else a Python loop that writes the same bytes.
+
 The writers take host arrays (models/state.py::state_to_numpy), so a
 save can run on a thread while the device state moves on.
 """
@@ -22,17 +25,37 @@ from typing import Dict, Mapping
 import numpy as np
 
 from hgaprec_tpu_torch.config import ModelConfig
+from hgaprec_tpu_torch.data import native
 from hgaprec_tpu_torch.models.state import state_from_numpy
+
+
+def _fixed8(v: float) -> str:
+    """One value as `native/fastsave.cc::fmt_fixed8` writes it: %.8f with
+    the fraction rounded half up from v * 1e8 in double precision, and
+    printf's %.8f where |v| >= 9e9 or v is not finite. So the native
+    writer and this fallback write the same bytes."""
+    sign = "-" if v < 0 else ""
+    v = abs(v) if v < 0 else v
+    if not v < 9e9:
+        return sign + "%.8f" % v
+    s = int(v * 1e8 + 0.5)
+    return f"{sign}{s // 100000000}.{s % 100000000:08d}"
 
 
 def _save_mat(path: str, x: np.ndarray, idmap: Dict[int, int]) -> None:
     x = np.atleast_2d(np.asarray(x, np.float32))
     if x.shape[0] == 1 and x.size > 1:
         x = x.T  # 1-D arrays saved one value per row (matrix.hh:726-744)
-    row_fmt = "%d\t%d" + "\t%.8f" * x.shape[1] + "\n"
+    ext = np.fromiter((idmap.get(i, i) for i in range(x.shape[0])),
+                      np.int64, x.shape[0])
+    # the threaded native writer first (data/native.py), as the JAX
+    # package does (hgaprec_tpu/io/checkpoint.py:34-47)
+    if native.write_tsv_mat(path, x, ext):
+        return
     with open(path, "w") as f:
-        f.write("".join(row_fmt % (i, idmap.get(i, i), *x[i].tolist())
-                        for i in range(x.shape[0])))
+        for i in range(x.shape[0]):
+            vals = "\t".join(_fixed8(v) for v in x[i].tolist())
+            f.write(f"{i}\t{int(ext[i])}\t{vals}\n")
 
 
 def save_gam_tsv(outdir: str, name: str, arrays: Mapping[str, np.ndarray],

@@ -75,14 +75,18 @@ class Trainer:
         if device_data is not None:
             self.data = device_data
         else:
-            # catalogs too wide to densify (or an explicit hybrid request)
-            # need the head/tail layout, which build_device_data rejects
+            # the JAX package's layout decision (engine.py:96-116):
+            # catalogs too wide to densify get the hybrid head/tail layout
+            # under "auto"; an explicit "hybrid" always builds the head.
+            # No head fits the byte budget -> COO only, and _resolve_mode
+            # then picks the segment sweep.
             will_densify = store.n * store.m <= mcfg.dense_limit_bytes
             head = (mcfg.hybrid_head_items if mcfg.sweep == "hybrid" or
                     (mcfg.sweep == "auto" and not will_densify) else 0)
             self.data = build_device_data(
                 store, self.device, hybrid_head_items=head,
-                dense_limit_bytes=mcfg.dense_limit_bytes)
+                dense_limit_bytes=mcfg.dense_limit_bytes,
+                head_limit_bytes=mcfg.head_limit_bytes)
         self.step = make_step(mcfg)
         self.multi_step = make_multi_step(mcfg)
         self.state: ModelState = init_state(mcfg, seed=rcfg.seed,

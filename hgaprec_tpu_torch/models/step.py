@@ -49,10 +49,19 @@ def _bias_updates(cfg: ModelConfig, state: ModelState, res) -> None:
 
 
 def _resolve_mode(cfg: ModelConfig, data: DeviceData) -> str:
+    """The JAX package's rule (hgaprec_tpu/models/step.py:68-81)."""
     mode = cfg.resolve_sweep()
-    if (cfg.sweep == C.SWEEP_AUTO and mode == C.SWEEP_SEGMENT
-            and data.dense_y is not None):
-        mode = C.SWEEP_DENSE       # densified despite a wide catalog
+    auto = cfg.sweep == C.SWEEP_AUTO
+    if mode == C.SWEEP_DENSE and data.dense_y is None:
+        mode = (C.SWEEP_HYBRID if data.head_dense_y is not None
+                else C.SWEEP_SEGMENT)
+    if auto and mode == C.SWEEP_SEGMENT:
+        if data.dense_y is not None:
+            mode = C.SWEEP_DENSE       # densified despite a wide catalog
+        elif data.head_dense_y is not None:
+            mode = C.SWEEP_HYBRID      # head block built -> use it
+    if mode == C.SWEEP_HYBRID and data.head_dense_y is None:
+        mode = C.SWEEP_SEGMENT
     return mode
 
 

@@ -30,7 +30,8 @@ def test_derive_outdir_equal(model_kw, run_kw):
 
 
 def test_config_rejects_unported_values():
-    with pytest.raises(ValueError):
-        tcfg.ModelConfig(n=2, m=2, k=1, tail_impl="pallas")
+    for impl in ("pallas", "mxu"):       # TPU implementations of the tail
+        with pytest.raises(ValueError):
+            tcfg.ModelConfig(n=2, m=2, k=1, tail_impl=impl)
     with pytest.raises(ValueError):
         tcfg.ModelConfig(n=2, m=2, k=1, matmul_precision="high")

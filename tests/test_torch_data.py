@@ -76,10 +76,29 @@ def test_load_dataset_equal(tmp_path):
 
 
 def test_undensifiable_layouts_raise():
+    """Kept under its slice-1 name: the layouts that raised then are now
+    built as the JAX package builds them: the hybrid fields, and the
+    COO-only layout when neither dense_y nor a head fits."""
     s = TStore(4, 4)
-    s.add_training([1, 2], [1, 2], [1, 1])
+    s.add_training([1, 2, 3], [1, 2, 2], [1, 3, 2])
     s.finalize()
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        t_build(s, "cpu", hybrid_head_items=8)
-    with pytest.raises(NotImplementedError, match="densify"):
-        t_build(s, "cpu", dense_limit_bytes=1)
+    js = JStore(4, 4)
+    js.add_training([1, 2, 3], [1, 2, 2], [1, 3, 2])
+    js.finalize()
+    hd = t_build(s, "cpu", hybrid_head_items=8, dense_limit_bytes=1)
+    jhd = j_build(js, hybrid_head_items=8, dense_limit_bytes=1)
+    assert hd.dense_y is None and jhd.dense_y is None
+    np.testing.assert_array_equal(hd.head_items.numpy(),
+                                  np.asarray(jhd.head_items))
+    np.testing.assert_array_equal(hd.head_dense_y.numpy(),
+                                  np.asarray(jhd.head_dense_y))
+    assert hd.head_dense_y.shape == (512, 2) and hd.tail.nnz == 0
+    # no head fits the budget and the catalog does not densify: COO only
+    coo = t_build(s, "cpu", hybrid_head_items=8, dense_limit_bytes=1,
+                  head_limit_bytes=100)
+    jcoo = j_build(js, hybrid_head_items=8, dense_limit_bytes=1,
+                   head_limit_bytes=100)
+    assert jcoo.dense_y is None and jcoo.head_dense_y is None
+    assert coo.dense_y is None and coo.head_dense_y is None
+    assert coo.head_items is None and coo.tail is None
+    np.testing.assert_array_equal(coo.u_ids.numpy(), np.asarray(jcoo.u_ids))

@@ -95,10 +95,13 @@ def test_unported_options_raise(tmp_path, rng):
     with pytest.raises(NotImplementedError, match="ELBO"):
         TTrainer(port_store(js), val, test, cfg,
                  TRun(outdir=str(tmp_path / "o"), logl=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        TTrainer(port_store(js), val, test,
-                 TCfg(n=js.n, m=js.m, k=2, variant="hpf", sweep="hybrid"),
-                 TRun(outdir=str(tmp_path / "o")), device="cpu")
+    # the segment sweeps are the one layout still to port
+    tr = TTrainer(port_store(js), val, test,
+                  TCfg(n=js.n, m=js.m, k=2, variant="hpf", sweep="segment"),
+                  TRun(outdir=str(tmp_path / "o")), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP .*item 13"):
+        tr.run()
+    tr.close()
 
 
 def test_port_imports_no_jax():

@@ -1,0 +1,252 @@
+"""The hybrid slice as a whole: the port's head/tail layout, sweep, mode
+rule and Trainer against the JAX package's.
+
+The JAX reference runs its tail with `tail_impl="mxu"` in f32: its TPU
+tail runs bf16 tables even under "highest" (ROADMAP queue 3), while the
+port's tail follows the precision flag, so the strict-f32 reference is
+the one to hold the port to. Bounds: the sweep at the f32 bound of
+tests/test_dense_pallas.py (rtol=2e-4, atol=1e-5), the Trainers at the
+bounds of tests/test_torch_engine.py (validation ll rtol=1e-4; state
+rtol=1e-4, atol=1e-7).
+"""
+
+import itertools
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_synthetic
+from hgaprec_tpu.config import ModelConfig as JCfg
+from hgaprec_tpu.config import RunConfig as JRun
+from hgaprec_tpu.data.device import build_device_data as j_build
+from hgaprec_tpu.data.ratings import RatingsStore as JStore
+from hgaprec_tpu.models.engine import Trainer as JTrainer
+from hgaprec_tpu.models.step import _resolve_mode as j_resolve
+from hgaprec_tpu.ops.sweep import sweep_hybrid as j_sweep_hybrid
+from hgaprec_tpu_torch.config import ModelConfig as TCfg
+from hgaprec_tpu_torch.config import RunConfig as TRun
+from hgaprec_tpu_torch.data.device import build_device_data as t_build
+from hgaprec_tpu_torch.data.device import head_width
+from hgaprec_tpu_torch.models.engine import Trainer as TTrainer
+from hgaprec_tpu_torch.models.step import _resolve_mode as t_resolve
+from hgaprec_tpu_torch.ops import tail_fused as tf
+from hgaprec_tpu_torch.ops.sweep import sweep, sweep_hybrid
+from test_torch_step import port_store
+
+F32 = dict(rtol=2e-4, atol=1e-5)
+
+
+def _power_law_store(n, m, nnz, seed):
+    """A JAX store with skewed item degrees, every item present."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n, nnz)
+    i = np.minimum(rng.zipf(1.3, nnz) - 1, m - 1)
+    u = np.concatenate([u, rng.integers(0, n, m)])
+    i = np.concatenate([i, np.arange(m)])
+    key = np.unique(u * m + i)
+    u, i = key // m, key % m
+    y = rng.integers(1, 6, u.size)
+    js = JStore(n, m)
+    js.add_training(u + 1, i + 1, y)
+    js.finalize()
+    return js
+
+
+def _assert_hybrid_equal(jd, td, nnz_tail):
+    np.testing.assert_array_equal(td.head_items.numpy(),
+                                  np.asarray(jd.head_items))
+    assert td.head_dense_y.dtype == torch.uint8
+    assert td.head_dense_y.stride(0) % 16 == 0
+    np.testing.assert_array_equal(td.head_dense_y.numpy(),
+                                  np.asarray(jd.head_dense_y))
+    tc = jd.tail_compact
+    users, items = np.asarray(tc.users), np.asarray(tc.items)
+    s = td.tail
+    assert s.nnz == nnz_tail
+    for got, ids, comp in ((s.u, users, tc.cu), (s.i, items, tc.ci),
+                           (s.i_by_item, items, tc.ci_i),
+                           (s.u_by_item, users, tc.cu_i)):
+        np.testing.assert_array_equal(got.numpy(),
+                                      ids[np.asarray(comp)][:nnz_tail])
+    np.testing.assert_array_equal(s.y.numpy(), np.asarray(tc.y)[:nnz_tail])
+    np.testing.assert_array_equal(s.y_by_item.numpy(),
+                                  np.asarray(tc.y_i)[:nnz_tail])
+    # the raw tail COO the JAX package also keeps
+    np.testing.assert_array_equal(s.u.numpy(),
+                                  np.asarray(jd.u_ids_tail)[:nnz_tail])
+    np.testing.assert_array_equal(s.i.numpy(),
+                                  np.asarray(jd.i_ids_tail)[:nnz_tail])
+
+
+@pytest.mark.parametrize("head,limit,want_t", [
+    (8, 4 << 30, 8),             # a narrow head below 512 columns
+    (1024, 4 << 30, 1024),
+    (1024, 512 * 700, 512),      # budget 700 columns: clipped to 512
+    (1024, 512 * 100, 0),        # budget < 512 columns: no head
+])
+def test_hybrid_layout_equals_jax(head, limit, want_t):
+    js = _power_law_store(100, 1500, 6000, seed=head + limit % 97)
+    ts = port_store(js)
+    jd = j_build(js, pad_multiple=64, hybrid_head_items=head,
+                 head_limit_bytes=limit, dense_limit_bytes=64)
+    td = t_build(ts, "cpu", pad_multiple=64, hybrid_head_items=head,
+                 head_limit_bytes=limit, dense_limit_bytes=64)
+    assert head_width(ts.n, ts.m, head, limit) == want_t
+    assert td.dense_y is None and jd.dense_y is None
+    for f in ("u_ids", "i_ids", "y", "item_order", "i_ids_sorted",
+              "u_ids_by_item"):
+        np.testing.assert_array_equal(getattr(td, f).numpy(),
+                                      np.asarray(getattr(jd, f)), f)
+    if want_t == 0:
+        assert jd.head_dense_y is None and td.head_dense_y is None
+        assert td.head_items is None and td.tail is None
+        return
+    assert td.head_dense_y.shape == (512, want_t)
+    in_head = np.isin(ts.coo_i, td.head_items.numpy())
+    # the head holds the top-T items by degree
+    deg = np.bincount(ts.coo_i, minlength=ts.m)
+    assert deg[td.head_items.numpy()].min() >= \
+        np.delete(deg, td.head_items.numpy()).max()
+    _assert_hybrid_equal(jd, td, int((~in_head).sum()))
+
+
+def test_hybrid_keeps_dense_y_when_the_catalog_densifies(rng):
+    js, _, _ = make_synthetic(rng, n=40, m=30)
+    jd = j_build(js, pad_multiple=64, hybrid_head_items=8)
+    td = t_build(port_store(js), "cpu", pad_multiple=64, hybrid_head_items=8)
+    np.testing.assert_array_equal(td.dense_y.numpy(), np.asarray(jd.dense_y))
+    _assert_hybrid_equal(jd, td, td.tail.nnz)
+    assert td.head_dense_y.shape == (512, 8)
+
+
+def _elogs(rng, n, m, k, bias):
+    shapes = [(n, k), (m, k)] + ([(n,), (m,)] if bias else [])
+    return [(rng.normal(size=s) * 0.3).astype(np.float32) for s in shapes]
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("head", [8, 512])
+def test_sweep_hybrid_matches_jax_mxu_tail(bias, head):
+    js = _power_law_store(90, 1100, 5000, seed=7 + bias)
+    jd = j_build(js, pad_multiple=64, hybrid_head_items=head,
+                 dense_limit_bytes=64)
+    td = t_build(port_store(js), "cpu", pad_multiple=64,
+                 hybrid_head_items=head, dense_limit_bytes=64)
+    assert td.tail.nnz > 0
+    rng = np.random.default_rng(11)
+    elogs = _elogs(rng, js.n, js.m, 6, bias)
+    je = [jnp.asarray(e) for e in elogs] + [None, None] * (not bias)
+    te = [torch.from_numpy(e) for e in elogs] + [None, None] * (not bias)
+    want = j_sweep_hybrid(*je, jd, tail_impl="mxu", interpret=True)
+    got = sweep_hybrid(*te, td, precision="highest")
+    assert sweep(*te, td, "hybrid").acc_a.shape == got.acc_a.shape
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32)
+    # "default": bf16 head and tail tables, close to f32
+    bf = sweep_hybrid(*te, td, precision="default")
+    for g, w in zip(bf, got):
+        if w is not None:
+            denom = torch.clamp_min(w.abs(), 1e-3)
+            assert ((g - w).abs() / denom).max().item() < 2e-2
+
+
+def test_segment_modes_raise_naming_item_13():
+    js = _power_law_store(30, 200, 800, seed=3)
+    td = t_build(port_store(js), "cpu", pad_multiple=64)
+    e = [torch.zeros(js.n, 3), torch.zeros(js.m, 3), None, None]
+    for mode in ("segment", "segment-chunked"):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            sweep(*e, td, mode)
+
+
+SWEEPS = ("auto", "dense", "dense-pallas", "hybrid", "segment",
+          "segment-chunked")
+
+
+@pytest.mark.parametrize("m", [300, 70000])
+@pytest.mark.parametrize("sweep_mode", SWEEPS)
+def test_resolve_mode_equals_jax(sweep_mode, m):
+    for dense_y, head in itertools.product((None, "y"), (None, "h")):
+        data = types.SimpleNamespace(dense_y=dense_y, head_dense_y=head)
+        jm = j_resolve(JCfg(n=50, m=m, k=3, sweep=sweep_mode), data)
+        tm = t_resolve(TCfg(n=50, m=m, k=3, sweep=sweep_mode), data)
+        assert tm == jm, (sweep_mode, m, dense_y, head)
+
+
+def _hybrid_trainers(tmp_path, bias):
+    """tests/test_engine_hybrid.py's configuration in both packages."""
+    rng = np.random.default_rng(42)
+    js, val, test = make_synthetic(rng, n=60, m=45, density=0.25)
+    kw = dict(variant="hpf", bias=bias, sweep="hybrid", hybrid_head_items=8,
+              dense_limit_bytes=64)
+    run = dict(datdir=str(tmp_path), rfreq=3, max_iterations=9, seed=1,
+               enforce_max_iterations=True)
+    jtr = JTrainer(js, val, test, JCfg(n=js.n, m=js.m, k=4, tail_impl="mxu",
+                                       **kw),
+                   JRun(outdir=str(tmp_path / "jax"), **run))
+    ttr = TTrainer(port_store(js), val, test,
+                   TCfg(n=js.n, m=js.m, k=4, **kw),
+                   TRun(outdir=str(tmp_path / "torch"), **run),
+                   device="cpu")
+    return jtr, ttr
+
+
+def _ll(path):
+    with open(path) as f:
+        return [(int(r.split("\t")[0]), float(r.split("\t")[2]))
+                for r in f if r.strip()]
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_hybrid_trainer_matches_jax(tmp_path, bias):
+    jtr, ttr = _hybrid_trainers(tmp_path, bias)
+    assert ttr.data.dense_y is None and ttr.data.head_dense_y is not None
+    assert ttr.data.head_dense_y.shape[1] == 8 and ttr.data.tail.nnz > 0
+    assert t_resolve(ttr.mcfg, ttr.data) == "hybrid"
+    jstate = jtr.run()
+    jtr.close()
+    tstate = ttr.run()
+    ttr.close()
+    jl, tl = _ll(tmp_path / "jax" / "validation.txt"), \
+        _ll(tmp_path / "torch" / "validation.txt")
+    assert len(tl) >= 3 and [r[0] for r in tl] == [r[0] for r in jl]
+    np.testing.assert_allclose([v for _, v in tl], [v for _, v in jl],
+                               rtol=1e-4)
+    for f in ("theta", "beta"):
+        np.testing.assert_allclose(getattr(tstate, f).e.numpy(),
+                                   np.asarray(getattr(jstate, f).e),
+                                   rtol=1e-4, atol=1e-7, err_msg=f)
+    for name in ("precision.txt", "htheta.tsv", "hbeta.tsv", "model.npz"):
+        assert (tmp_path / "torch" / name).exists(), name
+
+
+def test_auto_builds_the_hybrid_for_a_wide_catalog(tmp_path, monkeypatch):
+    """auto + a catalog that does not densify -> head block, no dense_y,
+    hybrid mode, and a step that goes through the tail (the EchoNest
+    path at test scale)."""
+    js, val, test = make_synthetic(np.random.default_rng(5), n=60, m=45,
+                                   density=0.25)
+    ttr = TTrainer(port_store(js), val, test,
+                   TCfg(n=js.n, m=js.m, k=3, variant="hpf",
+                        hybrid_head_items=8, dense_limit_bytes=64),
+                   TRun(outdir=str(tmp_path / "o"), rfreq=2,
+                        max_iterations=2), device="cpu")
+    assert ttr.data.dense_y is None and ttr.data.head_dense_y is not None
+    assert t_resolve(ttr.mcfg, ttr.data) == "hybrid"
+    calls = []
+    real = tf.fused_half_sweep
+
+    def spy(*args):
+        calls.append(args[-1])
+        return real(*args)
+    monkeypatch.setattr(tf, "fused_half_sweep", spy)
+    ttr.run()
+    ttr.close()
+    assert calls[:2] == [js.n, js.m]      # one user-sorted, one item-sorted
+    assert len(calls) == 2 * 3            # iterations 0, 1, 2

@@ -1,0 +1,281 @@
+"""Port tail sweep == JAX tail sweeps; the tail kernel's build and wrapper.
+
+The plain version (`ops/tail.py::tail_sweep_reference`, which a CPU
+tensor takes) is held against the JAX MXU tail (`mxu_tail_sweep`) and
+the Pallas tail kernel in interpret mode, both in f32, at the bound
+tests/test_pallas_tail.py pins (rtol=2e-5, atol=1e-6), on that file's
+adversarial layouts plus an empty tail and untouched rows. bf16 mode is
+held against JAX's bf16 MXU tail at 2e-2 relative (the bf16 bound of
+tests/test_pallas_tail.py::test_bf16_tail_vs_f32_mxu). The CUDA kernel
+runs only on the card (marked `cuda`).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hgaprec_tpu.ops.mxu_tail import build_tail_compact, mxu_tail_sweep
+from hgaprec_tpu.ops.pallas_tail import CHUNK, pallas_tail_sweep
+from hgaprec_tpu_torch.ops import build
+from hgaprec_tpu_torch.ops import tail_fused as tf
+from hgaprec_tpu_torch.ops.tail import (build_tail_stream,
+                                        half_sweep_reference,
+                                        tail_sweep_reference)
+
+F32 = dict(rtol=2e-5, atol=1e-6)
+
+
+def _rand_coo(rng, n, m, nnz, gap_users=False):
+    """tests/test_pallas_tail.py::_rand_coo (duplicates kept)."""
+    u = rng.integers(0, n, nnz).astype(np.int32)
+    if gap_users:
+        u = np.where(u % 3 == 0, u, (u * 997) % n).astype(np.int32)
+    i = rng.integers(0, m, nnz).astype(np.int32)
+    order = np.lexsort((i, u))
+    u, i = u[order], i[order]
+    y = rng.integers(1, 5, nnz).astype(np.float32)
+    return u, i, y
+
+
+def _layout(name, rng):
+    """(n, m, u, i, y) for each adversarial layout."""
+    if name in ("random", "gaps"):
+        n, m = 5000, 900
+        return (n, m) + _rand_coo(rng, n, m, 3300, gap_users=name == "gaps")
+    if name == "every_user":      # identity-primary regime of the TPU tail
+        n, m = 700, 300
+        u = np.repeat(np.arange(n, dtype=np.int32), 4)
+        i = rng.integers(0, m, u.size).astype(np.int32)
+        order = np.lexsort((i, u))
+        return n, m, u[order], i[order], \
+            rng.integers(1, 4, u.size).astype(np.float32)[order]
+    if name == "single_chunk":
+        return (200, 50) + _rand_coo(rng, 200, 50, CHUNK // 2)
+    if name == "long_rows":       # rows far longer than a warp's range
+        n, m = 40, 3000
+        u = np.repeat(np.arange(0, n, 3, dtype=np.int32), 700)
+        i = rng.integers(0, m, u.size).astype(np.int32)
+        order = np.lexsort((i, u))
+        return n, m, u[order], i[order], \
+            rng.integers(1, 6, u.size).astype(np.float32)
+    raise ValueError(name)
+
+
+LAYOUTS = ["random", "gaps", "every_user", "single_chunk", "long_rows"]
+
+
+def _tables(rng, n, m, k, bias):
+    a = rng.random((n, k)).astype(np.float32) + 0.1
+    b = rng.random((m, k)).astype(np.float32) + 0.1
+    if not bias:
+        return a, b, None, None
+    return (a, b, rng.random(n).astype(np.float32) + 0.05,
+            rng.random(m).astype(np.float32) + 0.05)
+
+
+def _port(tables, u, i, y, bf16=False):
+    stream = build_tail_stream(u, i, y, "cpu")
+    t = [None if x is None else torch.from_numpy(x) for x in tables]
+    return tail_sweep_reference(*t, stream, bf16=bf16)
+
+
+def _jax(tables, tc, impl, bf16=False):
+    j = [None if x is None else jnp.asarray(x) for x in tables]
+    if impl == "mxu":
+        return mxu_tail_sweep(*j, tc, bf16=bf16)
+    return pallas_tail_sweep(*j, tc, bf16=bf16, interpret=True)
+
+
+def _assert_close(got, want, **tol):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol)
+
+
+@pytest.mark.parametrize("impl", ["mxu", "pallas"])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_plain_matches_jax_f32(name, bias, impl):
+    rng = np.random.default_rng(LAYOUTS.index(name) + 10 * bias)
+    n, m, u, i, y = _layout(name, rng)
+    tables = _tables(rng, n, m, 12, bias)
+    tc = build_tail_compact(u, i, y, n_users=n if name == "every_user"
+                            else 0)
+    _assert_close(_port(tables, u, i, y), _jax(tables, tc, impl), **F32)
+
+
+def test_untouched_rows_read_zero():
+    rng = np.random.default_rng(3)
+    n, m = 900, 400
+    u, i, y = _rand_coo(rng, 600, 300, 2000)   # users >= 600, items >= 300
+    tables = _tables(rng, n, m, 8, True)       # absent from the stream
+    acc_a, acc_b, acc_ba, acc_bb = _port(tables, u, i, y)
+    assert acc_a.shape == (n, 8) and acc_b.shape == (m, 8)
+    for t, first in ((acc_a, 600), (acc_b, 300), (acc_ba, 600),
+                     (acc_bb, 300)):
+        assert torch.count_nonzero(t[first:]) == 0
+        assert torch.count_nonzero(t[:first]) > 0
+    want = mxu_tail_sweep(*[jnp.asarray(x) for x in tables],
+                          build_tail_compact(u, i, y), bf16=False)
+    _assert_close((acc_a, acc_b, acc_ba, acc_bb), want, **F32)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_empty_tail_is_zero_and_launches_nothing(bias, monkeypatch):
+    def no_half(*args, **kw):
+        raise AssertionError("an empty tail ran a half-sweep")
+    monkeypatch.setattr(tf, "fused_half_sweep", no_half)
+    rng = np.random.default_rng(4)
+    tables = [None if x is None else torch.from_numpy(x)
+              for x in _tables(rng, 30, 20, 5, bias)]
+    empty = np.zeros(0, np.int32)
+    stream = build_tail_stream(empty, empty, np.zeros(0, np.float32), "cpu")
+    out = tf.tail_sweep(*tables, stream, bf16=False)
+    assert out[0].shape == (30, 5) and out[1].shape == (20, 5)
+    assert all((t is None) == (not bias) for t in out[2:])
+    for t in out:
+        if t is not None:
+            assert torch.count_nonzero(t) == 0
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("name", ["random", "long_rows"])
+def test_plain_bf16_matches_jax_bf16(name, bias):
+    rng = np.random.default_rng(41 + bias)
+    n, m, u, i, y = _layout(name, rng)
+    tables = _tables(rng, n, m, 16, bias)
+    got = _port(tables, u, i, y, bf16=True)
+    want = _jax(tables, build_tail_compact(u, i, y), "mxu", bf16=True)
+    for g, w in zip(got, want):
+        if w is None:
+            continue
+        w = np.asarray(w)
+        denom = np.maximum(np.abs(w), 1e-3)
+        assert np.max(np.abs(g.numpy() - w) / denom) < 2e-2
+
+
+def test_stream_orders_and_tables():
+    rng = np.random.default_rng(5)
+    n, m, u, i, y = _layout("gaps", rng)
+    s = build_tail_stream(u, i, y, "cpu")
+    tc = build_tail_compact(u, i, y)
+    users, items = np.asarray(tc.users), np.asarray(tc.items)
+    nnz = u.size
+    np.testing.assert_array_equal(s.u.numpy(), users[np.asarray(tc.cu)][:nnz])
+    np.testing.assert_array_equal(s.i.numpy(), items[np.asarray(tc.ci)][:nnz])
+    np.testing.assert_array_equal(
+        s.i_by_item.numpy(), items[np.asarray(tc.ci_i)][:nnz])
+    np.testing.assert_array_equal(
+        s.u_by_item.numpy(), users[np.asarray(tc.cu_i)][:nnz])
+    np.testing.assert_array_equal(s.y_by_item.numpy(),
+                                  np.asarray(tc.y_i)[:nnz])
+    assert s.u.dtype == torch.int32 and s.y.dtype == torch.float32
+    # [A | ba | 1] and [B | 1 | bb] at 16-byte rows
+    from hgaprec_tpu_torch.ops.tail import tail_tables
+    a, b = torch.rand(4, 5), torch.rand(3, 5)
+    ba, bb = torch.rand(4), torch.rand(3)
+    at, bt = tail_tables(a, b, ba, bb, bf16=True)
+    assert at.dtype == torch.bfloat16 and at.shape == (4, 8)
+    assert bt.shape == (3, 8) and at.stride(0) * 2 % 16 == 0
+    a32, b32 = tail_tables(a, b, ba, bb, bf16=False)
+    assert a32.shape == (4, 8) and torch.equal(a32[:, 5], ba)
+    assert torch.equal(a32[:, 6], torch.ones(4))
+    assert torch.equal(b32[:, 5], torch.ones(3))
+    assert torch.equal(b32[:, 6], bb) and torch.count_nonzero(a32[:, 7]) == 0
+
+
+def test_cpu_tensor_never_builds(monkeypatch):
+    def no_build():
+        raise AssertionError("a CPU tensor reached the kernel build")
+    monkeypatch.setattr(build, "load_library", no_build)
+    rng = np.random.default_rng(6)
+    n, m, u, i, y = _layout("random", rng)
+    tables = [torch.from_numpy(x) for x in _tables(rng, n, m, 6, False)[:2]]
+    stream = build_tail_stream(u, i, y, "cpu")
+    before = tf.fused_half_sweep.launches
+    for bf16 in (False, True):
+        got = tf.tail_sweep(*tables, None, None, stream, bf16=bf16)
+        want = tail_sweep_reference(*tables, None, None, stream, bf16=bf16)
+        for g, w in zip(got[:2], want[:2]):
+            assert torch.equal(g, w)
+    assert tf.fused_half_sweep.launches == before
+
+
+def test_build_command_names_the_tail_source(monkeypatch):
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    cmd = build.nvcc_command("out.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    srcs = [c for c in cmd if c.endswith(".cu")]
+    assert build.CSRC_DIR + "/tail_fused.cu" in srcs
+    assert build.CSRC_DIR + "/dense_fused.cu" in srcs
+
+
+@pytest.mark.parametrize("bad", ["dtype", "mixed", "width", "shape",
+                                 "ids", "contig", "rows", "device"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    p_tab, o_tab = torch.rand(6, 8), torch.rand(5, 8)
+    p = torch.tensor([0, 0, 2, 5], dtype=torch.int32)
+    o = torch.tensor([1, 4, 0, 3], dtype=torch.int32)
+    y = torch.ones(4)
+    rows = 6
+    if bad == "dtype":
+        p_tab, o_tab = p_tab.double(), o_tab.double()
+    elif bad == "mixed":
+        p_tab = p_tab.bfloat16()
+    elif bad == "width":
+        p_tab, o_tab = p_tab[:, :6].contiguous(), o_tab[:, :6].contiguous()
+    elif bad == "shape":
+        y = torch.ones(3)
+    elif bad == "ids":
+        o = o.long()
+    elif bad == "contig":
+        p_tab = torch.rand(8, 6).T
+    elif bad == "rows":
+        rows = 7
+    else:
+        y = torch.ones(4, device="meta")
+    with pytest.raises(ValueError):
+        tf.fused_half_sweep(p_tab, o_tab, p, o, y, rows)
+
+
+def test_half_sweep_reference_is_the_per_nonzero_loop():
+    rng = np.random.default_rng(8)
+    p_tab = torch.from_numpy(rng.random((7, 4)).astype(np.float32))
+    o_tab = torch.from_numpy(rng.random((5, 4)).astype(np.float32))
+    p = torch.tensor([0, 0, 3, 3, 3, 6], dtype=torch.int32)
+    o = torch.tensor([4, 1, 0, 2, 4, 3], dtype=torch.int32)
+    y = torch.tensor([1.0, 2.0, 3.0, 1.0, 4.0, 2.0])
+    want = torch.zeros(7, 4, dtype=torch.float64)
+    for j in range(6):
+        pr = p_tab[p[j]].double() * o_tab[o[j]].double()
+        want[p[j]] += y[j].double() / pr.sum() * pr
+    got = half_sweep_reference(p_tab, o_tab, p, o, y, 7, block=4)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernel_matches_plain_on_card(bias, bf16):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(9)
+    n, m, u, i, y = _layout("long_rows", rng)
+    tables = [None if x is None else torch.from_numpy(x).cuda()
+              for x in _tables(rng, n, m, 13, bias)]
+    stream = build_tail_stream(u, i, y, "cuda")
+    before = tf.fused_half_sweep.launches
+    got = tf.tail_sweep(*tables, stream, bf16=bf16)
+    again = tf.tail_sweep(*tables, stream, bf16=bf16)
+    torch.cuda.synchronize()
+    assert tf.fused_half_sweep.launches == before + 4
+    want = tail_sweep_reference(*tables, stream, bf16=bf16)
+    for g, a, w in zip(got, again, want):
+        if w is None:
+            continue
+        assert torch.equal(g, a)                # deterministic
+        torch.testing.assert_close(g, w, **F32)
