@@ -11,7 +11,13 @@ the port's own CPU run. Then the big-sparse hybrid path: the tail kernel
 against its plain version on adversarial layouts and on the EchoNest
 tail, HPF K=100 at the EchoNest preset shape (1,019,318 x 384,546, 45M
 nonzeros) through the Trainer, and a small hybrid run on the card against
-the CPU. Prints one line per phase, a JSON line with each kernel's
+the CPU. Then the segment path: the CSR sweep kernel against its plain
+version on adversarial layouts, HPF K=100 at the EchoNest preset shape
+through the Trainer with `sweep="segment-chunked"` and the training ELBO
+(every nonzero through the CSR kernel, no head block, no tail), and five
+small segment runs (HPF + ELBO, BPF + bias, MLE user, MLE item, Canny) on
+the card against the CPU. The dense kernel's stage probe runs at Netflix
+shape. Prints one line per phase, a JSON line with each kernel's
 launches, error and times, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, with no result line,
 when there is no GPU or any phase fails.
@@ -35,6 +41,7 @@ F32_TOL = dict(rtol=2e-4, atol=1e-5)   # tests/test_dense_pallas.py:28-31
 BF16_REL = 2e-2                        # tests/test_dense_pallas.py:107-110
 CPU_REL = 1e-4
 TAIL_F32_TOL = dict(rtol=2e-5, atol=1e-6)   # tests/test_pallas_tail.py:62-63
+SEG_TOL = dict(rtol=2e-4, atol=1e-5)        # tests/test_sweep.py:62-65
 N_EN, M_EN = 1019318, 384546           # EchoNest preset (run.pl:84-87)
 EN_DRAWS, EN_SEED = 85_000_000, 5      # scripts/bigsparse_scale_check.py
 # what that generator gave (docs/artifacts/echonest_scale.json; data
@@ -162,8 +169,63 @@ def phase_netflix(df, gen):
         if not ok:
             raise SystemExit("netflix-shape sweep disagrees with plain")
         del got, ref
+    probe = phase_probe(df, gen, lin, y)
     del lin, y
     torch.cuda.empty_cache()
+    return probe
+
+
+def phase_probe(df, gen, lin, y):
+    """The dense kernel's stage probe (kernel #3): every stage timed on
+    the Netflix Y through the probe's own entry (the path whose launches
+    count), then each stage against its plain version at ML-1M shape,
+    prod bitwise equal to the production kernel, and the tensor-core
+    instructions each stage kept."""
+    from hgaprec_tpu_torch.ops import dense_probe as dp
+    dp.dense_probe.launches = 0
+    times = dp.time_stages(*lin, y, dp.STAGES, 3)
+    launches = dp.dense_probe.launches
+    if launches == 0:
+        raise SystemExit("the probe path never launched the probe kernels")
+    counts = dp.mma_counts()
+    say(f"probe: HMMA instructions per stage {counts}")
+    if sorted(counts) != sorted(dp.STAGES) or min(counts.values()) == 0:
+        raise SystemExit(f"a probe stage lost its products: {counts}")
+    kq = -(-K // 16) * 16
+    plain = {s: median_ms(lambda s=s: dp.dense_probe_reference(*lin, y, s), 1)
+             for s in dp.STAGES}
+    for s in dp.STAGES:
+        say(f"probe {N_NF}x{M_NF}x{K} {s:9s}: kernel {times[s]:.2f} ms "
+            f"({8 * N_NF * M_NF * kq / times[s] / 1e9:.1f} TFLOP/s of "
+            f"8 N M kq), plain {plain[s]:.2f} ms")
+    same = all(torch.equal(a, b) for a, b in zip(
+        dp.dense_probe(*lin, y, "prod"), df.fused_dense_sweep(*lin, y,
+                                                              bf16=True)))
+    lin_ml, y_ml, _ = random_inputs(gen, N_ML, M_ML, K, 6144, False, 0.045)
+    errs = {}
+    for s in dp.STAGES:
+        got = dp.dense_probe(*lin_ml, y_ml, s)
+        ref = dp.dense_probe_reference(*lin_ml, y_ml, s)
+        torch.cuda.synchronize()
+        errs[s] = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        ok = all(((g - r).abs() / r.abs().clamp_min(1e-3)).max().item()
+                 < BF16_REL for g, r in zip(got, ref))
+        say(f"probe {N_ML}x{M_ML}x{K} {s:9s}: max_abs_err vs plain "
+            f"{errs[s]:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"probe stage {s} disagrees with its plain "
+                             f"version")
+    same &= all(torch.equal(a, b) for a, b in zip(
+        dp.dense_probe(*lin_ml, y_ml, "prod"),
+        df.fused_dense_sweep(*lin_ml, y_ml, bf16=True)))
+    say(f"probe prod vs fused_dense_sweep(bf16=True), Netflix and ML-1M: "
+        f"{'bitwise equal ok' if same else 'DIFFERENT'}")
+    if not same:
+        raise SystemExit("the probe's prod stage is not the production "
+                         "kernel")
+    return dict(launches=launches, max_abs_err=max(errs.values()),
+                ms=times["prod"], plain_ms=plain["prod"],
+                stage_ms=times, stage_plain_ms=plain, hmma=counts)
 
 
 def train(datdir, outdir, precision, max_iterations, rfreq, device):
@@ -343,15 +405,20 @@ def tail_layouts(rng):
     ]
 
 
+def random_lin(gen, n, m, k, bias):
+    """Linear factors [A, B] (and biases) exp(0.3 N(0, 1)) on the card."""
+    shapes = [(n, k), (m, k)] + ([(n,), (m,)] if bias else [])
+    lin = [torch.exp(0.3 * torch.randn(sh, device="cuda", generator=gen))
+           for sh in shapes]
+    return lin + [None, None] * (not bias)
+
+
 def check_tail(name, n, m, k, stream, gen, bias, reps):
     """Kernel against plain on one stream, four modes. Returns the
     no-bias bf16 line's numbers (the main path's configuration)."""
     from hgaprec_tpu_torch.ops import tail as tl
     from hgaprec_tpu_torch.ops import tail_fused as tf
-    shapes = [(n, k), (m, k)] + ([(n,), (m,)] if bias else [])
-    lin = [torch.exp(0.3 * torch.randn(s, device="cuda", generator=gen))
-           for s in shapes]
-    lin += [None, None] * (not bias)
+    lin = random_lin(gen, n, m, k, bias)
     ref32 = tl.tail_sweep_reference(*lin, stream, bf16=False)
     out = {}
     for bf16 in (False, True):
@@ -408,6 +475,219 @@ def phase_tail_layouts(gen):
         stream = build_tail_stream(u, i, y, "cuda")
         for bias in (False, True):
             check_tail(name, n, m, widths.get(name, K), stream, gen, bias, 5)
+
+
+# ---------------------------------------------------------------------------
+# the segment path
+# ---------------------------------------------------------------------------
+
+def segment_layouts(rng):
+    """tail_layouts plus a power-law catalog whose popular items run over
+    many of the kernel's ranges in the item pass."""
+    u, i, y, _ = power_law_coo(20000, 3000, 200000, SEED)
+    return tail_layouts(rng) + [("power-law items", 20000, 3000, u, i, y)]
+
+
+def check_segment(name, data, lin, reps):
+    """The CSR sweep kernel (both passes) against its plain version on one
+    layout and factors `lin` (a_lin, b_lin, ba_lin | None, bb_lin | None):
+    tolerance, two launches bitwise equal, untouched rows zero."""
+    from hgaprec_tpu_torch.ops import segment as sg
+    from hgaprec_tpu_torch.ops import segment_fused as sf
+    from hgaprec_tpu_torch.ops.tail import tail_tables
+    (n, k), m, bias = lin[0].shape, lin[1].shape[0], lin[2] is not None
+    a_t, b_t = tail_tables(*lin, bf16=False)
+    got = sf.fused_segment_sweep(a_t, b_t, data)
+    again = sf.fused_segment_sweep(a_t, b_t, data)
+    ref = sg.segment_sweep_reference(a_t, b_t, data)
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(g, a) for g, a in zip(got, again))
+    err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+    tol = SEG_TOL if name == "echonest" else TAIL_F32_TOL
+    ok = all(torch.allclose(g, r, **tol) for g, r in zip(got, ref))
+    live = data.y > 0
+    untouched = [torch.bincount(ids[live].long(), minlength=rows) == 0
+                 for ids, rows in ((data.u_ids, n), (data.i_ids, m))]
+    zero = all(g[z].abs().max().item() == 0 if z.any() else True
+               for g, z in zip(got, untouched))
+    ms = median_ms(lambda: sf.fused_segment_sweep(a_t, b_t, data), reps)
+    plain_ms = median_ms(lambda: sg.segment_sweep_reference(a_t, b_t, data),
+                         min(reps, 2) if name == "echonest" else reps)
+    p, kq = data.nnz_padded, a_t.shape[1]
+    nbytes = 2 * p * (kq * 4 + 12) + 8 * p
+    ranges = -(-int(torch.bincount(data.i_ids_sorted.long()).max()) //
+               sf.RANGE) + 1
+    say(f"segment kernel [{name}] {n}x{m}x{k} nnz={int(live.sum()):,} "
+        f"padded {p:,} bias={bias}: max_abs_err vs plain {err:.3e}, two "
+        f"launches bitwise {'equal' if same_bits else 'DIFFERENT'}, "
+        f"untouched rows {'zero' if zero else 'NONZERO'} "
+        f"{'ok' if ok and same_bits and zero else 'FAIL'}; longest item row "
+        f"over {ranges} ranges; both passes kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms; {nbytes / ms / 1e6:.1f} GB/s of "
+        f"2 x P x (kq x 4 + 12) + 8 P B")
+    if not (ok and same_bits and zero):
+        raise SystemExit(f"segment kernel disagrees with its plain version "
+                         f"[{name}] bias={bias}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                gbps=nbytes / ms / 1e6)
+
+
+def phase_segment_layouts(gen):
+    """Every layout at K and at a small K, bias off and on, padded to a
+    ragged multiple of 1000 entries (padding: y = 0, ids = last row)."""
+    from hgaprec_tpu_torch.data.device import DeviceData, sorted_coo
+    for name, n, m, u, i, y in segment_layouts(np.random.default_rng(SEED)):
+        data = DeviceData(**sorted_coo(u, i, y, n, m, "cuda", 1000),
+                          dense_y=None)
+        for k in (K, 13):
+            for bias in (False, True):
+                check_segment(name, data, random_lin(gen, n, m, k, bias), 3)
+
+
+def logl_rows(outdir):
+    with open(os.path.join(outdir, "logl.txt")) as f:
+        return [float(r) for r in f if r.strip()]
+
+
+def phase_echonest_segment(df, tf, hybrid, root, smi):
+    """HPF K=100 at EchoNest shape through the Trainer with
+    sweep="segment-chunked" and the training ELBO, on the hybrid phase's
+    store: every nonzero through the CSR sweep kernel, twice per step."""
+    from hgaprec_tpu_torch.config import ModelConfig, RunConfig
+    from hgaprec_tpu_torch.models.engine import Trainer
+    from hgaprec_tpu_torch.models.step import _resolve_mode
+    from hgaprec_tpu_torch.ops import segment_fused as sf
+    from hgaprec_tpu_torch.ops.sweep import sweep
+    store = hybrid.store
+    t0 = time.perf_counter()
+    tr = Trainer(store, hybrid.validation, hybrid.test,
+                 ModelConfig(n=store.n, m=store.m, k=K, variant="hpf",
+                             sweep="segment-chunked"),
+                 RunConfig(datdir=hybrid.rcfg.datdir,
+                           outdir=os.path.join(root, "en_seg"), rfreq=5,
+                           max_iterations=5, logl=True), device="cuda")
+    torch.cuda.synchronize()
+    data = tr.data
+    mode = _resolve_mode(tr.mcfg, data)
+    say(f"echonest segment Trainer built in {time.perf_counter() - t0:.1f} "
+        f"s host; mode {mode}; dense_y "
+        f"{'built' if data.dense_y is not None else 'none'}, head "
+        f"{'built' if data.head_dense_y is not None else 'none'}; COO "
+        f"{data.nnz_padded:,} padded entries")
+    if mode != "segment-chunked" or data.dense_y is not None or \
+            data.head_dense_y is not None:
+        raise SystemExit("the EchoNest segment layout is not COO only")
+    torch.cuda.reset_peak_memory_stats()
+    df.fused_dense_sweep.launches = 0
+    tf.fused_half_sweep.launches = 0
+    sf.fused_segment_sweep.launches = 0
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (sf.fused_segment_sweep.launches,
+                df.fused_dense_sweep.launches, tf.fused_half_sweep.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tr.close()
+    if launches[0] == 0 or launches[1:] != (0, 0):
+        raise SystemExit(f"the segment path's launches (segment, dense, "
+                         f"tail) are {launches}")
+    ll, logl = validation_ll(tr.outdir), logl_rows(tr.outdir)
+    if len(ll) < 2 or len(logl) != len(ll) or \
+            not all(np.isfinite(v) for _, v in ll) or \
+            not all(np.isfinite(v) for v in logl):
+        raise SystemExit(f"echonest segment ll {ll}, logl {logl}")
+    ms_iter, ms_lo, ms_hi = steady_ms_per_iter(tr.mcfg, tr.state, data,
+                                               windows=5, steps=10)
+    # the kernel alone on the trained state, as one step calls it
+    st = tr.state
+    kernel = check_segment("echonest", data, [torch.exp(st.theta.elog),
+                                              torch.exp(st.beta.elog),
+                                              None, None], 5)
+    say(f"echonest segment main path: Trainer HPF K={K} {store.n:,}x"
+        f"{store.m:,} nnz={store.nratings:,} sweep=segment-chunked -> "
+        f"{mode}; 6 iterations in {wall:.1f} s wall (reports, ELBO and "
+        f"saves included); launches: segment kernel {launches[0]}, dense "
+        f"{launches[1]}, tail {launches[2]}; validation ll by report "
+        f"{[(i, round(v, 6)) for i, v in ll]}; logl.txt {logl}; peak card "
+        f"memory {peak:.2f} GB")
+    say(f"echonest segment steady state {ms_iter:.2f} ms/iter = "
+        f"{1e3 / ms_iter:.2f} iters/s (median of 5 windows of 10; range "
+        f"{ms_lo:.2f}-{ms_hi:.2f}): segment kernel {kernel['ms']:.2f} ms "
+        f"(both passes; plain {kernel['plain_ms']:.1f} ms), rest "
+        f"{ms_iter - kernel['ms']:.2f} ms; {kernel['gbps']:.1f} GB/s of the "
+        f"counted bytes on {smi}")
+    # one sweep on one fixed state: the CSR kernel against the hybrid
+    # (head and tail kernels) at "highest"
+    e = (st.theta.elog, st.beta.elog, None, None)
+    seg = sweep(*e, data, "segment-chunked")
+    hyb = sweep(*e, hybrid.data, "hybrid", precision="highest")
+    torch.cuda.synchronize()
+    err = max((g - r).abs().max().item() for g, r in zip(seg[:2], hyb[:2]))
+    ok = all(torch.allclose(g, r, **SEG_TOL) for g, r in zip(seg[:2],
+                                                            hyb[:2]))
+    say(f"echonest segment sweep vs hybrid sweep at highest, one state: "
+        f"max_abs_err {err:.3e} (rtol 2e-4, atol 1e-5) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the segment and hybrid sweeps disagree")
+    del seg, hyb
+    return dict(launches=launches[0], peak=peak, ms_iter=ms_iter, **kernel)
+
+
+def phase_segment_cpu_reference(root):
+    """Five small segment runs on the card and on the CPU at "highest",
+    each with the training ELBO: the CPU run is the reference here, not a
+    fallback."""
+    from hgaprec_tpu_torch.config import ModelConfig, RunConfig
+    from hgaprec_tpu_torch.data.ratings import RatingsStore
+    from hgaprec_tpu_torch.models.engine import Trainer
+    from hgaprec_tpu_torch.ops import segment_fused as sf
+    n, m = 20000, 70000
+    u, i, y, keys = power_law_coo(n, m, 300000, SEED, cover=True)
+    store = RatingsStore(n, m)
+    store.add_training(u, i, y)
+    store.finalize()
+    validation, test = held_out_maps(store, n, m, keys, SEED + 1, 2000)
+    launches = 0
+    for name, kw in (("hpf", dict(variant="hpf")),
+                     ("bpf+bias", dict(variant="bpf", bias=True)),
+                     ("mle_user", dict(variant="mle_user")),
+                     ("mle_item", dict(variant="mle_item")),
+                     ("canny", dict(variant="canny"))):
+        out = {}
+        for device in ("cuda", "cpu"):
+            outdir = os.path.join(root, f"seg_{name}_{device}")
+            before = sf.fused_segment_sweep.launches
+            tr = Trainer(store, validation, test,
+                         ModelConfig(n=store.n, m=store.m, k=K,
+                                     sweep="segment",
+                                     matmul_precision="highest", **kw),
+                         RunConfig(datdir=root, outdir=outdir, rfreq=5,
+                                   max_iterations=10, logl=True,
+                                   enforce_max_iterations=True),
+                         device=device)
+            t0 = time.perf_counter()
+            tr.run()
+            tr.close()
+            out[device] = (validation_ll(outdir), logl_rows(outdir),
+                           time.perf_counter() - t0)
+            if device == "cuda":
+                launches += sf.fused_segment_sweep.launches - before
+        (gl, ge, gs), (cl, ce, cs) = out["cuda"], out["cpu"]
+        gaps = [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(gl, cl)] + \
+            [abs(a - b) / abs(b) for a, b in zip(ge, ce)]
+        ok = [a[0] for a in gl] == [b[0] for b in cl] and len(gl) >= 3 and \
+            len(ge) == len(ce) == len(gl) and max(gaps) < CPU_REL
+        say(f"segment {name} {store.n}x{store.m} nnz={store.nratings:,} "
+            f"K={K} at highest, 11 iterations: card {gs:.1f} s, CPU "
+            f"{cs:.1f} s; validation ll {[round(v, 6) for _, v in gl]}, "
+            f"logl {ge}; worst relative gap card vs CPU {max(gaps):.3e} "
+            f"over {len(gaps)} values (bound {CPU_REL}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"segment {name}: card and CPU runs disagree")
+    return launches
 
 
 def timed(obj, name, sink):
@@ -644,6 +924,7 @@ def phase_hybrid_cpu_reference(root):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -668,17 +949,19 @@ def main():
     t0 = time.perf_counter()
     build.load_library()
     say(f"build: {os.path.relpath(build.library_path())} from "
-        f"{[os.path.relpath(s) for s in build.sources()]} for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{[os.path.relpath(s) for s in build.sources()]} (headers "
+        f"{[os.path.relpath(s) for s in build.headers()]}) for sm_90a, one "
+        f"nvcc per source in parallel, in {time.perf_counter() - t0:.1f} s")
     if os.path.exists(build.build_log_path()):
         with open(build.build_log_path()) as f:
             for line in f:
-                if "registers" in line or "spill" in line:
+                if line.startswith("==") or "registers" in line or \
+                        "spill" in line or "Compiling entry" in line:
                     say(f"  {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     main_kernel = phase_kernel(df, gen)
-    phase_netflix(df, gen)
+    probe = phase_netflix(df, gen)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         datdir = os.path.join(root, "data")
@@ -691,14 +974,18 @@ def main():
         phase_cpu_reference(datdir, root)
 
         phase_tail_layouts(gen)
+        phase_segment_layouts(gen)
         say(f"checkpoint TSV writer: "
             f"{'native (' + os.path.relpath(native.library_path()) + ')' if native.available() else 'Python (no g++)'}")
         tr = echonest_trainer(root)
         en = phase_echonest(df, tf, tr, gen, smi)
+        seg = phase_echonest_segment(df, tf, tr, root, smi)
         del tr
         torch.cuda.empty_cache()
         phase_hybrid_cpu_reference(root)
+        seg_small = phase_segment_cpu_reference(root)
 
+    say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [
         {"name": "fused_dense_sweep", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/dense_fused.cu",
@@ -716,7 +1003,25 @@ def main():
          "launches_by_path": {"echonest_hybrid": en["launches"][1]},
          "max_abs_err": en["tail"]["max_abs_err"],
          "ms": en["tail"]["ms"], "plain_ms": en["tail"]["plain_ms"],
-         "gbps": en["tail"]["gbps"]}]}))
+         "gbps": en["tail"]["gbps"]},
+        {"name": "dense_probe", "route": "cuda",
+         "source": "hgaprec_tpu_torch/csrc/dense_fused.cu",
+         "replaces": "scripts/dense_mfu_probe.py:51",
+         "launches": probe["launches"],
+         "launches_by_path": {"netflix_probe": probe["launches"]},
+         "max_abs_err": probe["max_abs_err"], "ms": probe["ms"],
+         "plain_ms": probe["plain_ms"], "stage_ms": probe["stage_ms"],
+         "stage_plain_ms": probe["stage_plain_ms"], "hmma": probe["hmma"]},
+        {"name": "fused_segment_sweep", "route": "cuda",
+         "source": "hgaprec_tpu_torch/csrc/segment_fused.cu",
+         "replaces": "docs/design/pallas_csr_sweep.py:80",
+         "launches": seg["launches"],
+         "launches_by_path": {"echonest_segment": seg["launches"],
+                              "small_segment_vs_cpu": seg_small},
+         "max_abs_err": seg["max_abs_err"], "ms": seg["ms"],
+         "plain_ms": seg["plain_ms"], "gbps": seg["gbps"],
+         "ms_per_iter_echonest_segment": seg["ms_iter"],
+         "peak_gb_echonest_segment": seg["peak"]}]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -16,11 +16,12 @@ import dataclasses
 import os
 from typing import Optional
 
-# Execution paths for the phi sweep (hot loop). The port runs the dense
-# pair and the hybrid; "segment" and "segment-chunked" are a later slice.
+# Execution paths for the phi sweep (hot loop). On a CUDA tensor the two
+# segment modes are one request: the CSR sweep kernel over the COO.
 SWEEP_DENSE = "dense"      # blocked dense sweep over a uint8 count matrix
 SWEEP_DENSE_PALLAS = "dense-pallas"  # name kept: the fused-kernel request
-SWEEP_SEGMENT = "segment"
+SWEEP_SEGMENT = "segment"  # sweep over the dual-sorted COO
+SWEEP_SEGMENT_CHUNKED = "segment-chunked"  # the same, streamed over chunks
 SWEEP_HYBRID = "hybrid"    # dense head (top-degree items) + sparse tail
 SWEEP_AUTO = "auto"
 

@@ -42,6 +42,20 @@
 // Ragged edges are masked in the kernel: Y is read in place at its own
 // row stride, never padded or copied. Rows of A or B past N or M load as
 // zero, so S = 0 there and the clamp gives W = 0 because Y = 0.
+//
+// Stage probe (replaces the TPU kernel scripts/dense_mfu_probe.py::
+// _kernel_variant): the bf16 kernel takes a compile-time stage. kProd is
+// the production kernel, the only instantiation the production entry
+// points use; each other stage removes one stage of the W computation so
+// that a timing against kProd says what that stage costs:
+//   * kBf16Recip: max(S, 1e-30) rounded to bf16, an approximate reciprocal
+//     rounded to bf16, times Y in bf16;
+//   * kNoRecip:   W = Y (no reciprocal);
+//   * kNoYLoad:   W = 1, and Y is never read;
+//   * kMmOnly:    only the S products; W and the contraction are skipped.
+// Where a stage no longer needs S, S * 0 is added to what it computes, as
+// the TPU probe's s * 0.0: the products stay (IEEE arithmetic does not let
+// nvcc fold x * 0 without fast-math), and the outputs do not change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -326,6 +340,15 @@ dense_fused_f32_kernel(const float* __restrict__ a,
 constexpr int kBfPad = 8;                  // bf16 elements of row padding
 constexpr int kLdT = kTile + kBfPad;       // row stride of the W tile
 
+// The stage probe's variants (values as ops/dense_probe.py names them).
+enum Stage : int {
+  kProd = 0,
+  kBf16Recip = 1,
+  kNoRecip = 2,
+  kNoYLoad = 3,
+  kMmOnly = 4
+};
+
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm volatile(
@@ -374,7 +397,7 @@ __device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* rows, int ldk,
 // Thread layout (8 warps): warp w owns the 16 rows rb = w % 4 of the 64-row
 // tile; for S it owns columns (w / 4) * 32 .. +32 of the 64-wide moving
 // tile, for the contraction the n-tiles (w / 4) * KP_MAX / 16 .. of kq.
-template <int KP_MAX>
+template <int KP_MAX, int kStage>
 __global__ void __launch_bounds__(kThreads, KP_MAX <= 128 ? 2 : 1)
 dense_fused_bf16_kernel(const __nv_bfloat16* __restrict__ a,
                         const __nv_bfloat16* __restrict__ b,
@@ -401,6 +424,7 @@ dense_fused_bf16_kernel(const __nv_bfloat16* __restrict__ a,
   const int x0 = role.x0;
   const int tid = threadIdx.x;
   constexpr int kChunks = kTile * KP_MAX / 8 / kThreads;
+  constexpr bool kReadsY = kStage <= kNoRecip;
 
   uint4 vz[kChunks];
   load_rows<kChunks, 8>(vz, xsrc, nx, x0, kq, tid);
@@ -408,7 +432,8 @@ dense_fused_bf16_kernel(const __nv_bfloat16* __restrict__ a,
   uint32_t vy[kYQuads];
   const int zb = role.z_begin;
   load_rows<kChunks, 8>(vz, zsrc, nz, zb, kq, tid);
-  load_y(vy, y, ldy, n, m, item_role ? zb : x0, item_role ? x0 : zb, tid);
+  if (kReadsY)
+    load_y(vy, y, ldy, n, m, item_role ? zb : x0, item_role ? x0 : zb, tid);
 
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;     // mma fragment coordinates
@@ -424,13 +449,14 @@ dense_fused_bf16_kernel(const __nv_bfloat16* __restrict__ a,
   for (int z0 = role.z_begin; z0 < role.z_end; z0 += kTile) {
     __syncthreads();  // previous tile's readers are done (and xs is stored)
     store_rows_bf16(zs, ldk, vz, kq, tid);
-    store_y(ys, vy, tid);
+    if (kReadsY) store_y(ys, vy, tid);
     __syncthreads();
     const int zn = z0 + kTile;
     if (zn < role.z_end) {  // next tile's loads fly while this computes
       load_rows<kChunks, 8>(vz, zsrc, nz, zn, kq, tid);
-      load_y(vy, y, ldy, n, m, item_role ? zn : x0, item_role ? x0 : zn,
-             tid);
+      if (kReadsY)
+        load_y(vy, y, ldy, n, m, item_role ? zn : x0, item_role ? x0 : zn,
+               tid);
     }
 
     // S[x][z] for x in rb..rb+16, z in half*32..+32
@@ -451,6 +477,14 @@ dense_fused_bf16_kernel(const __nv_bfloat16* __restrict__ a,
         mma_bf16(s[j], fa, fb);
       }
     }
+    if constexpr (kStage == kMmOnly) {
+      // the outputs depend on S (and stay zero); no W, no contraction
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = fmaf(s[j][e], 0.f, acc[j][e]);
+      continue;
+    }
     // W = Y / max(S, 1e-30), rounded to bf16. The correctly rounded
     // reciprocal times Y is within an f32 ulp of the quotient, far below
     // the bf16 rounding that follows, and costs a fraction of an IEEE
@@ -462,14 +496,31 @@ dense_fused_bf16_kernel(const __nv_bfloat16* __restrict__ a,
         const int x = rb + g + 8 * h;
         const int z = half * 32 + j * 8 + 2 * t;
         float w[2];
+        __nv_bfloat16 wb[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float yv = (float)(item_role ? ys[(z + e) * kYStride + x]
-                                             : ys[x * kYStride + z + e]);
-          w[e] = yv * __frcp_rn(fmaxf(s[j][2 * h + e], 1e-30f));
+          const float sv = s[j][2 * h + e];
+          float yv = 1.f;
+          if constexpr (kReadsY)
+            yv = (float)(item_role ? ys[(z + e) * kYStride + x]
+                                   : ys[x * kYStride + z + e]);
+          if constexpr (kStage == kProd) {
+            w[e] = yv * __frcp_rn(fmaxf(sv, 1e-30f));
+          } else if constexpr (kStage == kBf16Recip) {
+            const __nv_bfloat16 sc = __float2bfloat16_rn(fmaxf(sv, 1e-30f));
+            const __nv_bfloat16 r =
+                __float2bfloat16_rn(__fdividef(1.f, __bfloat162float(sc)));
+            wb[e] = __hmul(__float2bfloat16_rn(yv), r);
+          } else {    // kNoRecip: W = Y; kNoYLoad: W = 1; S kept live
+            w[e] = fmaf(sv, 0.f, yv);
+          }
         }
-        *reinterpret_cast<__nv_bfloat162*>(ws + x * kLdT + z) =
-            __floats2bfloat162_rn(w[0], w[1]);
+        __nv_bfloat162 w2;
+        if constexpr (kStage == kBf16Recip)
+          w2 = __halves2bfloat162(wb[0], wb[1]);
+        else
+          w2 = __floats2bfloat162_rn(w[0], w[1]);
+        *reinterpret_cast<__nv_bfloat162*>(ws + x * kLdT + z) = w2;
       }
     }
     __syncthreads();
@@ -544,12 +595,14 @@ int launch_kernel(Kernel kernel, size_t smem, const void* a, const void* b,
   return (int)cudaGetLastError();
 }
 
-template <bool kBf16>
+template <bool kBf16, int kStage = kProd>
 int launch(const void* a, const void* b, const void* y, void* acc_a,
            void* acc_b, void* part_a, void* part_b, int n, int m, int kq,
            long long ldy, int split_a, int split_b, void* stream) {
   const int quantum = kBf16 ? 16 : 4;   // 16-byte row chunks
-  if (n <= 0 || m <= 0 || kq <= 0 || kq > 256 || kq % quantum != 0 ||
+  // the probe's stages are built for rows of up to 128 values only
+  const int kq_max = kStage == kProd ? 256 : 128;
+  if (n <= 0 || m <= 0 || kq <= 0 || kq > kq_max || kq % quantum != 0 ||
       ldy < m || split_a < 1 || split_b < 1 ||
       (split_a > 1 && part_a == nullptr) ||
       (split_b > 1 && part_b == nullptr) ||
@@ -557,15 +610,21 @@ int launch(const void* a, const void* b, const void* y, void* acc_a,
        15) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kBf16) {
+  if constexpr (kBf16) {
     const size_t smem = smem_bytes_bf16(kq);
+    if constexpr (kStage != kProd)
+      return launch_kernel<__nv_bfloat16>(
+          dense_fused_bf16_kernel<128, kStage>, smem, a, b, y, acc_a, acc_b,
+          part_a, part_b, n, m, kq, ldy, split_a, split_b, st);
     return kq <= 128
                ? launch_kernel<__nv_bfloat16>(
-                     dense_fused_bf16_kernel<128>, smem, a, b, y, acc_a, acc_b,
-                     part_a, part_b, n, m, kq, ldy, split_a, split_b, st)
+                     dense_fused_bf16_kernel<128, kProd>, smem, a, b, y, acc_a,
+                     acc_b, part_a, part_b, n, m, kq, ldy, split_a, split_b,
+                     st)
                : launch_kernel<__nv_bfloat16>(
-                     dense_fused_bf16_kernel<256>, smem, a, b, y, acc_a, acc_b,
-                     part_a, part_b, n, m, kq, ldy, split_a, split_b, st);
+                     dense_fused_bf16_kernel<256, kProd>, smem, a, b, y, acc_a,
+                     acc_b, part_a, part_b, n, m, kq, ldy, split_a, split_b,
+                     st);
   }
   const size_t smem = smem_bytes_f32(kq);
   return kq <= 128
@@ -604,4 +663,34 @@ extern "C" int hpf_dense_fused_sweep_bf16(const void* a, const void* b,
                                           int split_b, void* stream) {
   return launch<true>(a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq, ldy,
                       split_a, split_b, stream);
+}
+
+// The stage probe: the bf16 entry above with the kernel built for stage
+// `stage` (0 = production, 1 = bf16recip, 2 = norecip, 3 = noyload,
+// 4 = mmonly; see the top of this file), kq <= 128 only.
+extern "C" int hpf_dense_probe_bf16(const void* a, const void* b,
+                                    const void* y, void* acc_a, void* acc_b,
+                                    void* part_a, void* part_b, int n, int m,
+                                    int kq, long long ldy, int split_a,
+                                    int split_b, int stage, void* stream) {
+  switch (stage) {
+    case kProd:
+      return launch<true, kProd>(a, b, y, acc_a, acc_b, part_a, part_b, n, m,
+                                 kq, ldy, split_a, split_b, stream);
+    case kBf16Recip:
+      return launch<true, kBf16Recip>(a, b, y, acc_a, acc_b, part_a, part_b,
+                                      n, m, kq, ldy, split_a, split_b,
+                                      stream);
+    case kNoRecip:
+      return launch<true, kNoRecip>(a, b, y, acc_a, acc_b, part_a, part_b, n,
+                                    m, kq, ldy, split_a, split_b, stream);
+    case kNoYLoad:
+      return launch<true, kNoYLoad>(a, b, y, acc_a, acc_b, part_a, part_b, n,
+                                    m, kq, ldy, split_a, split_b, stream);
+    case kMmOnly:
+      return launch<true, kMmOnly>(a, b, y, acc_a, acc_b, part_a, part_b, n,
+                                   m, kq, ldy, split_a, split_b, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

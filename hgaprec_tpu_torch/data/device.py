@@ -4,7 +4,7 @@ and the hybrid head/tail split.
 Counterpart of `hgaprec_tpu/data/device.py`. The COO is
 padded to a block multiple and kept in two sort orders (user-major, and a
 permutation into item-major order), as the JAX package keeps it; the ELBO
-and the segment sweeps will read it. The dense sweep reads `dense_y`, the
+and the segment sweeps read it. The dense sweep reads `dense_y`, the
 count matrix as uint8 (like the reference's yval_t, env.hh:20).
 
 `dense_y` rows are padded to a multiple of 512 when N > 4096, exactly as
@@ -111,8 +111,6 @@ def build_device_data(store: RatingsStore, device, *,
     i = store.coo_i.astype(np.int32)
     y = store.coo_y.astype(np.float32)
     nnz = u.size
-    p = max(pad_multiple, -(-max(nnz, 1) // pad_multiple) * pad_multiple)
-    pad = p - nnz
 
     head_items = head_dense = tail = None
     t = head_width(n, m, hybrid_head_items, head_limit_bytes,
@@ -133,12 +131,6 @@ def build_device_data(store: RatingsStore, device, *,
         tail = build_tail_stream(u[~in_head], i[~in_head], y[~in_head],
                                  device)
 
-    # pad with max ids so both sort orders remain ascending
-    u = np.concatenate([u, np.full(pad, max(n - 1, 0), np.int32)])
-    i = np.concatenate([i, np.full(pad, max(m - 1, 0), np.int32)])
-    y = np.concatenate([y, np.zeros(pad, np.float32)])
-    item_order = np.lexsort((u, i)).astype(np.int32)
-
     dense_y = None
     if n * m <= dense_limit_bytes and n > 0 and m > 0:
         big = n * m > (1 << 28)
@@ -148,16 +140,29 @@ def build_device_data(store: RatingsStore, device, *,
         dense_y = _scatter_counts(npad, m, store.coo_u, store.coo_i,
                                   store.coo_y, device)
 
+    return DeviceData(**sorted_coo(u, i, y, n, m, device, pad_multiple),
+                      dense_y=dense_y, head_items=head_items,
+                      head_dense_y=head_dense, tail=tail)
+
+
+def sorted_coo(u: np.ndarray, i: np.ndarray, y: np.ndarray, n: int, m: int,
+               device, pad_multiple: int = 1024):
+    """DeviceData's COO fields from a user-sorted (user, item) stream:
+    padded to a multiple of pad_multiple (at least one block) with y = 0
+    at the last user and item, so both sort orders stay ascending, plus
+    the permutation into (item, user) order."""
+    nnz = u.size
+    p = max(pad_multiple, -(-max(nnz, 1) // pad_multiple) * pad_multiple)
+    u = np.concatenate([u.astype(np.int32),
+                        np.full(p - nnz, max(n - 1, 0), np.int32)])
+    i = np.concatenate([i.astype(np.int32),
+                        np.full(p - nnz, max(m - 1, 0), np.int32)])
+    y = np.concatenate([y.astype(np.float32), np.zeros(p - nnz, np.float32)])
+    item_order = np.lexsort((u, i)).astype(np.int32)
+
     def dev(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
-    return DeviceData(
-        u_ids=dev(u), i_ids=dev(i), y=dev(y),
-        item_order=dev(item_order),
-        i_ids_sorted=dev(i[item_order]),
-        u_ids_by_item=dev(u[item_order]),
-        dense_y=dense_y,
-        head_items=head_items,
-        head_dense_y=head_dense,
-        tail=tail,
-    )
+    return dict(u_ids=dev(u), i_ids=dev(i), y=dev(y),
+                item_order=dev(item_order), i_ids_sorted=dev(i[item_order]),
+                u_ids_by_item=dev(u[item_order]))

@@ -16,8 +16,10 @@ It keeps the reference's operational envelope:
     write the full ranking for test_users.tsv if present (hgaprec.cc:
     1572-1577, 2087-2112).
   * SIGTERM sets a flag polled at every report boundary.
+  * -logl: the training ELBO into logl.txt at every report, after the
+    ranking reports (hgaprec_tpu/models/engine.py:406-412).
 
-The ELBO report (-logl), RMSE and MSR outputs are not ported yet.
+The RMSE and MSR outputs are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from hgaprec_tpu_torch.eval import ranking as rank_mod
 from hgaprec_tpu_torch.eval.ranking import EvalIndex
 from hgaprec_tpu_torch.eval.score import pair_loglik, scorer_from_state
 from hgaprec_tpu_torch.io import checkpoint as ckpt
+from hgaprec_tpu_torch.models.elbo import training_elbo
 from hgaprec_tpu_torch.models.state import (ModelState, init_state,
                                             state_to_numpy)
 from hgaprec_tpu_torch.models.step import make_multi_step, make_step
@@ -60,9 +63,6 @@ class Trainer:
     def __init__(self, store: RatingsStore, validation: CountMap,
                  test: CountMap, mcfg: ModelConfig, rcfg: RunConfig,
                  device, device_data: Optional[DeviceData] = None):
-        if rcfg.logl:
-            raise NotImplementedError("the training ELBO (-logl) is not "
-                                      "ported yet (ROADMAP queue 1, item 10)")
         self.device = torch.device(device)
         set_matmul_precision(mcfg.matmul_precision)
         self.store = store
@@ -282,6 +282,14 @@ class Trainer:
         rank_mod.compute_itemrank(self.scorer(), self.store, self.index,
                                   users, self.outdir)
 
+    def logl(self) -> float:
+        """Write the training ELBO to logl.txt (engine.py:356-366)."""
+        s = training_elbo(self.state, self.data, self.mcfg)
+        f = self._files["logl.txt"]
+        f.write(f"{s:.5f}\n")
+        f.flush()
+        return s
+
     # -- main loop ---------------------------------------------------------
     def next_chunk(self, cap: Optional[int]):
         """(n_steps, bound) to reach the next report boundary — the next
@@ -313,6 +321,8 @@ class Trainer:
                 and not self.mcfg.bias):
             # reference: vb/vb_hier/vb_canny also run itemrank
             self.compute_itemrank(False)
+        if self.rcfg.logl:
+            self.logl()
 
     def run(self, max_iters: Optional[int] = None) -> ModelState:
         """Train until the stopping rule fires (or an iteration cap)."""

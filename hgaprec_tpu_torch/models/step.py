@@ -10,11 +10,13 @@ exactly as the reference stages it:
   * vb_hier() (1321-1436): per-row prior rates injected from the scale
     variables (set_prior_rate, gpbase.hh:163-173); scales update last from
     the *new* factor expectations.
+  * vb_mle_user/item (982-1130) and vb_canny (1132-1216): one side is a
+    point matrix renormalized per sweep (EM for GaP / Canny's GaP).
 
 The step writes its result into the state's own tensors (the JAX package
 donates them to the jitted step instead), so a run keeps one set of state
 buffers. Every old value a later update reads is consumed or copied before
-its buffer is overwritten. The MLE and Canny variants are not ported yet.
+its buffer is overwritten.
 """
 
 from __future__ import annotations
@@ -73,18 +75,26 @@ def cavi_step(state: ModelState, data: DeviceData,
         _step_bpf(state, data, cfg, mode)
     elif cfg.variant == C.VARIANT_HPF:
         _step_hpf(state, data, cfg, mode)
+    elif cfg.variant == C.VARIANT_MLE_USER:
+        _step_mle_user(state, data, cfg, mode)
+    elif cfg.variant in (C.VARIANT_MLE_ITEM, C.VARIANT_CANNY):
+        _step_mle_item(state, data, cfg, mode,
+                       canny=cfg.variant == C.VARIANT_CANNY)
     else:
-        raise NotImplementedError(
-            f"variant {cfg.variant!r} is not ported yet (ROADMAP queue 1, "
-            "item 7: MLE/Canny)")
+        raise ValueError(cfg.variant)
     return state
 
 
-def _sweep(state: ModelState, data: DeviceData, cfg: ModelConfig, mode):
+def _sweep(state: ModelState, data: DeviceData, cfg: ModelConfig, mode,
+           elog_a=None, elog_b=None):
+    """The sweep on the state's Elog factors (or the given log point
+    matrices in their place, for the MLE variants, which have no bias)."""
     eb_u = state.theta_bias.elog if cfg.bias else None
     eb_i = state.beta_bias.elog if cfg.bias else None
-    return sweep(state.theta.elog, state.beta.elog, eb_u, eb_i, data, mode,
-                 cfg.item_block, cfg.user_block, cfg.matmul_precision)
+    return sweep(state.theta.elog if elog_a is None else elog_a,
+                 state.beta.elog if elog_b is None else elog_b, eb_u, eb_i,
+                 data, mode, cfg.item_block, cfg.user_block,
+                 cfg.matmul_precision)
 
 
 def _step_bpf(state, data, cfg, mode):
@@ -123,6 +133,28 @@ def _step_hpf(state, data, cfg, mode):
             cfg.bp + state.theta.e.sum(1))
     _update(eta, torch.full_like(eta.shape, cfg.cp + cfg.k * cfg.cp),
             cfg.dp + state.beta.e.sum(1))
+
+
+def _step_mle_user(state, data, cfg, mode):
+    res = _sweep(state, data, cfg, mode, elog_a=torch.log(state.theta_mle))
+    betasum = state.beta.e.sum(0)                  # old beta [K]
+    td = res.acc_a / betasum[None, :]              # EM normalize
+    _update(state.beta, cfg.c + res.acc_b, cfg.d + td.sum(0))
+    state.theta_mle.copy_(td)
+
+
+def _step_mle_item(state, data, cfg, mode, canny: bool):
+    res = _sweep(state, data, cfg, mode, elog_b=torch.log(state.beta_mle))
+    thetasum = state.theta.e.sum(0)                # old theta [K]
+    if canny:
+        # floor *before* normalizing (hgaprec.cc:1173-1176), then per-factor
+        # L1 column normalization (1179-1187)
+        bd = torch.clamp_min(res.acc_b, 1e-10) / thetasum[None, :]
+        bd = bd / bd.sum(0, keepdim=True)
+    else:
+        bd = res.acc_b / thetasum[None, :]
+    _update(state.theta, cfg.a + res.acc_a, cfg.b + bd.sum(0))
+    state.beta_mle.copy_(bd)
 
 
 def make_step(cfg: ModelConfig):

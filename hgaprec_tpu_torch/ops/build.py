@@ -1,11 +1,13 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Sources are `hgaprec_tpu_torch/csrc/*.cu` and nothing else; the only
-headers they include are the CUDA toolkit's. `nvcc` compiles them into one
-shared library with a plain C interface under `<checkout>/.kernel_build/`,
-named by a hash of the sources and flags, so a changed source or flag
-builds anew and an unchanged one is loaded as is. Nothing here runs at
-import time: the CPU test machines have no nvcc.
+Sources are `hgaprec_tpu_torch/csrc/*.cu`; the headers they share are
+`csrc/*.cuh`, and the only other headers they include are the CUDA
+toolkit's. One `nvcc` per source compiles it into an object, all of them
+started together, and a last `nvcc` links the objects into one shared
+library with a plain C interface under `<checkout>/.kernel_build/`, named
+by a hash of the sources, the headers and the flags, so a changed source,
+header or flag builds anew and an unchanged one is loaded as is. Nothing
+here runs at import time: the CPU test machines have no nvcc.
 """
 
 from __future__ import annotations
@@ -24,11 +26,15 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), ".kernel_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def sources() -> List[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def headers() -> List[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -46,7 +52,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -57,8 +63,39 @@ def build_log_path() -> str:
     return library_path()[:-len(".so")] + ".log"
 
 
-def nvcc_command(out_path: str) -> List[str]:
-    return [_nvcc(), *NVCC_FLAGS, "-o", out_path, *sources()]
+def compile_command(src: str, obj: str) -> List[str]:
+    """nvcc command that compiles one source into an object."""
+    return [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]
+
+
+def link_command(out_path: str, objs: List[str]) -> List[str]:
+    """nvcc command that links the objects into the shared library."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", out_path, *objs]
+
+
+def _build(out_path: str, tmpdir: str) -> str:
+    """Compile every source in parallel, then link. Returns nvcc's
+    stderr (ptxas register and shared-memory usage); raises on failure."""
+    objs = [os.path.join(tmpdir, os.path.basename(s) + ".o")
+            for s in sources()]
+    procs = [subprocess.Popen(compile_command(s, o), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for s, o in zip(sources(), objs)]
+    logs, failed = [], []
+    for src, proc in zip(sources(), procs):
+        _, err = proc.communicate()
+        logs.append(f"== {os.path.basename(src)}\n{err}")
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({proc.returncode})")
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+    proc = subprocess.run(link_command(out_path, objs), capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{proc.stderr}")
+    return "\n".join(logs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,15 +108,10 @@ def load_library() -> ctypes.CDLL:
     path = library_path()
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run(nvcc_command(tmp), capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr}")
-        with open(build_log_path(), "w") as f:
-            f.write(proc.stderr)
-        os.replace(tmp, path)     # atomic: a reader never sees half a file
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            tmp = os.path.join(tmpdir, "lib.so")
+            log = _build(tmp, tmpdir)
+            with open(build_log_path(), "w") as f:
+                f.write(log)
+            os.replace(tmp, path)   # atomic: a reader never sees half a file
     return ctypes.CDLL(path)

@@ -124,11 +124,23 @@ def fused_dense_sweep(a_lin: torch.Tensor, b_lin: torch.Tensor,
                                            bb_lin, bf16=bf16)
     if dense_y.device.type != "cuda":
         raise ValueError(f"no kernel for device {dense_y.device}")
+    acc_a, acc_b = launch_dense(a_lin, b_lin, dense_y, ba_lin, bb_lin,
+                                bf16=bf16)
+    if a_lin.shape[0] and b_lin.shape[0]:     # an empty side launches nothing
+        fused_dense_sweep.launches += 1
+    return _unpack(acc_a, acc_b, a_lin.shape[1], ba_lin is not None)
+
+
+def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
+                 bf16: bool, stage: Optional[int] = None):
+    """Pack the factors, launch the kernel on the card and return the raw
+    packed outputs (f32 [N, kq], [M, kq]). stage=None is the production
+    entry point; an int runs the bf16 kernel built for that stage of the
+    stage probe (ops/dense_probe.py). Inputs are checked by the caller."""
     n, k = a_lin.shape
     m = b_lin.shape[0]
-    bias = ba_lin is not None
     quantum = 16 if bf16 else 4       # whole 16-byte chunks per row
-    kq = -(-(k + 2 if bias else k) // quantum) * quantum
+    kq = -(-(k + 2 if ba_lin is not None else k) // quantum) * quantum
     if kq > KP_MAX:
         raise ValueError(f"packed factor width {kq} > {KP_MAX}")
     a, b = _pack(a_lin, b_lin, ba_lin, bb_lin, kq,
@@ -136,7 +148,7 @@ def fused_dense_sweep(a_lin: torch.Tensor, b_lin: torch.Tensor,
     acc_a = torch.empty((n, kq), dtype=torch.float32, device=a.device)
     acc_b = torch.empty((m, kq), dtype=torch.float32, device=a.device)
     if n == 0 or m == 0:
-        return _unpack(acc_a.zero_(), acc_b.zero_(), k, bias)
+        return acc_a.zero_(), acc_b.zero_()
     split_a, split_b = splits_for(
         n, m, torch.cuda.get_device_properties(a.device).multi_processor_count)
     part_a = (torch.empty((split_a, n, kq), dtype=torch.float32,
@@ -144,10 +156,14 @@ def fused_dense_sweep(a_lin: torch.Tensor, b_lin: torch.Tensor,
     part_b = (torch.empty((split_b, m, kq), dtype=torch.float32,
                           device=a.device) if split_b > 1 else None)
     lib = build.load_library()
-    fn = lib.hpf_dense_fused_sweep_bf16 if bf16 else \
-        lib.hpf_dense_fused_sweep_f32
+    if stage is not None:
+        fn = lib.hpf_dense_probe_bf16
+    else:
+        fn = lib.hpf_dense_fused_sweep_bf16 if bf16 else \
+            lib.hpf_dense_fused_sweep_f32
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + (
+        [ctypes.c_int] if stage is not None else []) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -155,13 +171,13 @@ def fused_dense_sweep(a_lin: torch.Tensor, b_lin: torch.Tensor,
                  acc_a.data_ptr(), acc_b.data_ptr(),
                  None if part_a is None else part_a.data_ptr(),
                  None if part_b is None else part_b.data_ptr(), n, m, kq,
-                 dense_y.stride(0), split_a, split_b, stream)
+                 dense_y.stride(0), split_a, split_b,
+                 *([stage] if stage is not None else []), stream)
     if err != 0:
         raise RuntimeError(f"dense fused sweep launch failed: cudaError {err}"
-                           f" (n={n}, m={m}, kq={kq}, bf16={bf16}, splits="
-                           f"{split_a}, {split_b})")
-    fused_dense_sweep.launches += 1
-    return _unpack(acc_a, acc_b, k, bias)
+                           f" (n={n}, m={m}, kq={kq}, bf16={bf16}, stage="
+                           f"{stage}, splits={split_a}, {split_b})")
+    return acc_a, acc_b
 
 
 fused_dense_sweep.launches = 0

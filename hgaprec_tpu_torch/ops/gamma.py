@@ -37,6 +37,35 @@ def expectations(shape: torch.Tensor, rate: torch.Tensor):
     return e, elog.expand_as(e)
 
 
+def elbo_term(shape: torch.Tensor, rate: torch.Tensor, e: torch.Tensor,
+              elog: torch.Tensor, sprior: float, rprior,
+              log_rprior=None) -> torch.Tensor:
+    """Per-family ELBO contribution (gpbase.hh:360-387, 717-741, 951-969),
+    an f32 scalar tensor:
+
+      sum[ a0*log(b0) + (a0-1)*Elog - b0*E - lgamma(a0) ]
+    - sum[ a*log(b)  + (a-1)*Elog  - b*E  - lgamma(a)  ]
+
+    `rprior` may be a tensor (hierarchical per-row prior rate E[xi_n],
+    gpbase.hh:360-373), in which case `log_rprior` is Elog[xi_n]; both
+    broadcast against `e` like set_prior_rate's row injection."""
+    a = make_nonzero(shape)
+    b = make_nonzero(torch.broadcast_to(rate, a.shape))
+    dt, dev = e.dtype, e.device
+    sprior = torch.tensor(sprior, dtype=dt, device=dev)
+    rprior = torch.as_tensor(rprior, dtype=dt, device=dev)
+    if log_rprior is None:
+        log_rprior = torch.log(rprior)
+    log_rprior = torch.as_tensor(log_rprior, dtype=dt, device=dev)
+    if rprior.dim() and rprior.dim() < e.dim():
+        rprior = rprior[:, None]
+        log_rprior = log_rprior[:, None]
+    s = torch.sum(sprior * log_rprior + (sprior - 1.0) * elog
+                  - rprior * e - torch.lgamma(sprior))
+    return s - torch.sum(a * torch.log(b) + (a - 1.0) * elog
+                         - b * e - torch.lgamma(a))
+
+
 # ---------------------------------------------------------------------------
 # Initialization: host NumPy draws, same order and arithmetic as the JAX
 # package (gpbase.hh:292-340, 655-715, 851-880).

@@ -14,8 +14,15 @@ is the kernel's plain blocked version.
 
 Catalogs too wide to densify take the hybrid sweep: the same dense kernel
 over the head block of top-degree items, and the tail kernel
-(ops/tail_fused.py) over the remaining nonzeros. The segment sweeps are
-not ported yet.
+(ops/tail_fused.py) over the remaining nonzeros.
+
+The segment sweeps work on the dual-sorted COO alone: gather, log-softmax
+and dual segment sums (`sweep_segment`), or the one-pass linear-space form
+streamed over nonzero chunks (`sweep_segment_chunked`). They are the JAX
+package's general sparse path and correctness baseline; a CPU tensor runs
+them as the JAX dispatch picks them. On a CUDA tensor both segment modes
+run the CSR sweep kernel (ops/segment_fused.py), which computes the same
+sums.
 """
 
 from __future__ import annotations
@@ -25,13 +32,15 @@ from typing import NamedTuple, Optional
 import torch
 
 from hgaprec_tpu_torch.config import (SWEEP_DENSE, SWEEP_DENSE_PALLAS,
-                                      SWEEP_HYBRID)
+                                      SWEEP_HYBRID, SWEEP_SEGMENT_CHUNKED)
 from hgaprec_tpu_torch.data.device import DeviceData
 from hgaprec_tpu_torch.ops.dense_fused import (fused_dense_sweep,
                                                fused_dense_sweep_reference)
+from hgaprec_tpu_torch.ops.segment_fused import segment_sweep
 from hgaprec_tpu_torch.ops.tail_fused import tail_sweep
 
 DENSE_MODES = (SWEEP_DENSE, SWEEP_DENSE_PALLAS)
+_CLAMP = 1e-30
 
 
 class SweepResult(NamedTuple):
@@ -103,13 +112,117 @@ def sweep_hybrid(elog_a: torch.Tensor, elog_b: torch.Tensor,
     return SweepResult(acc_a, acc_b, None, None)
 
 
+def nonzero_logits(elog_a, elog_b, elog_bias_a, elog_bias_b, u, i):
+    """[C, K] (or [C, K+2] with bias) per-nonzero logits."""
+    logits = elog_a[u] + elog_b[i]
+    if elog_bias_a is not None:
+        logits = torch.cat([logits, elog_bias_a[u][:, None],
+                            elog_bias_b[i][:, None]], dim=1)
+    return logits
+
+
+def sweep_segment(elog_a: torch.Tensor, elog_b: torch.Tensor,
+                  elog_bias_a: Optional[torch.Tensor],
+                  elog_bias_b: Optional[torch.Tensor],
+                  data: DeviceData) -> SweepResult:
+    """Gather -> log-softmax -> dual segment-sum sweep over sorted COO
+    (`hgaprec_tpu/ops/sweep.py:170-200`)."""
+    n, k = elog_a.shape
+    m = elog_b.shape[0]
+    u = data.u_ids.long()
+    logits = nonzero_logits(elog_a, elog_b, elog_bias_a, elog_bias_b, u,
+                            data.i_ids.long())
+    lse = torch.logsumexp(logits, dim=1, keepdim=True)
+    phis = data.y[:, None] * torch.exp(logits - lse)  # y * phi; 0 on padding
+    acc_a = logits.new_zeros((n, k)).index_add_(0, u, phis[:, :k])
+    phis_i = phis[data.item_order.long()]
+    i_sorted = data.i_ids_sorted.long()
+    acc_b = logits.new_zeros((m, k)).index_add_(0, i_sorted, phis_i[:, :k])
+    if elog_bias_a is not None:
+        acc_ba = logits.new_zeros(n).index_add_(0, u, phis[:, k])
+        acc_bb = logits.new_zeros(m).index_add_(0, i_sorted, phis_i[:, k + 1])
+        return SweepResult(acc_a, acc_b, acc_ba, acc_bb)
+    return SweepResult(acc_a, acc_b, None, None)
+
+
+# above this many padded nonzeros the [P, K] phi matrix is streamed in
+# chunks (EchoNest: P ~ 48M, K = 100 -> 19 GB if materialized at once)
+SEGMENT_CHUNK_THRESHOLD = 4 << 20
+SEGMENT_CHUNK = 1 << 20
+
+
+def sweep_segment_chunked(elog_a: torch.Tensor, elog_b: torch.Tensor,
+                          elog_bias_a: Optional[torch.Tensor],
+                          elog_bias_b: Optional[torch.Tensor],
+                          data: DeviceData,
+                          chunk: int = SEGMENT_CHUNK) -> SweepResult:
+    """One-pass linear-space segment sweep streamed over nonzero chunks
+    (`hgaprec_tpu/ops/sweep.py:209-239`).
+
+    Same accumulators as sweep_segment; the [P, K] phi tensor only ever
+    exists [chunk, K] at a time. phi is proportional to A[u] (.) B[i] with
+    s = <A[u], B[i]> (+ biases), the dense path's identity, instead of a
+    log-softmax; one pass over the user-sorted stream feeds both sides.
+    The 1e-30 clamp mirrors the reference's make_nonzero; zero-count
+    padding rows contribute nothing."""
+    return _segment_onepass_lin(*_linear(elog_a, elog_b, elog_bias_a,
+                                         elog_bias_b),
+                                data.u_ids, data.i_ids, data.y, chunk)
+
+
+def _segment_onepass_lin(a_lin, b_lin, ba_lin, bb_lin, u_ids, i_ids, y,
+                         chunk: int) -> SweepResult:
+    """The one-pass linear-space COO sweep over a user-sorted stream
+    (`hgaprec_tpu/ops/sweep.py:242-292`). Inputs are linear-space
+    expectations (exp of Elog)."""
+    n, k = a_lin.shape
+    m = b_lin.shape[0]
+    bias = ba_lin is not None
+    acc_a, acc_b = a_lin.new_zeros((n, k)), a_lin.new_zeros((m, k))
+    acc_ba, acc_bb = a_lin.new_zeros(n), a_lin.new_zeros(m)
+    for j0 in range(0, u_ids.shape[0], chunk):
+        uu = u_ids[j0:j0 + chunk].long()
+        ii = i_ids[j0:j0 + chunk].long()
+        prod = a_lin[uu] * b_lin[ii]                     # [C, K]
+        s = prod.sum(1)
+        if bias:
+            bau, bbi = ba_lin[uu], bb_lin[ii]
+            s = s + bau + bbi
+        w = y[j0:j0 + chunk] / torch.clamp_min(s, _CLAMP)   # [C]
+        ph = w[:, None] * prod
+        acc_a.index_add_(0, uu, ph)
+        acc_b.index_add_(0, ii, ph)
+        if bias:
+            acc_ba.index_add_(0, uu, w * bau)
+            acc_bb.index_add_(0, ii, w * bbi)
+    if bias:
+        return SweepResult(acc_a, acc_b, acc_ba, acc_bb)
+    return SweepResult(acc_a, acc_b, None, None)
+
+
 def sweep(elog_a, elog_b, elog_bias_a, elog_bias_b, data: DeviceData,
           mode: str, item_block: int = 4096, user_block: int = 16384,
           precision: str = "highest") -> SweepResult:
-    """Dispatch one sweep. A CUDA tensor always takes the CUDA kernels, a
-    CPU tensor their plain versions; `dense` and `dense-pallas` are the
-    same request (the TPU's VMEM gate on the fused kernel has no
-    counterpart: the two-pass kernel takes any item count)."""
+    """Dispatch one sweep (`hgaprec_tpu/ops/sweep.py:370-411`). A CUDA
+    tensor always takes the CUDA kernels, a CPU tensor their plain
+    versions; `dense` and `dense-pallas` are the same request (the TPU's
+    VMEM gate on the fused kernel has no counterpart: the two-pass kernel
+    takes any item count). Every other mode is a segment sweep: on a CPU
+    tensor the JAX rule picks the chunked form for `segment-chunked` or
+    more than SEGMENT_CHUNK_THRESHOLD nonzeros, else the log-softmax form;
+    on a CUDA tensor both run the CSR sweep kernel, in f32 whatever the
+    precision (as the JAX segment path)."""
+    if mode in DENSE_MODES:
+        if data.dense_y is None:
+            raise ValueError("dense sweep requested but dense_y not built")
+        if data.dense_y.device.type == "cpu":
+            return sweep_dense(elog_a, elog_b, elog_bias_a, elog_bias_b,
+                               data.dense_y, item_block=item_block,
+                               user_block=user_block, precision=precision)
+        lin = _linear(elog_a, elog_b, elog_bias_a, elog_bias_b)
+        raw = fused_dense_sweep(*lin[:2], data.dense_y, *lin[2:],
+                                bf16=(precision == "default"))
+        return _scaled(*lin, raw)
     if mode == SWEEP_HYBRID:
         if data.head_dense_y is None:
             raise ValueError("hybrid sweep requested but the head dense "
@@ -117,17 +230,33 @@ def sweep(elog_a, elog_b, elog_bias_a, elog_bias_b, data: DeviceData,
                              "hybrid_head_items)")
         return sweep_hybrid(elog_a, elog_b, elog_bias_a, elog_bias_b, data,
                             precision=precision)
-    if mode not in DENSE_MODES:
-        raise NotImplementedError(
-            f"sweep mode {mode!r} is not ported yet (ROADMAP queue 1, item "
-            "13: segment sweeps)")
-    if data.dense_y is None:
-        raise ValueError("dense sweep requested but dense_y not built")
-    if data.dense_y.device.type == "cpu":
-        return sweep_dense(elog_a, elog_b, elog_bias_a, elog_bias_b,
-                           data.dense_y, item_block=item_block,
-                           user_block=user_block, precision=precision)
-    lin = _linear(elog_a, elog_b, elog_bias_a, elog_bias_b)
-    raw = fused_dense_sweep(*lin[:2], data.dense_y, *lin[2:],
-                            bf16=(precision == "default"))
-    return _scaled(*lin, raw)
+    if data.u_ids.device.type != "cpu":
+        return SweepResult(*segment_sweep(
+            *_linear(elog_a, elog_b, elog_bias_a, elog_bias_b), data))
+    if (mode == SWEEP_SEGMENT_CHUNKED or
+            data.u_ids.shape[0] > SEGMENT_CHUNK_THRESHOLD):
+        return sweep_segment_chunked(elog_a, elog_b, elog_bias_a,
+                                     elog_bias_b, data)
+    return sweep_segment(elog_a, elog_b, elog_bias_a, elog_bias_b, data)
+
+
+def nonzero_logsumexp_sum(elog_a, elog_b, elog_bias_a, elog_bias_b,
+                          data: DeviceData, weights: torch.Tensor,
+                          chunk: int = SEGMENT_CHUNK) -> torch.Tensor:
+    """sum over nonzeros of weights * logsumexp(logits), an ELBO helper
+    (`hgaprec_tpu/ops/sweep.py:414-427`): the y^2 * lse collapse of the
+    reference's phi-entropy term in logl() (hgaprec.cc:2217-2235).
+
+    Streamed over nonzero chunks, so the [P, K] logits never exist whole;
+    each chunk is summed in f32 and the chunk sums in f64. Returns an f64
+    scalar tensor."""
+    total = torch.zeros((), dtype=torch.float64, device=data.y.device)
+    for j0 in range(0, data.u_ids.shape[0], chunk):
+        lse = torch.logsumexp(nonzero_logits(
+            elog_a, elog_b, elog_bias_a, elog_bias_b,
+            data.u_ids[j0:j0 + chunk].long(),
+            data.i_ids[j0:j0 + chunk].long()), dim=1)
+        live = data.y[j0:j0 + chunk] > 0
+        total += torch.where(live, weights[j0:j0 + chunk] * lse,
+                             0.0).sum().double()
+    return total

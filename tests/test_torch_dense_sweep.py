@@ -99,12 +99,16 @@ def test_cpu_tensor_never_builds(rng, monkeypatch):
 
 def test_build_command_targets_sm90a_from_csrc(monkeypatch):
     monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
-    cmd = build.nvcc_command("out.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    srcs = [c for c in cmd if c.endswith((".cu", ".cuh", ".cpp", ".cc"))]
+    srcs = []
+    for src in build.sources():      # one compile per source, then a link
+        cmd = build.compile_command(src, "x.o")
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
+        srcs += [c for c in cmd if c.endswith((".cu", ".cuh", ".cpp", ".cc"))]
     assert srcs and srcs == build.sources()
     for src in srcs:
         assert src.startswith(build.CSRC_DIR + "/")
+    link = build.link_command("out.so", ["x.o"])
+    assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
     assert build.library_path().startswith(build.BUILD_DIR + "/")
 
 

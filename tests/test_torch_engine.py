@@ -31,19 +31,19 @@ def _rows(path):
         return [line.rstrip("\n").split("\t") for line in f if line.strip()]
 
 
-def _run_both(tmp_path, rng, **run_kw):
+def _run_both(tmp_path, rng, model_kw=None, **run_kw):
     js, val, test = make_synthetic(rng, n=40, m=30, k=3)
     with open(tmp_path / "test_users.tsv", "w") as f:
         f.write("".join(f"{js.seq2user[u]}\n" for (u, _) in sorted(test)))
     kw = dict(datdir=str(tmp_path), rfreq=5, max_iterations=20,
               num_precision_users=10, **run_kw)
-    jtr = JTrainer(js, val, test,
-                   JCfg(n=js.n, m=js.m, k=3, variant="hpf", sweep="dense"),
+    model_kw = model_kw or dict(variant="hpf", sweep="dense")
+    jtr = JTrainer(js, val, test, JCfg(n=js.n, m=js.m, k=3, **model_kw),
                    JRun(outdir=str(tmp_path / "jax"), **kw))
     jtr.run()
     jtr.close()
     ttr = TTrainer(port_store(js), val, test,
-                   TCfg(n=js.n, m=js.m, k=3, variant="hpf", sweep="dense"),
+                   TCfg(n=js.n, m=js.m, k=3, **model_kw),
                    TRun(outdir=str(tmp_path / "torch"), **kw), device="cpu")
     ttr.run()
     ttr.close()
@@ -89,19 +89,32 @@ def test_trainers_agree(tmp_path, rng):
                                atol=1e-7)
 
 
-def test_unported_options_raise(tmp_path, rng):
-    js, val, test = make_synthetic(rng, n=12, m=10, k=2)
-    cfg = TCfg(n=js.n, m=js.m, k=2, variant="hpf")
-    with pytest.raises(NotImplementedError, match="ELBO"):
-        TTrainer(port_store(js), val, test, cfg,
-                 TRun(outdir=str(tmp_path / "o"), logl=True), device="cpu")
-    # the segment sweeps are the one layout still to port
-    tr = TTrainer(port_store(js), val, test,
-                  TCfg(n=js.n, m=js.m, k=2, variant="hpf", sweep="segment"),
-                  TRun(outdir=str(tmp_path / "o")), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP .*item 13"):
-        tr.run()
-    tr.close()
+@pytest.mark.parametrize("model_kw", [
+    dict(variant="hpf", sweep="segment"),
+    dict(variant="bpf", bias=True, sweep="segment-chunked"),
+    dict(variant="mle_user", sweep="dense"),
+    dict(variant="mle_item", sweep="dense"),
+    dict(variant="canny", sweep="segment"),
+], ids=["hpf-segment", "bpf-bias-chunked", "mle_user", "mle_item", "canny"])
+def test_trainers_agree_with_logl(tmp_path, rng, model_kw):
+    """The segment sweeps and the MLE/Canny variants through both
+    Trainers with -logl: the same reports, validation ll and training
+    ELBO per report (1e-4 relative), and the same stopping report."""
+    jdir, tdir, _ = _run_both(tmp_path, rng, model_kw, logl=True,
+                              enforce_max_iterations=True)
+    for name in ("validation.txt", "logl.txt"):
+        jr, tr = _rows(jdir / name), _rows(tdir / name)
+        assert len(tr) == len(jr) >= 3, name
+        col = 2 if name == "validation.txt" else 0
+        if col:
+            assert [r[0] for r in tr] == [r[0] for r in jr]
+        np.testing.assert_allclose([float(r[col]) for r in tr],
+                                   [float(r[col]) for r in jr], rtol=1e-4,
+                                   err_msg=name)
+    jm, tm = _rows(jdir / "max.txt")[0], _rows(tdir / "max.txt")[0]
+    assert (tm[0], tm[3]) == (jm[0], jm[3])
+    for name in ("model.npz", "itemrank.tsv"):     # saved as JAX saves
+        assert (tdir / name).exists() == (jdir / name).exists(), name
 
 
 def test_port_imports_no_jax():

@@ -156,15 +156,6 @@ def test_sweep_hybrid_matches_jax_mxu_tail(bias, head):
             assert ((g - w).abs() / denom).max().item() < 2e-2
 
 
-def test_segment_modes_raise_naming_item_13():
-    js = _power_law_store(30, 200, 800, seed=3)
-    td = t_build(port_store(js), "cpu", pad_multiple=64)
-    e = [torch.zeros(js.n, 3), torch.zeros(js.m, 3), None, None]
-    for mode in ("segment", "segment-chunked"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            sweep(*e, td, mode)
-
-
 SWEEPS = ("auto", "dense", "dense-pallas", "hybrid", "segment",
           "segment-chunked")
 

@@ -1,0 +1,273 @@
+"""The segment sweeps and the CSR sweep kernel's plain version against the
+JAX package.
+
+The port's `sweep_segment`, `sweep_segment_chunked` and the CSR kernel's
+plain version (`ops/segment.py::segment_sweep_reference`, which a CPU
+tensor takes) are held to the JAX `sweep_segment` and the naive
+per-nonzero loop of tests/test_sweep.py at that file's bound (rtol=2e-4,
+atol=1e-5), the chunked form to the one-shot form at 1e-5/1e-6
+(tests/test_sweep.py:115-118), and the plain kernel to the TPU design
+kernel `sweep_pallas` run by the Pallas interpreter (no bias, which the
+design kernel lacks). The CUDA kernel itself runs only on the card
+(marked `cuda`).
+"""
+
+import functools
+import importlib.util
+import os
+import shutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas
+
+from hgaprec_tpu.data.device import build_device_data as j_build
+from hgaprec_tpu.ops import sweep as j_sweep
+from hgaprec_tpu_torch.data.device import DeviceData, sorted_coo
+from hgaprec_tpu_torch.data.device import build_device_data as t_build
+from hgaprec_tpu_torch.ops import build
+from hgaprec_tpu_torch.ops import segment_fused as sf
+from hgaprec_tpu_torch.ops import sweep as t_sweep
+from hgaprec_tpu_torch.ops.segment import segment_sweep_reference
+from hgaprec_tpu_torch.ops.tail import tail_tables
+from test_sweep import _setup, naive_sweep
+from test_torch_step import port_store
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+F32 = dict(rtol=2e-4, atol=1e-5)
+
+
+def _plain_kernel(*elogs_and_data):
+    """The kernel's sweep on a CPU tensor: its plain version."""
+    *elogs, data = elogs_and_data
+    return sf.segment_sweep(*[None if e is None else torch.exp(e)
+                              for e in elogs], data)
+
+
+SWEEPS = {
+    "segment": t_sweep.sweep_segment,
+    "chunked": functools.partial(t_sweep.sweep_segment_chunked, chunk=48),
+    "kernel_plain": _plain_kernel,
+}
+
+
+def _both(rng, bias, **kw):
+    """JAX store/data, the port's data on the CPU, and the inputs as f32
+    numpy (None for absent biases)."""
+    store, jdata, *elogs = _setup(rng, bias, **kw)
+    elogs = [None if e is None else np.asarray(e, np.float32) for e in elogs]
+    return store, jdata, t_build(port_store(store), "cpu", pad_multiple=64), \
+        elogs
+
+
+def _t(elogs):
+    return [None if e is None else torch.from_numpy(e) for e in elogs]
+
+
+def _j(elogs):
+    return [None if e is None else jnp.asarray(e) for e in elogs]
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("fn", sorted(SWEEPS))
+def test_segment_sweeps_match_jax_and_naive(rng, fn, bias):
+    store, jdata, tdata, elogs = _both(rng, bias)
+    ref = naive_sweep(*[None if e is None else e.astype(np.float64)
+                        for e in elogs], store.coo_u, store.coo_i,
+                      store.coo_y)
+    want = j_sweep.sweep_segment(*_j(elogs), jdata)
+    got = SWEEPS[fn](*_t(elogs), tdata)
+    for g, w, r in zip(got, want, ref):
+        if w is None:
+            assert g is None
+            continue
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32)
+        np.testing.assert_allclose(g.numpy(), r, **F32)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_chunked_equals_one_shot(rng, bias):
+    _, _, tdata, elogs = _both(rng, bias, n=23, m=19, nnz=130)
+    one = t_sweep.sweep_segment(*_t(elogs), tdata)
+    chunked = t_sweep.sweep_segment_chunked(*_t(elogs), tdata, chunk=48)
+    for c, o in zip(chunked, one):
+        if o is not None:
+            np.testing.assert_allclose(c.numpy(), o.numpy(), rtol=1e-5,
+                                       atol=1e-6)
+
+
+def _design_module():
+    path = os.path.join(REPO, "docs", "design", "pallas_csr_sweep.py")
+    spec = importlib.util.spec_from_file_location("pallas_csr_sweep", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_kernel_matches_sweep_pallas(monkeypatch, seed):
+    """The TPU design kernel in the Pallas interpreter, 8-row tiles and
+    64-nonzero chunks (several tiles and chunks per pass)."""
+    monkeypatch.setattr(pallas, "pallas_call", functools.partial(
+        pallas.pallas_call, interpret=True))
+    design = _design_module()
+    store, _, tdata, elogs = _both(np.random.default_rng(seed), False, n=40,
+                                   m=30, nnz=200)
+    want = design.sweep_pallas(*_j(elogs[:2]),
+                               design.build_pallas_csr(store, rows=8,
+                                                       chunk=64),
+                               rows=8, chunk=64)
+    got = _plain_kernel(*_t(elogs), tdata)
+    for g, w in zip(got[:2], want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32)
+
+
+@pytest.mark.parametrize("fn", sorted(SWEEPS))
+def test_padding_contributes_nothing(rng, fn):
+    store, _, _, elogs = _both(rng, True)
+    ts = port_store(store)
+    small = SWEEPS[fn](*_t(elogs), t_build(ts, "cpu", pad_multiple=64))
+    big = SWEEPS[fn](*_t(elogs), t_build(ts, "cpu", pad_multiple=256))
+    for s, b in zip(small, big):
+        np.testing.assert_allclose(s.numpy(), b.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("above", [False, True])
+@pytest.mark.parametrize("mode", ["segment", "segment-chunked"])
+def test_cpu_dispatch_equals_jax_rule(rng, monkeypatch, mode, above):
+    """Both packages pick the same segment function for the mode and the
+    padded nonzero count against SEGMENT_CHUNK_THRESHOLD."""
+    _, jdata, tdata, elogs = _both(rng, False)
+    p = tdata.nnz_padded
+    assert jdata.u_ids.shape[0] == p
+    picked = {}
+    for mod, inputs, data in ((j_sweep, _j(elogs), jdata),
+                              (t_sweep, _t(elogs), tdata)):
+        monkeypatch.setattr(mod, "SEGMENT_CHUNK_THRESHOLD",
+                            p - 1 if above else p)
+        for name in ("sweep_segment", "sweep_segment_chunked"):
+            monkeypatch.setattr(mod, name, functools.partial(
+                lambda name, mod, *a, **kw: picked.setdefault(mod, name),
+                name, mod))
+        mod.sweep(*inputs, data, mode)
+    want = ("sweep_segment_chunked" if mode == "segment-chunked" or above
+            else "sweep_segment")
+    assert picked == {j_sweep: want, t_sweep: want}
+
+
+def test_cpu_tensor_never_builds(rng, monkeypatch):
+    def no_build():
+        raise AssertionError("a CPU tensor reached the kernel build")
+    monkeypatch.setattr(build, "load_library", no_build)
+    _, _, tdata, elogs = _both(rng, True)
+    before = sf.fused_segment_sweep.launches
+    for mode in ("segment", "segment-chunked"):
+        t_sweep.sweep(*_t(elogs), tdata, mode)
+    tables = tail_tables(*[torch.exp(e) for e in _t(elogs)], bf16=False)
+    got = sf.fused_segment_sweep(*tables, tdata)
+    want = segment_sweep_reference(*tables, tdata)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert sf.fused_segment_sweep.launches == before
+
+
+def test_reference_is_the_per_nonzero_loop():
+    """Both passes of the plain kernel against a literal f64 loop, on a
+    layout with padding, an untouched user and an untouched item."""
+    rng = np.random.default_rng(8)
+    u = np.array([0, 0, 2, 2, 2, 5], np.int32)
+    i = np.array([4, 1, 0, 2, 4, 3], np.int32)
+    y = np.array([1.0, 2.0, 3.0, 1.0, 4.0, 2.0], np.float32)
+    n, m = 7, 6
+    data = DeviceData(**sorted_coo(u, i, y, n, m, "cpu", 8), dense_y=None)
+    a_tab = torch.from_numpy(rng.random((n, 4)).astype(np.float32))
+    b_tab = torch.from_numpy(rng.random((m, 4)).astype(np.float32))
+    want_a = torch.zeros(n, 4, dtype=torch.float64)
+    want_b = torch.zeros(m, 4, dtype=torch.float64)
+    for j in range(u.size):
+        pr = a_tab[u[j]].double() * b_tab[i[j]].double()
+        want_a[u[j]] += float(y[j]) / pr.sum() * pr
+        want_b[i[j]] += float(y[j]) / pr.sum() * pr
+    got_a, got_b = segment_sweep_reference(a_tab, b_tab, data, block=4)
+    np.testing.assert_allclose(got_a.numpy(), want_a.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(got_b.numpy(), want_b.numpy(), rtol=1e-6)
+    assert not got_a[[1, 3, 4, 6]].any() and not got_b[5].any()
+
+
+@pytest.mark.parametrize("bad", ["dtype", "width", "mixed", "ids", "length",
+                                 "contig", "device"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    u = np.array([0, 1, 1], np.int32)
+    i = np.array([2, 0, 1], np.int32)
+    fields = sorted_coo(u, i, np.ones(3, np.float32), 3, 4, "cpu", 4)
+    a_tab, b_tab = torch.rand(3, 8), torch.rand(4, 8)
+    if bad == "dtype":
+        a_tab, b_tab = a_tab.double(), b_tab.double()
+    elif bad == "width":
+        a_tab, b_tab = a_tab[:, :6].contiguous(), b_tab[:, :6].contiguous()
+    elif bad == "mixed":
+        b_tab = torch.rand(4, 4)
+    elif bad == "ids":
+        fields["i_ids"] = fields["i_ids"].long()
+    elif bad == "length":
+        fields["y"] = fields["y"][:3]
+    elif bad == "contig":
+        a_tab = torch.rand(8, 3).T
+    else:
+        fields["y"] = torch.ones(4, device="meta")
+    with pytest.raises(ValueError):
+        sf.fused_segment_sweep(a_tab, b_tab, DeviceData(**fields,
+                                                        dense_y=None))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_nonzero_logsumexp_sum_matches_jax(rng, bias):
+    _, jdata, tdata, elogs = _both(rng, bias)
+    wts = rng.random(tdata.nnz_padded).astype(np.float32)
+    want = j_sweep.nonzero_logsumexp_sum(*_j(elogs), jdata, jnp.asarray(wts))
+    got = t_sweep.nonzero_logsumexp_sum(*_t(elogs), tdata,
+                                        torch.from_numpy(wts), chunk=50)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
+    """A changed shared header must build a new library, not load a stale
+    one."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    assert [os.path.basename(h) for h in build.headers()] == ["row_sweep.cuh"]
+    before = build.library_path()
+    with open(csrc / "row_sweep.cuh", "a") as f:
+        f.write("// changed\n")
+    assert build.library_path() != before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+def test_kernel_matches_plain_on_card(bias):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(9)
+    n, m = 900, 400
+    u = np.repeat(np.arange(0, n, 7, dtype=np.int32), 40)
+    i = rng.integers(0, m, u.size).astype(np.int32)
+    o = np.lexsort((i, u))
+    data = DeviceData(**sorted_coo(u[o], i[o], rng.integers(
+        1, 5, u.size).astype(np.float32), n, m, "cuda", 1000), dense_y=None)
+    lin = [torch.exp(0.3 * torch.randn(s, device="cuda")) for s in
+           [(n, 13), (m, 13)] + ([(n,), (m,)] if bias else [])]
+    lin += [None, None] * (not bias)
+    tables = tail_tables(*lin, bf16=False)
+    before = sf.fused_segment_sweep.launches
+    got = sf.fused_segment_sweep(*tables, data)
+    again = sf.fused_segment_sweep(*tables, data)
+    torch.cuda.synchronize()
+    assert sf.fused_segment_sweep.launches == before + 2
+    want = segment_sweep_reference(*tables, data)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)                # deterministic
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=1e-6)

@@ -103,10 +103,70 @@ def test_multi_step_equals_repeated_step(rng):
         np.testing.assert_array_equal(v, state_to_numpy(b)[key], key)
 
 
-@pytest.mark.parametrize("variant", ["mle_user", "mle_item", "canny"])
-def test_unported_variants_raise(rng, variant):
-    js, _, _ = make_synthetic(rng, n=10, m=8, density=0.5)
-    cfg = TCfg(n=js.n, m=js.m, k=2, variant=variant)
-    from hgaprec_tpu_torch.models.state import init_state
-    with pytest.raises(NotImplementedError, match="MLE/Canny"):
-        make_step(cfg)(init_state(cfg), t_build(port_store(js), "cpu"))
+# tests/test_step_golden.py:39-51: segment, dense and MLE/Canny rows
+GOLDEN = [
+    ("bpf", {}, "segment"),
+    ("bpf", {}, "dense"),
+    ("bpf", {"bias": True}, "segment"),
+    ("bpf", {"bias": True, "vb": False}, "dense"),
+    ("bpf", {"binary": True}, "dense"),
+    ("hpf", {}, "segment"),
+    ("hpf", {}, "dense"),
+    ("hpf", {"bias": True}, "dense"),
+    ("mle_user", {}, "dense"),
+    ("mle_item", {}, "dense"),
+    ("canny", {}, "segment"),
+]
+
+_ORACLE_STEP = {
+    "bpf": R.bpf_step, "hpf": R.hpf_step, "mle_user": R.mle_user_step,
+    "mle_item": R.mle_item_step,
+    "canny": lambda st, coo, c: R.mle_item_step(st, coo, c, canny=True),
+}
+
+
+@pytest.mark.parametrize("variant,kw,mode", GOLDEN)
+def test_golden_cases_match_jax_and_oracle(tmp_path, rng, variant, kw, mode):
+    """The golden cases: 4 steps from the same JAX init_state in both
+    packages and the f64 oracle, in the case's sweep mode. The port is
+    held to the JAX step on every state array (the bound above), and to
+    the oracle on the arrays test_step_golden.py checks."""
+    binary = kw.get("binary", False)
+    js, _, _ = make_synthetic(rng, n=25, m=19, k=0, density=0.4,
+                              binary=binary,
+                              rating_threshold=2 if binary else 1)
+    jcfg = JCfg(n=js.n, m=js.m, k=4, variant=variant, sweep=mode, **kw)
+    tcfg = TCfg(n=js.n, m=js.m, k=4, variant=variant, sweep=mode, **kw)
+    jstate = j_init(jcfg, seed=7)
+    tstate = state_from_numpy(_arrays(tmp_path, jstate), tcfg, "cpu")
+    oracle = R.state_from_jax(jstate, variant, jcfg.bias, jcfg.hier)
+    jdata = j_build(js, pad_multiple=128)
+    tdata = t_build(port_store(js), "cpu", pad_multiple=128)
+    coo = list(zip(js.coo_u.tolist(), js.coo_i.tolist(),
+                   js.coo_y.tolist()))
+    jstep, tstep = j_make_step(jcfg), make_step(tcfg)
+    for _ in range(4):
+        jstate = jstep(jstate, jdata)
+        tstate = tstep(tstate, tdata)
+        oracle = _ORACLE_STEP[variant](oracle, coo, _cfg_dict(jcfg))
+
+    want = _arrays(tmp_path, jstate)
+    got = state_to_numpy(tstate)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=5e-4,
+                                   atol=1e-6, err_msg=key)
+    if variant in ("bpf", "hpf"):
+        pairs = [("theta.e", "theta_e"), ("beta.e", "beta_e"),
+                 ("theta.elog", "theta_elog")]
+    elif variant == "mle_user":
+        pairs = [("theta_mle", "theta_mle"), ("beta.e", "beta_e")]
+    else:
+        pairs = [("beta_mle", "beta_mle"), ("theta.e", "theta_e")]
+    if variant == "hpf":
+        pairs += [("theta_rate.e", "xi_e"), ("beta_rate.e", "eta_e")]
+    if tcfg.bias:
+        pairs += [("theta_bias.e", "tbias_e"), ("beta_bias.e", "bbias_e")]
+    for key, okey in pairs:
+        np.testing.assert_allclose(got[key].astype(np.float64), oracle[okey],
+                                   rtol=5e-3, atol=1e-5, err_msg=key)

@@ -207,11 +207,12 @@ def test_cpu_tensor_never_builds(monkeypatch):
 
 def test_build_command_names_the_tail_source(monkeypatch):
     monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
-    cmd = build.nvcc_command("out.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    srcs = [c for c in cmd if c.endswith(".cu")]
+    srcs = build.sources()
     assert build.CSRC_DIR + "/tail_fused.cu" in srcs
     assert build.CSRC_DIR + "/dense_fused.cu" in srcs
+    cmd = build.compile_command(build.CSRC_DIR + "/tail_fused.cu", "t.o")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert build.CSRC_DIR + "/row_sweep.cuh" in build.headers()
 
 
 @pytest.mark.parametrize("bad", ["dtype", "mixed", "width", "shape",
