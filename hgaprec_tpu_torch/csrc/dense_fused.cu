@@ -37,7 +37,11 @@
 //   * bf16 ("default"): tensor cores through mma.sync, with bf16 A and B,
 //     W rounded to bf16 before the two contractions as the TPU kernel does,
 //     and f32 accumulation.
-// wgmma and TMA loads are later work.
+// The production bf16 route no longer runs this kernel: it runs the
+// wgmma/TMA design in csrc/dense_wgmma.cu. The mma.sync kernel here stays
+// as the stage probe's base (below) and behind its own production entry,
+// hpf_dense_fused_sweep_bf16, which the probe's prod stage is checked
+// against bit for bit.
 //
 // Ragged edges are masked in the kernel: Y is read in place at its own
 // row stride, never padded or copied. Rows of A or B past N or M load as
@@ -60,6 +64,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dense_roles.cuh"
 
 namespace {
 
@@ -136,52 +142,6 @@ __device__ __forceinline__ void load_rows(uint4 (&v)[kChunks],
   }
 }
 
-// ---- which rows a CTA owns and which moving tiles it sweeps -------------
-//
-// Block indices [0, tiles_b * split_b) are item-role CTAs, the rest are
-// user-role CTAs. Each role's moving tiles are cut into `split` contiguous
-// chunks, one CTA per (stationary tile, chunk). With split > 1 a CTA writes
-// its sums to its chunk's slice of the role's partial buffer, and
-// reduce_splits adds the slices in a fixed order: deterministic, no atomics.
-struct Role {
-  bool item;             // item-stationary (acc_b) or user-stationary (acc_a)
-  int x0;                // first stationary row
-  int z_begin, z_end;    // moving rows [z_begin, z_end)
-  float* out;            // the output, or this chunk's partial slice
-};
-
-__device__ __forceinline__ Role role_of(int n, int m, int kq, int split_a,
-                                        int split_b, float* acc_a,
-                                        float* acc_b, float* part_a,
-                                        float* part_b) {
-  const int tiles_b = (m + kTile - 1) / kTile;
-  int bid = blockIdx.x;
-  Role r;
-  r.item = bid < tiles_b * split_b;
-  if (!r.item) bid -= tiles_b * split_b;
-  const int split = r.item ? split_b : split_a;
-  const int tile = bid / split, s = bid - tile * split;
-  const int nx = r.item ? m : n, nz = r.item ? n : m;
-  const int len = ((nz + kTile - 1) / kTile + split - 1) / split * kTile;
-  r.x0 = tile * kTile;
-  r.z_begin = min(nz, s * len);
-  r.z_end = min(nz, (s + 1) * len);
-  r.out = split > 1 ? (r.item ? part_b : part_a) + (long long)s * nx * kq
-                    : (r.item ? acc_b : acc_a);
-  return r;
-}
-
-__global__ void reduce_splits(const float* __restrict__ part,
-                              float* __restrict__ out, int split,
-                              long long count) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < count; i += (long long)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int p = 0; p < split; ++p) acc += part[p * count + i];
-    out[i] = acc;
-  }
-}
-
 // =========================================================================
 // f32: every product as FMAs from shared-memory tiles (true f32, no TF32).
 // =========================================================================
@@ -227,8 +187,8 @@ dense_fused_f32_kernel(const float* __restrict__ a,
   float* ws = zt + kq * ldz;           // [kTile][kTile + 1]: W[x][z]
   uint8_t* ys = reinterpret_cast<uint8_t*>(ws + kTile * ldz);  // [user][item]
 
-  const Role role = role_of(n, m, kq, split_a, split_b, acc_a, acc_b,
-                            part_a, part_b);
+  const Role role = role_of<kTile, kTile>(n, m, kq, split_a, split_b, acc_a,
+                                          acc_b, part_a, part_b);
   const bool item_role = role.item;
   const float* xsrc = item_role ? b : a;
   const float* zsrc = item_role ? a : b;
@@ -413,8 +373,8 @@ dense_fused_bf16_kernel(const __nv_bfloat16* __restrict__ a,
   __nv_bfloat16* ws = zs + kTile * ldk;     // [x][z]
   uint8_t* ys = reinterpret_cast<uint8_t*>(ws + kTile * kLdT);
 
-  const Role role = role_of(n, m, kq, split_a, split_b, acc_a, acc_b,
-                            part_a, part_b);
+  const Role role = role_of<kTile, kTile>(n, m, kq, split_a, split_b, acc_a,
+                                          acc_b, part_a, part_b);
   const bool item_role = role.item;
   const __nv_bfloat16* xsrc = item_role ? b : a;
   const __nv_bfloat16* zsrc = item_role ? a : b;
@@ -580,19 +540,8 @@ int launch_kernel(Kernel kernel, size_t smem, const void* a, const void* b,
       static_cast<float*>(part_b), n, m, kq, ldy, split_a, split_b);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long counts[2] = {(long long)n * kq, (long long)m * kq};
-  const int splits[2] = {split_a, split_b};
-  void* parts[2] = {part_a, part_b};
-  void* outs[2] = {acc_a, acc_b};
-  for (int r = 0; r < 2; ++r) {
-    if (splits[r] == 1) continue;
-    const long long blocks = (counts[r] + kThreads - 1) / kThreads;
-    reduce_splits<<<(int)(blocks < 4096 ? blocks : 4096), kThreads, 0,
-                    stream>>>(static_cast<const float*>(parts[r]),
-                              static_cast<float*>(outs[r]), splits[r],
-                              counts[r]);
-  }
-  return (int)cudaGetLastError();
+  return reduce_partials(acc_a, acc_b, part_a, part_b, n, m, kq, split_a,
+                         split_b, stream);
 }
 
 template <bool kBf16, int kStage = kProd>

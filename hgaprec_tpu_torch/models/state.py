@@ -110,8 +110,9 @@ def init_arrays(cfg: ModelConfig, seed: int = 0) -> Dict[str, np.ndarray]:
     return out
 
 
-def init_state(cfg: ModelConfig, seed: int = 0, device="cpu") -> ModelState:
-    """Initial state on `device`, equal to the JAX package's init_state."""
+def init_state(cfg: ModelConfig, seed: int = 0, *, device) -> ModelState:
+    """Initial state on `device` (required: no silent CPU default), equal
+    to the JAX package's init_state."""
     return state_from_numpy(init_arrays(cfg, seed), cfg, device)
 
 

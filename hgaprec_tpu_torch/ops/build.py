@@ -98,6 +98,15 @@ def _build(out_path: str, tmpdir: str) -> str:
     return "\n".join(logs)
 
 
+def sass() -> str:
+    """The built library's machine code (cuobjdump -sass), built first if
+    no cached build matches."""
+    load_library()
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", library_path()],
+                          capture_output=True, text=True, check=True).stdout
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if no cached build matches) and load the kernel library.

@@ -9,14 +9,19 @@ uint8 count matrix Y, with W = Y / max(A B^T, 1e-30):
 The caller multiplies by A and B (and the bias expectations) to get the
 CAVI sufficient statistics (ops/sweep.py).
 
-The kernel (`csrc/dense_fused.cu`) replaces the TPU kernel
-`hgaprec_tpu/ops/dense_pallas.py::_kernel`. A sweep costs 8 N M kp FLOPs
-(four products of 2 N M kp: both of the kernel's two deterministic passes
-recompute S) against two uint8 reads of Y, about 400 FLOPs per byte at
-K = 100, so it is compute-bound on the H100. The two-pass design trades
-the fourth product for sums without atomics and no item-count limit.
+Two kernels replace the TPU kernel
+`hgaprec_tpu/ops/dense_pallas.py::_kernel`: bf16 ("default", the main
+path) runs `csrc/dense_wgmma.cu` (wgmma products on TMA-fed tiles), f32
+("highest") runs the FMA kernel of `csrc/dense_fused.cu`. A sweep costs
+8 N M kq FLOPs (four products of 2 N M kq: both of the kernels' two
+deterministic roles recompute S) against two uint8 reads of Y, about 400
+FLOPs per byte at K = 100, so it is compute-bound on the H100. The
+two-role design trades the fourth product for sums without atomics and
+no item-count limit. The bf16 `mma.sync` kernel of `csrc/dense_fused.cu`,
+the earlier design, stays in the library as the stage probe's base
+(`ops/dense_probe.py`); the production route does not run it.
 
-On a CUDA tensor `fused_dense_sweep` launches the kernel or raises; only
+On a CUDA tensor `fused_dense_sweep` launches a kernel or raises; only
 a CPU tensor takes `fused_dense_sweep_reference`, the same function in
 blocked torch ops.
 """
@@ -24,15 +29,31 @@ blocked torch ops.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from hgaprec_tpu_torch.ops import build
 
-KP_MAX = 256           # widest packed factor row the kernel takes
-TILE = 64              # the kernel's tile edge, users and items alike
-MIN_CHUNK = 16         # fewest moving tiles one CTA sweeps when split
+KP_MAX = 256           # widest packed factor row the kernels take
+TILE = 128             # stationary rows per CTA of the wgmma kernel
+
+
+class _Kernel(NamedTuple):
+    entry: str         # the library's C entry point
+    tile: int          # stationary rows per CTA (= moving rows per tile)
+    per_sm: int        # CTAs resident on one SM
+    min_chunk: int     # fewest moving tiles one CTA sweeps when split
+
+
+KERNELS = {
+    # bf16 production: csrc/dense_wgmma.cu (one 384-thread CTA per SM)
+    "wgmma": _Kernel("hpf_dense_wgmma_bf16", TILE, 1, 8),
+    # csrc/dense_fused.cu: the f32 kernel, and the earlier bf16 design
+    # (mma.sync), kept for the stage probe and its comparison
+    "f32": _Kernel("hpf_dense_fused_sweep_f32", 64, 2, 16),
+    "mma": _Kernel("hpf_dense_fused_sweep_bf16", 64, 2, 16),
+}
 _CLAMP = 1e-30
 
 
@@ -63,17 +84,48 @@ def _unpack(acc_a, acc_b, k: int, bias: bool):
     return acc_a[:, :k], acc_b[:, :k]
 
 
-def splits_for(n: int, m: int, sms: int) -> Tuple[int, int]:
+def packed_width(kaug: int, kernel: str) -> int:
+    """The zero-padded width kq of the packed rows `kernel` takes for
+    `kaug` values (K, plus 2 with bias). f32 and mma load rows in 16-byte
+    chunks (multiples of 4 and 16 values); wgmma reads them as
+    128-byte-swizzled k-blocks of 64 values and is built for kq = 64, 128
+    and 256 (K = 100 pads 112 to 128)."""
+    if kernel == "wgmma":
+        kq = next((w for w in (64, 128, 256) if kaug <= w), kaug)
+    else:
+        quantum = 4 if kernel == "f32" else 16
+        kq = -(-kaug // quantum) * quantum
+    if kq > KP_MAX:
+        raise ValueError(f"packed factor width {kq} > {KP_MAX}")
+    return kq
+
+
+def check_tma_layout(dense_y: torch.Tensor) -> None:
+    """The wgmma kernel loads Y with TMA, which needs a row stride and a
+    base that are multiples of 16 bytes (the Trainer's layouts are:
+    data/device.py, dense_count_matrix). Raises ValueError otherwise;
+    there is no byte-load fallback."""
+    if dense_y.stride(0) % 16 or dense_y.data_ptr() % 16:
+        raise ValueError(
+            f"the bf16 kernel loads Y with TMA: its row stride "
+            f"({dense_y.stride(0)} bytes) and base must be multiples of 16 "
+            f"bytes (build Y with data.device.dense_count_matrix)")
+
+
+def splits_for(n: int, m: int, sms: int,
+               kernel: str = "wgmma") -> Tuple[int, int]:
     """(split_a, split_b): chunks per user-role and item-role CTA loop.
 
     One CTA per stationary tile leaves most of the card idle when N and M
-    are small (ML-1M: 96 + 58 CTAs for 2 x 132 resident slots), so each
-    role's moving loop is cut into chunks of at least MIN_CHUNK tiles,
-    aiming at about four CTAs per resident slot. At Netflix shape the
-    chunks are thousands of tiles long and the item role splits in two."""
-    tiles_a, tiles_b = -(-n // TILE), -(-m // TILE)
-    slots = 2 * sms
-    chunk = max(MIN_CHUNK, -(-2 * tiles_a * tiles_b // (4 * slots)))
+    are small (ML-1M, wgmma: 48 + 29 CTAs for 132 SMs), so each role's
+    moving loop is cut into chunks of at least `min_chunk` tiles, aiming
+    at about four CTAs per resident slot. At Netflix shape the chunks are
+    thousands of tiles long and the item role splits in two; at the
+    EchoNest head (4096 items) the item role splits in nine."""
+    spec = KERNELS[kernel]
+    tiles_a, tiles_b = -(-n // spec.tile), -(-m // spec.tile)
+    slots = spec.per_sm * sms
+    chunk = max(spec.min_chunk, -(-2 * tiles_a * tiles_b // (4 * slots)))
     return -(-tiles_b // chunk), -(-tiles_a // chunk)
 
 
@@ -116,7 +168,9 @@ def fused_dense_sweep(a_lin: torch.Tensor, b_lin: torch.Tensor,
     a_lin f32 [N, K], b_lin f32 [M, K], dense_y u8 [>= N, >= M] (rows may
     be padded, rows may be wider than M), ba_lin/bb_lin optional f32 [N],
     [M]. bf16=True reads A and B as bf16 and rounds W to bf16 before the
-    contraction products, accumulating in f32. Returns 2 or 4 f32 tensors.
+    contraction products, accumulating in f32; on a CUDA tensor it needs
+    Y's row stride and base at multiples of 16 bytes (`check_tma_layout`).
+    Returns 2 or 4 f32 tensors.
     """
     _check(a_lin, b_lin, dense_y, ba_lin, bb_lin)
     if dense_y.device.type == "cpu":
@@ -125,42 +179,42 @@ def fused_dense_sweep(a_lin: torch.Tensor, b_lin: torch.Tensor,
     if dense_y.device.type != "cuda":
         raise ValueError(f"no kernel for device {dense_y.device}")
     acc_a, acc_b = launch_dense(a_lin, b_lin, dense_y, ba_lin, bb_lin,
-                                bf16=bf16)
+                                kernel="wgmma" if bf16 else "f32")
     if a_lin.shape[0] and b_lin.shape[0]:     # an empty side launches nothing
         fused_dense_sweep.launches += 1
     return _unpack(acc_a, acc_b, a_lin.shape[1], ba_lin is not None)
 
 
 def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
-                 bf16: bool, stage: Optional[int] = None):
-    """Pack the factors, launch the kernel on the card and return the raw
-    packed outputs (f32 [N, kq], [M, kq]). stage=None is the production
-    entry point; an int runs the bf16 kernel built for that stage of the
-    stage probe (ops/dense_probe.py). Inputs are checked by the caller."""
+                 kernel: str, stage: Optional[int] = None):
+    """Pack the factors, launch `kernel` (a key of KERNELS) on the card and
+    return the raw packed outputs (f32 [N, kq], [M, kq]). An int `stage`
+    runs the mma kernel built for that stage of the stage probe
+    (ops/dense_probe.py). Inputs are checked by the caller; the wgmma
+    kernel's Y layout is checked here."""
     n, k = a_lin.shape
     m = b_lin.shape[0]
-    quantum = 16 if bf16 else 4       # whole 16-byte chunks per row
-    kq = -(-(k + 2 if ba_lin is not None else k) // quantum) * quantum
-    if kq > KP_MAX:
-        raise ValueError(f"packed factor width {kq} > {KP_MAX}")
+    if stage is not None and kernel != "mma":
+        raise ValueError("the stage probe's stages are mma kernels")
+    kq = packed_width(k + 2 if ba_lin is not None else k, kernel)
+    if kernel == "wgmma":
+        check_tma_layout(dense_y)
     a, b = _pack(a_lin, b_lin, ba_lin, bb_lin, kq,
-                 torch.bfloat16 if bf16 else torch.float32)
+                 torch.float32 if kernel == "f32" else torch.bfloat16)
     acc_a = torch.empty((n, kq), dtype=torch.float32, device=a.device)
     acc_b = torch.empty((m, kq), dtype=torch.float32, device=a.device)
     if n == 0 or m == 0:
         return acc_a.zero_(), acc_b.zero_()
     split_a, split_b = splits_for(
-        n, m, torch.cuda.get_device_properties(a.device).multi_processor_count)
+        n, m, torch.cuda.get_device_properties(a.device).multi_processor_count,
+        kernel)
     part_a = (torch.empty((split_a, n, kq), dtype=torch.float32,
                           device=a.device) if split_a > 1 else None)
     part_b = (torch.empty((split_b, m, kq), dtype=torch.float32,
                           device=a.device) if split_b > 1 else None)
     lib = build.load_library()
-    if stage is not None:
-        fn = lib.hpf_dense_probe_bf16
-    else:
-        fn = lib.hpf_dense_fused_sweep_bf16 if bf16 else \
-            lib.hpf_dense_fused_sweep_f32
+    fn = getattr(lib, "hpf_dense_probe_bf16" if stage is not None
+                 else KERNELS[kernel].entry)
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + (
         [ctypes.c_int] if stage is not None else []) + [ctypes.c_void_p]
@@ -174,13 +228,25 @@ def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
                  dense_y.stride(0), split_a, split_b,
                  *([stage] if stage is not None else []), stream)
     if err != 0:
-        raise RuntimeError(f"dense fused sweep launch failed: cudaError {err}"
-                           f" (n={n}, m={m}, kq={kq}, bf16={bf16}, stage="
-                           f"{stage}, splits={split_a}, {split_b})")
+        raise RuntimeError(f"dense sweep launch failed: cudaError {err} "
+                           f"(n={n}, m={m}, kq={kq}, kernel={kernel}, "
+                           f"stage={stage}, splits={split_a}, {split_b})")
     return acc_a, acc_b
 
 
 fused_dense_sweep.launches = 0
+
+
+def hgmma_count() -> int:
+    """Warpgroup tensor-core instructions (HGMMA) in the wgmma kernel's
+    machine code, all instantiations: zero would mean no wgmma ran."""
+    count, inside = 0, False
+    for line in build.sass().splitlines():
+        if "Function :" in line:
+            inside = "dense_wgmma_kernel" in line
+        elif inside and "HGMMA" in line:
+            count += 1
+    return count
 
 
 def fused_dense_sweep_reference(a_lin: torch.Tensor, b_lin: torch.Tensor,

@@ -25,7 +25,6 @@ of tensor-core instructions (HMMA) in each variant's machine code.
 
 from __future__ import annotations
 
-import os
 import re
 import statistics
 import subprocess
@@ -62,7 +61,7 @@ def dense_probe(a_lin: torch.Tensor, b_lin: torch.Tensor,
     k = a_lin.shape[1]
     if -(-k // 16) * 16 > 128:
         raise ValueError(f"the probe's kernels take K <= 128, got {k}")
-    acc_a, acc_b = launch_dense(a_lin, b_lin, dense_y, bf16=True,
+    acc_a, acc_b = launch_dense(a_lin, b_lin, dense_y, kernel="mma",
                                 stage=STAGES[stage])
     if a_lin.shape[0] and b_lin.shape[0]:
         dense_probe.launches += 1
@@ -70,6 +69,18 @@ def dense_probe(a_lin: torch.Tensor, b_lin: torch.Tensor,
 
 
 dense_probe.launches = 0
+
+
+def mma_sweep(a_lin: torch.Tensor, b_lin: torch.Tensor,
+              dense_y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(raw_a, raw_b) of the earlier bf16 design's production entry
+    (`hpf_dense_fused_sweep_bf16`, the mma.sync kernel the probe's stages
+    are built from; no bias), on the card: what the prod stage is held to
+    bit for bit. The production route runs csrc/dense_wgmma.cu instead."""
+    _check(a_lin, b_lin, dense_y, None, None)
+    k = a_lin.shape[1]
+    acc_a, acc_b = launch_dense(a_lin, b_lin, dense_y, kernel="mma")
+    return acc_a[:, :k], acc_b[:, :k]
 
 
 def _weights(stage: str, s: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -141,11 +152,7 @@ def mma_counts() -> Dict[str, int]:
     """Tensor-core instructions (HMMA) in each stage's kernel, read from
     the built library's machine code with cuobjdump: a stage whose count
     fell to zero had its products folded away."""
-    lib = build.library_path()
-    build.load_library()
-    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, check=True).stdout
+    sass = build.sass()
     names = {v: s for s, v in STAGES.items()}
     counts: Dict[str, int] = {}
     stage = None

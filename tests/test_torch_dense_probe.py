@@ -164,5 +164,5 @@ def test_stage_kernel_matches_plain_on_card(stage):
         rel = (g - w).abs() / w.abs().clamp_min(1e-3)
         assert rel.max().item() < BF16_REL
     if stage == "prod":
-        prod = df.fused_dense_sweep(a, b, y, bf16=True)
+        prod = dp.mma_sweep(a, b, y)
         assert all(torch.equal(g, p) for g, p in zip(got, prod))

@@ -112,19 +112,74 @@ def test_build_command_targets_sm90a_from_csrc(monkeypatch):
     assert build.library_path().startswith(build.BUILD_DIR + "/")
 
 
-@pytest.mark.parametrize("n,m,want", [
-    (6040, 3681, (4, 6)),        # ML-1M: 732 CTAs of 15-16 tiles
-    (480189, 17770, (1, 2)),     # Netflix: long loops, item role halved
-    (40, 30, (1, 1)),
+@pytest.mark.parametrize("n,m,kernel,want", [
+    (6040, 3681, "wgmma", (4, 6)),       # ML-1M: 366 CTAs of 7-8 tiles
+    (480189, 17770, "wgmma", (1, 2)),    # Netflix: long loops, item role halved
+    (40, 30, "wgmma", (1, 1)),
+    (962399, 4096, "wgmma", (1, 9)),     # EchoNest head: 32 item tiles
+    (6040, 3681, "mma", (4, 6)),         # the 64-row designs: 732 CTAs
+    (480189, 17770, "f32", (1, 2)),
 ])
-def test_kernel_splits_fill_the_card(n, m, want):
+def test_kernel_splits_fill_the_card(n, m, kernel, want):
     """The moving-loop chunks the wrapper asks for on a 132-SM H100."""
-    split_a, split_b = df.splits_for(n, m, sms=132)
+    split_a, split_b = df.splits_for(n, m, sms=132, kernel=kernel)
     assert (split_a, split_b) == want
-    tiles_a, tiles_b = -(-n // df.TILE), -(-m // df.TILE)
-    # enough CTAs for two per SM wherever chunks of MIN_CHUNK tiles allow
+    spec = df.KERNELS[kernel]
+    tiles_a, tiles_b = -(-n // spec.tile), -(-m // spec.tile)
+    # enough CTAs to fill every resident slot wherever chunks of min_chunk
+    # tiles allow
     ctas = tiles_a * split_a + tiles_b * split_b
-    assert ctas >= min(2 * 132, 2 * tiles_a * tiles_b // df.MIN_CHUNK)
+    assert ctas >= min(spec.per_sm * 132,
+                       2 * tiles_a * tiles_b // spec.min_chunk)
+
+
+@pytest.mark.parametrize("kaug,kernel,want", [
+    (100, "wgmma", 128),     # K = 100: 112 would not fill a 128-byte row
+    (102, "wgmma", 128),     # with bias
+    (13, "wgmma", 64),
+    (64, "wgmma", 64),
+    (200, "wgmma", 256),
+    (100, "mma", 112),
+    (102, "f32", 104),
+    (13, "f32", 16),
+])
+def test_packed_width_per_kernel(kaug, kernel, want):
+    assert df.packed_width(kaug, kernel) == want
+
+
+@pytest.mark.parametrize("kernel", ["wgmma", "mma", "f32"])
+def test_packed_width_rejects_wide_rows(kernel):
+    with pytest.raises(ValueError):
+        df.packed_width(257, kernel)
+
+
+def test_tma_layout_check():
+    """The bf16 route loads Y with TMA: a row stride and base that are
+    multiples of 16 bytes pass, anything else raises ValueError."""
+    from hgaprec_tpu_torch.data.device import dense_count_matrix
+    df.check_tma_layout(dense_count_matrix(7, 29, "cpu"))       # stride 32
+    df.check_tma_layout(torch.zeros(5, 48, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="16 bytes"):
+        df.check_tma_layout(torch.zeros(5, 29, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="16 bytes"):   # base 1 byte in
+        df.check_tma_layout(torch.zeros(5, 48, dtype=torch.uint8)[:, 1:30])
+
+
+def test_wgmma_route_checks_y_before_building(monkeypatch):
+    def no_build():
+        raise AssertionError("an unaligned Y reached the kernel build")
+    monkeypatch.setattr(build, "load_library", no_build)
+    a, b = torch.rand(6, 3), torch.rand(5, 3)
+    with pytest.raises(ValueError, match="TMA"):
+        df.launch_dense(a, b, torch.zeros(6, 5, dtype=torch.uint8),
+                        kernel="wgmma")
+
+
+def test_probe_stages_stay_on_the_mma_kernel():
+    a, b = torch.rand(6, 3), torch.rand(5, 3)
+    y = torch.zeros(6, 16, dtype=torch.uint8)[:, :5]
+    with pytest.raises(ValueError, match="mma"):
+        df.launch_dense(a, b, y, kernel="wgmma", stage=0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contig", "ystride",
@@ -147,6 +202,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         df.fused_dense_sweep(a, b, y, **kw)
 
 
+def _card_inputs(n, m, k, bias, aligned, seed=0):
+    """Factors and a ragged Y on the card: rows past N and columns past M
+    are zero; aligned=True gives the Trainer's 16-byte row stride (the
+    bf16 route needs it), else contiguous rows of M + 5 bytes."""
+    from hgaprec_tpu_torch.data.device import dense_count_matrix
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lin = [torch.exp(0.3 * torch.randn(s, device="cuda", generator=g))
+           for s in ([(n, k), (m, k)] + ([(n,), (m,)] if bias else []))]
+    y = (dense_count_matrix(n + 24, m, "cuda") if aligned else
+         torch.zeros((n + 24, m + 5), dtype=torch.uint8, device="cuda"))
+    y[:n, :m] = ((torch.rand(n, m, device="cuda", generator=g) < 0.05)
+                 * torch.randint(1, 6, (n, m), device="cuda", generator=g))
+    return lin, y
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("bf16", [False, True])
@@ -154,15 +224,9 @@ def test_kernel_matches_plain_on_card(bias, bf16):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator(device="cuda").manual_seed(0)
-    n, m, k = 1000, 777, 13
-    lin = [torch.exp(0.3 * torch.randn(s, device="cuda", generator=g))
-           for s in ([(n, k), (m, k)] + ([(n,), (m,)] if bias else []))]
-    y = ((torch.rand(n + 24, m + 5, device="cuda", generator=g) < 0.05)
-         * torch.randint(1, 6, (n + 24, m + 5), device="cuda",
-                         generator=g)).to(torch.uint8)
-    y[n:] = 0
-    y[:, m:] = 0
+    # an unaligned Y stays on the f32 route only: the bf16 route loads Y
+    # with TMA
+    lin, y = _card_inputs(1000, 777, 13, bias, aligned=bf16)
     before = df.fused_dense_sweep.launches
     got = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
     torch.cuda.synchronize()
@@ -173,3 +237,24 @@ def test_kernel_matches_plain_on_card(bias, bf16):
             assert ((gg - r).abs() / r.abs().clamp_min(1e-3)).max() < 2e-2
         else:
             torch.testing.assert_close(gg, r, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,k", [(1000, 777, 13), (333, 129, 100),
+                                   (517, 300, 200), (64, 1, 7)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_wgmma_kernel_matches_plain_and_repeats(n, m, k, bias):
+    """The bf16 route (csrc/dense_wgmma.cu) on ragged shapes: within bf16
+    relative 2e-2 of the plain version in bf16 (clamp 1e-3), and two
+    launches bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lin, y = _card_inputs(n, m, k, bias, aligned=True, seed=n + k)
+    got = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=True)
+    again = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=True)
+    torch.cuda.synchronize()
+    ref = df.fused_dense_sweep_reference(*lin[:2], y, *lin[2:], bf16=True)
+    for gg, aa, r in zip(got, again, ref):
+        assert torch.equal(gg, aa)
+        assert ((gg - r).abs() / r.abs().clamp_min(1e-3)).max() < 2e-2

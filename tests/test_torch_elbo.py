@@ -108,7 +108,7 @@ def test_training_elbo_matches_reference(rng):
     js, _, _ = make_synthetic(rng, n=20, m=15, density=0.4)
     cfg = TCfg(n=js.n, m=js.m, k=4, variant="hpf", sweep="segment")
     data = t_build(port_store(js), "cpu", pad_multiple=128)
-    state = init_state(cfg, seed=7)
+    state = init_state(cfg, seed=7, device="cpu")
     st = R.state_from_jax(state, "hpf", False, True)
     coo = list(zip(js.coo_u.tolist(), js.coo_i.tolist(), js.coo_y.tolist()))
     step = make_step(cfg)
@@ -130,7 +130,7 @@ def test_true_elbo_monotone_in_segment_mode(rng, variant, kw):
     js, _, _ = make_synthetic(rng, n=30, m=25, density=0.35, binary=binary)
     cfg = TCfg(n=js.n, m=js.m, k=5, variant=variant, sweep="segment", **kw)
     data = t_build(port_store(js), "cpu", pad_multiple=128)
-    state = init_state(cfg, seed=3)
+    state = init_state(cfg, seed=3, device="cpu")
     step = make_step(cfg)
     vals = []
     for _ in range(15):

@@ -32,7 +32,7 @@ def test_init_state_bit_equal(tmp_path, variant, kw):
     j_save_npz(str(tmp_path / "j.npz"), jstate, 0)
     ref = _jax_arrays(tmp_path / "j.npz")
     got = state_to_numpy(init_state(TCfg(n=23, m=17, k=5, variant=variant,
-                                         **kw), seed=11))
+                                         **kw), seed=11, device="cpu"))
     assert sorted(got) == sorted(ref)
     for key in ref:
         assert got[key].dtype == ref[key].dtype, key
@@ -57,11 +57,18 @@ def test_numpy_round_trip(tmp_path, variant, kw):
 
 
 def test_state_to_numpy_owns_its_copy():
-    state = init_state(TCfg(n=4, m=3, k=2, variant="hpf"), seed=0)
+    state = init_state(TCfg(n=4, m=3, k=2, variant="hpf"), seed=0,
+                       device="cpu")
     snap = state_to_numpy(state)
     before = snap["theta.e"].copy()
     state.theta.e.add_(1.0)              # the step writes in place
     np.testing.assert_array_equal(snap["theta.e"], before)
+
+
+def test_init_state_needs_a_device():
+    """No silent CPU default: the caller names the device."""
+    with pytest.raises(TypeError):
+        init_state(TCfg(n=4, m=3, k=2, variant="hpf"), seed=0)
 
 
 def test_expectations_match():

@@ -93,8 +93,8 @@ def test_multi_step_equals_repeated_step(rng):
     cfg = TCfg(n=js.n, m=js.m, k=3, variant="hpf")
     data = t_build(port_store(js), "cpu")
     from hgaprec_tpu_torch.models.state import init_state
-    a = init_state(cfg, seed=1)
-    b = init_state(cfg, seed=1)
+    a = init_state(cfg, seed=1, device="cpu")
+    b = init_state(cfg, seed=1, device="cpu")
     a = make_multi_step(cfg)(a, data, 4)
     step = make_step(cfg)
     for _ in range(4):
