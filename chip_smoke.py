@@ -40,6 +40,9 @@ N_NF, M_NF = 480189, 17770             # Netflix preset
 F32_TOL = dict(rtol=2e-4, atol=1e-5)   # tests/test_dense_pallas.py:28-31
 BF16_REL = 2e-2                        # tests/test_dense_pallas.py:107-110
 CPU_REL = 1e-4
+# one H100 SXM (the on-chip-measurement guide's table): HBM bytes/s, dense
+# bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 TAIL_F32_TOL = dict(rtol=2e-5, atol=1e-6)   # tests/test_pallas_tail.py:62-63
 SEG_TOL = dict(rtol=2e-4, atol=1e-5)        # tests/test_sweep.py:62-65
 N_EN, M_EN = 1019318, 384546           # EchoNest preset (run.pl:84-87)
@@ -76,17 +79,32 @@ def median_ms(fn, reps):
     return statistics.median(times)
 
 
-def random_inputs(gen, n, m, k, rows, bias, density, aligned=True):
-    """Factors and a random u8 Y. aligned: Y in the Trainer's layout (row
-    stride a multiple of 16 bytes); else contiguous rows of m bytes, which
-    takes the kernel's byte-load path."""
+def bound(nbytes, flops, peak):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of `nbytes` over the HBM rate and `flops` over `peak`."""
+    by_bytes, by_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
+
+
+def dense_bound(n, m, k, bf16=True):
+    """The dense sweep's bound: three products of 2 N M kq (kq = K rounded
+    up to 16, the function's width in bf16) against Y, the factors and the
+    outputs each moved once."""
+    kq = -(-k // 16) * 16
+    return bound(n * m + 2 * 4 * k * (n + m), 6 * n * m * kq,
+                 BF16_FLOPS if bf16 else F32_FLOPS)
+
+
+def random_inputs(gen, n, m, k, rows, bias, density):
+    """Factors and a random u8 Y in the Trainer's layout (row stride a
+    multiple of 16 bytes), zero past row n."""
     from hgaprec_tpu_torch.data.device import dense_count_matrix
     dev = "cuda"
     shapes = [(n, k), (m, k)] + ([(n,), (m,)] if bias else [])
     lin = [torch.exp(0.3 * torch.randn(s, device=dev, generator=gen))
            for s in shapes]
-    y = (dense_count_matrix(rows, m, dev) if aligned else
-         torch.zeros((rows, m), dtype=torch.uint8, device=dev))
+    y = dense_count_matrix(rows, m, dev)
     nnz = 0
     for r0 in range(0, n, 32768):       # chunks keep the f32 draws small
         r1 = min(r0 + 32768, n)
@@ -111,42 +129,66 @@ def compare(got, ref, bf16):
     return err, bool(ok)
 
 
-def phase_kernel(df, gen):
-    """Kernel against its plain version at a ragged and the ML-1M shape."""
+def phase_kernel(df, dp, gen):
+    """Kernel against its plain version at a ragged and the ML-1M shape.
+    The bf16 route (csrc/dense_wgmma.cu) reads an aligned Y with ragged N
+    and M and is timed beside the mma.sync design (the probe's prod stage)
+    and its bound; its two launches must be bitwise equal. The f32 route
+    also reads the ragged Y unaligned (contiguous rows of M bytes)."""
     main = None
-    for n, m, k, rows in ((1000, 777, 13, 1000), (N_ML, M_ML, K, 6144)):
+    for n, m, k, rows in ((1000, 777, 13, 1024), (N_ML, M_ML, K, 6144)):
         for bias in (False, True):
-            lin, y, _ = random_inputs(gen, n, m, k, rows, bias, 0.045,
-                                      aligned=(n == N_ML))
+            lin, y, _ = random_inputs(gen, n, m, k, rows, bias, 0.045)
             ref32 = df.fused_dense_sweep_reference(*lin[:2], y, *lin[2:])
             for bf16 in (False, True):
-                got = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
+                yy = y if bf16 or n == N_ML else y.contiguous()
+                got = df.fused_dense_sweep(*lin[:2], yy, *lin[2:], bf16=bf16)
+                again = df.fused_dense_sweep(*lin[:2], yy, *lin[2:],
+                                             bf16=bf16)
                 torch.cuda.synchronize()
                 err, ok = compare(got, ref32, bf16)
-                like = df.fused_dense_sweep_reference(*lin[:2], y, *lin[2:],
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                like = df.fused_dense_sweep_reference(*lin[:2], yy, *lin[2:],
                                                       bf16=bf16)
                 err_like = compare(got, like, bf16)[0]
                 ms = median_ms(lambda: df.fused_dense_sweep(
-                    *lin[:2], y, *lin[2:], bf16=bf16), 20)
+                    *lin[:2], yy, *lin[2:], bf16=bf16), 20)
                 plain_ms = median_ms(lambda: df.fused_dense_sweep_reference(
-                    *lin[:2], y, *lin[2:], bf16=bf16), 20)
-                say(f"kernel {n}x{m}x{k} rows={rows} ldy={y.stride(0)} "
-                    f"bias={bias} bf16={bf16}: max_abs_err vs f32 plain {err:.3e} "
-                    f"(vs plain in the same mode {err_like:.3e}) "
-                    f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms (median of 20)")
-                if not ok:
+                    *lin[:2], yy, *lin[2:], bf16=bf16), 20)
+                line = (f"kernel {n}x{m}x{k} rows={rows} ldy={yy.stride(0)} "
+                        f"bias={bias} bf16={bf16}: max_abs_err vs f32 plain "
+                        f"{err:.3e} (vs plain in the same mode "
+                        f"{err_like:.3e}), two launches bitwise "
+                        f"{'equal' if same else 'DIFFERENT'} "
+                        f"{'ok' if ok and same else 'FAIL'}; kernel "
+                        f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20)")
+                mma_ms = None
+                if bf16:
+                    bound_ms, bound_by = dense_bound(n, m, k)
+                    if not bias:      # the probe's kernels take no bias
+                        mma_ms = median_ms(lambda: dp.dense_probe(
+                            *lin[:2], yy, "prod"), 20)
+                    line += (f"; mma.sync design (probe prod) "
+                             f"{'%.4f ms' % mma_ms if mma_ms else 'n/a'}"
+                             f"; bound {bound_ms:.4f} ms ({bound_by})")
+                say(line)
+                if not (ok and same):
                     raise SystemExit(f"kernel disagrees with its plain "
-                                     f"version at {n}x{m}x{k}")
+                                     f"version or itself at {n}x{m}x{k}")
                 if (n, bias, bf16) == (N_ML, False, True):
                     # the main path's configuration: HPF, no bias, bf16
                     main = dict(max_abs_err=err_like, ms=ms,
-                                plain_ms=plain_ms)
+                                plain_ms=plain_ms, ms_mma=mma_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=None)
             del lin, y, ref32
     return main
 
 
 def phase_netflix(df, gen):
+    """One sweep at Netflix shape in both modes against the plain version,
+    then the stage probe on the same Y; the bf16 route must be no slower
+    than the mma.sync design (the probe's prod stage, same Y)."""
     rows = -(-N_NF // 512) * 512
     t0 = time.perf_counter()
     lin, y, nnz = random_inputs(gen, N_NF, M_NF, K, rows, False, 0.01)
@@ -154,6 +196,7 @@ def phase_netflix(df, gen):
     say(f"netflix: Y u8 {rows}x{M_NF} ({y.numel() / 1e9:.2f} GB, "
         f"{nnz:,} nonzeros) made on the card in "
         f"{time.perf_counter() - t0:.1f} s")
+    kernel_ms = {}
     for bf16 in (False, True):
         got = df.fused_dense_sweep(*lin, y, bf16=bf16)
         ref = df.fused_dense_sweep_reference(*lin, y)
@@ -168,19 +211,34 @@ def phase_netflix(df, gen):
             f"{plain_ms:.2f} ms (median of 3)")
         if not ok:
             raise SystemExit("netflix-shape sweep disagrees with plain")
+        kernel_ms[bf16] = ms
         del got, ref
     probe = phase_probe(df, gen, lin, y)
+    ms, mma_ms = kernel_ms[True], probe["ms"]
+    bound_ms, bound_by = dense_bound(N_NF, M_NF, K)
+    kq = -(-K // 16) * 16
+    say(f"netflix bf16: wgmma kernel {ms:.2f} ms "
+        f"({6 * N_NF * M_NF * kq / ms / 1e9:.1f} TFLOP/s of 6 N M kq, "
+        f"{8 * N_NF * M_NF * kq / ms / 1e9:.1f} of 8 N M kq, kq = {kq}); "
+        f"mma.sync design (probe prod, same Y) {mma_ms:.2f} ms; bound "
+        f"{bound_ms:.2f} ms ({bound_by}) "
+        f"{'ok' if ms <= mma_ms else 'FAIL'}")
+    if ms > mma_ms:
+        raise SystemExit("the wgmma kernel is slower than the mma.sync "
+                         "design at Netflix shape")
     del lin, y
     torch.cuda.empty_cache()
-    return probe
+    return probe, dict(ms_netflix=ms, ms_mma_netflix=mma_ms,
+                       bound_ms_netflix=bound_ms)
 
 
 def phase_probe(df, gen, lin, y):
     """The dense kernel's stage probe (kernel #3): every stage timed on
     the Netflix Y through the probe's own entry (the path whose launches
-    count), then each stage against its plain version at ML-1M shape,
-    prod bitwise equal to the production kernel, and the tensor-core
-    instructions each stage kept."""
+    count), then each stage against its plain version at ML-1M shape;
+    prod bitwise equal to the mma.sync design's production entry and
+    within bf16 tolerance of the bf16 route (csrc/dense_wgmma.cu), on both
+    shapes; the tensor-core instructions each stage kept."""
     from hgaprec_tpu_torch.ops import dense_probe as dp
     dp.dense_probe.launches = 0
     times = dp.time_stages(*lin, y, dp.STAGES, 3)
@@ -198,9 +256,17 @@ def phase_probe(df, gen, lin, y):
         say(f"probe {N_NF}x{M_NF}x{K} {s:9s}: kernel {times[s]:.2f} ms "
             f"({8 * N_NF * M_NF * kq / times[s] / 1e9:.1f} TFLOP/s of "
             f"8 N M kq), plain {plain[s]:.2f} ms")
-    same = all(torch.equal(a, b) for a, b in zip(
-        dp.dense_probe(*lin, y, "prod"), df.fused_dense_sweep(*lin, y,
-                                                              bf16=True)))
+
+    def against_production(*inputs):
+        prod = dp.dense_probe(*inputs, "prod")
+        same = all(torch.equal(a, b)
+                   for a, b in zip(prod, dp.mma_sweep(*inputs)))
+        close = all(((a - b).abs() / b.abs().clamp_min(1e-3)).max().item()
+                    < BF16_REL for a, b in
+                    zip(prod, df.fused_dense_sweep(*inputs, bf16=True)))
+        return same, close
+
+    same, close = against_production(*lin, y)
     lin_ml, y_ml, _ = random_inputs(gen, N_ML, M_ML, K, 6144, False, 0.045)
     errs = {}
     for s in dp.STAGES:
@@ -215,17 +281,20 @@ def phase_probe(df, gen, lin, y):
         if not ok:
             raise SystemExit(f"probe stage {s} disagrees with its plain "
                              f"version")
-    same &= all(torch.equal(a, b) for a, b in zip(
-        dp.dense_probe(*lin_ml, y_ml, "prod"),
-        df.fused_dense_sweep(*lin_ml, y_ml, bf16=True)))
-    say(f"probe prod vs fused_dense_sweep(bf16=True), Netflix and ML-1M: "
-        f"{'bitwise equal ok' if same else 'DIFFERENT'}")
-    if not same:
-        raise SystemExit("the probe's prod stage is not the production "
-                         "kernel")
+    same_ml, close_ml = against_production(*lin_ml, y_ml)
+    same &= same_ml
+    close &= close_ml
+    say(f"probe prod vs the mma.sync production entry, Netflix and ML-1M: "
+        f"{'bitwise equal ok' if same else 'DIFFERENT'}; vs the bf16 route "
+        f"(wgmma): {'within bf16 rel 2e-2 ok' if close else 'FAIL'}")
+    if not (same and close):
+        raise SystemExit("the probe's prod stage is not the mma.sync "
+                         "production kernel, or strays from the bf16 route")
+    bound_ms, bound_by = dense_bound(N_NF, M_NF, K)
     return dict(launches=launches, max_abs_err=max(errs.values()),
-                ms=times["prod"], plain_ms=plain["prod"],
-                stage_ms=times, stage_plain_ms=plain, hmma=counts)
+                ms=times["prod"], plain_ms=plain["prod"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, stage_ms=times,
+                stage_plain_ms=plain, hmma=counts)
 
 
 def train(datdir, outdir, precision, max_iterations, rfreq, device):
@@ -460,8 +529,17 @@ def check_tail(name, n, m, k, stream, gen, bias, reps):
             raise SystemExit(f"tail kernel disagrees with its plain version "
                              f"[{name}] bias={bias} bf16={bf16}")
         if bf16:
+            # bound: the tables, both sorted streams and the outputs moved
+            # once; dot and axpy of kq per nonzero in each half, f32 FMAs
+            once = sum(x.nbytes for x in (a_t, b_t, stream.u, stream.i,
+                                          stream.y, stream.i_by_item,
+                                          stream.u_by_item, stream.y_by_item))
+            bound_ms, bound_by = bound(once + 4 * kq * (n + m),
+                                       8 * stream.nnz * kq, F32_FLOPS)
             out = dict(max_abs_err=err_like, ms=ms, plain_ms=plain_ms,
-                       gbps=nbytes / ms / 1e6)
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                       gbps=nbytes / ms / 1e6,
+                       bound_ms_gathered=nbytes / HBM_BPS * 1e3)
     del lin, ref32
     return out
 
@@ -528,8 +606,15 @@ def check_segment(name, data, lin, reps):
     if not (ok and same_bits and zero):
         raise SystemExit(f"segment kernel disagrees with its plain version "
                          f"[{name}] bias={bias}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                gbps=nbytes / ms / 1e6)
+    # bound: the tables, the COO arrays the kernel reads and the outputs
+    # moved once; dot and axpy of kq per nonzero in each pass, f32 FMAs
+    once = sum(x.nbytes for x in (a_t, b_t, data.u_ids, data.i_ids, data.y,
+                                  data.item_order, data.i_ids_sorted,
+                                  data.u_ids_by_item))
+    bound_ms, bound_by = bound(once + 4 * kq * (n + m), 8 * p * kq, F32_FLOPS)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, gbps=nbytes / ms / 1e6,
+                bound_ms_gathered=nbytes / HBM_BPS * 1e3)
 
 
 def phase_segment_layouts(gen):
@@ -776,33 +861,49 @@ def phase_echonest(df, tf, tr, gen, smi):
             abs(data.tail.nnz / EN_TAIL - 1) > 1e-2):
         raise SystemExit("the EchoNest layout is not the expected hybrid")
 
-    # the head kernel at the head shape (offsets past 2^31 bytes of Y)
+    # the head kernel at the head shape (offsets past 2^31 bytes of Y): the
+    # bf16 route twice (bitwise equal), beside the mma.sync design (the
+    # probe's prod stage) and its bound
+    from hgaprec_tpu_torch.ops import dense_probe as dp
     n, m = tr.store.n, tr.store.m
     a_lin = torch.exp(0.3 * torch.randn((n, K), device="cuda",
                                         generator=gen))
     b_head = torch.exp(0.3 * torch.randn((t, K), device="cuda",
                                          generator=gen))
-    ref = df.fused_dense_sweep_reference(a_lin, b_head, data.head_dense_y)
+    hy = data.head_dense_y
+    ref = df.fused_dense_sweep_reference(a_lin, b_head, hy)
     head = {}
     for bf16 in (False, True):
         kq = -(-K // (16 if bf16 else 4)) * (16 if bf16 else 4)
-        got = df.fused_dense_sweep(a_lin, b_head, data.head_dense_y,
-                                   bf16=bf16)
+        got = df.fused_dense_sweep(a_lin, b_head, hy, bf16=bf16)
+        again = df.fused_dense_sweep(a_lin, b_head, hy, bf16=bf16)
         torch.cuda.synchronize()
         err, ok = compare(got, ref, bf16)
+        ok &= all(torch.equal(a, b) for a, b in zip(got, again))
+        del got, again
         ms = median_ms(lambda: df.fused_dense_sweep(
-            a_lin, b_head, data.head_dense_y, bf16=bf16), 5)
+            a_lin, b_head, hy, bf16=bf16), 5)
         plain_ms = median_ms(lambda: df.fused_dense_sweep_reference(
-            a_lin, b_head, data.head_dense_y, bf16=bf16), 3)
-        say(f"head kernel {n}x{t}x{K} ldy={data.head_dense_y.stride(0)} "
-            f"bf16={bf16}: max_abs_err vs f32 plain {err:.3e} "
-            f"{'ok' if ok else 'FAIL'}; kernel {ms:.2f} ms, plain "
-            f"{plain_ms:.2f} ms; {8 * n * t * kq / ms / 1e9:.1f} TFLOP/s "
-            f"of 8 N T kq (kq = {kq})")
+            a_lin, b_head, hy, bf16=bf16), 3)
+        line = (f"head kernel {n}x{t}x{K} ldy={hy.stride(0)} bf16={bf16}: "
+                f"max_abs_err vs f32 plain {err:.3e}, two launches bitwise "
+                f"equal {'ok' if ok else 'FAIL'}; kernel {ms:.2f} ms, plain "
+                f"{plain_ms:.2f} ms; {8 * n * t * kq / ms / 1e9:.1f} TFLOP/s "
+                f"of 8 N T kq (kq = {kq})")
+        mma_ms = bound_ms = None
+        if bf16:
+            mma_ms = median_ms(lambda: dp.dense_probe(a_lin, b_head, hy,
+                                                      "prod"), 5)
+            bound_ms, bound_by = dense_bound(n, t, K)
+            ok &= ms <= mma_ms
+            line += (f"; mma.sync design (probe prod) {mma_ms:.2f} ms; bound "
+                     f"{bound_ms:.2f} ms ({bound_by})")
+        say(line)
         if not ok:
-            raise SystemExit("head kernel disagrees with its plain version")
-        head[bf16] = (ms, plain_ms)
-    del a_lin, b_head, ref, got
+            raise SystemExit("head kernel disagrees with its plain version or "
+                             "itself, or is slower than the mma.sync design")
+        head[bf16] = (ms, plain_ms, mma_ms, bound_ms)
+    del a_lin, b_head, ref
 
     # the tail kernel on the EchoNest tail, before training
     tail = check_tail("echonest tail", n, m, K, data.tail, gen, False, 5)
@@ -855,6 +956,8 @@ def phase_echonest(df, tf, tr, gen, smi):
     hd = data.head_items.long()
     head_ms = median_ms(lambda: df.fused_dense_sweep(
         a_lin, b_lin[hd], data.head_dense_y, bf16=True), 10)
+    head_mma_ms = median_ms(lambda: dp.dense_probe(
+        a_lin, b_lin[hd], data.head_dense_y, "prod"), 5)
     a_t, b_t = tl.tail_tables(a_lin, b_lin, None, None, bf16=True)
     s = data.tail
     tail_ms = median_ms(lambda: (
@@ -873,10 +976,13 @@ def phase_echonest(df, tf, tr, gen, smi):
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     say(f"echonest steady state {ms_iter:.2f} ms/iter = "
         f"{1e3 / ms_iter:.2f} iters/s (median of 5 windows of 10; range "
-        f"{ms_lo:.2f}-{ms_hi:.2f}): head kernel {head_ms:.2f} ms, tail "
-        f"kernel {tail_ms:.2f} ms (both halves), rest "
+        f"{ms_lo:.2f}-{ms_hi:.2f}): head kernel {head_ms:.2f} ms "
+        f"({100 * head_ms / ms_iter:.0f}%; the mma.sync design takes "
+        f"{head_mma_ms:.2f} ms on the same state), tail kernel "
+        f"{tail_ms:.2f} ms (both halves), rest "
         f"{ms_iter - head_ms - tail_ms:.2f} ms")
-    return dict(launches=launches, tail=tail, head=head)
+    return dict(launches=launches, tail=tail, head=head, ms_iter=ms_iter,
+                head_ms_trained=head_ms)
 
 
 def phase_hybrid_cpu_reference(root):
@@ -935,6 +1041,7 @@ def main():
     from hgaprec_tpu_torch.data.synthetic import write_pf_dataset
     from hgaprec_tpu_torch.ops import build
     from hgaprec_tpu_torch.ops import dense_fused as df
+    from hgaprec_tpu_torch.ops import dense_probe as dp
     from hgaprec_tpu_torch.ops import tail_fused as tf
 
     set_matmul_precision("highest")     # plain f32 references: no TF32
@@ -954,14 +1061,31 @@ def main():
         f"nvcc per source in parallel, in {time.perf_counter() - t0:.1f} s")
     if os.path.exists(build.build_log_path()):
         with open(build.build_log_path()) as f:
-            for line in f:
-                if line.startswith("==") or "registers" in line or \
-                        "spill" in line or "Compiling entry" in line:
-                    say(f"  {line.strip()}")
+            log = f.read()
+        for line in log.splitlines():
+            if line.startswith("==") or "registers" in line or \
+                    "spill" in line or "Compiling entry" in line or \
+                    "Potential Performance Loss" in line:
+                say(f"  {line.strip()}")
+        # the bf16 route's kernel must build with no spills
+        start = log.index("== dense_wgmma.cu")
+        end = log.find("\n==", start)
+        wgmma = log[start:end if end >= 0 else len(log)]
+        spills = [x.strip() for x in wgmma.splitlines()
+                  if "spill stores" in x and
+                  not x.strip().startswith("0 bytes stack frame, 0 bytes "
+                                           "spill stores, 0 bytes spill")]
+        if spills:
+            raise SystemExit(f"csrc/dense_wgmma.cu spills: {spills}")
+    hgmma = df.hgmma_count()
+    say(f"warpgroup tensor-core instructions (HGMMA) in the SASS of "
+        f"csrc/dense_wgmma.cu: {hgmma} {'ok' if hgmma else 'FAIL'}")
+    if not hgmma:
+        raise SystemExit("the bf16 route's kernel has no wgmma in its SASS")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    main_kernel = phase_kernel(df, gen)
-    probe = phase_netflix(df, gen)
+    main_kernel = phase_kernel(df, dp, gen)
+    probe, netflix = phase_netflix(df, gen)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         datdir = os.path.join(root, "data")
@@ -986,40 +1110,39 @@ def main():
         seg_small = phase_segment_cpu_reference(root)
 
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    head_ms, head_plain_ms, head_mma_ms, head_bound_ms = en["head"][True]
     say(json.dumps({"kernels": [
         {"name": "fused_dense_sweep", "route": "cuda",
-         "source": "hgaprec_tpu_torch/csrc/dense_fused.cu",
+         "source": "hgaprec_tpu_torch/csrc/dense_wgmma.cu",
          "replaces": "hgaprec_tpu/ops/dense_pallas.py:50",
          "launches": launches + en["launches"][0],
          "launches_by_path": {"ml1m_dense": launches,
                               "echonest_hybrid": en["launches"][0]},
-         **main_kernel,
-         "ms_echonest_head_bf16": en["head"][True][0],
-         "plain_ms_echonest_head_bf16": en["head"][True][1]},
+         **main_kernel, "hgmma": hgmma, **netflix,
+         "ms_echonest_head_bf16": head_ms,
+         "ms_mma_echonest_head_bf16": head_mma_ms,
+         "plain_ms_echonest_head_bf16": head_plain_ms,
+         "bound_ms_echonest_head_bf16": head_bound_ms,
+         "ms_per_iter_echonest_hybrid": en["ms_iter"]},
         {"name": "fused_half_sweep", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/tail_fused.cu",
          "replaces": "hgaprec_tpu/ops/pallas_tail.py:101",
          "launches": en["launches"][1],
          "launches_by_path": {"echonest_hybrid": en["launches"][1]},
-         "max_abs_err": en["tail"]["max_abs_err"],
-         "ms": en["tail"]["ms"], "plain_ms": en["tail"]["plain_ms"],
-         "gbps": en["tail"]["gbps"]},
+         **en["tail"]},
         {"name": "dense_probe", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/dense_fused.cu",
          "replaces": "scripts/dense_mfu_probe.py:51",
-         "launches": probe["launches"],
          "launches_by_path": {"netflix_probe": probe["launches"]},
-         "max_abs_err": probe["max_abs_err"], "ms": probe["ms"],
-         "plain_ms": probe["plain_ms"], "stage_ms": probe["stage_ms"],
-         "stage_plain_ms": probe["stage_plain_ms"], "hmma": probe["hmma"]},
+         **probe},
         {"name": "fused_segment_sweep", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/segment_fused.cu",
          "replaces": "docs/design/pallas_csr_sweep.py:80",
          "launches": seg["launches"],
          "launches_by_path": {"echonest_segment": seg["launches"],
                               "small_segment_vs_cpu": seg_small},
-         "max_abs_err": seg["max_abs_err"], "ms": seg["ms"],
-         "plain_ms": seg["plain_ms"], "gbps": seg["gbps"],
+         **{k: v for k, v in seg.items()
+            if k not in ("launches", "ms_iter", "peak")},
          "ms_per_iter_echonest_segment": seg["ms_iter"],
          "peak_gb_echonest_segment": seg["peak"]}]}))
     say(smi)
