@@ -213,6 +213,19 @@ def phase_netflix(df, gen):
             raise SystemExit("netflix-shape sweep disagrees with plain")
         kernel_ms[bf16] = ms
         del got, ref
+    # the same kernel at the padded width kq = 128: the factors zero-padded
+    # to K = 128 give the same sums in the first K columns
+    lin128 = [torch.nn.functional.pad(x, (0, 128 - K)) for x in lin]
+    got = df.fused_dense_sweep(*lin, y, bf16=True)
+    got128 = df.fused_dense_sweep(*lin128, y, bf16=True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b[:, :K]) for a, b in zip(got, got128))
+    pad_ms = median_ms(lambda: df.fused_dense_sweep(*lin128, y, bf16=True), 3)
+    say(f"netflix bf16 at the padded width kq = 128 (factors zero-padded to "
+        f"K = 128): {pad_ms:.2f} ms against {kernel_ms[True]:.2f} ms at "
+        f"kq = 112; first {K} columns bitwise "
+        f"{'equal' if same else 'DIFFERENT'}")
+    del got, got128, lin128
     probe = phase_probe(df, gen, lin, y)
     ms, mma_ms = kernel_ms[True], probe["ms"]
     bound_ms, bound_by = dense_bound(N_NF, M_NF, K)
@@ -229,7 +242,7 @@ def phase_netflix(df, gen):
     del lin, y
     torch.cuda.empty_cache()
     return probe, dict(ms_netflix=ms, ms_mma_netflix=mma_ms,
-                       bound_ms_netflix=bound_ms)
+                       ms_netflix_kq128=pad_ms, bound_ms_netflix=bound_ms)
 
 
 def phase_probe(df, gen, lin, y):

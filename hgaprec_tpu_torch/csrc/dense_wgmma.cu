@@ -35,6 +35,9 @@
 //     The S product of tile t + 1 and the contraction of tile t are issued
 //     back to back; W(t + 1) is formed, into a second set of fragments,
 //     while the contraction still runs (FA3's intra-warpgroup overlap).
+//     The two consumer warpgroups run unsynchronised: FA3's ping-pong (named
+//     barriers that give them turns on the tensor cores) measured no faster
+//     here, and is not used.
 //   * One producer warp issues every load with TMA into a ring of kStages
 //     (Z tile + Y tile) stages, full/empty mbarriers between it and the
 //     consumers; setmaxnreg moves registers from the producer warpgroup to
@@ -42,12 +45,14 @@
 //
 // How each hazard of the design was handled:
 //   1. Row width. kq = 112 (K = 100) rows are 224 bytes, not a multiple of
-//      the 128-byte swizzle atom. The wrapper pads kq to 64, 128 or 256
-//      (padding columns give zero outputs), so every tile is made of
-//      128-byte-swizzled k-blocks of 64 values, which both the K-major and
-//      the MN-major view of Z read without bank conflicts. It costs 14%
-//      more product work at K = 100; FLOP/s are reported on the function's
-//      own kq (112), not the padded width.
+//      the 128-byte swizzle atom. The tiles are staged as 128-byte-swizzled
+//      k-blocks of 64 values, which both the K-major and the MN-major view
+//      of Z read without bank conflicts; the tensor maps take the true
+//      width, so TMA zero-fills the last block's 16 missing columns, and the
+//      products run at the true width (seven k-steps for S, n = 112 for the
+//      contraction). Padding the rows to 128 instead computes 14% more and
+//      measured slower (chip_smoke.py times both at Netflix shape). The
+//      wrapper pads K to 64, 112, 128 or 256 values.
 //   2. TMA for Y. The Y tensor maps take the true N and M as extents, so
 //      TMA zero-fills the ragged edge (no byte masking), and need a row
 //      stride and base that are multiples of 16 bytes: the Trainer's
@@ -93,17 +98,18 @@ constexpr int kConsumers = 256;  // two consumer warpgroups
 constexpr int kThreadsW = 384;   // and one producer warpgroup
 constexpr int kStages = 4;       // depth of the (Z, Y) ring
 
-// Shared-memory plan for a padded width kKq: the stationary tile, then
+// Shared-memory plan for width kKq (k-blocks of 64 values, the last one
+// zero-filled past kKq): the stationary tile, then
 // kStages of (Z tile, Y tile), then the mbarriers. Every region starts on
 // a 1024-byte boundary, the period of the 128-byte swizzle.
 template <int kKq>
 struct Plan {
   static constexpr int kTc = kKq <= 128 ? 64 : 16;    // moving rows per tile
   static constexpr int kBox = kTc < 64 ? kTc : 64;   // rows per factor TMA box
-  static constexpr int kBlocks = kKq / 64;            // 128-byte k-blocks
-  static constexpr int kXBytes = kX * kKq * 2;
+  static constexpr int kBlocks = (kKq + 63) / 64;     // 128-byte k-blocks
+  static constexpr int kXBytes = kX * kBlocks * 128;
   static constexpr int kZBlock = kTc * 128;           // one k-block of Z
-  static constexpr int kZBytes = kTc * kKq * 2;
+  static constexpr int kZBytes = kTc * kBlocks * 128;
   static constexpr int kYBytes = kTc * kX;            // uint8
   static constexpr int kStageBytes = kZBytes + kYBytes;
   static constexpr int kBarOff = kXBytes + kStages * kStageBytes;
@@ -289,6 +295,34 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<112>(float (&d)[56],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <>
@@ -725,7 +759,7 @@ int launch_wgmma(const void* a, const void* b, const void* y, void* acc_a,
 
 }  // namespace
 
-// a: bf16 [n, kq], b: bf16 [m, kq] with kq in {64, 128, 256}, rows zero-
+// a: bf16 [n, kq], b: bf16 [m, kq] with kq in {64, 112, 128, 256}, rows zero-
 // padded past the factors; y: u8 [>= n rows, ldy >= m], ldy and every base
 // 16-byte aligned; outputs f32 [n, kq] and [m, kq]. split_a/split_b cut
 // the user/item role's moving tiles into that many chunks; a role with
@@ -747,6 +781,9 @@ extern "C" int hpf_dense_wgmma_bf16(const void* a, const void* b,
     case 64:
       return launch_wgmma<64>(a, b, y, acc_a, acc_b, part_a, part_b, n, m,
                               ldy, split_a, split_b, st);
+    case 112:
+      return launch_wgmma<112>(a, b, y, acc_a, acc_b, part_a, part_b, n, m,
+                               ldy, split_a, split_b, st);
     case 128:
       return launch_wgmma<128>(a, b, y, acc_a, acc_b, part_a, part_b, n, m,
                                ldy, split_a, split_b, st);

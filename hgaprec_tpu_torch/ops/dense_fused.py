@@ -41,9 +41,9 @@ TILE = 128             # stationary rows per CTA of the wgmma kernel
 
 class _Kernel(NamedTuple):
     entry: str         # the library's C entry point
-    tile: int          # stationary rows per CTA (= moving rows per tile)
+    tile: int          # stationary rows per CTA, the unit splits_for plans in
     per_sm: int        # CTAs resident on one SM
-    min_chunk: int     # fewest moving tiles one CTA sweeps when split
+    min_chunk: int     # fewest tiles of moving rows one CTA sweeps when split
 
 
 KERNELS = {
@@ -87,11 +87,12 @@ def _unpack(acc_a, acc_b, k: int, bias: bool):
 def packed_width(kaug: int, kernel: str) -> int:
     """The zero-padded width kq of the packed rows `kernel` takes for
     `kaug` values (K, plus 2 with bias). f32 and mma load rows in 16-byte
-    chunks (multiples of 4 and 16 values); wgmma reads them as
-    128-byte-swizzled k-blocks of 64 values and is built for kq = 64, 128
-    and 256 (K = 100 pads 112 to 128)."""
+    chunks (multiples of 4 and 16 values); wgmma stages them as
+    128-byte-swizzled k-blocks of 64 values (TMA zero-fills the rest of a
+    last partial block) and is built for kq = 64, 112, 128 and 256
+    (K = 100 takes 112, with or without bias)."""
     if kernel == "wgmma":
-        kq = next((w for w in (64, 128, 256) if kaug <= w), kaug)
+        kq = next((w for w in (64, 112, 128, 256) if kaug <= w), kaug)
     else:
         quantum = 4 if kernel == "f32" else 16
         kq = -(-kaug // quantum) * quantum

@@ -134,8 +134,9 @@ def test_kernel_splits_fill_the_card(n, m, kernel, want):
 
 
 @pytest.mark.parametrize("kaug,kernel,want", [
-    (100, "wgmma", 128),     # K = 100: 112 would not fill a 128-byte row
-    (102, "wgmma", 128),     # with bias
+    (100, "wgmma", 112),     # K = 100: two k-blocks, the second partial
+    (102, "wgmma", 112),     # with bias
+    (113, "wgmma", 128),
     (13, "wgmma", 64),
     (64, "wgmma", 64),
     (200, "wgmma", 256),
