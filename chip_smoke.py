@@ -87,13 +87,12 @@ def bound(nbytes, flops, peak):
                                                           "operations")
 
 
-def dense_bound(n, m, k, bf16=True):
-    """The dense sweep's bound: three products of 2 N M kq (kq = K rounded
-    up to 16, the function's width in bf16) against Y, the factors and the
-    outputs each moved once."""
+def dense_bound(n, m, k):
+    """The bf16 dense sweep's bound: three products of 2 N M kq (kq = K
+    rounded up to 16, the function's width in bf16) against Y, the factors
+    and the outputs each moved once."""
     kq = -(-k // 16) * 16
-    return bound(n * m + 2 * 4 * k * (n + m), 6 * n * m * kq,
-                 BF16_FLOPS if bf16 else F32_FLOPS)
+    return bound(n * m + 2 * 4 * k * (n + m), 6 * n * m * kq, BF16_FLOPS)
 
 
 def random_inputs(gen, n, m, k, rows, bias, density):

@@ -36,7 +36,6 @@ import torch
 from hgaprec_tpu_torch.ops import build
 
 KP_MAX = 256           # widest packed factor row the kernels take
-TILE = 128             # stationary rows per CTA of the wgmma kernel
 
 
 class _Kernel(NamedTuple):
@@ -48,7 +47,7 @@ class _Kernel(NamedTuple):
 
 KERNELS = {
     # bf16 production: csrc/dense_wgmma.cu (one 384-thread CTA per SM)
-    "wgmma": _Kernel("hpf_dense_wgmma_bf16", TILE, 1, 8),
+    "wgmma": _Kernel("hpf_dense_wgmma_bf16", 128, 1, 8),
     # csrc/dense_fused.cu: the f32 kernel, and the earlier bf16 design
     # (mma.sync), kept for the stage probe and its comparison
     "f32": _Kernel("hpf_dense_fused_sweep_f32", 64, 2, 16),
@@ -113,8 +112,7 @@ def check_tma_layout(dense_y: torch.Tensor) -> None:
             f"bytes (build Y with data.device.dense_count_matrix)")
 
 
-def splits_for(n: int, m: int, sms: int,
-               kernel: str = "wgmma") -> Tuple[int, int]:
+def splits_for(n: int, m: int, sms: int, kernel: str) -> Tuple[int, int]:
     """(split_a, split_b): chunks per user-role and item-role CTA loop.
 
     One CTA per stationary tile leaves most of the card idle when N and M

@@ -239,11 +239,13 @@ def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC_DIR, csrc)
     monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
-    assert [os.path.basename(h) for h in build.headers()] == ["row_sweep.cuh"]
-    before = build.library_path()
-    with open(csrc / "row_sweep.cuh", "a") as f:
-        f.write("// changed\n")
-    assert build.library_path() != before
+    assert [os.path.basename(h) for h in build.headers()] == [
+        "dense_roles.cuh", "row_sweep.cuh"]
+    for header in ("dense_roles.cuh", "row_sweep.cuh"):
+        before = build.library_path()
+        with open(csrc / header, "a") as f:
+            f.write("// changed\n")
+        assert build.library_path() != before, header
 
 
 @pytest.mark.cuda
