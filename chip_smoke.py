@@ -40,8 +40,8 @@ N_NF, M_NF = 480189, 17770             # Netflix preset
 F32_TOL = dict(rtol=2e-4, atol=1e-5)   # tests/test_dense_pallas.py:28-31
 BF16_REL = 2e-2                        # tests/test_dense_pallas.py:107-110
 CPU_REL = 1e-4
-# one H100 SXM (the on-chip-measurement guide's table): HBM bytes/s, dense
-# bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
+# one H100 SXM (NVIDIA's data sheet, dense rates): HBM bytes/s, bf16
+# tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 TAIL_F32_TOL = dict(rtol=2e-5, atol=1e-6)   # tests/test_pallas_tail.py:62-63
 SEG_TOL = dict(rtol=2e-4, atol=1e-5)        # tests/test_sweep.py:62-65
