@@ -87,12 +87,24 @@ def bound(nbytes, flops, peak):
                                                           "operations")
 
 
-def dense_bound(n, m, k):
-    """The bf16 dense sweep's bound: three products of 2 N M kq (kq = K
-    rounded up to 16, the function's width in bf16) against Y, the factors
-    and the outputs each moved once."""
-    kq = -(-k // 16) * 16
-    return bound(n * m + 2 * 4 * k * (n + m), 6 * n * m * kq, BF16_FLOPS)
+def dense_bound(n, m, kaug):
+    """The bf16 dense sweep's bound: three products of 2 N M kaug on the
+    function's own width (K, plus 2 with bias; not the zero-padded kq the
+    tensor cores step through) against Y, the factors and the outputs each
+    moved once."""
+    return bound(n * m + 2 * 4 * kaug * (n + m), 6 * n * m * kaug,
+                 BF16_FLOPS)
+
+
+def tflops(n, m, k, ms):
+    """The bf16 route's rate on the function's three products at width K,
+    and the rate it issues on the tensor cores: four products (both roles
+    form S) at the zero-padded width kq."""
+    from hgaprec_tpu_torch.ops.dense_fused import packed_width
+    kq = packed_width(k, "wgmma")
+    return (f"{6 * n * m * k / ms / 1e9:.1f} TFLOP/s of 6 N M K, "
+            f"{8 * n * m * kq / ms / 1e9:.1f} issued as 8 N M kq at "
+            f"kq = {kq}")
 
 
 def random_inputs(gen, n, m, k, rows, bias, density):
@@ -163,7 +175,8 @@ def phase_kernel(df, dp, gen):
                         f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20)")
                 mma_ms = None
                 if bf16:
-                    bound_ms, bound_by = dense_bound(n, m, k)
+                    bound_ms, bound_by = dense_bound(n, m,
+                                                     k + 2 if bias else k)
                     if not bias:      # the probe's kernels take no bias
                         mma_ms = median_ms(lambda: dp.dense_probe(
                             *lin[:2], yy, "prod"), 20)
@@ -212,36 +225,34 @@ def phase_netflix(df, gen):
             raise SystemExit("netflix-shape sweep disagrees with plain")
         kernel_ms[bf16] = ms
         del got, ref
-    # the same kernel at the padded width kq = 128: the factors zero-padded
-    # to K = 128 give the same sums in the first K columns
+    # the kq = 128 instantiation at full width: the factors zero-padded to
+    # K = 128 give bitwise the same sums in the first K columns
     lin128 = [torch.nn.functional.pad(x, (0, 128 - K)) for x in lin]
     got = df.fused_dense_sweep(*lin, y, bf16=True)
     got128 = df.fused_dense_sweep(*lin128, y, bf16=True)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b[:, :K]) for a, b in zip(got, got128))
-    pad_ms = median_ms(lambda: df.fused_dense_sweep(*lin128, y, bf16=True), 3)
-    say(f"netflix bf16 at the padded width kq = 128 (factors zero-padded to "
-        f"K = 128): {pad_ms:.2f} ms against {kernel_ms[True]:.2f} ms at "
-        f"kq = 112; first {K} columns bitwise "
-        f"{'equal' if same else 'DIFFERENT'}")
+    say(f"netflix bf16 at kq = 128 (factors zero-padded to K = 128): first "
+        f"{K} columns bitwise {'equal ok' if same else 'DIFFERENT'} to "
+        f"kq = {df.packed_width(K, 'wgmma')}")
+    if not same:
+        raise SystemExit("the kq = 128 instantiation disagrees with the "
+                         "main path's width on zero-padded factors")
     del got, got128, lin128
     probe = phase_probe(df, gen, lin, y)
     ms, mma_ms = kernel_ms[True], probe["ms"]
     bound_ms, bound_by = dense_bound(N_NF, M_NF, K)
-    kq = -(-K // 16) * 16
     say(f"netflix bf16: wgmma kernel {ms:.2f} ms "
-        f"({6 * N_NF * M_NF * kq / ms / 1e9:.1f} TFLOP/s of 6 N M kq, "
-        f"{8 * N_NF * M_NF * kq / ms / 1e9:.1f} of 8 N M kq, kq = {kq}); "
-        f"mma.sync design (probe prod, same Y) {mma_ms:.2f} ms; bound "
-        f"{bound_ms:.2f} ms ({bound_by}) "
-        f"{'ok' if ms <= mma_ms else 'FAIL'}")
+        f"({tflops(N_NF, M_NF, K, ms)}); mma.sync design (probe prod, same "
+        f"Y) {mma_ms:.2f} ms; bound {bound_ms:.2f} ms ({bound_by}), kernel "
+        f"at {ms / bound_ms:.2f}x it {'ok' if ms <= mma_ms else 'FAIL'}")
     if ms > mma_ms:
         raise SystemExit("the wgmma kernel is slower than the mma.sync "
                          "design at Netflix shape")
     del lin, y
     torch.cuda.empty_cache()
     return probe, dict(ms_netflix=ms, ms_mma_netflix=mma_ms,
-                       ms_netflix_kq128=pad_ms, bound_ms_netflix=bound_ms)
+                       bound_ms_netflix=bound_ms)
 
 
 def phase_probe(df, gen, lin, y):
@@ -886,7 +897,6 @@ def phase_echonest(df, tf, tr, gen, smi):
     ref = df.fused_dense_sweep_reference(a_lin, b_head, hy)
     head = {}
     for bf16 in (False, True):
-        kq = -(-K // (16 if bf16 else 4)) * (16 if bf16 else 4)
         got = df.fused_dense_sweep(a_lin, b_head, hy, bf16=bf16)
         again = df.fused_dense_sweep(a_lin, b_head, hy, bf16=bf16)
         torch.cuda.synchronize()
@@ -900,8 +910,9 @@ def phase_echonest(df, tf, tr, gen, smi):
         line = (f"head kernel {n}x{t}x{K} ldy={hy.stride(0)} bf16={bf16}: "
                 f"max_abs_err vs f32 plain {err:.3e}, two launches bitwise "
                 f"equal {'ok' if ok else 'FAIL'}; kernel {ms:.2f} ms, plain "
-                f"{plain_ms:.2f} ms; {8 * n * t * kq / ms / 1e9:.1f} TFLOP/s "
-                f"of 8 N T kq (kq = {kq})")
+                f"{plain_ms:.2f} ms; " + (tflops(n, t, K, ms) if bf16 else
+                                          f"{8 * n * t * K / ms / 1e9:.1f} "
+                                          f"TFLOP/s of 8 N T K"))
         mma_ms = bound_ms = None
         if bf16:
             mma_ms = median_ms(lambda: dp.dense_probe(a_lin, b_head, hy,
@@ -909,7 +920,8 @@ def phase_echonest(df, tf, tr, gen, smi):
             bound_ms, bound_by = dense_bound(n, t, K)
             ok &= ms <= mma_ms
             line += (f"; mma.sync design (probe prod) {mma_ms:.2f} ms; bound "
-                     f"{bound_ms:.2f} ms ({bound_by})")
+                     f"{bound_ms:.2f} ms ({bound_by}), kernel at "
+                     f"{ms / bound_ms:.2f}x it")
         say(line)
         if not ok:
             raise SystemExit("head kernel disagrees with its plain version or "
@@ -1089,11 +1101,15 @@ def main():
                                            "spill stores, 0 bytes spill")]
         if spills:
             raise SystemExit(f"csrc/dense_wgmma.cu spills: {spills}")
-    hgmma = df.hgmma_count()
+    hgmma = df.hgmma_counts()
+    main_kq = df.packed_width(K, "wgmma")
+    hgmma_ok = hgmma.get(main_kq, 0) > 0 and min(hgmma.values()) > 0
     say(f"warpgroup tensor-core instructions (HGMMA) in the SASS of "
-        f"csrc/dense_wgmma.cu: {hgmma} {'ok' if hgmma else 'FAIL'}")
-    if not hgmma:
-        raise SystemExit("the bf16 route's kernel has no wgmma in its SASS")
+        f"csrc/dense_wgmma.cu, by packed width kq: {hgmma} (the main path "
+        f"runs kq = {main_kq}) {'ok' if hgmma_ok else 'FAIL'}")
+    if not hgmma_ok:
+        raise SystemExit("an instantiation of the bf16 route's kernel has "
+                         "no wgmma in its SASS")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     main_kernel = phase_kernel(df, dp, gen)

@@ -51,8 +51,9 @@
 //      width, so TMA zero-fills the last block's 16 missing columns, and the
 //      products run at the true width (seven k-steps for S, n = 112 for the
 //      contraction). Padding the rows to 128 instead computes 14% more and
-//      measured slower (chip_smoke.py times both at Netflix shape). The
-//      wrapper pads K to 64, 112, 128 or 256 values.
+//      measured slower at Netflix shape (PERF.md, section 6). The wrapper
+//      pads K to 64, 112, 128 or 256 values; chip_smoke.py checks the
+//      kq = 128 instantiation bitwise against kq = 112 on zero-padded rows.
 //   2. TMA for Y. The Y tensor maps take the true N and M as extents, so
 //      TMA zero-fills the ragged edge (no byte masking), and need a row
 //      stride and base that are multiples of 16 bytes: the Trainer's

@@ -29,7 +29,8 @@ blocked torch ops.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+import re
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -236,16 +237,21 @@ def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
 fused_dense_sweep.launches = 0
 
 
-def hgmma_count() -> int:
+def hgmma_counts() -> Dict[int, int]:
     """Warpgroup tensor-core instructions (HGMMA) in the wgmma kernel's
-    machine code, all instantiations: zero would mean no wgmma ran."""
-    count, inside = 0, False
+    machine code, by instantiation (packed width kq): a width whose count
+    is zero had its products folded away."""
+    counts: Dict[int, int] = {}
+    kq = None
     for line in build.sass().splitlines():
         if "Function :" in line:
-            inside = "dense_wgmma_kernel" in line
-        elif inside and "HGMMA" in line:
-            count += 1
-    return count
+            hit = re.search(r"dense_wgmma_kernelILi(\d+)E", line)
+            kq = int(hit.group(1)) if hit else None
+            if kq is not None:
+                counts[kq] = 0
+        elif kq is not None and "HGMMA" in line:
+            counts[kq] += 1
+    return counts
 
 
 def fused_dense_sweep_reference(a_lin: torch.Tensor, b_lin: torch.Tensor,

@@ -183,6 +183,22 @@ def test_probe_stages_stay_on_the_mma_kernel():
         df.launch_dense(a, b, y, kernel="wgmma", stage=0)
 
 
+def test_hgmma_counts_per_instantiation(monkeypatch):
+    """Each packed width's kernel is counted on its own, so a width whose
+    products were folded away shows zero; other kernels do not count."""
+    sass = "\n".join([
+        "Function : _Z18dense_wgmma_kernelILi112EEv14CUtensorMap_st",
+        "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "  HGMMA.64x112x16.F32.BF16 R88, R8, gdesc[UR8], R88 ;",
+        "Function : _Z18dense_wgmma_kernelILi128EEv14CUtensorMap_st",
+        "  FFMA R1, R2, R3, R4 ;",
+        "Function : _Z22dense_fused_bf16_kernelILi128ELi0EEvPKv",
+        "  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+        "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;"])
+    monkeypatch.setattr(build, "sass", lambda: sass)
+    assert df.hgmma_counts() == {112: 2, 128: 0}
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contig", "ystride",
                                  "bias"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
