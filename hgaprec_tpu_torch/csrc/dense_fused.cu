@@ -1,4 +1,5 @@
-// Fused dense CAVI sweep for Hopper (sm_90a), bound to Python with ctypes.
+// Fused dense CAVI sweep in bf16 on mma.sync (the earlier bf16 design) and
+// the stage probe built on it; sm_90a, bound to Python with ctypes.
 //
 // Replaces the TPU kernel hgaprec_tpu/ops/dense_pallas.py::_kernel. For a
 // uint8 count matrix Y [N, M] (row stride ldy >= M) and factor tables
@@ -9,8 +10,8 @@
 // W never leaves the chip. Bias variants arrive packed by the caller as
 // A = [A | ba | 1], B = [B | 1 | bb], so rowsum(W) and colsum(W) come back
 // in columns k and k+1 of the same outputs. The caller zero-pads the
-// factor width to kq (a multiple of 4 for f32, 16 for bf16), so every row
-// loads in 16-byte chunks; padding columns produce zero outputs.
+// factor width to kq (a multiple of 16), so every row loads in 16-byte
+// chunks; padding columns produce zero outputs.
 //
 // Design: two deterministic roles in one launch, no atomics. The TPU
 // kernel keeps acc_b resident across user tiles because its grid runs in
@@ -24,23 +25,21 @@
 // CTAs to fill the card (ML-1M: 96 + 58 tiles), the caller cuts each
 // role's moving loop into chunks; the chunks' partial sums are added in a
 // fixed order by reduce_splits, so the result stays deterministic. The
-// bf16 kernel loads the next
-// moving tile (its factor rows and its Y block) into registers while it
-// computes the current one, so a tile's memory latency hides behind the
-// previous tile's products.
+// kernel loads the next moving tile (its factor rows and its Y block) into
+// registers while it computes the current one, so a tile's memory latency
+// hides behind the previous tile's products.
 //
 // Bound on the H100: a sweep costs 8 N M kq FLOPs (four products of
 // 2 N M kq, since both roles recompute S) against two uint8 reads of Y,
 // about 8 * 100 / 2 = 400 FLOPs per byte at K = 100: compute-bound. So the
-// products go where the FLOPs are cheapest for each precision:
-//   * f32 ("highest", must stay true f32): FMAs from shared-memory tiles.
-//   * bf16 ("default"): tensor cores through mma.sync, with bf16 A and B,
-//     W rounded to bf16 before the two contractions as the TPU kernel does,
-//     and f32 accumulation.
-// The production bf16 route no longer runs this kernel: it runs the
-// wgmma/TMA design in csrc/dense_wgmma.cu. The mma.sync kernel here stays
-// as the stage probe's base (below) and behind its own production entry,
-// hpf_dense_fused_sweep_bf16, which the probe's prod stage is checked
+// products run on the tensor cores through mma.sync, with bf16 A and B, W
+// rounded to bf16 before the two contractions as the TPU kernel does, and
+// f32 accumulation.
+// The production routes no longer run this kernel: bf16 runs the
+// wgmma/TMA design in csrc/dense_wgmma.cu, f32 ("highest") the FP32
+// register-tiled kernel in csrc/dense_simt.cu. The mma.sync kernel here
+// stays as the stage probe's base (below) and behind its own production
+// entry, hpf_dense_fused_sweep_bf16, which the probe's prod stage is checked
 // against bit for bit.
 //
 // Ragged edges are masked in the kernel: Y is read in place at its own
@@ -139,156 +138,6 @@ __device__ __forceinline__ void load_rows(uint4 (&v)[kChunks],
                ? *reinterpret_cast<const uint4*>(
                      src + (long long)(r0 + r) * kq + q * kPerChunk)
                : make_uint4(0, 0, 0, 0);
-  }
-}
-
-// =========================================================================
-// f32: every product as FMAs from shared-memory tiles (true f32, no TF32).
-// =========================================================================
-
-size_t smem_bytes_f32(int kq) {
-  return sizeof(float) * (size_t)(kTile * (kq + 1)      // stationary tile
-                                  + kq * (kTile + 1)    // moving, transposed
-                                  + kTile * (kTile + 1))  // W tile
-         + (size_t)kTile * kYStride;                     // Y tile (uint8)
-}
-
-// chunk c of the current loader -> transposed moving tile zt[k][z]
-template <int kChunks>
-__device__ __forceinline__ void store_rows_f32_t(float* zt, int ldz,
-                                                 const uint4 (&v)[kChunks],
-                                                 int kq, int tid) {
-  const int cpr = kq / 4;
-#pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int c = tid + i * kThreads;
-    const int r = c / cpr, q = c - r * cpr;
-    if (r < kTile) {
-      const float* f = reinterpret_cast<const float*>(&v[i]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) zt[(q * 4 + e) * ldz + r] = f[e];
-    }
-  }
-}
-
-template <int KP_MAX>
-__global__ void __launch_bounds__(kThreads, KP_MAX <= 128 ? 2 : 1)
-dense_fused_f32_kernel(const float* __restrict__ a,
-                       const float* __restrict__ b,
-                       const uint8_t* __restrict__ y, float* __restrict__ acc_a,
-                       float* __restrict__ acc_b, float* __restrict__ part_a,
-                       float* __restrict__ part_b, int n, int m, int kq,
-                       long long ldy, int split_a, int split_b) {
-  extern __shared__ float smem[];
-  const int ldx = kq + 1;
-  const int ldz = kTile + 1;
-  float* xs = smem;                    // [kTile][kq + 1]: stationary rows
-  float* zt = xs + kTile * ldx;        // [kq][kTile + 1]: moving, transposed
-  float* ws = zt + kq * ldz;           // [kTile][kTile + 1]: W[x][z]
-  uint8_t* ys = reinterpret_cast<uint8_t*>(ws + kTile * ldz);  // [user][item]
-
-  const Role role = role_of<kTile, kTile>(n, m, kq, split_a, split_b, acc_a,
-                                          acc_b, part_a, part_b);
-  const bool item_role = role.item;
-  const float* xsrc = item_role ? b : a;
-  const float* zsrc = item_role ? a : b;
-  float* out = role.out;
-  const int nx = item_role ? m : n;
-  const int nz = item_role ? n : m;
-  const int x0 = role.x0;
-  const int tid = threadIdx.x;
-  constexpr int kChunks = kTile * KP_MAX / 4 / kThreads;
-
-  uint4 vz[kChunks];
-  load_rows<kChunks, 4>(vz, xsrc, nx, x0, kq, tid);
-  {
-    const int cpr = kq / 4;
-#pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      const int c = tid + i * kThreads;
-      const int r = c / cpr, q = c - r * cpr;
-      if (r < kTile) {
-        const float* f = reinterpret_cast<const float*>(&vz[i]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) xs[r * ldx + q * 4 + e] = f[e];
-      }
-    }
-  }
-  uint32_t vy[kYQuads];
-
-  // S/W tile: thread owns x = ty + 16 i, z = tx + 16 j (i, j < 4).
-  const int ty = tid / 16, tx = tid % 16;
-  // accumulator: thread owns x = warp + 8 i (i < 8), col = lane + 32 j.
-  const int warp = tid / 32, lane = tid % 32;
-  constexpr int kCols = KP_MAX / 32;
-  float acc[8][kCols];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-
-  for (int z0 = role.z_begin; z0 < role.z_end; z0 += kTile) {
-    // all of the tile's loads are in flight before any store: one latency
-    load_rows<kChunks, 4>(vz, zsrc, nz, z0, kq, tid);
-    load_y(vy, y, ldy, n, m, item_role ? z0 : x0, item_role ? x0 : z0, tid);
-    __syncthreads();  // previous tile's readers are done (and xs is stored)
-    store_rows_f32_t(zt, ldz, vz, kq, tid);
-    store_y(ys, vy, tid);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int k = 0; k < kq; ++k) {
-      float xv[4], zv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = xs[(ty + 16 * i) * ldx + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) zv[j] = zt[k * ldz + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(xv[i], zv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int x = ty + 16 * i, z = tx + 16 * j;
-        const float yv = (float)(item_role ? ys[z * kYStride + x]
-                                           : ys[x * kYStride + z]);
-        ws[x * ldz + z] = yv / fmaxf(s[i][j], 1e-30f);
-      }
-    }
-    __syncthreads();
-
-    for (int z = 0; z < kTile; ++z) {
-      float zv[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = lane + 32 * j;
-        zv[j] = col < kq ? zt[col * ldz + z] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float w = ws[(warp + 8 * i) * ldz + z];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(w, zv[j], acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gx = x0 + warp + 8 * i;
-    if (gx >= nx) continue;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int col = lane + 32 * j;
-      if (col < kq) out[(long long)gx * kq + col] = acc[i][j];
-    }
   }
 }
 
@@ -523,7 +372,7 @@ dense_fused_bf16_kernel(const __nv_bfloat16* __restrict__ a,
 // launchers
 // =========================================================================
 
-template <typename In, typename Kernel>
+template <typename Kernel>
 int launch_kernel(Kernel kernel, size_t smem, const void* a, const void* b,
                   const void* y, void* acc_a, void* acc_b, void* part_a,
                   void* part_b, int n, int m, int kq, long long ldy,
@@ -534,24 +383,24 @@ int launch_kernel(Kernel kernel, size_t smem, const void* a, const void* b,
   const int tiles_a = (n + kTile - 1) / kTile;
   const int tiles_b = (m + kTile - 1) / kTile;
   kernel<<<tiles_a * split_a + tiles_b * split_b, kThreads, smem, stream>>>(
-      static_cast<const In*>(a), static_cast<const In*>(b),
-      static_cast<const uint8_t*>(y), static_cast<float*>(acc_a),
-      static_cast<float*>(acc_b), static_cast<float*>(part_a),
-      static_cast<float*>(part_b), n, m, kq, ldy, split_a, split_b);
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), static_cast<const uint8_t*>(y),
+      static_cast<float*>(acc_a), static_cast<float*>(acc_b),
+      static_cast<float*>(part_a), static_cast<float*>(part_b), n, m, kq, ldy,
+      split_a, split_b);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return reduce_partials(acc_a, acc_b, part_a, part_b, n, m, kq, split_a,
                          split_b, stream);
 }
 
-template <bool kBf16, int kStage = kProd>
+template <int kStage = kProd>
 int launch(const void* a, const void* b, const void* y, void* acc_a,
            void* acc_b, void* part_a, void* part_b, int n, int m, int kq,
            long long ldy, int split_a, int split_b, void* stream) {
-  const int quantum = kBf16 ? 16 : 4;   // 16-byte row chunks
   // the probe's stages are built for rows of up to 128 values only
   const int kq_max = kStage == kProd ? 256 : 128;
-  if (n <= 0 || m <= 0 || kq <= 0 || kq > kq_max || kq % quantum != 0 ||
+  if (n <= 0 || m <= 0 || kq <= 0 || kq > kq_max || kq % 16 != 0 ||
       ldy < m || split_a < 1 || split_b < 1 ||
       (split_a > 1 && part_a == nullptr) ||
       (split_b > 1 && part_b == nullptr) ||
@@ -559,59 +408,36 @@ int launch(const void* a, const void* b, const void* y, void* acc_a,
        15) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (kBf16) {
-    const size_t smem = smem_bytes_bf16(kq);
-    if constexpr (kStage != kProd)
-      return launch_kernel<__nv_bfloat16>(
-          dense_fused_bf16_kernel<128, kStage>, smem, a, b, y, acc_a, acc_b,
-          part_a, part_b, n, m, kq, ldy, split_a, split_b, st);
-    return kq <= 128
-               ? launch_kernel<__nv_bfloat16>(
-                     dense_fused_bf16_kernel<128, kProd>, smem, a, b, y, acc_a,
-                     acc_b, part_a, part_b, n, m, kq, ldy, split_a, split_b,
-                     st)
-               : launch_kernel<__nv_bfloat16>(
-                     dense_fused_bf16_kernel<256, kProd>, smem, a, b, y, acc_a,
-                     acc_b, part_a, part_b, n, m, kq, ldy, split_a, split_b,
-                     st);
-  }
-  const size_t smem = smem_bytes_f32(kq);
+  const size_t smem = smem_bytes_bf16(kq);
+  if constexpr (kStage != kProd)
+    return launch_kernel(dense_fused_bf16_kernel<128, kStage>, smem, a, b, y,
+                         acc_a, acc_b, part_a, part_b, n, m, kq, ldy, split_a,
+                         split_b, st);
   return kq <= 128
-             ? launch_kernel<float>(dense_fused_f32_kernel<128>, smem, a, b, y,
-                                    acc_a, acc_b, part_a, part_b, n, m, kq,
-                                    ldy, split_a, split_b, st)
-             : launch_kernel<float>(dense_fused_f32_kernel<256>, smem, a, b, y,
-                                    acc_a, acc_b, part_a, part_b, n, m, kq,
-                                    ldy, split_a, split_b, st);
+             ? launch_kernel(dense_fused_bf16_kernel<128, kProd>, smem, a, b,
+                             y, acc_a, acc_b, part_a, part_b, n, m, kq, ldy,
+                             split_a, split_b, st)
+             : launch_kernel(dense_fused_bf16_kernel<256, kProd>, smem, a, b,
+                             y, acc_a, acc_b, part_a, part_b, n, m, kq, ldy,
+                             split_a, split_b, st);
 }
 
 }  // namespace
 
-// a: f32 [n, kq], b: f32 [m, kq] (kq % 4 == 0, 16-byte aligned), y: u8
-// [>= n rows, ldy >= m]; outputs f32 [n, kq] and [m, kq]. split_a/split_b
-// cut the user/item role's moving tiles into that many chunks; a role with
-// split > 1 needs scratch part_* of f32 [split, rows, kq]. Returns the
-// cudaError_t of the launches (0 = success).
-extern "C" int hpf_dense_fused_sweep_f32(const void* a, const void* b,
-                                         const void* y, void* acc_a,
-                                         void* acc_b, void* part_a,
-                                         void* part_b, int n, int m, int kq,
-                                         long long ldy, int split_a,
-                                         int split_b, void* stream) {
-  return launch<false>(a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq, ldy,
-                       split_a, split_b, stream);
-}
-
-// As above with bf16 a and b and kq % 16 == 0; W is rounded to bf16 before
-// the contractions.
+// a: bf16 [n, kq], b: bf16 [m, kq] (kq % 16 == 0, 16-byte aligned), y: u8
+// [>= n rows, ldy >= m]; outputs f32 [n, kq] and [m, kq]; W is rounded to
+// bf16 before the contractions. split_a/split_b cut the user/item role's
+// moving tiles into that many chunks; a role with split > 1 needs scratch
+// part_* of f32 [split, rows, kq]. Returns the cudaError_t of the launches
+// (0 = success).
 extern "C" int hpf_dense_fused_sweep_bf16(const void* a, const void* b,
                                           const void* y, void* acc_a,
                                           void* acc_b, void* part_a,
                                           void* part_b, int n, int m, int kq,
                                           long long ldy, int split_a,
                                           int split_b, void* stream) {
-  return launch<true>(a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq, ldy,
-                      split_a, split_b, stream);
+  return launch(a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq, ldy, split_a,
+                split_b, stream);
 }
 
 // The stage probe: the bf16 entry above with the kernel built for stage
@@ -624,21 +450,20 @@ extern "C" int hpf_dense_probe_bf16(const void* a, const void* b,
                                     int split_b, int stage, void* stream) {
   switch (stage) {
     case kProd:
-      return launch<true, kProd>(a, b, y, acc_a, acc_b, part_a, part_b, n, m,
-                                 kq, ldy, split_a, split_b, stream);
+      return launch<kProd>(a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq, ldy,
+                           split_a, split_b, stream);
     case kBf16Recip:
-      return launch<true, kBf16Recip>(a, b, y, acc_a, acc_b, part_a, part_b,
-                                      n, m, kq, ldy, split_a, split_b,
-                                      stream);
+      return launch<kBf16Recip>(a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq,
+                                ldy, split_a, split_b, stream);
     case kNoRecip:
-      return launch<true, kNoRecip>(a, b, y, acc_a, acc_b, part_a, part_b, n,
-                                    m, kq, ldy, split_a, split_b, stream);
+      return launch<kNoRecip>(a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq,
+                              ldy, split_a, split_b, stream);
     case kNoYLoad:
-      return launch<true, kNoYLoad>(a, b, y, acc_a, acc_b, part_a, part_b, n,
-                                    m, kq, ldy, split_a, split_b, stream);
+      return launch<kNoYLoad>(a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq,
+                              ldy, split_a, split_b, stream);
     case kMmOnly:
-      return launch<true, kMmOnly>(a, b, y, acc_a, acc_b, part_a, part_b, n,
-                                   m, kq, ldy, split_a, split_b, stream);
+      return launch<kMmOnly>(a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq,
+                             ldy, split_a, split_b, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

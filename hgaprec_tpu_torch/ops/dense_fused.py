@@ -10,16 +10,18 @@ The caller multiplies by A and B (and the bias expectations) to get the
 CAVI sufficient statistics (ops/sweep.py).
 
 Two kernels replace the TPU kernel
-`hgaprec_tpu/ops/dense_pallas.py::_kernel`: bf16 ("default", the main
-path) runs `csrc/dense_wgmma.cu` (wgmma products on TMA-fed tiles), f32
-("highest") runs the FMA kernel of `csrc/dense_fused.cu`. A sweep costs
-8 N M kq FLOPs (four products of 2 N M kq: both of the kernels' two
-deterministic roles recompute S) against two uint8 reads of Y, about 400
-FLOPs per byte at K = 100, so it is compute-bound on the H100. The
-two-role design trades the fourth product for sums without atomics and
-no item-count limit. The bf16 `mma.sync` kernel of `csrc/dense_fused.cu`,
-the earlier design, stays in the library as the stage probe's base
-(`ops/dense_probe.py`); the production route does not run it.
+`hgaprec_tpu/ops/dense_pallas.py::_kernel`: bf16 ("default") runs
+`csrc/dense_wgmma.cu` (wgmma products on TMA-fed tiles), f32 ("highest",
+the default precision of `ModelConfig` and the CLI) runs
+`csrc/dense_simt.cu` (register-tiled FP32 FMAs, cp.async double
+buffering). A sweep costs 8 N M kq FLOPs (four products of 2 N M kq:
+both of the kernels' two deterministic roles recompute S) against two
+uint8 reads of Y, about 400 FLOPs per byte at K = 100, so it is
+compute-bound on the H100. The two-role design trades the fourth product
+for sums without atomics and no item-count limit. The bf16 `mma.sync`
+kernel of `csrc/dense_fused.cu`, the earlier design, stays in the
+library as the stage probe's base (`ops/dense_probe.py`); the production
+routes do not run it.
 
 On a CUDA tensor `fused_dense_sweep` launches a kernel or raises; only
 a CPU tensor takes `fused_dense_sweep_reference`, the same function in
@@ -49,9 +51,11 @@ class _Kernel(NamedTuple):
 KERNELS = {
     # bf16 production: csrc/dense_wgmma.cu (one 384-thread CTA per SM)
     "wgmma": _Kernel("hpf_dense_wgmma_bf16", 128, 1, 8),
-    # csrc/dense_fused.cu: the f32 kernel, and the earlier bf16 design
-    # (mma.sync), kept for the stage probe and its comparison
-    "f32": _Kernel("hpf_dense_fused_sweep_f32", 64, 2, 16),
+    # f32 production: csrc/dense_simt.cu (one 256-thread CTA per SM, 155 KB
+    # of shared memory at kq = 104)
+    "f32": _Kernel("hpf_dense_simt_f32", 128, 1, 8),
+    # csrc/dense_fused.cu: the earlier bf16 design (mma.sync), kept for the
+    # stage probe and its comparison
     "mma": _Kernel("hpf_dense_fused_sweep_bf16", 64, 2, 16),
 }
 _CLAMP = 1e-30
@@ -86,8 +90,9 @@ def _unpack(acc_a, acc_b, k: int, bias: bool):
 
 def packed_width(kaug: int, kernel: str) -> int:
     """The zero-padded width kq of the packed rows `kernel` takes for
-    `kaug` values (K, plus 2 with bias). f32 and mma load rows in 16-byte
-    chunks (multiples of 4 and 16 values); wgmma stages them as
+    `kaug` values (K, plus 2 with bias). f32 and mma copy rows in 16-byte
+    chunks (multiples of 4 and 16 values; the f32 kernel loops over this
+    true width, 100 at K = 100); wgmma stages them as
     128-byte-swizzled k-blocks of 64 values (TMA zero-fills the rest of a
     last partial block) and is built for kq = 64, 112, 128 and 256
     (K = 100 takes 112, with or without bias)."""
