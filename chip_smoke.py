@@ -6,8 +6,11 @@
 Builds the port's CUDA kernels from `hgaprec_tpu_torch/csrc/`, holds each
 against its plain PyTorch version on the card, sweeps once at Netflix
 shape, trains HPF K=100 on MovieLens-1M-shaped synthetic data through the
-Trainer (the port's main entry point) and checks the card's run against
-the port's own CPU run. Then the big-sparse hybrid path: the tail kernel
+Trainer (the port's main entry point) and checks the card's run at
+"highest" (the default precision, the f32 dense kernel) against the
+port's own CPU run. The f32 kernel must beat its plain version at Netflix
+shape and on the EchoNest head, and the step at "highest" is timed at
+ML-1M and EchoNest. Then the big-sparse hybrid path: the tail kernel
 against its plain version on adversarial layouts and on the EchoNest
 tail, HPF K=100 at the EchoNest preset shape (1,019,318 x 384,546, 45M
 nonzeros) through the Trainer, and a small hybrid run on the card against
@@ -23,6 +26,7 @@ launches, error and times, the card's name and power limit, and last
 when there is no GPU or any phase fails.
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -96,12 +100,19 @@ def dense_bound(n, m, kaug):
                  BF16_FLOPS)
 
 
-def tflops(n, m, k, ms):
-    """The bf16 route's rate on the function's three products at width K,
-    and the rate it issues on the tensor cores: four products (both roles
-    form S) at the zero-padded width kq."""
+def dense_bound_f32(n, m, kaug):
+    """The f32 dense sweep's bound: dense_bound's bytes against the same
+    6 N M kaug FLOPs at the FP32 rate outside the tensor cores."""
+    return bound(n * m + 2 * 4 * kaug * (n + m), 6 * n * m * kaug, F32_FLOPS)
+
+
+def tflops(n, m, k, ms, kernel="wgmma"):
+    """A dense route's rate on the function's three products at width K
+    (K + 2 with bias), and the rate it issues: four products (both roles
+    form S) at the kernel's packed width kq (zero-padded to 112 on the
+    tensor cores, 100 at K = 100 in f32)."""
     from hgaprec_tpu_torch.ops.dense_fused import packed_width
-    kq = packed_width(k, "wgmma")
+    kq = packed_width(k, kernel)
     return (f"{6 * n * m * k / ms / 1e9:.1f} TFLOP/s of 6 N M K, "
             f"{8 * n * m * kq / ms / 1e9:.1f} issued as 8 N M kq at "
             f"kq = {kq}")
@@ -145,8 +156,9 @@ def phase_kernel(df, dp, gen):
     The bf16 route (csrc/dense_wgmma.cu) reads an aligned Y with ragged N
     and M and is timed beside the mma.sync design (the probe's prod stage)
     and its bound; its two launches must be bitwise equal. The f32 route
-    also reads the ragged Y unaligned (contiguous rows of M bytes)."""
-    main = None
+    also reads the ragged Y unaligned (contiguous rows of M bytes) and is
+    printed beside its own bound (dense_bound_f32)."""
+    main = f32 = None
     for n, m, k, rows in ((1000, 777, 13, 1024), (N_ML, M_ML, K, 6144)):
         for bias in (False, True):
             lin, y, _ = random_inputs(gen, n, m, k, rows, bias, 0.045)
@@ -174,9 +186,17 @@ def phase_kernel(df, dp, gen):
                         f"{'ok' if ok and same else 'FAIL'}; kernel "
                         f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20)")
                 mma_ms = None
-                if bf16:
-                    bound_ms, bound_by = dense_bound(n, m,
-                                                     k + 2 if bias else k)
+                kaug = k + 2 if bias else k
+                if not bf16:
+                    bound_ms, bound_by = dense_bound_f32(n, m, kaug)
+                    line += (f"; {tflops(n, m, kaug, ms, 'f32')}; bound "
+                             f"{bound_ms:.4f} ms ({bound_by}), kernel at "
+                             f"{ms / bound_ms:.2f}x it")
+                    if (n, bias) == (N_ML, False):
+                        f32 = dict(ms_f32_ml1m=ms, plain_ms_f32_ml1m=plain_ms,
+                                   bound_ms_f32_ml1m=bound_ms)
+                else:
+                    bound_ms, bound_by = dense_bound(n, m, kaug)
                     if not bias:      # the probe's kernels take no bias
                         mma_ms = median_ms(lambda: dp.dense_probe(
                             *lin[:2], yy, "prod"), 20)
@@ -194,13 +214,14 @@ def phase_kernel(df, dp, gen):
                                 bound_ms=bound_ms, bound_by=bound_by,
                                 library_ms=None)
             del lin, y, ref32
-    return main
+    return main, f32
 
 
 def phase_netflix(df, gen):
     """One sweep at Netflix shape in both modes against the plain version,
-    then the stage probe on the same Y; the bf16 route must be no slower
-    than the mma.sync design (the probe's prod stage, same Y)."""
+    then the stage probe on the same Y; the f32 route must be faster than
+    its plain version and the bf16 route no slower than the mma.sync design
+    (the probe's prod stage, same Y)."""
     rows = -(-N_NF // 512) * 512
     t0 = time.perf_counter()
     lin, y, nnz = random_inputs(gen, N_NF, M_NF, K, rows, False, 0.01)
@@ -223,7 +244,7 @@ def phase_netflix(df, gen):
             f"{plain_ms:.2f} ms (median of 3)")
         if not ok:
             raise SystemExit("netflix-shape sweep disagrees with plain")
-        kernel_ms[bf16] = ms
+        kernel_ms[bf16] = ms, plain_ms
         del got, ref
     # the kq = 128 instantiation at full width: the factors zero-padded to
     # K = 128 give bitwise the same sums in the first K columns
@@ -239,8 +260,21 @@ def phase_netflix(df, gen):
         raise SystemExit("the kq = 128 instantiation disagrees with the "
                          "main path's width on zero-padded factors")
     del got, got128, lin128
+    # the f32 route ("highest", the default precision) against its bound
+    # and the plain version it must beat
+    f32_ms, f32_plain_ms = kernel_ms[False]
+    f32_bound_ms, f32_bound_by = dense_bound_f32(N_NF, M_NF, K)
+    faster = f32_ms < f32_plain_ms
+    say(f"netflix f32: kernel {f32_ms:.2f} ms "
+        f"({tflops(N_NF, M_NF, K, f32_ms, 'f32')}); plain "
+        f"{f32_plain_ms:.2f} ms; bound {f32_bound_ms:.2f} ms "
+        f"({f32_bound_by}), kernel at {f32_ms / f32_bound_ms:.2f}x it "
+        f"{'ok' if faster else 'FAIL'}")
+    if not faster:
+        raise SystemExit("the f32 kernel is slower than its plain version at "
+                         "Netflix shape")
     probe = phase_probe(df, gen, lin, y)
-    ms, mma_ms = kernel_ms[True], probe["ms"]
+    ms, mma_ms = kernel_ms[True][0], probe["ms"]
     bound_ms, bound_by = dense_bound(N_NF, M_NF, K)
     say(f"netflix bf16: wgmma kernel {ms:.2f} ms "
         f"({tflops(N_NF, M_NF, K, ms)}); mma.sync design (probe prod, same "
@@ -252,7 +286,9 @@ def phase_netflix(df, gen):
     del lin, y
     torch.cuda.empty_cache()
     return probe, dict(ms_netflix=ms, ms_mma_netflix=mma_ms,
-                       bound_ms_netflix=bound_ms)
+                       bound_ms_netflix=bound_ms, ms_f32_netflix=f32_ms,
+                       plain_ms_f32_netflix=f32_plain_ms,
+                       bound_ms_f32_netflix=f32_bound_ms)
 
 
 def phase_probe(df, gen, lin, y):
@@ -397,27 +433,39 @@ def phase_main(df, datdir, root):
     return launches
 
 
-def phase_cpu_reference(datdir, root):
-    """Same config at "highest" on the card and on the CPU (the CPU run is
-    the reference here, not a fallback)."""
+def phase_cpu_reference(df, datdir, root):
+    """Same config at "highest" (the default precision: the f32 dense
+    route) on the card and on the CPU (the CPU run is the reference here,
+    not a fallback); the card's steady-state step time at "highest"."""
     lls = {}
     for device in ("cuda", "cpu"):
         outdir = os.path.join(root, f"{device}_highest")
         tr = train(datdir, outdir, "highest", 10, 5, device)
+        df.fused_dense_sweep.launches = 0
         t0 = time.perf_counter()
         tr.run()
+        wall = time.perf_counter() - t0
+        if device == "cuda":
+            launches = df.fused_dense_sweep.launches
+            ms_iter, ms_lo, ms_hi = steady_ms_per_iter(tr.mcfg, tr.state,
+                                                       tr.data)
         tr.close()
         lls[device] = validation_ll(outdir)
-        say(f"{device} run at highest, 11 iterations: "
-            f"{time.perf_counter() - t0:.1f} s, validation ll "
-            f"{[round(v, 6) for _, v in lls[device]]}")
+        say(f"{device} run at highest, 11 iterations: {wall:.1f} s, "
+            f"validation ll {[round(v, 6) for _, v in lls[device]]}")
     g, c = lls["cuda"], lls["cpu"]
     worst = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(g, c))
-    ok = [a[0] for a in g] == [b[0] for b in c] and worst < CPU_REL
+    ok = [a[0] for a in g] == [b[0] for b in c] and worst < CPU_REL and \
+        launches > 0
     say(f"card vs CPU reference: worst relative gap {worst:.3e} over "
-        f"{len(g)} reports (bound {CPU_REL}) {'ok' if ok else 'FAIL'}")
+        f"{len(g)} reports (bound {CPU_REL}); f32 dense kernel launches "
+        f"{launches} {'ok' if ok else 'FAIL'}; card steady state at highest "
+        f"{ms_iter:.3f} ms/iter = {1e3 / ms_iter:.1f} iters/s (median of 5 "
+        f"windows of 100; range {ms_lo:.3f}-{ms_hi:.3f})")
     if not ok:
-        raise SystemExit("card and CPU runs disagree")
+        raise SystemExit("card and CPU runs disagree, or the card run at "
+                         "highest never launched the f32 kernel")
+    return launches, ms_iter
 
 
 # ---------------------------------------------------------------------------
@@ -884,9 +932,9 @@ def phase_echonest(df, tf, tr, gen, smi):
             abs(data.tail.nnz / EN_TAIL - 1) > 1e-2):
         raise SystemExit("the EchoNest layout is not the expected hybrid")
 
-    # the head kernel at the head shape (offsets past 2^31 bytes of Y): the
-    # bf16 route twice (bitwise equal), beside the mma.sync design (the
-    # probe's prod stage) and its bound
+    # the head kernel at the head shape (offsets past 2^31 bytes of Y): each
+    # route twice (bitwise equal) beside its bound, f32 against the plain
+    # version, bf16 against the mma.sync design (the probe's prod stage)
     from hgaprec_tpu_torch.ops import dense_probe as dp
     n, m = tr.store.n, tr.store.m
     a_lin = torch.exp(0.3 * torch.randn((n, K), device="cuda",
@@ -910,22 +958,25 @@ def phase_echonest(df, tf, tr, gen, smi):
         line = (f"head kernel {n}x{t}x{K} ldy={hy.stride(0)} bf16={bf16}: "
                 f"max_abs_err vs f32 plain {err:.3e}, two launches bitwise "
                 f"equal {'ok' if ok else 'FAIL'}; kernel {ms:.2f} ms, plain "
-                f"{plain_ms:.2f} ms; " + (tflops(n, t, K, ms) if bf16 else
-                                          f"{8 * n * t * K / ms / 1e9:.1f} "
-                                          f"TFLOP/s of 8 N T K"))
-        mma_ms = bound_ms = None
+                f"{plain_ms:.2f} ms; "
+                f"{tflops(n, t, K, ms, 'wgmma' if bf16 else 'f32')}")
+        mma_ms = None
         if bf16:
             mma_ms = median_ms(lambda: dp.dense_probe(a_lin, b_head, hy,
                                                       "prod"), 5)
             bound_ms, bound_by = dense_bound(n, t, K)
             ok &= ms <= mma_ms
-            line += (f"; mma.sync design (probe prod) {mma_ms:.2f} ms; bound "
-                     f"{bound_ms:.2f} ms ({bound_by}), kernel at "
-                     f"{ms / bound_ms:.2f}x it")
+            line += f"; mma.sync design (probe prod) {mma_ms:.2f} ms"
+        else:           # the f32 route must beat its plain version
+            bound_ms, bound_by = dense_bound_f32(n, t, K)
+            ok &= ms < plain_ms
+        line += (f"; bound {bound_ms:.2f} ms ({bound_by}), kernel at "
+                 f"{ms / bound_ms:.2f}x it")
         say(line)
         if not ok:
             raise SystemExit("head kernel disagrees with its plain version or "
-                             "itself, or is slower than the mma.sync design")
+                             "itself, or is slower than the design it must "
+                             "beat (f32: the plain version; bf16: mma.sync)")
         head[bf16] = (ms, plain_ms, mma_ms, bound_ms)
     del a_lin, b_head, ref
 
@@ -1005,8 +1056,36 @@ def phase_echonest(df, tf, tr, gen, smi):
         f"{head_mma_ms:.2f} ms on the same state), tail kernel "
         f"{tail_ms:.2f} ms (both halves), rest "
         f"{ms_iter - head_ms - tail_ms:.2f} ms")
+    # the default precision, "highest" (f32 head and tail), on the same
+    # trained state
+    hcfg = dataclasses.replace(tr.mcfg, matmul_precision="highest")
+    before = df.fused_dense_sweep.launches
+    hi_iter, hi_lo, hi_hi = steady_ms_per_iter(hcfg, st, data, windows=3,
+                                               steps=5)
+    hi_launches = df.fused_dense_sweep.launches - before
+    head_f32_ms = median_ms(lambda: df.fused_dense_sweep(
+        a_lin, b_lin[hd], data.head_dense_y), 3)
+    a32, b32 = tl.tail_tables(a_lin, b_lin, None, None, bf16=False)
+    tail_f32_ms = median_ms(lambda: (
+        tf.fused_half_sweep(a32, b32, s.u, s.i, s.y, n),
+        tf.fused_half_sweep(b32, a32, s.i_by_item, s.u_by_item,
+                            s.y_by_item, m)), 5)
+    glue_ms = hi_iter - head_f32_ms - tail_f32_ms
+    say(f"echonest steady state at highest (f32) {hi_iter:.2f} ms/iter = "
+        f"{1e3 / hi_iter:.2f} iters/s (median of 3 windows of 5; range "
+        f"{hi_lo:.2f}-{hi_hi:.2f}; f32 head kernel launches {hi_launches}): "
+        f"head kernel {head_f32_ms:.2f} ms "
+        f"({100 * head_f32_ms / hi_iter:.0f}%), f32 tail kernel "
+        f"{tail_f32_ms:.2f} ms ({100 * tail_f32_ms / hi_iter:.0f}%), rest "
+        f"{glue_ms:.2f} ms ({100 * glue_ms / hi_iter:.0f}%)")
+    if hi_launches == 0:
+        raise SystemExit("the hybrid step at highest never launched the f32 "
+                         "kernel")
     return dict(launches=launches, tail=tail, head=head, ms_iter=ms_iter,
-                head_ms_trained=head_ms)
+                head_ms_trained=head_ms, ms_iter_highest=hi_iter,
+                launches_highest=hi_launches,
+                head_f32_ms_trained=head_f32_ms,
+                tail_f32_ms_trained=tail_f32_ms)
 
 
 def phase_hybrid_cpu_reference(root):
@@ -1091,16 +1170,18 @@ def main():
                     "spill" in line or "Compiling entry" in line or \
                     "Potential Performance Loss" in line:
                 say(f"  {line.strip()}")
-        # the bf16 route's kernel must build with no spills
-        start = log.index("== dense_wgmma.cu")
-        end = log.find("\n==", start)
-        wgmma = log[start:end if end >= 0 else len(log)]
-        spills = [x.strip() for x in wgmma.splitlines()
-                  if "spill stores" in x and
-                  not x.strip().startswith("0 bytes stack frame, 0 bytes "
-                                           "spill stores, 0 bytes spill")]
-        if spills:
-            raise SystemExit(f"csrc/dense_wgmma.cu spills: {spills}")
+        # the two production routes' kernels must build with no spills
+        for src in ("dense_wgmma.cu", "dense_simt.cu"):
+            start = log.index(f"== {src}")
+            end = log.find("\n==", start)
+            spills = [x.strip()
+                      for x in log[start:end if end >= 0 else len(log)]
+                      .splitlines()
+                      if "spill stores" in x and
+                      not x.strip().startswith("0 bytes stack frame, 0 bytes "
+                                               "spill stores, 0 bytes spill")]
+            if spills:
+                raise SystemExit(f"csrc/{src} spills: {spills}")
     hgmma = df.hgmma_counts()
     main_kq = df.packed_width(K, "wgmma")
     hgmma_ok = hgmma.get(main_kq, 0) > 0 and min(hgmma.values()) > 0
@@ -1112,7 +1193,7 @@ def main():
                          "no wgmma in its SASS")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    main_kernel = phase_kernel(df, dp, gen)
+    main_kernel, f32_ml1m = phase_kernel(df, dp, gen)
     probe, netflix = phase_netflix(df, gen)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
@@ -1123,7 +1204,8 @@ def main():
         say(f"dataset: {N_ML}x{M_ML}, {nnz:,} nonzeros written in "
             f"{time.perf_counter() - t0:.1f} s")
         launches = phase_main(df, datdir, root)
-        phase_cpu_reference(datdir, root)
+        launches_ml1m_highest, ms_iter_ml1m_highest = phase_cpu_reference(
+            df, datdir, root)
 
         phase_tail_layouts(gen)
         phase_segment_layouts(gen)
@@ -1151,7 +1233,17 @@ def main():
          "ms_mma_echonest_head_bf16": head_mma_ms,
          "plain_ms_echonest_head_bf16": head_plain_ms,
          "bound_ms_echonest_head_bf16": head_bound_ms,
-         "ms_per_iter_echonest_hybrid": en["ms_iter"]},
+         "ms_per_iter_echonest_hybrid": en["ms_iter"],
+         "source_f32": "hgaprec_tpu_torch/csrc/dense_simt.cu",
+         "launches_f32_by_path": {
+             "ml1m_dense_highest": launches_ml1m_highest,
+             "echonest_hybrid_highest_steady": en["launches_highest"]},
+         **f32_ml1m,
+         "ms_f32_echonest_head": en["head"][False][0],
+         "plain_ms_f32_echonest_head": en["head"][False][1],
+         "bound_ms_f32_echonest_head": en["head"][False][3],
+         "ms_per_iter_ml1m_highest": ms_iter_ml1m_highest,
+         "ms_per_iter_echonest_hybrid_highest": en["ms_iter_highest"]},
         {"name": "fused_half_sweep", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/tail_fused.cu",
          "replaces": "hgaprec_tpu/ops/pallas_tail.py:101",

@@ -117,8 +117,10 @@ def test_build_command_targets_sm90a_from_csrc(monkeypatch):
     (480189, 17770, "wgmma", (1, 2)),    # Netflix: long loops, item role halved
     (40, 30, "wgmma", (1, 1)),
     (962399, 4096, "wgmma", (1, 9)),     # EchoNest head: 32 item tiles
-    (6040, 3681, "mma", (4, 6)),         # the 64-row designs: 732 CTAs
-    (480189, 17770, "f32", (1, 2)),
+    (6040, 3681, "mma", (4, 6)),         # the 64-row design: 732 CTAs
+    (480189, 17770, "f32", (1, 2)),      # f32: 128-row tiles, as wgmma
+    (6040, 3681, "f32", (4, 6)),
+    (962399, 4096, "f32", (1, 9)),
 ])
 def test_kernel_splits_fill_the_card(n, m, kernel, want):
     """The moving-loop chunks the wrapper asks for on a 132-SM H100."""
@@ -174,6 +176,20 @@ def test_wgmma_route_checks_y_before_building(monkeypatch):
     with pytest.raises(ValueError, match="TMA"):
         df.launch_dense(a, b, torch.zeros(6, 5, dtype=torch.uint8),
                         kernel="wgmma")
+
+
+def test_f32_route_runs_the_simt_kernel():
+    """`fused_dense_sweep(bf16=False)` launches the register-tiled kernel
+    of csrc/dense_simt.cu; csrc/dense_fused.cu keeps only the mma.sync
+    design and its probe."""
+    entry = df.KERNELS["f32"].entry
+    with open(f"{build.CSRC_DIR}/dense_simt.cu") as f:
+        assert f'extern "C" int {entry}(' in f.read()
+    with open(f"{build.CSRC_DIR}/dense_fused.cu") as f:
+        fused = f.read()
+    assert "hpf_dense_fused_sweep_f32" not in fused
+    assert "dense_fused_f32_kernel" not in fused
+    assert "hpf_dense_fused_sweep_bf16" in fused
 
 
 def test_probe_stages_stay_on_the_mma_kernel():
@@ -275,3 +291,28 @@ def test_wgmma_kernel_matches_plain_and_repeats(n, m, k, bias):
     for gg, aa, r in zip(got, again, ref):
         assert torch.equal(gg, aa)
         assert ((gg - r).abs() / r.abs().clamp_min(1e-3)).max() < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,k", [(1000, 777, 13), (333, 129, 100),
+                                   (517, 300, 200), (64, 1, 7)])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("aligned", [False, True])
+def test_f32_kernel_matches_plain_and_repeats(n, m, k, bias, aligned):
+    """The f32 route (csrc/dense_simt.cu) on ragged shapes, on an aligned
+    Y (cp.async) and an unaligned one (byte loads): within rtol=2e-4,
+    atol=1e-5 of the plain version, and two launches bitwise equal. K = 200
+    takes rows wider than 128 values, contracted in two column windows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lin, y = _card_inputs(n, m, k, bias, aligned=aligned, seed=n + k)
+    before = df.fused_dense_sweep.launches
+    got = df.fused_dense_sweep(*lin[:2], y, *lin[2:])
+    again = df.fused_dense_sweep(*lin[:2], y, *lin[2:])
+    torch.cuda.synchronize()
+    assert df.fused_dense_sweep.launches == before + 2
+    ref = df.fused_dense_sweep_reference(*lin[:2], y, *lin[2:])
+    for gg, aa, r in zip(got, again, ref):
+        assert torch.equal(gg, aa)
+        torch.testing.assert_close(gg, r, **F32)

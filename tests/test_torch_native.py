@@ -4,10 +4,12 @@ port's Python writer and as the JAX package's `_save_mat`, and the native
 parser returns what the NumPy parser does."""
 
 import os
+import time
 
 import numpy as np
 import pytest
 
+from hgaprec_tpu.data import native as j_native
 from hgaprec_tpu.io.checkpoint import _save_mat as j_save_mat
 from hgaprec_tpu_torch.data import native
 from hgaprec_tpu_torch.data.ratings import _fast_parse_3col, _parse_tsv
@@ -17,6 +19,22 @@ from hgaprec_tpu_torch.io import checkpoint as ckpt
 def _need_native():
     if not native.available():
         pytest.skip("g++ unavailable: the native helpers cannot be built")
+
+
+def _need_jax_native(monkeypatch):
+    """Load the JAX package's native writer in this process. Its first
+    load can race with another test process's build of the same library
+    (written in place) and then stays failed for the process, leaving
+    `_save_mat` on its printf path, which may differ from the native
+    formatter by one ulp; that build has finished by now, so load again."""
+    for _ in range(5):
+        if j_native._load() is not None:
+            return
+        monkeypatch.setattr(j_native, "_tried", False)
+        time.sleep(0.5)
+    if j_native._load() is None:
+        pytest.fail("the JAX package's native TSV writer cannot be loaded "
+                    "while the port's can: the byte comparison needs both")
 
 
 def _values(rng, rows, cols):
@@ -30,6 +48,7 @@ def _values(rng, rows, cols):
 def test_native_writer_bytes_equal_python_and_jax(tmp_path, monkeypatch,
                                                   shape):
     _need_native()
+    _need_jax_native(monkeypatch)
     rng = np.random.default_rng(shape[0])
     x = _values(rng, *shape)
     if shape[1] == 1:
