@@ -91,19 +91,18 @@ def bound(nbytes, flops, peak):
                                                           "operations")
 
 
-def dense_bound(n, m, kaug):
+def dense_bound(n, m, kaug, peak=BF16_FLOPS):
     """The bf16 dense sweep's bound: three products of 2 N M kaug on the
-    function's own width (K, plus 2 with bias; not the zero-padded kq the
-    tensor cores step through) against Y, the factors and the outputs each
+    function's own width (K, plus 2 with bias; not the zero-padded kq a
+    kernel steps through) against Y, the factors and the outputs each
     moved once."""
-    return bound(n * m + 2 * 4 * kaug * (n + m), 6 * n * m * kaug,
-                 BF16_FLOPS)
+    return bound(n * m + 2 * 4 * kaug * (n + m), 6 * n * m * kaug, peak)
 
 
 def dense_bound_f32(n, m, kaug):
-    """The f32 dense sweep's bound: dense_bound's bytes against the same
-    6 N M kaug FLOPs at the FP32 rate outside the tensor cores."""
-    return bound(n * m + 2 * 4 * kaug * (n + m), 6 * n * m * kaug, F32_FLOPS)
+    """The f32 dense sweep's bound: the same bytes and FLOPs at the FP32
+    rate outside the tensor cores."""
+    return dense_bound(n, m, kaug, F32_FLOPS)
 
 
 def tflops(n, m, k, ms, kernel="wgmma"):

@@ -3,9 +3,10 @@
 Hierarchical Gamma-Poisson factorization (Gopalan, Hofman & Blei,
 arXiv:1311.1704) trained by CAVI, for one NVIDIA H100. Module paths follow
 `hgaprec_tpu/`, so each module's counterpart is found at the same place.
-Plain tensor code is PyTorch; the dense CAVI sweep is a hand-written CUDA
-kernel (`csrc/dense_fused.cu`, bound in `ops/dense_fused.py`). The package
-imports torch and numpy only, never jax.
+Plain tensor code is PyTorch; the dense CAVI sweep runs hand-written CUDA
+kernels (bf16 `csrc/dense_wgmma.cu`, f32 `csrc/dense_simt.cu`, bound in
+`ops/dense_fused.py`). The package imports torch and numpy only, never
+jax.
 """
 
 __version__ = "0.1.0"
