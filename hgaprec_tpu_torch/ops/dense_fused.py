@@ -13,8 +13,8 @@ Two kernels replace the TPU kernel
 `hgaprec_tpu/ops/dense_pallas.py::_kernel`: bf16 ("default") runs
 `csrc/dense_wgmma.cu` (wgmma products on TMA-fed tiles), f32 ("highest",
 the default precision of `ModelConfig` and the CLI) runs
-`csrc/dense_simt.cu` (register-tiled FP32 FMAs, cp.async double
-buffering). A sweep costs 8 N M kq FLOPs (four products of 2 N M kq:
+`csrc/dense_simt.cu` (register-tiled FP32 FMAs fed by a cp.async
+ring). A sweep costs 8 N M kq FLOPs (four products of 2 N M kq:
 both of the kernels' two deterministic roles recompute S) against two
 uint8 reads of Y, about 400 FLOPs per byte at K = 100, so it is
 compute-bound on the H100. The two-role design trades the fourth product
@@ -51,8 +51,8 @@ class _Kernel(NamedTuple):
 KERNELS = {
     # bf16 production: csrc/dense_wgmma.cu (one 384-thread CTA per SM)
     "wgmma": _Kernel("hpf_dense_wgmma_bf16", 128, 1, 8),
-    # f32 production: csrc/dense_simt.cu (one 256-thread CTA per SM, 155 KB
-    # of shared memory at kq = 104)
+    # f32 production: csrc/dense_simt.cu (one 256-thread CTA per SM, 224,256
+    # bytes of shared memory at kq = 104)
     "f32": _Kernel("hpf_dense_simt_f32", 128, 1, 8),
     # csrc/dense_fused.cu: the earlier bf16 design (mma.sync), kept for the
     # stage probe and its comparison
