@@ -12,9 +12,9 @@ port's own CPU run. The f32 kernel must beat its plain version at Netflix
 shape and on the EchoNest head, and the step at "highest" is timed at
 ML-1M and EchoNest. Then the big-sparse hybrid path: the tail kernel
 against its plain version on adversarial layouts and on the EchoNest
-tail, HPF K=100 at the EchoNest preset shape (1,019,318 x 384,546, 45M
-nonzeros) through the Trainer, and a small hybrid run on the card against
-the CPU. Then the segment path: the CSR sweep kernel against its plain
+tail (where its bf16 route must beat its f32 route), HPF K=100 at the
+EchoNest preset shape (1,019,318 x 384,546, 45M nonzeros) through the
+Trainer, and a small hybrid run on the card against the CPU. Then the segment path: the CSR sweep kernel against its plain
 version on adversarial layouts, HPF K=100 at the EchoNest preset shape
 through the Trainer with `sweep="segment-chunked"` and the training ELBO
 (every nonzero through the CSR kernel, no head block, no tail), and five
@@ -553,8 +553,10 @@ def random_lin(gen, n, m, k, bias):
 
 
 def check_tail(name, n, m, k, stream, gen, bias, reps):
-    """Kernel against plain on one stream, four modes. Returns the
-    no-bias bf16 line's numbers (the main path's configuration)."""
+    """Kernel against plain on one stream, both routes (bf16 through
+    csrc/tail_bf16.cu, f32 through csrc/tail_fused.cu). Returns the bf16
+    route's numbers (the main path's) and, under keys ending in _f32, the
+    f32 route's, each beside its bound that counts every gathered row."""
     from hgaprec_tpu_torch.ops import tail as tl
     from hgaprec_tpu_torch.ops import tail_fused as tf
     lin = random_lin(gen, n, m, k, bias)
@@ -587,29 +589,35 @@ def check_tail(name, n, m, k, stream, gen, bias, reps):
             lambda: [tl.half_sweep_reference(*h) for h in halves], reps)
         kq = a_t.shape[1]
         nbytes = 2 * stream.nnz * (kq * a_t.element_size() + 12)
+        gathered_ms = nbytes / HBM_BPS * 1e3
         say(f"tail kernel [{name}] {n}x{m}x{k} nnz={stream.nnz:,} "
-            f"bias={bias} bf16={bf16}: max_abs_err vs f32 plain {err:.3e} "
-            f"(vs plain in the same mode {err_like:.3e}), two launches "
-            f"bitwise {'equal' if same_bits else 'DIFFERENT'} "
+            f"bias={bias} bf16={bf16} ({tf.plan(bf16, kq)[1]} lanes per "
+            f"range): max_abs_err vs f32 plain {err:.3e} (vs plain in the "
+            f"same mode {err_like:.3e}), two launches bitwise "
+            f"{'equal' if same_bits else 'DIFFERENT'} "
             f"{'ok' if ok and same_bits else 'FAIL'}; both halves kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of {reps}); "
             f"{nbytes / ms / 1e6:.1f} GB/s of 2 x nnz x (kq x "
-            f"{a_t.element_size()} + 12) B")
+            f"{a_t.element_size()} + 12) B, whose bound is "
+            f"{gathered_ms:.4f} ms ({100 * gathered_ms / ms:.0f}% of it)")
         if not (ok and same_bits):
             raise SystemExit(f"tail kernel disagrees with its plain version "
                              f"[{name}] bias={bias} bf16={bf16}")
+        # bound: the tables, both sorted streams and the outputs moved
+        # once; dot and axpy of kq per nonzero in each half, f32 FMAs
+        once = sum(x.nbytes for x in (a_t, b_t, stream.u, stream.i,
+                                      stream.y, stream.i_by_item,
+                                      stream.u_by_item, stream.y_by_item))
+        bound_ms, bound_by = bound(once + 4 * kq * (n + m),
+                                   8 * stream.nnz * kq, F32_FLOPS)
+        mode = dict(max_abs_err=err_like, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    gbps=nbytes / ms / 1e6, bound_ms_gathered=gathered_ms)
         if bf16:
-            # bound: the tables, both sorted streams and the outputs moved
-            # once; dot and axpy of kq per nonzero in each half, f32 FMAs
-            once = sum(x.nbytes for x in (a_t, b_t, stream.u, stream.i,
-                                          stream.y, stream.i_by_item,
-                                          stream.u_by_item, stream.y_by_item))
-            bound_ms, bound_by = bound(once + 4 * kq * (n + m),
-                                       8 * stream.nnz * kq, F32_FLOPS)
-            out = dict(max_abs_err=err_like, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                       gbps=nbytes / ms / 1e6,
-                       bound_ms_gathered=nbytes / HBM_BPS * 1e3)
+            out.update(mode, library_ms=None,
+                       bound_share_gathered=gathered_ms / ms)
+        else:
+            out.update({f"{key}_f32": v for key, v in mode.items()})
     del lin, ref32
     return out
 
@@ -979,10 +987,22 @@ def phase_echonest(df, tf, tr, gen, smi):
         head[bf16] = (ms, plain_ms, mma_ms, bound_ms)
     del a_lin, b_head, ref
 
-    # the tail kernel on the EchoNest tail, before training
+    # the tail kernel on the EchoNest tail, before training; the bf16
+    # route (the main path's) must beat the f32 route there
     tail = check_tail("echonest tail", n, m, K, data.tail, gen, False, 5)
     check_tail("echonest tail", n, m, K, data.tail, gen, True, 3)
     torch.cuda.empty_cache()
+    faster = tail["ms"] < tail["ms_f32"]
+    say(f"tail kernel at the EchoNest tail, both halves, on {smi}: bf16 "
+        f"route {tail['ms']:.4f} ms ({tail['gbps']:.1f} GB/s; gathered "
+        f"bound {tail['bound_ms_gathered']:.4f} ms, "
+        f"{100 * tail['bound_share_gathered']:.0f}% of it), f32 route "
+        f"{tail['ms_f32']:.4f} ms ({tail['gbps_f32']:.1f} GB/s; gathered "
+        f"bound {tail['bound_ms_gathered_f32']:.4f} ms) "
+        f"{'ok' if faster else 'FAIL'}")
+    if not faster:
+        raise SystemExit("the bf16 tail route is not faster than the f32 "
+                         "route at the EchoNest tail")
 
     report_s, topk_calls = [], []
     timed(tr, "report", report_s)
@@ -992,8 +1012,6 @@ def phase_echonest(df, tf, tr, gen, smi):
     for nm, f in streamed.items():
         setattr(ranking, nm, (lambda f, nm: lambda *a, **kw: (
             topk_calls.append(nm), f(*a, **kw))[1])(f, nm))
-    say(f"tail kernel at the EchoNest tail, bf16: {tail['gbps']:.1f} GB/s "
-        f"of 2 x nnz x (kq x 2 + 12) B, on {smi}")
     torch.cuda.reset_peak_memory_stats()
     df.fused_dense_sweep.launches = 0
     tf.fused_half_sweep.launches = 0
@@ -1048,13 +1066,14 @@ def phase_echonest(df, tf, tr, gen, smi):
         f"report {[round(x, 2) for x in report_s]} (last: save + ranking "
         f"for test_users.tsv); peak card memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    rest_ms = ms_iter - head_ms - tail_ms
     say(f"echonest steady state {ms_iter:.2f} ms/iter = "
         f"{1e3 / ms_iter:.2f} iters/s (median of 5 windows of 10; range "
         f"{ms_lo:.2f}-{ms_hi:.2f}): head kernel {head_ms:.2f} ms "
         f"({100 * head_ms / ms_iter:.0f}%; the mma.sync design takes "
-        f"{head_mma_ms:.2f} ms on the same state), tail kernel "
-        f"{tail_ms:.2f} ms (both halves), rest "
-        f"{ms_iter - head_ms - tail_ms:.2f} ms")
+        f"{head_mma_ms:.2f} ms on the same state), bf16 tail kernel "
+        f"{tail_ms:.2f} ms ({100 * tail_ms / ms_iter:.0f}%, both halves), "
+        f"rest {rest_ms:.2f} ms ({100 * rest_ms / ms_iter:.0f}%)")
     # the default precision, "highest" (f32 head and tail), on the same
     # trained state
     hcfg = dataclasses.replace(tr.mcfg, matmul_precision="highest")
@@ -1083,7 +1102,7 @@ def phase_echonest(df, tf, tr, gen, smi):
     return dict(launches=launches, tail=tail, head=head, ms_iter=ms_iter,
                 head_ms_trained=head_ms, ms_iter_highest=hi_iter,
                 launches_highest=hi_launches,
-                head_f32_ms_trained=head_f32_ms,
+                head_f32_ms_trained=head_f32_ms, tail_ms_trained=tail_ms,
                 tail_f32_ms_trained=tail_f32_ms)
 
 
@@ -1169,8 +1188,8 @@ def main():
                     "spill" in line or "Compiling entry" in line or \
                     "Potential Performance Loss" in line:
                 say(f"  {line.strip()}")
-        # the two production routes' kernels must build with no spills
-        for src in ("dense_wgmma.cu", "dense_simt.cu"):
+        # the production routes' kernels must build with no spills
+        for src in ("dense_wgmma.cu", "dense_simt.cu", "tail_bf16.cu"):
             start = log.index(f"== {src}")
             end = log.find("\n==", start)
             spills = [x.strip()
@@ -1244,11 +1263,13 @@ def main():
          "ms_per_iter_ml1m_highest": ms_iter_ml1m_highest,
          "ms_per_iter_echonest_hybrid_highest": en["ms_iter_highest"]},
         {"name": "fused_half_sweep", "route": "cuda",
-         "source": "hgaprec_tpu_torch/csrc/tail_fused.cu",
+         "source": "hgaprec_tpu_torch/csrc/tail_bf16.cu",
          "replaces": "hgaprec_tpu/ops/pallas_tail.py:101",
          "launches": en["launches"][1],
          "launches_by_path": {"echonest_hybrid": en["launches"][1]},
-         **en["tail"]},
+         **en["tail"], "ms_trained": en["tail_ms_trained"],
+         "source_f32": "hgaprec_tpu_torch/csrc/tail_fused.cu",
+         "ms_f32_trained": en["tail_f32_ms_trained"]},
         {"name": "dense_probe", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/dense_fused.cu",
          "replaces": "scripts/dense_mfu_probe.py:51",

@@ -4,13 +4,14 @@
 // half of the hybrid sweep's tail: a stream of nonzeros sorted by its
 // primary side, with primary ids p (ascending), other-side ids o, counts
 // y, and factor tables P [rows_p, kq], O [rows_o, kq] (bias-augmented by
-// the caller, bf16 or f32, kq a whole number of 16-byte chunks):
+// the caller, kq a whole number of 16-byte chunks):
 //
 //     out[r] = sum_{j: p_j = r} w_j * P[r] (.) O[o_j],
 //     w_j = y_j / max(<P[r], O[o_j]>, 1e-30)
 //
-// in f32 (tables widened on load, f32 dot, weight and sums): the row
-// sweep of row_sweep.cuh in its kDot mode, where the design is set out.
+// in f32. This file is the f32 route: the row sweep of row_sweep.cuh in
+// its kDot mode, where the design is set out. The bf16 route, with tables
+// widened on load, is tail_bf16.cu.
 //
 // The TPU kernel selects primary rows with one-hot matrix products, keeps
 // a VMEM accumulator ring it flushes in windows, and streams other-side
@@ -19,7 +20,7 @@
 // reads O[o_j] itself and never materialises the gathered stream.
 //
 // Bound on the H100: the random row gathers, one other-side row per
-// nonzero (kq * 2 bytes in bf16, kq * 4 in f32) plus 12 bytes of ids and y.
+// nonzero (kq * 4 bytes) plus 12 bytes of ids and y.
 
 #include "row_sweep.cuh"
 
@@ -44,18 +45,4 @@ extern "C" int hpf_tail_half_sweep_f32(const void* p, const void* o,
              : launch_row_sweep<float, 2, kDot>(p, o, y, nullptr, nullptr,
                                                 ptab, otab, out, brow, bacc,
                                                 nnz, kq, range, st);
-}
-
-// As above with bf16 tables and kq % 8 == 0.
-extern "C" int hpf_tail_half_sweep_bf16(const void* p, const void* o,
-                                        const void* y, const void* ptab,
-                                        const void* otab, void* out,
-                                        void* brow, void* bacc,
-                                        long long nnz, int kq, int range,
-                                        void* stream) {
-  if (bad_row_args(ptab, otab, out, bacc, nnz, kq, range, 8))
-    return (int)cudaErrorInvalidValue;
-  return launch_row_sweep<__nv_bfloat16, 1, kDot>(
-      p, o, y, nullptr, nullptr, ptab, otab, out, brow, bacc, nnz, kq, range,
-      static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,4 @@
-"""Sparse-tail half-sweep: the CUDA kernel's wrapper.
+"""Sparse-tail half-sweep: the CUDA kernels' wrapper.
 
 Port of `hgaprec_tpu/ops/pallas_tail.py::pallas_half_sweep` and
 `pallas_tail_sweep`. For a stream sorted by its primary ids p, with
@@ -7,21 +7,29 @@ other-side ids o, counts y and bias-augmented tables P, O (ops/tail.py):
     out[r] = sum_{j: p_j = r} w_j * P[r] (.) O[o_j],
     w_j = y_j / max(<P[r], O[o_j]>, 1e-30)
 
-The kernel (`csrc/tail_fused.cu`) replaces the TPU kernel
-`hgaprec_tpu/ops/pallas_tail.py::_kernel`. It is bounded by the random
-row gathers: one O row per nonzero (kq * 2 bytes in bf16) plus 12 bytes of
-ids and y. Each warp keeps a row's running sum in registers and writes
-each finished row once; rows cut by a warp's range meet in a small
-deterministic fix-up pass, so no float atomics and the same bits on
-every launch.
+Two kernels replace the TPU kernel `hgaprec_tpu/ops/pallas_tail.py::
+_kernel`, both bounded by the random row gathers: one O row per nonzero
+(kq * 2 bytes in bf16, kq * 4 in f32) plus 12 bytes of ids and y.
+  * bf16 ("default"), `csrc/tail_bf16.cu`: a lane group of 8, 16 or 32
+    lanes (one 16-byte chunk of a row per lane, `plan`) owns each range of
+    RANGE nonzeros, and keeps several O rows, and the P row of each run
+    that starts among them, in flight in a cp.async ring in shared memory.
+  * f32 ("highest"), `csrc/tail_fused.cu`: a warp owns each range and
+    loads the next O row while it computes one (`csrc/row_sweep.cuh`).
+Either keeps a run's running sum in registers and writes each finished row
+once; the first and last run of each range go to two boundary slots that
+a small fix-up pass adds in range order, so no float atomics and the same
+bits on every launch.
 
-On a CUDA tensor `fused_half_sweep` launches the kernel or raises; only a
+On a CUDA tensor `fused_half_sweep` launches a kernel or raises; only a
 CPU tensor takes `ops/tail.py::half_sweep_reference`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
@@ -29,8 +37,35 @@ from hgaprec_tpu_torch.ops import build
 from hgaprec_tpu_torch.ops.tail import (TailStream, half_sweep_reference,
                                         run_tail_sweep)
 
-RANGE = 256            # nonzeros per warp (a multiple of 32)
-KQ_MAX = 256           # widest table row the kernel takes
+RANGE = 256            # nonzeros per range (a multiple of 32)
+KQ_MAX = 256           # widest table row the kernels take
+
+
+def plan(bf16: bool, kq: int) -> Tuple[str, int]:
+    """(C entry, lanes per range) for rows of kq values: the bf16 kernel's
+    lane group holds one 16-byte chunk (8 values) per lane, 8 lanes up to
+    kq = 64, 16 up to 128, 32 beyond (`csrc/tail_bf16.cu` picks the same);
+    the f32 row sweep runs a warp per range."""
+    if not bf16:
+        return "hpf_tail_half_sweep_f32", 32
+    return "hpf_tail_half_sweep_bf16", 8 if kq <= 64 else 16 if kq <= 128 \
+        else 32
+
+
+def scratch_rows(nnz: int) -> int:
+    """Boundary slots for a stream of nnz > 0 nonzeros: two per range of
+    RANGE (the kernels' `brow` [slots] and `bacc` [slots, kq])."""
+    return 2 * -(-nnz // RANGE)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """A C entry of the kernel library, its argument types set once."""
+    fn = getattr(build.load_library(), name)
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(p_tab, o_tab, p_ids, o_ids, y, rows):
@@ -82,17 +117,12 @@ def fused_half_sweep(p_tab: torch.Tensor, o_tab: torch.Tensor,
     out = torch.zeros((rows, kq), dtype=torch.float32, device=p_tab.device)
     if nnz == 0:
         return out
-    warps = -(-nnz // RANGE)
-    brow = torch.empty(2 * warps, dtype=torch.int32, device=p_tab.device)
-    bacc = torch.empty((2 * warps, kq), dtype=torch.float32,
-                       device=p_tab.device)
+    slots = scratch_rows(nnz)
+    brow = torch.empty(slots, dtype=torch.int32, device=p_tab.device)
+    bacc = torch.empty((slots, kq), dtype=torch.float32, device=p_tab.device)
     bf16 = p_tab.dtype == torch.bfloat16
-    lib = build.load_library()
-    fn = lib.hpf_tail_half_sweep_bf16 if bf16 else \
-        lib.hpf_tail_half_sweep_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    name, lanes = plan(bf16, kq)
+    fn = _entry(name)
     with torch.cuda.device(p_tab.device):
         stream = torch.cuda.current_stream(p_tab.device).cuda_stream
         err = fn(p_ids.data_ptr(), o_ids.data_ptr(), y.data_ptr(),
@@ -100,7 +130,8 @@ def fused_half_sweep(p_tab: torch.Tensor, o_tab: torch.Tensor,
                  brow.data_ptr(), bacc.data_ptr(), nnz, kq, RANGE, stream)
     if err != 0:
         raise RuntimeError(f"tail half-sweep launch failed: cudaError {err} "
-                           f"(nnz={nnz}, rows={rows}, kq={kq}, bf16={bf16})")
+                           f"({name}, {lanes} lanes per range; nnz={nnz}, "
+                           f"rows={rows}, kq={kq})")
     fused_half_sweep.launches += 1
     return out
 

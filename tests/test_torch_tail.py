@@ -208,15 +208,42 @@ def test_cpu_tensor_never_builds(monkeypatch):
 def test_build_command_names_the_tail_source(monkeypatch):
     monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
     srcs = build.sources()
-    assert build.CSRC_DIR + "/tail_fused.cu" in srcs
+    for route in ("tail_bf16.cu", "tail_fused.cu"):
+        assert build.CSRC_DIR + "/" + route in srcs
+        cmd = build.compile_command(build.CSRC_DIR + "/" + route, "t.o")
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert cmd[-1] == build.CSRC_DIR + "/" + route
     assert build.CSRC_DIR + "/dense_fused.cu" in srcs
-    cmd = build.compile_command(build.CSRC_DIR + "/tail_fused.cu", "t.o")
-    assert "arch=compute_90a,code=sm_90a" in cmd
     assert build.CSRC_DIR + "/row_sweep.cuh" in build.headers()
+    with open(build.CSRC_DIR + "/tail_bf16.cu") as f:
+        src = f.read()
+    assert "hpf_tail_half_sweep_bf16" in src and "cp.async" in src
+    with open(build.CSRC_DIR + "/tail_fused.cu") as f:
+        assert "hpf_tail_half_sweep_bf16" not in f.read()
+
+
+@pytest.mark.parametrize("kq, lanes", [(8, 8), (16, 8), (64, 8), (72, 16),
+                                       (104, 16), (128, 16), (136, 32),
+                                       (200, 32), (256, 32)])
+def test_plan_picks_the_entry_and_group_by_width(kq, lanes):
+    assert tf.plan(True, kq) == ("hpf_tail_half_sweep_bf16", lanes)
+    # one 16-byte chunk of bf16 per lane covers the row
+    assert 8 * lanes >= kq and (lanes == 8 or 4 * lanes < kq)
+    assert tf.plan(False, kq) == ("hpf_tail_half_sweep_f32", 32)
+
+
+@pytest.mark.parametrize("nnz", [1, 31, 33, tf.RANGE - 1, tf.RANGE,
+                                 tf.RANGE + 1, 8590764])
+def test_scratch_holds_two_slots_per_range(nnz):
+    ranges = -(-nnz // tf.RANGE)
+    assert tf.scratch_rows(nnz) == 2 * ranges
+    # every nonzero lies in a range, and no range is empty
+    assert (ranges - 1) * tf.RANGE < nnz <= ranges * tf.RANGE
 
 
 @pytest.mark.parametrize("bad", ["dtype", "mixed", "width", "shape",
-                                 "ids", "contig", "rows", "device"])
+                                 "ids", "contig", "rows", "device",
+                                 "bf16_width", "bf16_wide"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     p_tab, o_tab = torch.rand(6, 8), torch.rand(5, 8)
     p = torch.tensor([0, 0, 2, 5], dtype=torch.int32)
@@ -237,6 +264,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         p_tab = torch.rand(8, 6).T
     elif bad == "rows":
         rows = 7
+    elif bad == "bf16_width":      # 12 bf16 values: not whole 16-byte rows
+        p_tab = torch.rand(6, 12).bfloat16()
+        o_tab = torch.rand(5, 12).bfloat16()
+    elif bad == "bf16_wide":       # past one 16-byte chunk for each of 32 lanes
+        p_tab = torch.rand(6, 264).bfloat16()
+        o_tab = torch.rand(5, 264).bfloat16()
     else:
         y = torch.ones(4, device="meta")
     with pytest.raises(ValueError):
@@ -280,3 +313,57 @@ def test_kernel_matches_plain_on_card(bias, bf16):
             continue
         assert torch.equal(g, a)                # deterministic
         torch.testing.assert_close(g, w, **F32)
+
+
+def _partition_layouts(rng):
+    """(name, n, m, u, i, y) that stress the bf16 kernel's partition into
+    lane groups of RANGE nonzeros: streams of a few nonzeros and of one
+    range give or take one, one nonzero per row (every nonzero starts a run
+    whose P row is copied ahead), a row spanning many ranges between short
+    rows, and runs of lengths that cut the id batches (8, 16, 32 nonzeros)
+    and the ranges anywhere."""
+    r = tf.RANGE
+    out = []
+    for nnz in (1, 31, 33, r - 1, r + 1):
+        out.append((f"nnz={nnz}", 300, 200) + _rand_coo(rng, 300, 200, nnz))
+    n, m = 3 * r + 5, 500
+    out.append(("one per row", n, m, np.arange(n, dtype=np.int32),
+                rng.integers(0, m, n).astype(np.int32),
+                rng.integers(1, 5, n).astype(np.float32)))
+    u = np.concatenate([np.arange(5), np.full(9 * r + 7, 5),
+                        np.repeat(np.arange(6, 40), 3)]).astype(np.int32)
+    out.append(("row over ten ranges", 40, 700, u,
+                rng.integers(0, 700, u.size).astype(np.int32),
+                rng.integers(1, 5, u.size).astype(np.float32)))
+    lengths = rng.choice([1, 2, 7, 9, 15, 17, 31, 33, 63], 400)
+    u = np.repeat(np.arange(0, 2 * lengths.size, 2), lengths).astype(np.int32)
+    out.append(("runs across batches", 2 * lengths.size, 900, u,
+                rng.integers(0, 900, u.size).astype(np.int32),
+                rng.integers(1, 300, u.size).astype(np.float32)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("k", [13, 100, 200])
+def test_bf16_kernel_partition_on_card(k, bias):
+    """The bf16 route (csrc/tail_bf16.cu) at 8-, 16- and 32-lane groups:
+    two launches bitwise equal and the plain bf16 version's result at the
+    f32 bound. The last layout's counts reach 299, past the divide's fast
+    range, so both of its paths run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(k + bias)
+    for name, n, m, u, i, y in _partition_layouts(rng):
+        tables = [None if x is None else torch.from_numpy(x).cuda()
+                  for x in _tables(rng, n, m, k, bias)]
+        stream = build_tail_stream(u, i, y, "cuda")
+        got = tf.tail_sweep(*tables, stream, bf16=True)
+        again = tf.tail_sweep(*tables, stream, bf16=True)
+        want = tail_sweep_reference(*tables, stream, bf16=True)
+        torch.cuda.synchronize()
+        for g, a, w in zip(got, again, want):
+            if w is None:
+                continue
+            assert torch.equal(g, a), name
+            torch.testing.assert_close(g, w, **F32, msg=name)
