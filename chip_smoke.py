@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--segment]
 
-Builds the port's CUDA kernels from `hgaprec_tpu_torch/csrc/`, holds each
+With `--segment` it runs only the build and the segment path's kernel
+phases (the CSR sweep on every layout and at EchoNest shape) and prints no
+result line. Without arguments it builds the port's CUDA kernels from
+`hgaprec_tpu_torch/csrc/`, holds each
 against its plain PyTorch version on the card, sweeps once at Netflix
 shape, trains HPF K=100 on MovieLens-1M-shaped synthetic data through the
 Trainer (the port's main entry point) and checks the card's run at
@@ -81,6 +84,26 @@ def median_ms(fn, reps):
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def device_ms_by_kernel(fn, reps):
+    """{kernel name: device ms per call of `fn`} from torch.profiler over
+    `reps` calls after one warm-up; empty if the profiler saw no device
+    activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            out[ev.name] = out.get(ev.name, 0.0) + \
+                ev.time_range.elapsed_us() / 1e3 / reps
+    return out
 
 
 def bound(nbytes, flops, peak):
@@ -644,17 +667,20 @@ def segment_layouts(rng):
     return tail_layouts(rng) + [("power-law items", 20000, 3000, u, i, y)]
 
 
-def check_segment(name, data, lin, reps):
+def check_segment(name, data, lin, reps, slab_bytes=None):
     """The CSR sweep kernel (both passes) against its plain version on one
-    layout and factors `lin` (a_lin, b_lin, ba_lin | None, bb_lin | None):
-    tolerance, two launches bitwise equal, untouched rows zero."""
+    layout and factors `lin` (a_lin, b_lin, ba_lin | None, bb_lin | None),
+    its item pass cut into user slabs of `slab_bytes` (the wrapper's
+    budget by default): tolerance, two launches bitwise equal, untouched
+    rows zero."""
     from hgaprec_tpu_torch.ops import segment as sg
     from hgaprec_tpu_torch.ops import segment_fused as sf
     from hgaprec_tpu_torch.ops.tail import tail_tables
     (n, k), m, bias = lin[0].shape, lin[1].shape[0], lin[2] is not None
+    slab_bytes = slab_bytes or sf.SLAB_BYTES
     a_t, b_t = tail_tables(*lin, bf16=False)
-    got = sf.fused_segment_sweep(a_t, b_t, data)
-    again = sf.fused_segment_sweep(a_t, b_t, data)
+    got = sf.fused_segment_sweep(a_t, b_t, data, slab_bytes)
+    again = sf.fused_segment_sweep(a_t, b_t, data, slab_bytes)
     ref = sg.segment_sweep_reference(a_t, b_t, data)
     torch.cuda.synchronize()
     same_bits = all(torch.equal(g, a) for g, a in zip(got, again))
@@ -666,45 +692,60 @@ def check_segment(name, data, lin, reps):
                  for ids, rows in ((data.u_ids, n), (data.i_ids, m))]
     zero = all(g[z].abs().max().item() == 0 if z.any() else True
                for g, z in zip(got, untouched))
-    ms = median_ms(lambda: sf.fused_segment_sweep(a_t, b_t, data), reps)
+    ms = median_ms(lambda: sf.fused_segment_sweep(a_t, b_t, data,
+                                                  slab_bytes), reps)
     plain_ms = median_ms(lambda: sg.segment_sweep_reference(a_t, b_t, data),
                          min(reps, 2) if name == "echonest" else reps)
     p, kq = data.nnz_padded, a_t.shape[1]
+    slabs = sf.slab_stream(data, n, m, kq, slab_bytes)
     nbytes = 2 * p * (kq * 4 + 12) + 8 * p
     ranges = -(-int(torch.bincount(data.i_ids_sorted.long()).max()) //
                sf.RANGE) + 1
     say(f"segment kernel [{name}] {n}x{m}x{k} nnz={int(live.sum()):,} "
-        f"padded {p:,} bias={bias}: max_abs_err vs plain {err:.3e}, two "
-        f"launches bitwise {'equal' if same_bits else 'DIFFERENT'}, "
-        f"untouched rows {'zero' if zero else 'NONZERO'} "
+        f"padded {p:,} bias={bias} slabs={slabs.slabs} ((slab, item) rows "
+        f"{slabs.pairs:,}; budget {slab_bytes:,} B): max_abs_err vs plain "
+        f"{err:.3e}, two launches bitwise "
+        f"{'equal' if same_bits else 'DIFFERENT'}, untouched rows "
+        f"{'zero' if zero else 'NONZERO'} "
         f"{'ok' if ok and same_bits and zero else 'FAIL'}; longest item row "
         f"over {ranges} ranges; both passes kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms; {nbytes / ms / 1e6:.1f} GB/s of "
         f"2 x P x (kq x 4 + 12) + 8 P B")
     if not (ok and same_bits and zero):
         raise SystemExit(f"segment kernel disagrees with its plain version "
-                         f"[{name}] bias={bias}")
-    # bound: the tables, the COO arrays the kernel reads and the outputs
-    # moved once; dot and axpy of kq per nonzero in each pass, f32 FMAs
+                         f"[{name}] bias={bias} slabs={slabs.slabs}")
+    # bound: the tables, the COO arrays the kernel reads (the user-sorted
+    # stream and the slab stream) and the outputs moved once; dot and axpy
+    # of kq per nonzero in each pass, f32 FMAs
     once = sum(x.nbytes for x in (a_t, b_t, data.u_ids, data.i_ids, data.y,
-                                  data.item_order, data.i_ids_sorted,
-                                  data.u_ids_by_item))
+                                  slabs.pair, slabs.u, slabs.order))
     bound_ms, bound_by = bound(once + 4 * kq * (n + m), 8 * p * kq, F32_FLOPS)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None, gbps=nbytes / ms / 1e6,
-                bound_ms_gathered=nbytes / HBM_BPS * 1e3)
+                bound_ms_gathered=nbytes / HBM_BPS * 1e3, slabs=slabs.slabs,
+                slab_pairs=slabs.pairs)
 
 
 def phase_segment_layouts(gen):
     """Every layout at K and at a small K, bias off and on, padded to a
-    ragged multiple of 1000 entries (padding: y = 0, ids = last row)."""
+    ragged multiple of 1000 entries (padding: y = 0, ids = last row), with
+    the item pass in one slab (the wrapper's budget) and in about six (a
+    budget of a sixth of the user table and the weights)."""
     from hgaprec_tpu_torch.data.device import DeviceData, sorted_coo
     for name, n, m, u, i, y in segment_layouts(np.random.default_rng(SEED)):
         data = DeviceData(**sorted_coo(u, i, y, n, m, "cuda", 1000),
                           dense_y=None)
         for k in (K, 13):
+            kq = -(-(k + 2) // 4) * 4
+            small = (4 * kq * n + 4 * data.nnz_padded) // 6
             for bias in (False, True):
-                check_segment(name, data, random_lin(gen, n, m, k, bias), 3)
+                lin = random_lin(gen, n, m, k, bias)
+                one = check_segment(name, data, lin, 3)
+                several = check_segment(name, data, lin, 3, small)
+                if one["slabs"] != 1 or several["slabs"] < 2:
+                    raise SystemExit(f"segment layout [{name}] gave "
+                                     f"{one['slabs']} and "
+                                     f"{several['slabs']} slabs")
 
 
 def logl_rows(outdir):
@@ -764,9 +805,17 @@ def phase_echonest_segment(df, tf, hybrid, root, smi):
                                                windows=5, steps=10)
     # the kernel alone on the trained state, as one step calls it
     st = tr.state
-    kernel = check_segment("echonest", data, [torch.exp(st.theta.elog),
-                                              torch.exp(st.beta.elog),
-                                              None, None], 5)
+    lin = [torch.exp(st.theta.elog), torch.exp(st.beta.elog), None, None]
+    kernel = check_segment("echonest", data, lin, 5)
+    kernel.update(segment_passes(data, lin, smi))
+    fast = kernel["ms"] < kernel["bound_ms_gathered"]
+    say(f"echonest segment kernel, both passes, {kernel['ms']:.4f} ms "
+        f"(wrapper, zero-filled outputs included) against "
+        f"{kernel['bound_ms_gathered']:.4f} ms, one HBM gather per nonzero "
+        f"{'ok' if fast else 'FAIL'}")
+    if not fast:
+        raise SystemExit("the CSR sweep kernel is no faster than one HBM "
+                         "gather per nonzero on the trained EchoNest state")
     say(f"echonest segment main path: Trainer HPF K={K} {store.n:,}x"
         f"{store.m:,} nnz={store.nratings:,} sweep=segment-chunked -> "
         f"{mode}; 6 iterations in {wall:.1f} s wall (reports, ELBO and "
@@ -796,6 +845,66 @@ def phase_echonest_segment(df, tf, hybrid, root, smi):
         raise SystemExit("the segment and hybrid sweeps disagree")
     del seg, hyb
     return dict(launches=launches[0], peak=peak, ms_iter=ms_iter, **kernel)
+
+
+def segment_passes(data, lin, smi):
+    """Each pass of the CSR sweep kernel timed alone on `data` (CUDA
+    events, median of 5) beside its bounds (every input once; one gathered
+    row, ids and weight per nonzero), the slab stream's build, the item
+    pass at other slab budgets, and the kernels by name (torch.profiler).
+    """
+    from hgaprec_tpu_torch.ops import segment_fused as sf
+    from hgaprec_tpu_torch.ops.tail import tail_tables
+    a_t, b_t = tail_tables(*lin, bf16=False)
+    (n, kq), m, p = a_t.shape, b_t.shape[0], data.nnz_padded
+    data.slab_cache.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slabs = sf.slab_stream(data, n, m, kq)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_bytes = sum(x.nbytes for x in (
+        slabs.pair, slabs.u, slabs.order, slabs.pair_item, slabs.item_start,
+        slabs.item_pairs))
+    sc = sf.Scratch.make(p, kq, a_t.device)
+    out_a, out_b = torch.zeros_like(a_t), torch.zeros_like(b_t)
+    user_ms = median_ms(lambda: sf.user_pass(a_t, b_t, data, out_a, sc), 5)
+    item_ms = median_ms(lambda: sf.item_pass(a_t, b_t, slabs, out_b, sc), 5)
+    row, ids = 4 * kq, 12 * p
+    passes = {}
+    for name, ms, table, out in (("user", user_ms, b_t, out_a),
+                                 ("item", item_ms, a_t, out_b)):
+        strict = bound(a_t.nbytes + b_t.nbytes + ids + out.nbytes, 4 * p * kq,
+                       F32_FLOPS)[0]
+        gathered = p * (row + 16) / HBM_BPS * 1e3
+        passes[name] = dict(ms=ms, bound_ms=strict, bound_ms_gathered=gathered)
+        say(f"echonest segment {name} pass alone: {ms:.4f} ms; bound "
+            f"{strict:.4f} ms (every input once), {gathered:.4f} ms (one "
+            f"{row} B row, ids and w per nonzero) on {smi}")
+    say(f"echonest slab stream: {slabs.slabs} slabs of at most "
+        f"{sf.SLAB_BYTES:,} B of A rows and w, {slabs.pairs:,} (slab, item) "
+        f"pair rows ({2 * row * slabs.pairs / 1e9:.3f} GB written and read "
+        f"again); built in {build_s:.3f} s on the card, "
+        f"{build_bytes / 1e9:.3f} GB")
+    trade = {}
+    for budget in (1 << 40, 12 << 20, 48 << 20):
+        st = sf.slab_stream(data, n, m, kq, budget)
+        ms = median_ms(lambda: sf.item_pass(a_t, b_t, st, out_b, sc), 5)
+        trade[str(budget)] = dict(slabs=st.slabs, pairs=st.pairs, ms=ms)
+        data.slab_cache.pop((n, m, kq, budget))
+        say(f"echonest item pass at a slab budget of {budget:,} B: "
+            f"{st.slabs} slabs, {st.pairs:,} (slab, item) rows, {ms:.4f} ms")
+        del st
+    by_kernel = device_ms_by_kernel(
+        lambda: sf.fused_segment_sweep(a_t, b_t, data), 3)
+    say(f"echonest segment kernel by device kernel (torch.profiler, ms per "
+        f"sweep, mean of 3): "
+        f"{ {k: round(v, 4) for k, v in sorted(by_kernel.items())} }")
+    del a_t, b_t, sc, out_a, out_b
+    return dict(user_pass=passes["user"], item_pass=passes["item"],
+                slab_build_s=build_s, slab_build_bytes=build_bytes,
+                item_pass_by_slab_budget=trade,
+                ms_by_device_kernel=by_kernel)
 
 
 def phase_segment_cpu_reference(root):
@@ -1158,6 +1267,10 @@ def phase_hybrid_cpu_reference(root):
 
 def main():
     t_start = time.perf_counter()
+    if sys.argv[1:] not in ([], ["--segment"]):
+        print("usage: chip_smoke.py [--segment]", file=sys.stderr)
+        return 2
+    segment_only = sys.argv[1:] == ["--segment"]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -1195,7 +1308,8 @@ def main():
                     "Potential Performance Loss" in line:
                 say(f"  {line.strip()}")
         # the production routes' kernels must build with no spills
-        for src in ("dense_wgmma.cu", "dense_simt.cu", "tail_bf16.cu"):
+        for src in ("dense_wgmma.cu", "dense_simt.cu", "tail_bf16.cu",
+                    "segment_sweep.cu"):
             start = log.index(f"== {src}")
             end = log.find("\n==", start)
             spills = [x.strip()
@@ -1217,6 +1331,14 @@ def main():
                          "no wgmma in its SASS")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if segment_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+            phase_segment_layouts(gen)
+            phase_echonest_segment(df, tf, echonest_trainer(root), root, smi)
+        say(f"segment phases passed in "
+            f"{time.perf_counter() - t_start:.1f} s (no result line: "
+            f"--segment runs only the segment path)")
+        return 0
     main_kernel, f32_ml1m = phase_kernel(df, dp, gen)
     probe, netflix = phase_netflix(df, gen)
 
@@ -1282,7 +1404,7 @@ def main():
          "launches_by_path": {"netflix_probe": probe["launches"]},
          **probe},
         {"name": "fused_segment_sweep", "route": "cuda",
-         "source": "hgaprec_tpu_torch/csrc/segment_fused.cu",
+         "source": "hgaprec_tpu_torch/csrc/segment_sweep.cu",
          "replaces": "docs/design/pallas_csr_sweep.py:80",
          "launches": seg["launches"],
          "launches_by_path": {"echonest_segment": seg["launches"],

@@ -48,6 +48,11 @@ class DeviceData:
     head_items: Optional[torch.Tensor] = None     # i32[T]
     head_dense_y: Optional[torch.Tensor] = None   # u8[npad, T]
     tail: Optional[TailStream] = None
+    # the CSR sweep kernel's item-pass streams, built from the fields above
+    # at first use and kept here, by their sizing
+    # (ops/segment_fused.py::slab_stream)
+    slab_cache: dict = dataclasses.field(default_factory=dict, repr=False,
+                                         compare=False)
 
     @property
     def nnz_padded(self) -> int:

@@ -4,15 +4,20 @@ Port of `docs/design/pallas_csr_sweep.py::sweep_pallas` (TPU kernel
 `_sweep_pass_kernel`). One call runs both passes of a segment sweep over
 `DeviceData`'s dual-sorted COO (ops/segment.py): the user pass finds and
 keeps the weights w_j = y_j / max(<A[u], B[i]>, 1e-30) and sums acc_a; the
-item pass reads w through `item_order` and sums acc_b. Tables are f32
-always, as in the JAX segment path.
+item pass reads w through each entry's user-sorted position and sums
+acc_b. Tables are f32 always, as in the JAX segment path.
 
-The kernel (`csrc/segment_fused.cu`) is bounded by the random row gathers,
-one table row per nonzero in each pass (kq * 4 bytes) plus ids, y and a
-random w read. Each pass cuts its sorted stream into fixed ranges of
-nonzeros, one warp each, so a popular item spread over many ranges does
-not leave the card idle; rows cut by a range meet in a fixed-order fix-up
-pass, so no float atomics and the same bits on every launch.
+The kernel (`csrc/segment_sweep.cu`) is bounded by the random row gathers,
+one opposite-side row per nonzero in each pass (kq * 4 bytes). The TPU
+kernel keeps the whole opposite-side table on chip; on the H100 only a
+slab of the user table fits in the 50 MB L2. So the item pass runs over
+its own stream (`slab_stream`): the users cut into contiguous slabs whose
+A rows and weights fit in SLAB_BYTES, the stream in (slab, item, user)
+order, each (slab, item) pair summed into a row of a pair buffer, and each
+item's pair rows added in slab order. Both passes cut their stream into
+ranges of RANGE nonzeros, one lane group each, with a cp.async ring of
+rows in flight; runs cut by a range meet in a fixed-order fix-up, so no
+float atomics and the same bits on every launch.
 
 On a CUDA tensor `fused_segment_sweep` launches the kernel or raises; only
 a CPU tensor takes `ops/segment.py::segment_sweep_reference`.
@@ -21,7 +26,8 @@ a CPU tensor takes `ops/segment.py::segment_sweep_reference`.
 from __future__ import annotations
 
 import ctypes
-
+import dataclasses
+import functools
 import torch
 
 from hgaprec_tpu_torch.data.device import DeviceData
@@ -29,11 +35,90 @@ from hgaprec_tpu_torch.ops import build
 from hgaprec_tpu_torch.ops.segment import segment_sweep_reference
 from hgaprec_tpu_torch.ops.tail import tail_tables
 
-RANGE = 512            # nonzeros per warp (a multiple of 32)
+RANGE = 128            # nonzeros per range (a multiple of 32)
 KQ_MAX = 256           # widest table row the kernel takes
+SLAB_BYTES = 24 << 20  # a slab's A rows and weights: half the H100's L2
+
+_VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARGTYPES = {
+    "hpf_segment_user_pass_f32": [_VP] * 9 + [_LL, _INT, _INT, _VP],
+    "hpf_segment_item_pass_f32": [_VP] * 12 + [_LL, _INT, _INT, _INT, _VP],
+}
 
 
-def _check(a_tab, b_tab, data: DeviceData):
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """A C entry of the kernel library, its argument types set once."""
+    fn = getattr(build.load_library(), name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabStream:
+    """The item pass's stream: `DeviceData`'s item-sorted COO stably
+    re-sorted by the slab of each entry's user, so in (slab, item, user)
+    order, with each entry's (slab, item) pair numbered in that order."""
+    pair: torch.Tensor            # i32[P] the entry's pair: 0, 0, 1, ...
+    u: torch.Tensor               # i32[P] user ids
+    order: torch.Tensor           # i32[P] positions in the user-sorted COO
+    pair_item: torch.Tensor       # i32[pairs] the item of each pair
+    # item i's pairs, in slab order: item_pairs[item_start[i]:item_start[i+1]]
+    item_start: torch.Tensor      # i32[m + 1]
+    item_pairs: torch.Tensor      # i32[pairs]
+    slabs: int                    # slabs holding an entry
+
+    @property
+    def pairs(self) -> int:
+        return self.pair_item.shape[0]
+
+
+def user_slabs(u_ids: torch.Tensor, n: int, kq: int,
+               slab_bytes: int) -> torch.Tensor:
+    """i64 [n]: the slab of each user. Users are cut in id order into
+    contiguous slabs of a budget of `slab_bytes`, each user costing its A
+    row (kq * 4 bytes) and its weights (4 bytes per entry of u_ids, which
+    lie together in the user-sorted stream): a slab takes the users whose
+    running cost starts inside its budget, so it holds at most slab_bytes
+    plus one user. Slab ids rise with the user id and may skip a number
+    where one user costs more than the budget."""
+    cost = 4 * torch.bincount(u_ids.long(), minlength=n) + 4 * kq
+    return (torch.cumsum(cost, 0) - cost) // slab_bytes
+
+
+def slab_stream(data: DeviceData, n: int, m: int, kq: int,
+                slab_bytes: int = SLAB_BYTES) -> SlabStream:
+    """The item pass's stream for tables of n user and m item rows of kq
+    floats, built on data's device once per (n, m, kq, slab_bytes) and
+    kept in `data.slab_cache`. `item_order` is sorted by (item, user), so
+    a stable sort by slab gives (slab, item, user)."""
+    key = (n, m, kq, slab_bytes)
+    got = data.slab_cache.get(key)
+    if got is not None:
+        return got
+    slab = user_slabs(data.u_ids, n, kq, slab_bytes)[
+        data.u_ids_by_item.long()]
+    slab, perm = torch.sort(slab, stable=True)
+    i = data.i_ids_sorted[perm]
+    new_slab = slab[1:] != slab[:-1]
+    run_start = torch.ones_like(slab, dtype=torch.bool)
+    run_start[1:] = new_slab | (i[1:] != i[:-1])
+    pair_item = i[run_start]
+    item_start = torch.zeros(m + 1, dtype=torch.int64, device=slab.device)
+    item_start[1:] = torch.cumsum(torch.bincount(pair_item.long(),
+                                                 minlength=m), 0)
+    got = SlabStream(
+        pair=(torch.cumsum(run_start, 0) - 1).int(),
+        u=data.u_ids_by_item[perm], order=data.item_order[perm],
+        pair_item=pair_item, item_start=item_start.int(),
+        item_pairs=torch.sort(pair_item, stable=True).indices.int(),
+        slabs=int(new_slab.sum()) + 1 if slab.numel() else 0)
+    data.slab_cache[key] = got
+    return got
+
+
+def _check(a_tab, b_tab, data: DeviceData, slab_bytes: int):
     if a_tab.dim() != 2 or b_tab.dim() != 2 or \
             a_tab.shape[1] != b_tab.shape[1]:
         raise ValueError(f"tables {tuple(a_tab.shape)}, {tuple(b_tab.shape)}"
@@ -45,6 +130,8 @@ def _check(a_tab, b_tab, data: DeviceData):
     if kq % 4 or kq > KQ_MAX:
         raise ValueError(f"table width {kq} is not a multiple of 4 "
                          f"(16-byte rows) up to {KQ_MAX}")
+    if slab_bytes <= 0:
+        raise ValueError(f"slab budget {slab_bytes} must be positive")
     p = data.u_ids.shape[0]
     for name in ("u_ids", "i_ids", "item_order", "i_ids_sorted",
                  "u_ids_by_item", "y"):
@@ -61,44 +148,83 @@ def _check(a_tab, b_tab, data: DeviceData):
             raise ValueError(f"tensors on {t.device} and {a_tab.device}")
 
 
+@dataclasses.dataclass(frozen=True)
+class Scratch:
+    """The kernel's working buffers for a stream of p > 0 entries: the
+    weights and two boundary slots per range of RANGE."""
+    w: torch.Tensor               # f32[p]
+    brow: torch.Tensor            # i32[slots]
+    bacc: torch.Tensor            # f32[slots, kq]
+
+    @staticmethod
+    def make(p: int, kq: int, device) -> "Scratch":
+        slots = 2 * -(-p // RANGE)
+        return Scratch(torch.empty(p, dtype=torch.float32, device=device),
+                       torch.empty(slots, dtype=torch.int32, device=device),
+                       torch.empty((slots, kq), dtype=torch.float32,
+                                   device=device))
+
+
+def user_pass(a_tab, b_tab, data: DeviceData, out_a, sc: Scratch) -> None:
+    """The user pass on the card: w into sc.w and acc_a into out_a
+    (zeroed). `fused_segment_sweep` runs it; alone it serves to time the
+    pass."""
+    kq = a_tab.shape[1]
+    with torch.cuda.device(a_tab.device):
+        stream = torch.cuda.current_stream(a_tab.device).cuda_stream
+        err = _entry("hpf_segment_user_pass_f32")(
+            data.u_ids.data_ptr(), data.i_ids.data_ptr(), data.y.data_ptr(),
+            a_tab.data_ptr(), b_tab.data_ptr(), out_a.data_ptr(),
+            sc.w.data_ptr(), sc.brow.data_ptr(), sc.bacc.data_ptr(),
+            data.u_ids.shape[0], kq, RANGE, stream)
+    if err != 0:
+        raise RuntimeError(f"segment sweep user pass failed: cudaError "
+                           f"{err} (nnz={data.u_ids.shape[0]}, kq={kq})")
+
+
+def item_pass(a_tab, b_tab, slabs: SlabStream, out_b, sc: Scratch) -> None:
+    """The item pass on the card, after the user pass filled sc.w: every
+    row of out_b written (zero for an item with no entry)."""
+    kq = a_tab.shape[1]
+    m = b_tab.shape[0]
+    pacc = torch.empty((slabs.pairs, kq), dtype=torch.float32,
+                       device=a_tab.device)
+    with torch.cuda.device(a_tab.device):
+        stream = torch.cuda.current_stream(a_tab.device).cuda_stream
+        err = _entry("hpf_segment_item_pass_f32")(
+            slabs.pair.data_ptr(), slabs.u.data_ptr(), slabs.order.data_ptr(),
+            sc.w.data_ptr(), a_tab.data_ptr(), b_tab.data_ptr(),
+            pacc.data_ptr(), slabs.item_start.data_ptr(),
+            slabs.item_pairs.data_ptr(), out_b.data_ptr(), sc.brow.data_ptr(),
+            sc.bacc.data_ptr(), slabs.pair.shape[0], m, kq, RANGE, stream)
+    if err != 0:
+        raise RuntimeError(f"segment sweep item pass failed: cudaError "
+                           f"{err} ({slabs.slabs} slabs, {slabs.pairs} "
+                           f"pairs, nnz={slabs.pair.shape[0]}, kq={kq})")
+
+
 def fused_segment_sweep(a_tab: torch.Tensor, b_tab: torch.Tensor,
-                        data: DeviceData):
+                        data: DeviceData, slab_bytes: int = SLAB_BYTES):
     """(out_a f32 [n, kq], out_b f32 [m, kq]): one segment sweep over
     `data`'s COO with the augmented f32 tables a_tab [n, kq], b_tab
     [m, kq] (kq a multiple of 4); ids in range and sorted as
-    `build_device_data` lays them out. Untouched rows are zero."""
-    _check(a_tab, b_tab, data)
+    `build_device_data` lays them out. Untouched rows are zero.
+    `slab_bytes` sizes the item pass's user slabs (`slab_stream`)."""
+    _check(a_tab, b_tab, data, slab_bytes)
     if a_tab.device.type == "cpu":
         return segment_sweep_reference(a_tab, b_tab, data)
     if a_tab.device.type != "cuda":
         raise ValueError(f"no kernel for device {a_tab.device}")
-    n, kq = a_tab.shape
-    m = b_tab.shape[0]
+    (n, kq), m = a_tab.shape, b_tab.shape[0]
     p = data.u_ids.shape[0]
-    dev = a_tab.device
-    out_a = torch.zeros((n, kq), dtype=torch.float32, device=dev)
-    out_b = torch.zeros((m, kq), dtype=torch.float32, device=dev)
+    out_a = torch.zeros((n, kq), dtype=torch.float32, device=a_tab.device)
+    out_b = torch.empty((m, kq), dtype=torch.float32, device=a_tab.device)
     if p == 0:
-        return out_a, out_b
-    w = torch.empty(p, dtype=torch.float32, device=dev)
-    warps = -(-p // RANGE)
-    brow = torch.empty(2 * warps, dtype=torch.int32, device=dev)
-    bacc = torch.empty((2 * warps, kq), dtype=torch.float32, device=dev)
-    fn = build.load_library().hpf_segment_sweep_f32
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(data.u_ids.data_ptr(), data.i_ids.data_ptr(),
-                 data.y.data_ptr(), data.item_order.data_ptr(),
-                 data.i_ids_sorted.data_ptr(), data.u_ids_by_item.data_ptr(),
-                 a_tab.data_ptr(), b_tab.data_ptr(), out_a.data_ptr(),
-                 out_b.data_ptr(), w.data_ptr(), brow.data_ptr(),
-                 bacc.data_ptr(), p, kq, RANGE, stream)
-    if err != 0:
-        raise RuntimeError(f"segment sweep launch failed: cudaError {err} "
-                           f"(nnz={p}, n={n}, m={m}, kq={kq})")
+        return out_a, out_b.zero_()
+    slabs = slab_stream(data, n, m, kq, slab_bytes)
+    sc = Scratch.make(p, kq, a_tab.device)
+    user_pass(a_tab, b_tab, data, out_a, sc)
+    item_pass(a_tab, b_tab, slabs, out_b, sc)
     fused_segment_sweep.launches += 1
     return out_a, out_b
 

@@ -8,8 +8,10 @@ per-nonzero loop of tests/test_sweep.py at that file's bound (rtol=2e-4,
 atol=1e-5), the chunked form to the one-shot form at 1e-5/1e-6
 (tests/test_sweep.py:115-118), and the plain kernel to the TPU design
 kernel `sweep_pallas` run by the Pallas interpreter (no bias, which the
-design kernel lacks). The CUDA kernel itself runs only on the card
-(marked `cuda`).
+design kernel lacks). The item pass's slab stream is checked for its
+order, and a plain walk of the kernel's passes over it (slab by slab,
+through the pair rows) against the JAX `sweep_segment`. The CUDA kernel
+itself runs only on the card (marked `cuda`).
 """
 
 import functools
@@ -196,14 +198,127 @@ def test_reference_is_the_per_nonzero_loop():
     assert not got_a[[1, 3, 4, 6]].any() and not got_b[5].any()
 
 
+# slab budgets: one slab, a few, and one user per slab (every user's cost
+# of kq * 4 + 4 * count bytes exceeds 1)
+SLAB_SIZES = [1 << 40, 600, 1]
+
+
+@pytest.mark.parametrize("slab_bytes", SLAB_SIZES + [150])
+def test_slab_stream_orders_by_slab_item_user(rng, slab_bytes):
+    """The item pass's stream is a permutation of item_order in (slab,
+    item, user) order; its pairs number the (slab, item) runs in that
+    order, and each item lists its pairs in slab order."""
+    store, _, tdata, _ = _both(rng, False, n=40, m=30, nnz=200)
+    n, m, kq = store.n, store.m, 8
+    st = sf.slab_stream(tdata, n, m, kq, slab_bytes)
+    assert sf.slab_stream(tdata, n, m, kq, slab_bytes) is st  # built once
+    order, pair, u = st.order.numpy(), st.pair.numpy(), st.u.numpy()
+    assert np.array_equal(np.sort(order), np.sort(tdata.item_order.numpy()))
+    i = st.pair_item.numpy()[pair]
+    np.testing.assert_array_equal(i, tdata.i_ids.numpy()[order])
+    np.testing.assert_array_equal(u, tdata.u_ids.numpy()[order])
+    user_slab = sf.user_slabs(tdata.u_ids, n, kq, slab_bytes).numpy()
+    assert (np.diff(user_slab) >= 0).all()
+    slab = user_slab[u]
+    keys = np.stack([slab, i, u, order], 1)
+    for a, b in zip(keys[:-1], keys[1:]):
+        assert tuple(a) < tuple(b)
+    new = np.r_[True, (slab[1:] != slab[:-1]) | (i[1:] != i[:-1])]
+    np.testing.assert_array_equal(pair, np.cumsum(new) - 1)
+    assert st.pairs == new.sum() and st.slabs == np.unique(slab).size
+    start, pairs = st.item_start.numpy(), st.item_pairs.numpy()
+    for item in range(m):
+        mine = pairs[start[item]:start[item + 1]]
+        np.testing.assert_array_equal(mine, np.flatnonzero(
+            st.pair_item.numpy() == item))
+    present = np.unique(tdata.u_ids.numpy())
+    if slab_bytes == SLAB_SIZES[0]:
+        assert st.slabs == 1
+    elif slab_bytes == 1:
+        assert st.slabs == present.size
+    else:
+        assert 1 < st.slabs < present.size
+
+
+def _slab_walk(a_tab, b_tab, data, slab_bytes):
+    """The kernel's two passes as a plain f32 loop: the user pass in user
+    order, then the item pass in the slab stream's order, each (slab,
+    item) run summing w A[u] into its pair row, each item adding its pair
+    rows in slab order and multiplying by B[i]."""
+    a, b = a_tab.numpy(), b_tab.numpy()
+    u, i, y = (x.numpy() for x in (data.u_ids, data.i_ids, data.y))
+    w = np.empty(u.size, np.float32)
+    acc_a = np.zeros_like(a)
+    for j in range(u.size):
+        dot = np.float32((a[u[j]] * b[i[j]]).sum(dtype=np.float32))
+        w[j] = y[j] / max(dot, np.float32(1e-30))
+        acc_a[u[j]] += w[j] * b[i[j]] * a[u[j]]
+    st = sf.slab_stream(data, a.shape[0], b.shape[0], a.shape[1],
+                        slab_bytes)
+    pacc = np.zeros((st.pairs, a.shape[1]), np.float32)
+    for pr, su, so in zip(st.pair.numpy(), st.u.numpy(), st.order.numpy()):
+        pacc[pr] += w[so] * a[su]
+    acc_b = np.zeros_like(b)
+    start, pairs = st.item_start.numpy(), st.item_pairs.numpy()
+    for item in range(b.shape[0]):
+        for pr in pairs[start[item]:start[item + 1]]:
+            acc_b[item] += pacc[pr]
+        acc_b[item] *= b[item]
+    return acc_a, acc_b
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("slab_bytes", SLAB_SIZES)
+def test_slab_walk_matches_jax(rng, slab_bytes, bias):
+    """The item pass walked slab by slab reproduces the JAX
+    `sweep_segment` (and the user pass with it)."""
+    _, jdata, tdata, elogs = _both(rng, bias, n=40, m=30, nnz=200)
+    k = elogs[0].shape[1]
+    a_t, b_t = tail_tables(*[None if e is None else torch.exp(e)
+                             for e in _t(elogs)], bf16=False)
+    acc_a, acc_b = _slab_walk(a_t, b_t, tdata, slab_bytes)
+    want = j_sweep.sweep_segment(*_j(elogs), jdata)
+    got = [acc_a[:, :k], acc_b[:, :k]] + \
+        ([acc_a[:, k], acc_b[:, k + 1]] if bias else [None, None])
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        np.testing.assert_allclose(g, np.asarray(w), **F32)
+
+
+def test_entries_are_typed_once(monkeypatch):
+    """Each C entry gets its argument types when first used, not per
+    call."""
+    loads = []
+
+    class Lib:
+        hpf_segment_user_pass_f32 = type("Fn", (), {})()
+        hpf_segment_item_pass_f32 = type("Fn", (), {})()
+
+    monkeypatch.setattr(build, "load_library",
+                        lambda: loads.append(1) or Lib)
+    sf._entry.cache_clear()
+    try:
+        for name in sf._ARGTYPES:
+            assert sf._entry(name) is sf._entry(name)
+            assert sf._entry(name).argtypes == sf._ARGTYPES[name]
+        assert len(loads) == len(sf._ARGTYPES)
+    finally:
+        sf._entry.cache_clear()
+
+
 @pytest.mark.parametrize("bad", ["dtype", "width", "mixed", "ids", "length",
-                                 "contig", "device"])
+                                 "contig", "device", "slab"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     u = np.array([0, 1, 1], np.int32)
     i = np.array([2, 0, 1], np.int32)
     fields = sorted_coo(u, i, np.ones(3, np.float32), 3, 4, "cpu", 4)
     a_tab, b_tab = torch.rand(3, 8), torch.rand(4, 8)
-    if bad == "dtype":
+    kw = {}
+    if bad == "slab":
+        kw["slab_bytes"] = 0
+    elif bad == "dtype":
         a_tab, b_tab = a_tab.double(), b_tab.double()
     elif bad == "width":
         a_tab, b_tab = a_tab[:, :6].contiguous(), b_tab[:, :6].contiguous()
@@ -219,7 +334,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         fields["y"] = torch.ones(4, device="meta")
     with pytest.raises(ValueError):
         sf.fused_segment_sweep(a_tab, b_tab, DeviceData(**fields,
-                                                        dense_y=None))
+                                                        dense_y=None), **kw)
 
 
 @pytest.mark.parametrize("bias", [False, True])
@@ -250,7 +365,12 @@ def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bias", [False, True])
-def test_kernel_matches_plain_on_card(bias):
+@pytest.mark.parametrize("k,slab_bytes", [(13, sf.SLAB_BYTES), (13, 4096),
+                                          (100, 20000), (200, 30000)])
+def test_kernel_matches_plain_on_card(bias, k, slab_bytes):
+    """One slab, and several (the item pass adds each slab's rows onto
+    the last), at widths of one group size each (kq 16, 100 or 104, 200
+    or 204)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     rng = np.random.default_rng(9)
@@ -261,12 +381,14 @@ def test_kernel_matches_plain_on_card(bias):
     data = DeviceData(**sorted_coo(u[o], i[o], rng.integers(
         1, 5, u.size).astype(np.float32), n, m, "cuda", 1000), dense_y=None)
     lin = [torch.exp(0.3 * torch.randn(s, device="cuda")) for s in
-           [(n, 13), (m, 13)] + ([(n,), (m,)] if bias else [])]
+           [(n, k), (m, k)] + ([(n,), (m,)] if bias else [])]
     lin += [None, None] * (not bias)
     tables = tail_tables(*lin, bf16=False)
+    slabs = sf.slab_stream(data, n, m, tables[0].shape[1], slab_bytes).slabs
+    assert (slabs == 1) == (slab_bytes == sf.SLAB_BYTES)
     before = sf.fused_segment_sweep.launches
-    got = sf.fused_segment_sweep(*tables, data)
-    again = sf.fused_segment_sweep(*tables, data)
+    got = sf.fused_segment_sweep(*tables, data, slab_bytes)
+    again = sf.fused_segment_sweep(*tables, data, slab_bytes)
     torch.cuda.synchronize()
     assert sf.fused_segment_sweep.launches == before + 2
     want = segment_sweep_reference(*tables, data)
