@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--segment]
+    python3 chip_smoke.py [--segment | --tail]
 
 With `--segment` it runs only the build and the segment path's kernel
-phases (the CSR sweep on every layout and at EchoNest shape) and prints no
-result line. Without arguments it builds the port's CUDA kernels from
+phases (the CSR sweep on every layout and at EchoNest shape), with
+`--tail` only the build and the tail kernel's phases (every layout and the
+EchoNest tail), and prints no result line. Without arguments it builds the port's CUDA kernels from
 `hgaprec_tpu_torch/csrc/`, holds each
 against its plain PyTorch version on the card, sweeps once at Netflix
 shape, trains HPF K=100 on MovieLens-1M-shaped synthetic data through the
@@ -575,11 +576,22 @@ def random_lin(gen, n, m, k, bias):
     return lin + [None, None] * (not bias)
 
 
-def check_tail(name, n, m, k, stream, gen, bias, reps):
+def half_timers(tf, a_t, b_t, stream):
+    """(user-sorted half, item-sorted half) of the tail route for tables
+    a_t, b_t: callables that each run one half alone."""
+    n, m, s = a_t.shape[0], b_t.shape[0], stream
+    return (lambda: tf.fused_half_sweep(a_t, b_t, s.u, s.i, s.y, n),
+            lambda: tf.fused_half_sweep(b_t, a_t, s.i_by_item, s.u_by_item,
+                                        s.y_by_item, m))
+
+
+def check_tail(name, n, m, k, stream, gen, bias, reps, by_kernel=False):
     """Kernel against plain on one stream, both routes (bf16 through
     csrc/tail_bf16.cu, f32 through csrc/tail_fused.cu). Returns the bf16
     route's numbers (the main path's) and, under keys ending in _f32, the
-    f32 route's, each beside its bound that counts every gathered row."""
+    f32 route's, each beside its bound that counts every gathered row, and
+    each half timed alone; with by_kernel, each half and both by device
+    kernel (torch.profiler)."""
     from hgaprec_tpu_torch.ops import tail as tl
     from hgaprec_tpu_torch.ops import tail_fused as tf
     lin = random_lin(gen, n, m, k, bias)
@@ -610,6 +622,8 @@ def check_tail(name, n, m, k, stream, gen, bias, reps):
                        reps)
         plain_ms = median_ms(
             lambda: [tl.half_sweep_reference(*h) for h in halves], reps)
+        user_fn, item_fn = half_timers(tf, a_t, b_t, stream)
+        user_ms, item_ms = median_ms(user_fn, reps), median_ms(item_fn, reps)
         kq = a_t.shape[1]
         nbytes = 2 * stream.nnz * (kq * a_t.element_size() + 12)
         gathered_ms = nbytes / HBM_BPS * 1e3
@@ -622,7 +636,9 @@ def check_tail(name, n, m, k, stream, gen, bias, reps):
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of {reps}); "
             f"{nbytes / ms / 1e6:.1f} GB/s of 2 x nnz x (kq x "
             f"{a_t.element_size()} + 12) B, whose bound is "
-            f"{gathered_ms:.4f} ms ({100 * gathered_ms / ms:.0f}% of it)")
+            f"{gathered_ms:.4f} ms ({100 * gathered_ms / ms:.0f}% of it); "
+            f"alone: user-sorted half {user_ms:.4f} ms, item-sorted half "
+            f"{item_ms:.4f} ms")
         if not (ok and same_bits):
             raise SystemExit(f"tail kernel disagrees with its plain version "
                              f"[{name}] bias={bias} bf16={bf16}")
@@ -635,7 +651,17 @@ def check_tail(name, n, m, k, stream, gen, bias, reps):
                                    8 * stream.nnz * kq, F32_FLOPS)
         mode = dict(kq=kq, max_abs_err=err_like, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by,
-                    gbps=nbytes / ms / 1e6, bound_ms_gathered=gathered_ms)
+                    gbps=nbytes / ms / 1e6, bound_ms_gathered=gathered_ms,
+                    ms_user_half=user_ms, ms_item_half=item_ms)
+        if by_kernel:
+            split = {half: device_ms_by_kernel(fn, 3) for half, fn in (
+                ("user_half", user_fn), ("item_half", item_fn),
+                ("both", lambda: [user_fn(), item_fn()]))}
+            for half, kernels in split.items():
+                say(f"tail kernel [{name}] bf16={bf16} {half} by device "
+                    f"kernel (torch.profiler, ms per call, mean of 3): "
+                    f"{ {k: round(v, 4) for k, v in sorted(kernels.items())} }")
+            mode["ms_by_device_kernel"] = split
         if bf16:
             out.update(mode, library_ms=None,
                        bound_share_gathered=gathered_ms / ms)
@@ -1023,6 +1049,34 @@ def echonest_trainer(root):
     return tr
 
 
+def phase_echonest_tail(data, n, m, gen, smi):
+    """The tail kernel on the EchoNest tail, before training, both routes,
+    each half alone and by device kernel; the bf16 route (the main path's)
+    must beat the f32 route there."""
+    tail = check_tail("echonest tail", n, m, K, data.tail, gen, False, 5,
+                      by_kernel=True)
+    check_tail("echonest tail", n, m, K, data.tail, gen, True, 3)
+    torch.cuda.empty_cache()
+    # the wrapper's zero-filled f32 outputs, inside the timed window of both
+    # routes: timed alone at the bf16 route's width
+    kq = tail["kq"]
+    tail["zero_fill_ms"] = median_ms(
+        lambda: [torch.zeros((r, kq), device="cuda") for r in (n, m)], 5)
+    faster = tail["ms"] < tail["ms_f32"]
+    say(f"tail kernel at the EchoNest tail, both halves, on {smi}: bf16 "
+        f"route {tail['ms']:.4f} ms ({tail['gbps']:.1f} GB/s; gathered "
+        f"bound {tail['bound_ms_gathered']:.4f} ms, "
+        f"{100 * tail['bound_share_gathered']:.0f}% of it), f32 route "
+        f"{tail['ms_f32']:.4f} ms ({tail['gbps_f32']:.1f} GB/s; gathered "
+        f"bound {tail['bound_ms_gathered_f32']:.4f} ms); both windows "
+        f"include the zero-filled outputs, {tail['zero_fill_ms']:.4f} ms "
+        f"alone at kq = {kq} {'ok' if faster else 'FAIL'}")
+    if not faster:
+        raise SystemExit("the bf16 tail route is not faster than the f32 "
+                         "route at the EchoNest tail")
+    return tail
+
+
 def phase_echonest(df, tf, tr, gen, smi):
     """Check the layout, the head kernel and the tail kernel at EchoNest
     shape, then train HPF K=100 through the Trainer on the hybrid path."""
@@ -1096,29 +1150,7 @@ def phase_echonest(df, tf, tr, gen, smi):
         head[bf16] = (ms, plain_ms, mma_ms, bound_ms)
     del a_lin, b_head, ref
 
-    # the tail kernel on the EchoNest tail, before training; the bf16
-    # route (the main path's) must beat the f32 route there
-    tail = check_tail("echonest tail", n, m, K, data.tail, gen, False, 5)
-    check_tail("echonest tail", n, m, K, data.tail, gen, True, 3)
-    torch.cuda.empty_cache()
-    # the wrapper's zero-filled f32 outputs, inside the timed window of both
-    # routes: timed alone at the bf16 route's width
-    kq = tail["kq"]
-    tail["zero_fill_ms"] = median_ms(
-        lambda: [torch.zeros((r, kq), device="cuda") for r in (n, m)], 5)
-    faster = tail["ms"] < tail["ms_f32"]
-    say(f"tail kernel at the EchoNest tail, both halves, on {smi}: bf16 "
-        f"route {tail['ms']:.4f} ms ({tail['gbps']:.1f} GB/s; gathered "
-        f"bound {tail['bound_ms_gathered']:.4f} ms, "
-        f"{100 * tail['bound_share_gathered']:.0f}% of it), f32 route "
-        f"{tail['ms_f32']:.4f} ms ({tail['gbps_f32']:.1f} GB/s; gathered "
-        f"bound {tail['bound_ms_gathered_f32']:.4f} ms); both windows "
-        f"include the zero-filled outputs, {tail['zero_fill_ms']:.4f} ms "
-        f"alone at kq = {kq} {'ok' if faster else 'FAIL'}")
-    if not faster:
-        raise SystemExit("the bf16 tail route is not faster than the f32 "
-                         "route at the EchoNest tail")
-
+    tail = phase_echonest_tail(data, n, m, gen, smi)
     report_s, topk_calls = [], []
     timed(tr, "report", report_s)
     timed(tr, "do_on_stop", report_s)
@@ -1267,10 +1299,10 @@ def phase_hybrid_cpu_reference(root):
 
 def main():
     t_start = time.perf_counter()
-    if sys.argv[1:] not in ([], ["--segment"]):
-        print("usage: chip_smoke.py [--segment]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--segment"], ["--tail"]):
+        print("usage: chip_smoke.py [--segment | --tail]", file=sys.stderr)
         return 2
-    segment_only = sys.argv[1:] == ["--segment"]
+    only = sys.argv[1][2:] if sys.argv[1:] else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -1331,13 +1363,18 @@ def main():
                          "no wgmma in its SASS")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    if segment_only:
+    if only:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-            phase_segment_layouts(gen)
-            phase_echonest_segment(df, tf, echonest_trainer(root), root, smi)
-        say(f"segment phases passed in "
-            f"{time.perf_counter() - t_start:.1f} s (no result line: "
-            f"--segment runs only the segment path)")
+            if only == "segment":
+                phase_segment_layouts(gen)
+                phase_echonest_segment(df, tf, echonest_trainer(root), root,
+                                       smi)
+            else:
+                phase_tail_layouts(gen)
+                tr = echonest_trainer(root)
+                phase_echonest_tail(tr.data, tr.store.n, tr.store.m, gen, smi)
+        say(f"{only} phases passed in {time.perf_counter() - t_start:.1f} s "
+            f"(no result line: --{only} runs only the {only} path)")
         return 0
     main_kernel, f32_ml1m = phase_kernel(df, dp, gen)
     probe, netflix = phase_netflix(df, gen)
