@@ -16,7 +16,8 @@ port's own CPU run. The f32 kernel must beat its plain version at Netflix
 shape and on the EchoNest head, and the step at "highest" is timed at
 ML-1M and EchoNest. Then the big-sparse hybrid path: the tail kernel
 against its plain version on adversarial layouts and on the EchoNest
-tail (where its bf16 route must beat its f32 route), HPF K=100 at the
+tail (where its f32 route, the CSR sweep's two passes, must take less
+than 1.5x its bf16 route's time), HPF K=100 at the
 EchoNest preset shape (1,019,318 x 384,546, 45M nonzeros) through the
 Trainer, and a small hybrid run on the card against the CPU. Then the segment path: the CSR sweep kernel against its plain
 version on adversarial layouts, HPF K=100 at the EchoNest preset shape
@@ -576,18 +577,51 @@ def random_lin(gen, n, m, k, bias):
     return lin + [None, None] * (not bias)
 
 
+def tail_f64_err(got, lin, stream):
+    """Largest gap of the tail sums `got` from the tail laid out as the
+    CSR sweep's COO through that sweep's plain version, whose row sums are
+    f64 (ops/segment.py::segment_sweep_reference)."""
+    from hgaprec_tpu_torch.data.device import DeviceData
+    from hgaprec_tpu_torch.ops import segment as sg
+    from hgaprec_tpu_torch.ops.tail import tail_tables
+    k = lin[0].shape[1]
+    out_a, out_b = sg.segment_sweep_reference(
+        *tail_tables(*lin, bf16=False),
+        DeviceData(u_ids=stream.u, i_ids=stream.i, y=stream.y,
+                   item_order=stream.order, i_ids_sorted=stream.i_by_item,
+                   u_ids_by_item=stream.u_by_item, dense_y=None))
+    want = (out_a[:, :k], out_b[:, :k]) + ((out_a[:, k], out_b[:, k + 1])
+                                           if lin[2] is not None else ())
+    return max((g - w).abs().max().item() for g, w in zip(got, want))
+
+
 def half_timers(tf, a_t, b_t, stream):
     """(user-sorted half, item-sorted half) of the tail route for tables
-    a_t, b_t: callables that each run one half alone."""
-    n, m, s = a_t.shape[0], b_t.shape[0], stream
-    return (lambda: tf.fused_half_sweep(a_t, b_t, s.u, s.i, s.y, n),
-            lambda: tf.fused_half_sweep(b_t, a_t, s.i_by_item, s.u_by_item,
-                                        s.y_by_item, m))
+    a_t, b_t: callables that each run one half alone on outputs and
+    scratch made once. bf16: `fused_half_sweep` per half; f32: the CSR
+    sweep's user pass, then its item pass over the tail's slab stream,
+    reading the weights the user pass left (it runs once here first)."""
+    from hgaprec_tpu_torch.ops import segment_fused as sf
+    (n, kq), m, s = a_t.shape, b_t.shape[0], stream
+    if a_t.dtype == torch.bfloat16:
+        return (lambda: tf.fused_half_sweep(a_t, b_t, s.u, s.i, s.y, n),
+                lambda: tf.fused_half_sweep(b_t, a_t, s.i_by_item,
+                                            s.u_by_item, s.y_by_item, m))
+    slabs = tf.tail_slabs(s, n, m, kq)
+    sc = sf.Scratch.make(s.nnz, kq, a_t.device)
+    out_a = torch.zeros_like(a_t)
+    out_b = torch.empty_like(b_t)
+
+    def user():
+        sf.user_pass(a_t, b_t, s.u, s.i, s.y, out_a, sc, tail=True)
+    user()
+    return user, lambda: sf.item_pass(a_t, b_t, slabs, out_b, sc, tail=True)
 
 
 def check_tail(name, n, m, k, stream, gen, bias, reps, by_kernel=False):
     """Kernel against plain on one stream, both routes (bf16 through
-    csrc/tail_bf16.cu, f32 through csrc/tail_fused.cu). Returns the bf16
+    csrc/tail_bf16.cu, f32 through the two passes of csrc/segment_sweep.cu)
+    and rows no nonzero touches zero in both. Returns the bf16
     route's numbers (the main path's) and, under keys ending in _f32, the
     f32 route's, each beside its bound that counts every gathered row, and
     each half timed alone; with by_kernel, each half and both by device
@@ -596,6 +630,8 @@ def check_tail(name, n, m, k, stream, gen, bias, reps, by_kernel=False):
     from hgaprec_tpu_torch.ops import tail_fused as tf
     lin = random_lin(gen, n, m, k, bias)
     ref32 = tl.tail_sweep_reference(*lin, stream, bf16=False)
+    untouched = [torch.bincount(ids.long(), minlength=rows) == 0
+                 for ids, rows in ((stream.u, n), (stream.i, m))]
     out = {}
     for bf16 in (False, True):
         got = tf.tail_sweep(*lin, stream, bf16=bf16)
@@ -613,15 +649,17 @@ def check_tail(name, n, m, k, stream, gen, bias, reps, by_kernel=False):
                      < BF16_REL for g, r in pairs)
         else:
             ok = all(torch.allclose(g, r, **TAIL_F32_TOL) for g, r in pairs)
-        # the two half-sweeps alone, on tables built once
+        zero = all(g[z].abs().max().item() == 0 if z.any() else True
+                   for g, z in zip(got[:2], untouched))
+        # f32: also the CSR sweep's plain version, with f64 row sums
+        f64 = "" if bf16 else \
+            f", f64-sum CSR plain {tail_f64_err(got, lin, stream):.3e}"
+        # both halves as a sweep runs them, and each alone, on tables
+        # built once
         a_t, b_t = tl.tail_tables(*lin, bf16=bf16)
-        halves = ((a_t, b_t, stream.u, stream.i, stream.y, n),
-                  (b_t, a_t, stream.i_by_item, stream.u_by_item,
-                   stream.y_by_item, m))
-        ms = median_ms(lambda: [tf.fused_half_sweep(*h) for h in halves],
-                       reps)
+        ms = median_ms(lambda: tf.tail_halves(a_t, b_t, stream), reps)
         plain_ms = median_ms(
-            lambda: [tl.half_sweep_reference(*h) for h in halves], reps)
+            lambda: tl.halves_reference(a_t, b_t, stream), reps)
         user_fn, item_fn = half_timers(tf, a_t, b_t, stream)
         user_ms, item_ms = median_ms(user_fn, reps), median_ms(item_fn, reps)
         kq = a_t.shape[1]
@@ -630,16 +668,18 @@ def check_tail(name, n, m, k, stream, gen, bias, reps, by_kernel=False):
         say(f"tail kernel [{name}] {n}x{m}x{k} nnz={stream.nnz:,} "
             f"bias={bias} bf16={bf16} ({tf.plan(bf16, kq)[1]} lanes per "
             f"range): max_abs_err vs f32 plain {err:.3e} (vs plain in the "
-            f"same mode {err_like:.3e}), two launches bitwise "
-            f"{'equal' if same_bits else 'DIFFERENT'} "
-            f"{'ok' if ok and same_bits else 'FAIL'}; both halves kernel "
+            f"same mode {err_like:.3e}{f64}), two launches bitwise "
+            f"{'equal' if same_bits else 'DIFFERENT'}, untouched rows "
+            f"{'zero' if zero else 'NONZERO'} "
+            f"{'ok' if ok and same_bits and zero else 'FAIL'}; both halves "
+            f"kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of {reps}); "
             f"{nbytes / ms / 1e6:.1f} GB/s of 2 x nnz x (kq x "
             f"{a_t.element_size()} + 12) B, whose bound is "
             f"{gathered_ms:.4f} ms ({100 * gathered_ms / ms:.0f}% of it); "
             f"alone: user-sorted half {user_ms:.4f} ms, item-sorted half "
             f"{item_ms:.4f} ms")
-        if not (ok and same_bits):
+        if not (ok and same_bits and zero):
             raise SystemExit(f"tail kernel disagrees with its plain version "
                              f"[{name}] bias={bias} bf16={bf16}")
         # bound: the tables, both sorted streams and the outputs moved
@@ -656,7 +696,7 @@ def check_tail(name, n, m, k, stream, gen, bias, reps, by_kernel=False):
         if by_kernel:
             split = {half: device_ms_by_kernel(fn, 3) for half, fn in (
                 ("user_half", user_fn), ("item_half", item_fn),
-                ("both", lambda: [user_fn(), item_fn()]))}
+                ("both", lambda: tf.tail_halves(a_t, b_t, stream)))}
             for half, kernels in split.items():
                 say(f"tail kernel [{name}] bf16={bf16} {half} by device "
                     f"kernel (torch.profiler, ms per call, mean of 3): "
@@ -666,7 +706,10 @@ def check_tail(name, n, m, k, stream, gen, bias, reps, by_kernel=False):
             out.update(mode, library_ms=None,
                        bound_share_gathered=gathered_ms / ms)
         else:
-            out.update({f"{key}_f32": v for key, v in mode.items()})
+            slabs = tf.tail_slabs(stream, n, m, kq)
+            mode.update(pairs=slabs.pairs, slabs=slabs.slabs)
+            out.update({"ms_f32" + key[2:] if key.startswith("ms_") else
+                        f"{key}_f32": v for key, v in mode.items()})
     del lin, ref32
     return out
 
@@ -723,7 +766,7 @@ def check_segment(name, data, lin, reps, slab_bytes=None):
     plain_ms = median_ms(lambda: sg.segment_sweep_reference(a_t, b_t, data),
                          min(reps, 2) if name == "echonest" else reps)
     p, kq = data.nnz_padded, a_t.shape[1]
-    slabs = sf.slab_stream(data, n, m, kq, slab_bytes)
+    slabs = sf.data_slabs(data, n, m, kq, slab_bytes)
     nbytes = 2 * p * (kq * 4 + 12) + 8 * p
     ranges = -(-int(torch.bincount(data.i_ids_sorted.long()).max()) //
                sf.RANGE) + 1
@@ -886,7 +929,7 @@ def segment_passes(data, lin, smi):
     data.slab_cache.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    slabs = sf.slab_stream(data, n, m, kq)
+    slabs = sf.data_slabs(data, n, m, kq)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_bytes = sum(x.nbytes for x in (
@@ -894,7 +937,8 @@ def segment_passes(data, lin, smi):
         slabs.item_pairs))
     sc = sf.Scratch.make(p, kq, a_t.device)
     out_a, out_b = torch.zeros_like(a_t), torch.zeros_like(b_t)
-    user_ms = median_ms(lambda: sf.user_pass(a_t, b_t, data, out_a, sc), 5)
+    user_ms = median_ms(lambda: sf.user_pass(
+        a_t, b_t, data.u_ids, data.i_ids, data.y, out_a, sc), 5)
     item_ms = median_ms(lambda: sf.item_pass(a_t, b_t, slabs, out_b, sc), 5)
     row, ids = 4 * kq, 12 * p
     passes = {}
@@ -914,10 +958,10 @@ def segment_passes(data, lin, smi):
         f"{build_bytes / 1e9:.3f} GB")
     trade = {}
     for budget in (1 << 40, 12 << 20, 48 << 20):
-        st = sf.slab_stream(data, n, m, kq, budget)
+        st = sf.data_slabs(data, n, m, kq, budget)
         ms = median_ms(lambda: sf.item_pass(a_t, b_t, st, out_b, sc), 5)
         trade[str(budget)] = dict(slabs=st.slabs, pairs=st.pairs, ms=ms)
-        data.slab_cache.pop((n, m, kq, budget))
+        data.slab_cache.pop((n, m, kq, budget, 0))
         say(f"echonest item pass at a slab budget of {budget:,} B: "
             f"{st.slabs} slabs, {st.pairs:,} (slab, item) rows, {ms:.4f} ms")
         del st
@@ -1051,30 +1095,94 @@ def echonest_trainer(root):
 
 def phase_echonest_tail(data, n, m, gen, smi):
     """The tail kernel on the EchoNest tail, before training, both routes,
-    each half alone and by device kernel; the bf16 route (the main path's)
-    must beat the f32 route there."""
+    each half alone and by device kernel, and the f32 route's item half by
+    slab budget. The f32 route must take less than 1.5x the bf16 route's
+    time (the main path's) there."""
     tail = check_tail("echonest tail", n, m, K, data.tail, gen, False, 5,
                       by_kernel=True)
     check_tail("echonest tail", n, m, K, data.tail, gen, True, 3)
+    tail.update(tail_slab_trade(data, n, m, gen, smi))
     torch.cuda.empty_cache()
-    # the wrapper's zero-filled f32 outputs, inside the timed window of both
+    # the wrapper's zero-filled outputs, inside the timed window of both
     # routes: timed alone at the bf16 route's width
     kq = tail["kq"]
     tail["zero_fill_ms"] = median_ms(
         lambda: [torch.zeros((r, kq), device="cuda") for r in (n, m)], 5)
-    faster = tail["ms"] < tail["ms_f32"]
+    ratio = tail["ms_f32"] / tail["ms"]
     say(f"tail kernel at the EchoNest tail, both halves, on {smi}: bf16 "
         f"route {tail['ms']:.4f} ms ({tail['gbps']:.1f} GB/s; gathered "
         f"bound {tail['bound_ms_gathered']:.4f} ms, "
         f"{100 * tail['bound_share_gathered']:.0f}% of it), f32 route "
-        f"{tail['ms_f32']:.4f} ms ({tail['gbps_f32']:.1f} GB/s; gathered "
-        f"bound {tail['bound_ms_gathered_f32']:.4f} ms); both windows "
-        f"include the zero-filled outputs, {tail['zero_fill_ms']:.4f} ms "
-        f"alone at kq = {kq} {'ok' if faster else 'FAIL'}")
-    if not faster:
-        raise SystemExit("the bf16 tail route is not faster than the f32 "
-                         "route at the EchoNest tail")
+        f"{tail['ms_f32']:.4f} ms ({ratio:.2f}x the bf16 route; "
+        f"{tail['gbps_f32']:.1f} GB/s; gathered figure "
+        f"{tail['bound_ms_gathered_f32']:.4f} ms; bound "
+        f"{tail['bound_ms_f32']:.4f} ms, "
+        f"{100 * tail['bound_ms_f32'] / tail['ms_f32']:.1f}% of it); "
+        f"both windows include the zero-filled outputs, "
+        f"{tail['zero_fill_ms']:.4f} ms alone at kq = {kq} "
+        f"{'ok' if ratio < 1.5 else 'FAIL'}")
+    if ratio >= 1.5:
+        raise SystemExit("the f32 tail route takes 1.5x the bf16 route's "
+                         "time or more at the EchoNest tail")
     return tail
+
+
+def tail_slab_trade(data, n, m, gen, smi):
+    """The f32 route's slab stream of the EchoNest tail: its build on the
+    card (seconds, bytes, pairs) and the item half alone at slab budgets of
+    one slab, 12, 24 and 48 MB, each with every item in slab order (fill
+    0) and with the sparse items first (fills 2, 4 and 8), each time checking
+    that the item rows outside the tail (the head's) read zero."""
+    from hgaprec_tpu_torch.ops import segment_fused as sf
+    from hgaprec_tpu_torch.ops import tail as tl
+    from hgaprec_tpu_torch.ops import tail_fused as tf
+    s = data.tail
+    a_t, b_t = tl.tail_tables(*random_lin(gen, n, m, K, False), bf16=False)
+    kq = a_t.shape[1]
+    s.slab_cache.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slabs = tf.tail_slabs(s, n, m, kq)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_bytes = sum(x.nbytes for x in (
+        slabs.pair, slabs.u, slabs.order, slabs.pair_item, slabs.item_start,
+        slabs.item_pairs))
+    say(f"echonest tail slab stream: {slabs.slabs} slabs of at most "
+        f"{tf.SLAB_BYTES:,} B of A rows and w after {slabs.cold:,} entries "
+        f"of sparse items in item order (fill {tf.SLAB_FILL}), "
+        f"{slabs.pairs:,} (slab, item) pair rows ({slabs.pairs / s.nnz:.3f} "
+        f"per nonzero; {2 * 4 * kq * slabs.pairs / 1e9:.3f} GB written and "
+        f"read again); built in {build_s:.3f} s on the card, "
+        f"{build_bytes / 1e9:.3f} GB")
+    sc = sf.Scratch.make(s.nnz, kq, a_t.device)
+    out_a, out_b = torch.zeros_like(a_t), torch.empty_like(b_t)
+    sf.user_pass(a_t, b_t, s.u, s.i, s.y, out_a, sc, tail=True)
+    head = data.head_items.long()
+    trade = {}
+    for budget in (1 << 40, 12 << 20, 24 << 20, 48 << 20):
+        for fill in (0, 2, 4, 8):
+            st = tf.tail_slabs(s, n, m, kq, budget, fill)
+            out_b.fill_(float("nan"))
+            ms = median_ms(lambda: sf.item_pass(a_t, b_t, st, out_b, sc,
+                                                tail=True), 5)
+            zero = out_b[head].abs().max().item() == 0
+            trade[f"{budget}/{fill}"] = dict(slabs=st.slabs, cold=st.cold,
+                                             pairs=st.pairs, ms=ms)
+            if (budget, fill) != (tf.SLAB_BYTES, tf.SLAB_FILL):
+                s.slab_cache.pop((n, m, kq, budget, fill))
+            say(f"echonest tail item half at a slab budget of {budget:,} B, "
+                f"fill {fill}: {st.cold:,} entries in item order, then "
+                f"{st.slabs} slabs; {st.pairs:,} (slab, item) rows, "
+                f"{ms:.4f} ms on {smi}; head item rows "
+                f"{'zero ok' if zero else 'NONZERO FAIL'}")
+            if not zero:
+                raise SystemExit("the f32 tail's item half left a head item "
+                                 "row nonzero")
+            del st
+    del a_t, b_t, sc, out_a, out_b
+    return dict(slab_build_s_f32=build_s, slab_build_bytes_f32=build_bytes,
+                cold_f32=slabs.cold, item_half_by_slab_budget_f32=trade)
 
 
 def phase_echonest(df, tf, tr, gen, smi):
@@ -1224,31 +1332,34 @@ def phase_echonest(df, tf, tr, gen, smi):
     # the default precision, "highest" (f32 head and tail), on the same
     # trained state
     hcfg = dataclasses.replace(tr.mcfg, matmul_precision="highest")
-    before = df.fused_dense_sweep.launches
+    before = (df.fused_dense_sweep.launches, tf.fused_half_sweep.launches)
+    torch.cuda.reset_peak_memory_stats()
     hi_iter, hi_lo, hi_hi = steady_ms_per_iter(hcfg, st, data, windows=3,
                                                steps=5)
-    hi_launches = df.fused_dense_sweep.launches - before
+    hi_peak = torch.cuda.max_memory_allocated() / 1e9
+    hi_launches = (df.fused_dense_sweep.launches - before[0],
+                   tf.fused_half_sweep.launches - before[1])
     head_f32_ms = median_ms(lambda: df.fused_dense_sweep(
         a_lin, b_lin[hd], data.head_dense_y), 3)
     a32, b32 = tl.tail_tables(a_lin, b_lin, None, None, bf16=False)
-    tail_f32_ms = median_ms(lambda: (
-        tf.fused_half_sweep(a32, b32, s.u, s.i, s.y, n),
-        tf.fused_half_sweep(b32, a32, s.i_by_item, s.u_by_item,
-                            s.y_by_item, m)), 5)
+    tail_f32_ms = median_ms(lambda: tf.tail_halves(a32, b32, s), 5)
     glue_ms = hi_iter - head_f32_ms - tail_f32_ms
     say(f"echonest steady state at highest (f32) {hi_iter:.2f} ms/iter = "
         f"{1e3 / hi_iter:.2f} iters/s (median of 3 windows of 5; range "
-        f"{hi_lo:.2f}-{hi_hi:.2f}; f32 head kernel launches {hi_launches}): "
-        f"head kernel {head_f32_ms:.2f} ms "
+        f"{hi_lo:.2f}-{hi_hi:.2f}; launches: f32 head kernel "
+        f"{hi_launches[0]}, f32 tail kernel {hi_launches[1]}; peak card "
+        f"memory {hi_peak:.2f} GB): head kernel {head_f32_ms:.2f} ms "
         f"({100 * head_f32_ms / hi_iter:.0f}%), f32 tail kernel "
-        f"{tail_f32_ms:.2f} ms ({100 * tail_f32_ms / hi_iter:.0f}%), rest "
-        f"{glue_ms:.2f} ms ({100 * glue_ms / hi_iter:.0f}%)")
-    if hi_launches == 0:
-        raise SystemExit("the hybrid step at highest never launched the f32 "
-                         "kernel")
+        f"{tail_f32_ms:.2f} ms ({100 * tail_f32_ms / hi_iter:.0f}%, both "
+        f"halves), rest {glue_ms:.2f} ms ({100 * glue_ms / hi_iter:.0f}%)")
+    if min(hi_launches) == 0 or hi_launches[1] != 2 * hi_launches[0]:
+        raise SystemExit(f"the hybrid step at highest launched the f32 head "
+                         f"and tail kernels {hi_launches} times")
     return dict(launches=launches, tail=tail, head=head, ms_iter=ms_iter,
                 head_ms_trained=head_ms, ms_iter_highest=hi_iter,
-                launches_highest=hi_launches,
+                launches_highest=hi_launches[0],
+                tail_launches_highest=hi_launches[1],
+                peak_gb_highest=hi_peak,
                 head_f32_ms_trained=head_f32_ms, tail_ms_trained=tail_ms,
                 tail_f32_ms_trained=tail_f32_ms)
 
@@ -1433,8 +1544,12 @@ def main():
          "launches": en["launches"][1],
          "launches_by_path": {"echonest_hybrid": en["launches"][1]},
          **en["tail"], "ms_trained": en["tail_ms_trained"],
-         "source_f32": "hgaprec_tpu_torch/csrc/tail_fused.cu",
-         "ms_f32_trained": en["tail_f32_ms_trained"]},
+         "source_f32": "hgaprec_tpu_torch/csrc/segment_sweep.cu",
+         "launches_f32_by_path": {
+             "echonest_hybrid_highest_steady":
+                 en["tail_launches_highest"]},
+         "ms_f32_trained": en["tail_f32_ms_trained"],
+         "peak_gb_echonest_hybrid_highest": en["peak_gb_highest"]},
         {"name": "dense_probe", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/dense_fused.cu",
          "replaces": "scripts/dense_mfu_probe.py:51",

@@ -19,6 +19,10 @@ ranges of RANGE nonzeros, one lane group each, with a cp.async ring of
 rows in flight; runs cut by a range meet in a fixed-order fix-up, so no
 float atomics and the same bits on every launch.
 
+The same two passes are the f32 route of the hybrid's tail
+(ops/tail_fused.py::tail_halves): `user_pass` and `item_pass` run there on
+the tail's dual-sorted stream and its own slab stream.
+
 On a CUDA tensor `fused_segment_sweep` launches the kernel or raises; only
 a CPU tensor takes `ops/segment.py::segment_sweep_reference`.
 """
@@ -41,8 +45,8 @@ SLAB_BYTES = 24 << 20  # a slab's A rows and weights: half the H100's L2
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
-    "hpf_segment_user_pass_f32": [_VP] * 9 + [_LL, _INT, _INT, _VP],
-    "hpf_segment_item_pass_f32": [_VP] * 12 + [_LL, _INT, _INT, _INT, _VP],
+    "hpf_segment_user_pass_f32": [_VP] * 9 + [_LL, _INT, _INT, _INT, _VP],
+    "hpf_segment_item_pass_f32": [_VP] * 12 + [_LL] + [_INT] * 4 + [_VP],
 }
 
 
@@ -57,9 +61,12 @@ def _entry(name: str):
 
 @dataclasses.dataclass(frozen=True)
 class SlabStream:
-    """The item pass's stream: `DeviceData`'s item-sorted COO stably
+    """The item pass's stream: a dual-sorted COO's item-sorted order stably
     re-sorted by the slab of each entry's user, so in (slab, item, user)
-    order, with each entry's (slab, item) pair numbered in that order."""
+    order, with each entry's (slab, item) pair numbered in that order.
+    With a `fill` (slab_stream), the entries of items too sparse to pay
+    for their pair rows come first, in (item, user) order, one pair per
+    item; the slabs follow."""
     pair: torch.Tensor            # i32[P] the entry's pair: 0, 0, 1, ...
     u: torch.Tensor               # i32[P] user ids
     order: torch.Tensor           # i32[P] positions in the user-sorted COO
@@ -67,7 +74,8 @@ class SlabStream:
     # item i's pairs, in slab order: item_pairs[item_start[i]:item_start[i+1]]
     item_start: torch.Tensor      # i32[m + 1]
     item_pairs: torch.Tensor      # i32[pairs]
-    slabs: int                    # slabs holding an entry
+    slabs: int                    # slabs holding an entry in slab order
+    cold: int = 0                 # entries in the leading (item, user) part
 
     @property
     def pairs(self) -> int:
@@ -87,35 +95,69 @@ def user_slabs(u_ids: torch.Tensor, n: int, kq: int,
     return (torch.cumsum(cost, 0) - cost) // slab_bytes
 
 
-def slab_stream(data: DeviceData, n: int, m: int, kq: int,
-                slab_bytes: int = SLAB_BYTES) -> SlabStream:
-    """The item pass's stream for tables of n user and m item rows of kq
-    floats, built on data's device once per (n, m, kq, slab_bytes) and
-    kept in `data.slab_cache`. `item_order` is sorted by (item, user), so
-    a stable sort by slab gives (slab, item, user)."""
-    key = (n, m, kq, slab_bytes)
-    got = data.slab_cache.get(key)
+def _run_starts(slab: torch.Tensor, item: torch.Tensor) -> torch.Tensor:
+    """bool [P]: where a run of equal (slab, item) starts."""
+    start = torch.ones_like(slab, dtype=torch.bool)
+    start[1:] = (slab[1:] != slab[:-1]) | (item[1:] != item[:-1])
+    return start
+
+
+def slab_stream(u_ids: torch.Tensor, item_order: torch.Tensor,
+                i_by_item: torch.Tensor, u_by_item: torch.Tensor,
+                cache: dict, n: int, m: int, kq: int,
+                slab_bytes: int = SLAB_BYTES, fill: int = 0) -> SlabStream:
+    """The item pass's stream of a dual-sorted COO (the user-sorted user
+    ids, the user-sorted position of each item-sorted entry, and the
+    item-sorted item and user ids: `DeviceData`'s COO or a `TailStream`)
+    for tables of n user and m item rows of kq floats, built on the
+    stream's device once per (n, m, kq, slab_bytes, fill) and kept in the
+    stream's `cache`. The item order is sorted by (item, user), so a
+    stable sort by slab gives (slab, item, user).
+
+    An item whose entries span p slabs costs p pair rows, each written
+    and read once, where plain item order costs one; slab order saves it
+    an HBM gather of A per entry. With fill > 0 an item keeps slab order
+    only where its entries outnumber fill times its p - 1 extra pair rows;
+    the others lead the stream in (item, user) order, one pair each."""
+    key = (n, m, kq, slab_bytes, fill)
+    got = cache.get(key)
     if got is not None:
         return got
-    slab = user_slabs(data.u_ids, n, kq, slab_bytes)[
-        data.u_ids_by_item.long()]
+    slab = user_slabs(u_ids, n, kq, slab_bytes)[u_by_item.long()]
+    cold = 0
+    if fill > 0:
+        # users ascend within an item, slabs with them: (item, slab) runs
+        # are contiguous in item order
+        starts = _run_starts(slab, i_by_item)
+        spans = torch.bincount(i_by_item[starts].long(), minlength=m)
+        keep = torch.bincount(i_by_item.long(), minlength=m) > \
+            fill * (spans - 1)
+        hot = keep[i_by_item.long()]
+        slab = torch.where(hot, slab + 1, 0)
+        cold = int((~hot).sum())
     slab, perm = torch.sort(slab, stable=True)
-    i = data.i_ids_sorted[perm]
-    new_slab = slab[1:] != slab[:-1]
-    run_start = torch.ones_like(slab, dtype=torch.bool)
-    run_start[1:] = new_slab | (i[1:] != i[:-1])
+    i = i_by_item[perm]
+    run_start = _run_starts(slab, i)
     pair_item = i[run_start]
     item_start = torch.zeros(m + 1, dtype=torch.int64, device=slab.device)
     item_start[1:] = torch.cumsum(torch.bincount(pair_item.long(),
                                                  minlength=m), 0)
     got = SlabStream(
         pair=(torch.cumsum(run_start, 0) - 1).int(),
-        u=data.u_ids_by_item[perm], order=data.item_order[perm],
+        u=u_by_item[perm], order=item_order[perm],
         pair_item=pair_item, item_start=item_start.int(),
         item_pairs=torch.sort(pair_item, stable=True).indices.int(),
-        slabs=int(new_slab.sum()) + 1 if slab.numel() else 0)
-    data.slab_cache[key] = got
+        slabs=int(torch.unique_consecutive(slab[cold:]).numel()), cold=cold)
+    cache[key] = got
     return got
+
+
+def data_slabs(data: DeviceData, n: int, m: int, kq: int,
+               slab_bytes: int = SLAB_BYTES) -> SlabStream:
+    """`slab_stream` of `DeviceData`'s COO, kept in `data.slab_cache`."""
+    return slab_stream(data.u_ids, data.item_order, data.i_ids_sorted,
+                       data.u_ids_by_item, data.slab_cache, n, m, kq,
+                       slab_bytes)
 
 
 def _check(a_tab, b_tab, data: DeviceData, slab_bytes: int):
@@ -165,26 +207,32 @@ class Scratch:
                                    device=device))
 
 
-def user_pass(a_tab, b_tab, data: DeviceData, out_a, sc: Scratch) -> None:
-    """The user pass on the card: w into sc.w and acc_a into out_a
-    (zeroed). `fused_segment_sweep` runs it; alone it serves to time the
-    pass."""
-    kq = a_tab.shape[1]
-    with torch.cuda.device(a_tab.device):
-        stream = torch.cuda.current_stream(a_tab.device).cuda_stream
+def user_pass(p_tab, o_tab, p_ids, o_ids, y, out, sc: Scratch,
+              tail: bool = False) -> None:
+    """The user pass on the card over a stream sorted by its primary ids
+    p_ids (ascending), with other-side ids o_ids and counts y: w into sc.w
+    and out[r] = P[r] (.) sum_{p_j = r} w_j O[o_j] into out (rows no entry
+    touches are left as they were). `fused_segment_sweep` runs it on
+    `DeviceData`'s user-sorted COO, the tail's f32 route (tail=True: the
+    kernel's ring shape for the tail) on either half's stream."""
+    kq, nnz = p_tab.shape[1], p_ids.shape[0]
+    with torch.cuda.device(p_tab.device):
+        stream = torch.cuda.current_stream(p_tab.device).cuda_stream
         err = _entry("hpf_segment_user_pass_f32")(
-            data.u_ids.data_ptr(), data.i_ids.data_ptr(), data.y.data_ptr(),
-            a_tab.data_ptr(), b_tab.data_ptr(), out_a.data_ptr(),
-            sc.w.data_ptr(), sc.brow.data_ptr(), sc.bacc.data_ptr(),
-            data.u_ids.shape[0], kq, RANGE, stream)
+            p_ids.data_ptr(), o_ids.data_ptr(), y.data_ptr(),
+            p_tab.data_ptr(), o_tab.data_ptr(), out.data_ptr(),
+            sc.w.data_ptr(), sc.brow.data_ptr(), sc.bacc.data_ptr(), nnz,
+            kq, RANGE, int(tail), stream)
     if err != 0:
         raise RuntimeError(f"segment sweep user pass failed: cudaError "
-                           f"{err} (nnz={data.u_ids.shape[0]}, kq={kq})")
+                           f"{err} (nnz={nnz}, kq={kq})")
 
 
-def item_pass(a_tab, b_tab, slabs: SlabStream, out_b, sc: Scratch) -> None:
+def item_pass(a_tab, b_tab, slabs: SlabStream, out_b, sc: Scratch,
+              tail: bool = False) -> None:
     """The item pass on the card, after the user pass filled sc.w: every
-    row of out_b written (zero for an item with no entry)."""
+    row of out_b written (zero for an item with no entry). tail=True takes
+    the kernel's ring shape for the hybrid's tail."""
     kq = a_tab.shape[1]
     m = b_tab.shape[0]
     pacc = torch.empty((slabs.pairs, kq), dtype=torch.float32,
@@ -196,7 +244,8 @@ def item_pass(a_tab, b_tab, slabs: SlabStream, out_b, sc: Scratch) -> None:
             sc.w.data_ptr(), a_tab.data_ptr(), b_tab.data_ptr(),
             pacc.data_ptr(), slabs.item_start.data_ptr(),
             slabs.item_pairs.data_ptr(), out_b.data_ptr(), sc.brow.data_ptr(),
-            sc.bacc.data_ptr(), slabs.pair.shape[0], m, kq, RANGE, stream)
+            sc.bacc.data_ptr(), slabs.pair.shape[0], m, kq, RANGE, int(tail),
+            stream)
     if err != 0:
         raise RuntimeError(f"segment sweep item pass failed: cudaError "
                            f"{err} ({slabs.slabs} slabs, {slabs.pairs} "
@@ -221,9 +270,9 @@ def fused_segment_sweep(a_tab: torch.Tensor, b_tab: torch.Tensor,
     out_b = torch.empty((m, kq), dtype=torch.float32, device=a_tab.device)
     if p == 0:
         return out_a, out_b.zero_()
-    slabs = slab_stream(data, n, m, kq, slab_bytes)
+    slabs = data_slabs(data, n, m, kq, slab_bytes)
     sc = Scratch.make(p, kq, a_tab.device)
-    user_pass(a_tab, b_tab, data, out_a, sc)
+    user_pass(a_tab, b_tab, data.u_ids, data.i_ids, data.y, out_a, sc)
     item_pass(a_tab, b_tab, slabs, out_b, sc)
     fused_segment_sweep.launches += 1
     return out_a, out_b

@@ -14,6 +14,9 @@ Per nonzero j of a half, with r = p_j: s_j = <P[r], O[o_j]>, w_j =
 y_j / max(s_j, 1e-30) and out[r] += w_j * P[r] (.) O[o_j]. The augmented
 columns make s_j = A.B + ba + bb (the reference's K+2 phi slots,
 hgaprec.cc:223-239) and deliver the bias statistics with no extra pass.
+Both halves meet every nonzero with the same w_j, so the f32 kernel route
+(ops/tail_fused.py) forms it once, in the user-sorted half, and the
+item-sorted half reads it back through `TailStream.order`.
 
 The JAX package compacts ids and cuts the stream into windows because
 the TPU cannot gather across tiles; the port keeps raw ids and
@@ -40,6 +43,14 @@ class TailStream:
     i_by_item: torch.Tensor    # i32[PT] item ids, sorted (item, user)
     u_by_item: torch.Tensor    # i32[PT] user ids
     y_by_item: torch.Tensor    # f32[PT]
+    # the user-sorted position of each item-sorted entry: u[order] ==
+    # u_by_item, and so on
+    order: torch.Tensor        # i32[PT]
+    # the f32 route's item-pass streams, by their sizing
+    # (ops/segment_fused.py::slab_stream), and the users it leaves to
+    # zero-fill, built from the fields above at first use and kept here
+    slab_cache: dict = dataclasses.field(default_factory=dict, repr=False,
+                                         compare=False)
 
     @property
     def nnz(self) -> int:
@@ -61,7 +72,8 @@ def build_tail_stream(u: np.ndarray, i: np.ndarray, y: np.ndarray,
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
     return TailStream(u=dev(u), i=dev(i), y=dev(y), i_by_item=dev(i[order]),
-                      u_by_item=dev(u[order]), y_by_item=dev(y[order]))
+                      u_by_item=dev(u[order]), y_by_item=dev(y[order]),
+                      order=dev(order.astype(np.int32)))
 
 
 def augment(x: torch.Tensor, col_a: Optional[torch.Tensor],
@@ -99,7 +111,20 @@ def half_sweep_reference(p_tab: torch.Tensor, o_tab: torch.Tensor,
     return out
 
 
-HalfSweep = Callable[..., torch.Tensor]
+Halves = Callable[[torch.Tensor, torch.Tensor, TailStream],
+                  Tuple[torch.Tensor, torch.Tensor]]
+
+
+def halves_reference(a_t: torch.Tensor, b_t: torch.Tensor,
+                     stream: TailStream) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(acc_a, acc_b): both half-sweeps in plain torch ops on the augmented
+    tables a_t = [A | ba | 1], b_t = [B | 1 | bb]: the user-sorted one with
+    a_t primary, the item-sorted one with b_t primary."""
+    return (half_sweep_reference(a_t, b_t, stream.u, stream.i, stream.y,
+                                 a_t.shape[0]),
+            half_sweep_reference(b_t, a_t, stream.i_by_item,
+                                 stream.u_by_item, stream.y_by_item,
+                                 b_t.shape[0]))
 
 
 def tail_tables(a_lin, b_lin, ba_lin, bb_lin, bf16: bool):
@@ -117,15 +142,15 @@ def tail_tables(a_lin, b_lin, ba_lin, bb_lin, bf16: bool):
             augment(b_lin, ones_b, bb_lin, width, dt))
 
 
-def run_tail_sweep(half: HalfSweep, a_lin, b_lin, ba_lin, bb_lin,
+def run_tail_sweep(halves: Halves, a_lin, b_lin, ba_lin, bb_lin,
                    stream: TailStream, bf16: bool
                    ) -> Tuple[torch.Tensor, torch.Tensor,
                               Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Both halves of a tail sweep through `half` (the plain half-sweep or
-    the kernel's wrapper). Returns (acc_a [N, K], acc_b [M, K], acc_ba [N]
-    | None, acc_bb [M] | None), the finished y * phi sums: the contract of
-    `mxu_tail_sweep` (mxu_tail.py:287-340). An empty stream returns zeros
-    and runs nothing."""
+    """Both halves of a tail sweep through `halves` (the plain version or
+    the kernels' wrapper) on the augmented tables. Returns (acc_a [N, K],
+    acc_b [M, K], acc_ba [N] | None, acc_bb [M] | None), the finished
+    y * phi sums: the contract of `mxu_tail_sweep` (mxu_tail.py:287-340).
+    An empty stream returns zeros and runs nothing."""
     n, k = a_lin.shape
     m = b_lin.shape[0]
     bias = ba_lin is not None
@@ -133,10 +158,8 @@ def run_tail_sweep(half: HalfSweep, a_lin, b_lin, ba_lin, bb_lin,
         z = a_lin.new_zeros
         return (z((n, k)), z((m, k)), z((n,)) if bias else None,
                 z((m,)) if bias else None)
-    a_t, b_t = tail_tables(a_lin, b_lin, ba_lin, bb_lin, bf16)
-    acc_a = half(a_t, b_t, stream.u, stream.i, stream.y, n)
-    acc_b = half(b_t, a_t, stream.i_by_item, stream.u_by_item,
-                 stream.y_by_item, m)
+    acc_a, acc_b = halves(*tail_tables(a_lin, b_lin, ba_lin, bb_lin, bf16),
+                          stream)
     if bias:
         return acc_a[:, :k], acc_b[:, :k], acc_a[:, k], acc_b[:, k + 1]
     return acc_a[:, :k], acc_b[:, :k], None, None
@@ -146,5 +169,5 @@ def tail_sweep_reference(a_lin, b_lin, ba_lin, bb_lin, stream: TailStream,
                          bf16: bool = False):
     """The tail sweep in plain torch ops (same contract as the kernel's
     `ops/tail_fused.py::tail_sweep`)."""
-    return run_tail_sweep(half_sweep_reference, a_lin, b_lin, ba_lin,
-                          bb_lin, stream, bf16)
+    return run_tail_sweep(halves_reference, a_lin, b_lin, ba_lin, bb_lin,
+                          stream, bf16)

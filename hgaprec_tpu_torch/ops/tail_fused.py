@@ -7,22 +7,27 @@ other-side ids o, counts y and bias-augmented tables P, O (ops/tail.py):
     out[r] = sum_{j: p_j = r} w_j * P[r] (.) O[o_j],
     w_j = y_j / max(<P[r], O[o_j]>, 1e-30)
 
-Two kernels replace the TPU kernel `hgaprec_tpu/ops/pallas_tail.py::
-_kernel`, both bounded by the random row gathers: one O row per nonzero
-(kq * 2 bytes in bf16, kq * 4 in f32) plus 12 bytes of ids and y.
+Two routes replace the TPU kernel `hgaprec_tpu/ops/pallas_tail.py::
+_kernel`, both bounded by the random row gathers:
   * bf16 ("default"), `csrc/tail_bf16.cu`: a lane group of 8, 16 or 32
     lanes (one 16-byte chunk of a row per lane, `plan`) owns each range of
     RANGE nonzeros, and keeps several O rows, and the P row of each run
     that starts among them, in flight in a cp.async ring in shared memory.
-  * f32 ("highest"), `csrc/tail_fused.cu`: a warp owns each range and
-    loads the next O row while it computes one (`csrc/row_sweep.cuh`).
-Either keeps a run's running sum in registers and writes each finished row
-once; the first and last run of each range go to two boundary slots that
-a small fix-up pass adds in range order, so no float atomics and the same
-bits on every launch.
+    Each half is one launch of `fused_half_sweep`.
+  * f32 ("highest"), the CSR sweep's two passes (`csrc/segment_sweep.cu`,
+    ops/segment_fused.py): the user-sorted half is the user pass, which
+    keeps each w_j; the item-sorted half is the item pass, which reads w_j
+    through `TailStream.order` instead of forming the dot again, over the
+    tail's own slab stream (users cut into L2-sized slabs, the stream in
+    (slab, item, user) order). One half alone (`fused_half_sweep`) runs
+    the user pass's kernel on that half's stream.
+Both keep a run's sum in registers and write each finished row once; the
+first and last run of each range go to two boundary slots that a small
+fix-up pass adds in range order, so no float atomics and the same bits on
+every launch.
 
-On a CUDA tensor `fused_half_sweep` launches a kernel or raises; only a
-CPU tensor takes `ops/tail.py::half_sweep_reference`.
+On a CUDA tensor `fused_half_sweep` and `tail_halves` launch kernels or
+raise; only a CPU tensor takes the plain versions of `ops/tail.py`.
 """
 
 from __future__ import annotations
@@ -34,33 +39,48 @@ from typing import Tuple
 import torch
 
 from hgaprec_tpu_torch.ops import build
+from hgaprec_tpu_torch.ops import segment_fused as sf
 from hgaprec_tpu_torch.ops.tail import (TailStream, half_sweep_reference,
                                         run_tail_sweep)
 
-RANGE = 256            # nonzeros per range (a multiple of 32)
+RANGE = 256            # nonzeros per range of the bf16 kernel (x 32)
 KQ_MAX = 256           # widest table row the kernels take
+# The f32 route's slab stream (ops/segment_fused.py::slab_stream): user
+# slabs of SLAB_BYTES of A rows and weights, and an item of the tail keeps
+# slab order only where its entries outnumber SLAB_FILL times its extra
+# pair rows (the median tail item has fewer entries than there are
+# slabs). Both measured on the H100 at the EchoNest tail (PERF.md, PR 9):
+# the item half took 1.63 ms at 48 MB and fill 4, 1.90 ms at the CSR
+# sweep's 24 MB with every item in slab order.
+SLAB_BYTES = 48 << 20
+SLAB_FILL = 4
 
 
 def plan(bf16: bool, kq: int) -> Tuple[str, int]:
-    """(C entry, lanes per range) for rows of kq values: the bf16 kernel's
-    lane group holds one 16-byte chunk (8 values) per lane, 8 lanes up to
-    kq = 64, 16 up to 128, 32 beyond (`csrc/tail_bf16.cu` picks the same);
-    the f32 row sweep runs a warp per range."""
-    if not bf16:
-        return "hpf_tail_half_sweep_f32", 32
-    return "hpf_tail_half_sweep_bf16", 8 if kq <= 64 else 16 if kq <= 128 \
-        else 32
+    """(C entry, lanes per range) of one half for rows of kq values. The
+    bf16 kernel's lane group holds one 16-byte chunk (8 values) per lane:
+    8 lanes up to kq = 64, 16 up to 128, 32 beyond (`csrc/tail_bf16.cu`
+    picks the same). The f32 route's user pass holds two 16-byte chunks
+    (8 floats) per lane: 4 lanes up to kq = 32, 8 up to 64, 16 up to 128,
+    32 beyond (`csrc/segment_sweep.cu::pass_by_width`)."""
+    if bf16:
+        return "hpf_tail_half_sweep_bf16", 8 if kq <= 64 else 16 \
+            if kq <= 128 else 32
+    return "hpf_segment_user_pass_f32", 4 if kq <= 32 else 8 if kq <= 64 \
+        else 16 if kq <= 128 else 32
 
 
-def scratch_rows(nnz: int) -> int:
+def scratch_rows(nnz: int, bf16: bool) -> int:
     """Boundary slots for a stream of nnz > 0 nonzeros: two per range of
-    RANGE (the kernels' `brow` [slots] and `bacc` [slots, kq])."""
-    return 2 * -(-nnz // RANGE)
+    the route's kernel (RANGE nonzeros in bf16, the CSR sweep's sf.RANGE
+    in f32), the kernels' `brow` [slots] and `bacc` [slots, kq]."""
+    return 2 * -(-nnz // (RANGE if bf16 else sf.RANGE))
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(name: str):
-    """A C entry of the kernel library, its argument types set once."""
+    """The bf16 C entry of the kernel library, its argument types set
+    once."""
     fn = getattr(build.load_library(), name)
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_void_p]
@@ -114,20 +134,27 @@ def fused_half_sweep(p_tab: torch.Tensor, o_tab: torch.Tensor,
         raise ValueError(f"no kernel for device {p_tab.device}")
     kq = p_tab.shape[1]
     nnz = p_ids.shape[0]
-    out = torch.zeros((rows, kq), dtype=torch.float32, device=p_tab.device)
+    dev = p_tab.device
+    out = torch.zeros((rows, kq), dtype=torch.float32, device=dev)
     if nnz == 0:
         return out
-    slots = scratch_rows(nnz)
-    brow = torch.empty(slots, dtype=torch.int32, device=p_tab.device)
-    bacc = torch.empty((slots, kq), dtype=torch.float32, device=p_tab.device)
     bf16 = p_tab.dtype == torch.bfloat16
+    slots = scratch_rows(nnz, bf16)
+    brow = torch.empty(slots, dtype=torch.int32, device=dev)
+    bacc = torch.empty((slots, kq), dtype=torch.float32, device=dev)
+    if not bf16:            # the user pass, its weights thrown away
+        sf.user_pass(p_tab, o_tab, p_ids, o_ids, y, out, sf.Scratch(
+            torch.empty(nnz, dtype=torch.float32, device=dev), brow, bacc),
+            tail=True)
+        fused_half_sweep.launches += 1
+        return out
     name, lanes = plan(bf16, kq)
-    fn = _entry(name)
-    with torch.cuda.device(p_tab.device):
-        stream = torch.cuda.current_stream(p_tab.device).cuda_stream
-        err = fn(p_ids.data_ptr(), o_ids.data_ptr(), y.data_ptr(),
-                 p_tab.data_ptr(), o_tab.data_ptr(), out.data_ptr(),
-                 brow.data_ptr(), bacc.data_ptr(), nnz, kq, RANGE, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _entry(name)(p_ids.data_ptr(), o_ids.data_ptr(), y.data_ptr(),
+                           p_tab.data_ptr(), o_tab.data_ptr(),
+                           out.data_ptr(), brow.data_ptr(), bacc.data_ptr(),
+                           nnz, kq, RANGE, stream)
     if err != 0:
         raise RuntimeError(f"tail half-sweep launch failed: cudaError {err} "
                            f"({name}, {lanes} lanes per range; nnz={nnz}, "
@@ -139,10 +166,68 @@ def fused_half_sweep(p_tab: torch.Tensor, o_tab: torch.Tensor,
 fused_half_sweep.launches = 0
 
 
+def tail_slabs(stream: TailStream, n: int, m: int, kq: int,
+               slab_bytes: int = SLAB_BYTES,
+               fill: int = SLAB_FILL) -> sf.SlabStream:
+    """The f32 route's item-pass stream of the tail for tables of n user
+    and m item rows of kq floats, built on the card at the first sweep and
+    kept in `stream.slab_cache`."""
+    return sf.slab_stream(stream.u, stream.order, stream.i_by_item,
+                          stream.u_by_item, stream.slab_cache, n, m, kq,
+                          slab_bytes, fill)
+
+
+def _untouched_users(stream: TailStream, n: int) -> torch.Tensor:
+    """i64: the users below n with no tail entry, found once and kept in
+    `stream.slab_cache`."""
+    key = ("untouched", n)
+    got = stream.slab_cache.get(key)
+    if got is None:
+        free = torch.ones(n, dtype=torch.bool, device=stream.u.device)
+        free[stream.u.long()] = False
+        got = stream.slab_cache[key] = free.nonzero().flatten()
+    return got
+
+
+def tail_halves(a_t: torch.Tensor, b_t: torch.Tensor, stream: TailStream,
+                slab_bytes: int = SLAB_BYTES, fill: int = SLAB_FILL):
+    """(acc_a f32 [n, kq], acc_b f32 [m, kq]): both halves of a tail sweep
+    on the augmented tables a_t = [A | ba | 1], b_t = [B | 1 | bb] and a
+    stream of nnz > 0 nonzeros. bf16 tables and CPU tensors take
+    `fused_half_sweep` once per half; f32 tables on the card take the CSR
+    sweep's user pass and then its item pass over the tail's slab stream
+    (user slabs of `slab_bytes`, sparse items first by `fill`), which
+    reads the user pass's weights: two launches, each counted in
+    `fused_half_sweep.launches`. Every row of both outputs is written
+    (zero where no nonzero lies)."""
+    (n, kq), m = a_t.shape, b_t.shape[0]
+    if a_t.dtype == torch.bfloat16 or a_t.device.type == "cpu":
+        return (fused_half_sweep(a_t, b_t, stream.u, stream.i, stream.y, n),
+                fused_half_sweep(b_t, a_t, stream.i_by_item,
+                                 stream.u_by_item, stream.y_by_item, m))
+    _check(a_t, b_t, stream.u, stream.i, stream.y, n)
+    _check(b_t, a_t, stream.i_by_item, stream.u_by_item, stream.y_by_item, m)
+    if a_t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {a_t.device}")
+    sc = sf.Scratch.make(stream.nnz, kq, a_t.device)
+    acc_a = torch.empty((n, kq), dtype=torch.float32, device=a_t.device)
+    sf.user_pass(a_t, b_t, stream.u, stream.i, stream.y, acc_a, sc,
+                 tail=True)
+    fused_half_sweep.launches += 1
+    # the user pass writes every row with an entry: only the others need
+    # zeros, and the host queues them while the card runs the pass
+    acc_a.index_fill_(0, _untouched_users(stream, n), 0.0)
+    slabs = tail_slabs(stream, n, m, kq, slab_bytes, fill)
+    acc_b = torch.empty((m, kq), dtype=torch.float32, device=a_t.device)
+    sf.item_pass(a_t, b_t, slabs, acc_b, sc, tail=True)
+    fused_half_sweep.launches += 1
+    return acc_a, acc_b
+
+
 def tail_sweep(a_lin, b_lin, ba_lin, bb_lin, stream: TailStream,
                bf16: bool = False):
-    """Both halves of a tail sweep through the kernel (two launches on a
+    """Both halves of a tail sweep through the kernels (two launches on a
     CUDA tensor, the plain version on a CPU tensor). Returns (acc_a,
     acc_b, acc_ba | None, acc_bb | None), the finished y * phi sums."""
-    return run_tail_sweep(fused_half_sweep, a_lin, b_lin, ba_lin, bb_lin,
-                          stream, bf16)
+    return run_tail_sweep(tail_halves, a_lin, b_lin, ba_lin, bb_lin, stream,
+                          bf16)

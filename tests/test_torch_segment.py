@@ -32,8 +32,9 @@ from hgaprec_tpu_torch.data.device import build_device_data as t_build
 from hgaprec_tpu_torch.ops import build
 from hgaprec_tpu_torch.ops import segment_fused as sf
 from hgaprec_tpu_torch.ops import sweep as t_sweep
+from hgaprec_tpu_torch.ops import tail_fused as tf
 from hgaprec_tpu_torch.ops.segment import segment_sweep_reference
-from hgaprec_tpu_torch.ops.tail import tail_tables
+from hgaprec_tpu_torch.ops.tail import build_tail_stream, tail_tables
 from test_sweep import _setup, naive_sweep
 from test_torch_step import port_store
 
@@ -203,21 +204,17 @@ def test_reference_is_the_per_nonzero_loop():
 SLAB_SIZES = [1 << 40, 600, 1]
 
 
-@pytest.mark.parametrize("slab_bytes", SLAB_SIZES + [150])
-def test_slab_stream_orders_by_slab_item_user(rng, slab_bytes):
-    """The item pass's stream is a permutation of item_order in (slab,
-    item, user) order; its pairs number the (slab, item) runs in that
-    order, and each item lists its pairs in slab order."""
-    store, _, tdata, _ = _both(rng, False, n=40, m=30, nnz=200)
-    n, m, kq = store.n, store.m, 8
-    st = sf.slab_stream(tdata, n, m, kq, slab_bytes)
-    assert sf.slab_stream(tdata, n, m, kq, slab_bytes) is st  # built once
+def _assert_slab_order(st, u_ids, i_ids, item_order, n, m, kq, slab_bytes):
+    """The item pass's stream `st` of the dual-sorted COO (u_ids, i_ids,
+    item_order) is a permutation of item_order in (slab, item, user)
+    order; its pairs number the (slab, item) runs in that order, and each
+    item lists its pairs in slab order."""
     order, pair, u = st.order.numpy(), st.pair.numpy(), st.u.numpy()
-    assert np.array_equal(np.sort(order), np.sort(tdata.item_order.numpy()))
+    assert np.array_equal(np.sort(order), np.sort(item_order.numpy()))
     i = st.pair_item.numpy()[pair]
-    np.testing.assert_array_equal(i, tdata.i_ids.numpy()[order])
-    np.testing.assert_array_equal(u, tdata.u_ids.numpy()[order])
-    user_slab = sf.user_slabs(tdata.u_ids, n, kq, slab_bytes).numpy()
+    np.testing.assert_array_equal(i, i_ids.numpy()[order])
+    np.testing.assert_array_equal(u, u_ids.numpy()[order])
+    user_slab = sf.user_slabs(u_ids, n, kq, slab_bytes).numpy()
     assert (np.diff(user_slab) >= 0).all()
     slab = user_slab[u]
     keys = np.stack([slab, i, u, order], 1)
@@ -231,13 +228,87 @@ def test_slab_stream_orders_by_slab_item_user(rng, slab_bytes):
         mine = pairs[start[item]:start[item + 1]]
         np.testing.assert_array_equal(mine, np.flatnonzero(
             st.pair_item.numpy() == item))
-    present = np.unique(tdata.u_ids.numpy())
+    present = np.unique(u_ids.numpy())
     if slab_bytes == SLAB_SIZES[0]:
         assert st.slabs == 1
     elif slab_bytes == 1:
         assert st.slabs == present.size
     else:
         assert 1 < st.slabs < present.size
+
+
+@pytest.mark.parametrize("slab_bytes", SLAB_SIZES + [150])
+def test_slab_stream_orders_by_slab_item_user(rng, slab_bytes):
+    """`DeviceData`'s COO: the CSR sweep's own item-pass stream."""
+    store, _, tdata, _ = _both(rng, False, n=40, m=30, nnz=200)
+    n, m, kq = store.n, store.m, 8
+    st = sf.data_slabs(tdata, n, m, kq, slab_bytes)
+    assert sf.data_slabs(tdata, n, m, kq, slab_bytes) is st  # built once
+    assert tdata.slab_cache == {(n, m, kq, slab_bytes, 0): st}
+    _assert_slab_order(st, tdata.u_ids, tdata.i_ids, tdata.item_order, n, m,
+                       kq, slab_bytes)
+
+
+@pytest.mark.parametrize("slab_bytes", SLAB_SIZES + [150])
+def test_tail_slab_stream_orders_by_slab_item_user(rng, slab_bytes):
+    """A `TailStream`: the f32 tail route's item-pass stream, built from
+    the tail's own fields through `TailStream.order` and kept in its own
+    cache; with every item in slab order (fill 0)."""
+    store, _, _, _ = _both(rng, False, n=40, m=30, nnz=200)
+    n, m, kq = store.n, store.m, 8
+    s = build_tail_stream(store.coo_u, store.coo_i, store.coo_y, "cpu")
+    st = tf.tail_slabs(s, n, m, kq, slab_bytes, 0)
+    assert tf.tail_slabs(s, n, m, kq, slab_bytes, 0) is st   # built once
+    assert s.slab_cache == {(n, m, kq, slab_bytes, 0): st} and st.cold == 0
+    _assert_slab_order(st, s.u, s.i, s.order, n, m, kq, slab_bytes)
+
+
+@pytest.mark.parametrize("fill", [1, tf.SLAB_FILL, 1000])
+@pytest.mark.parametrize("slab_bytes", SLAB_SIZES + [150])
+def test_slab_stream_puts_sparse_items_first(rng, slab_bytes, fill):
+    """With a fill, the items whose entries do not outnumber fill times
+    their extra pair rows lead the stream in (item, user) order, one pair
+    each; the rest follow in (slab, item, user) order. Every entry of
+    item_order appears once, and each item's pairs are listed in stream
+    order."""
+    store, _, _, _ = _both(rng, False, n=40, m=30, nnz=200)
+    n, m, kq = store.n, store.m, 8
+    s = build_tail_stream(store.coo_u, store.coo_i, store.coo_y, "cpu")
+    st = tf.tail_slabs(s, n, m, kq, slab_bytes, fill)
+    assert tf.tail_slabs(s, n, m, kq, slab_bytes, fill) is st
+    plain = tf.tail_slabs(s, n, m, kq, slab_bytes, 0)
+    user_slab = sf.user_slabs(s.u, n, kq, slab_bytes).numpy()
+    u_all, i_all = s.u.numpy(), s.i.numpy()
+    deg = np.bincount(i_all, minlength=m)
+    spans = np.array([np.unique(user_slab[u_all[i_all == it]]).size
+                      for it in range(m)])
+    hot = deg > fill * (spans - 1)
+    order, pair, u = st.order.numpy(), st.pair.numpy(), st.u.numpy()
+    i = st.pair_item.numpy()[pair]
+    np.testing.assert_array_equal(np.sort(order), np.arange(u_all.size))
+    np.testing.assert_array_equal(i, i_all[order])
+    np.testing.assert_array_equal(u, u_all[order])
+    cold = ~hot[i]
+    assert st.cold == cold.sum() and not cold[st.cold:].any()
+    assert cold[:st.cold].all()
+    key = np.where(cold, 0, user_slab[u] + 1)
+    rows = np.stack([key, i, u, order], 1)
+    for a, b in zip(rows[:-1], rows[1:]):
+        assert tuple(a) < tuple(b)
+    new = np.r_[True, (key[1:] != key[:-1]) | (i[1:] != i[:-1])]
+    np.testing.assert_array_equal(pair, np.cumsum(new) - 1)
+    assert st.slabs == np.unique(key[st.cold:]).size
+    start, pairs = st.item_start.numpy(), st.item_pairs.numpy()
+    for item in range(m):
+        np.testing.assert_array_equal(pairs[start[item]:start[item + 1]],
+                                      np.flatnonzero(st.pair_item.numpy()
+                                                     == item))
+        # a sparse item has one pair, a dense one its plain slab spans
+        want = 1 if not hot[item] else spans[item]
+        assert start[item + 1] - start[item] == (want if deg[item] else 0)
+    assert st.pairs <= plain.pairs
+    if slab_bytes == SLAB_SIZES[0]:
+        assert st.cold == 0 and st.pairs == plain.pairs
 
 
 def _slab_walk(a_tab, b_tab, data, slab_bytes):
@@ -253,8 +324,8 @@ def _slab_walk(a_tab, b_tab, data, slab_bytes):
         dot = np.float32((a[u[j]] * b[i[j]]).sum(dtype=np.float32))
         w[j] = y[j] / max(dot, np.float32(1e-30))
         acc_a[u[j]] += w[j] * b[i[j]] * a[u[j]]
-    st = sf.slab_stream(data, a.shape[0], b.shape[0], a.shape[1],
-                        slab_bytes)
+    st = sf.data_slabs(data, a.shape[0], b.shape[0], a.shape[1],
+                       slab_bytes)
     pacc = np.zeros((st.pairs, a.shape[1]), np.float32)
     for pr, su, so in zip(st.pair.numpy(), st.u.numpy(), st.order.numpy()):
         pacc[pr] += w[so] * a[su]
@@ -384,7 +455,7 @@ def test_kernel_matches_plain_on_card(bias, k, slab_bytes):
            [(n, k), (m, k)] + ([(n,), (m,)] if bias else [])]
     lin += [None, None] * (not bias)
     tables = tail_tables(*lin, bf16=False)
-    slabs = sf.slab_stream(data, n, m, tables[0].shape[1], slab_bytes).slabs
+    slabs = sf.data_slabs(data, n, m, tables[0].shape[1], slab_bytes).slabs
     assert (slabs == 1) == (slab_bytes == sf.SLAB_BYTES)
     before = sf.fused_segment_sweep.launches
     got = sf.fused_segment_sweep(*tables, data, slab_bytes)

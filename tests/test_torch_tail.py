@@ -6,8 +6,12 @@ the Pallas tail kernel in interpret mode, both in f32, at the bound
 tests/test_pallas_tail.py pins (rtol=2e-5, atol=1e-6), on that file's
 adversarial layouts plus an empty tail and untouched rows. bf16 mode is
 held against JAX's bf16 MXU tail at 2e-2 relative (the bf16 bound of
-tests/test_pallas_tail.py::test_bf16_tail_vs_f32_mxu). The CUDA kernel
-runs only on the card (marked `cuda`).
+tests/test_pallas_tail.py::test_bf16_tail_vs_f32_mxu). The f32 route on
+the card is the CSR sweep's two passes over the tail: the tail laid out
+as that sweep's COO, through its plain version
+(`ops/segment.py::segment_sweep_reference`), is held against both JAX
+tails at the same f32 bound. The CUDA kernels run only on the card
+(marked `cuda`).
 """
 
 import jax.numpy as jnp
@@ -17,10 +21,13 @@ import torch
 
 from hgaprec_tpu.ops.mxu_tail import build_tail_compact, mxu_tail_sweep
 from hgaprec_tpu.ops.pallas_tail import CHUNK, pallas_tail_sweep
+from hgaprec_tpu_torch.data.device import DeviceData
 from hgaprec_tpu_torch.ops import build
+from hgaprec_tpu_torch.ops import segment_fused as sf
 from hgaprec_tpu_torch.ops import tail_fused as tf
+from hgaprec_tpu_torch.ops.segment import segment_sweep_reference
 from hgaprec_tpu_torch.ops.tail import (build_tail_stream,
-                                        half_sweep_reference,
+                                        half_sweep_reference, tail_tables,
                                         tail_sweep_reference)
 
 F32 = dict(rtol=2e-5, atol=1e-6)
@@ -106,6 +113,64 @@ def test_plain_matches_jax_f32(name, bias, impl):
     tc = build_tail_compact(u, i, y, n_users=n if name == "every_user"
                             else 0)
     _assert_close(_port(tables, u, i, y), _jax(tables, tc, impl), **F32)
+
+
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_stream_order_maps_item_sorted_onto_user_sorted(name):
+    """TailStream.order is the user-sorted position of each item-sorted
+    entry, the index through which the f32 route's item pass reads the
+    user pass's weights."""
+    rng = np.random.default_rng(20 + LAYOUTS.index(name))
+    n, m, u, i, y = _layout(name, rng)
+    s = build_tail_stream(u, i, y, "cpu")
+    order = s.order.numpy()
+    assert s.order.dtype == torch.int32
+    np.testing.assert_array_equal(np.sort(order), np.arange(u.size))
+    np.testing.assert_array_equal(s.u.numpy()[order], s.u_by_item.numpy())
+    np.testing.assert_array_equal(s.i.numpy()[order], s.i_by_item.numpy())
+    np.testing.assert_array_equal(s.y.numpy()[order], s.y_by_item.numpy())
+
+
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_untouched_users_are_the_rows_the_user_pass_skips(name):
+    """The f32 route writes every user row with a tail entry through its
+    user pass and zero-fills only the others: exactly the users absent
+    from the stream, found once per row count."""
+    rng = np.random.default_rng(40 + LAYOUTS.index(name))
+    n, m, u, i, y = _layout(name, rng)
+    s = build_tail_stream(u, i, y, "cpu")
+    got = tf._untouched_users(s, n + 7)
+    assert tf._untouched_users(s, n + 7) is got
+    np.testing.assert_array_equal(
+        got.numpy(), np.setdiff1d(np.arange(n + 7), u))
+
+
+def _as_csr(stream):
+    """The tail laid out as the CSR sweep's dual-sorted COO (unpadded)."""
+    return DeviceData(u_ids=stream.u, i_ids=stream.i, y=stream.y,
+                      item_order=stream.order, i_ids_sorted=stream.i_by_item,
+                      u_ids_by_item=stream.u_by_item, dense_y=None)
+
+
+@pytest.mark.parametrize("impl", ["mxu", "pallas"])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_tail_as_csr_sweep_matches_jax_f32(name, bias, impl):
+    """The f32 route's function: the CSR sweep's plain version over the
+    tail, one weight per nonzero found in the user pass and read again in
+    the item pass, gives JAX's four tail sums."""
+    rng = np.random.default_rng(30 + LAYOUTS.index(name) + 10 * bias)
+    n, m, u, i, y = _layout(name, rng)
+    tables = _tables(rng, n, m, 12, bias)
+    t = [None if x is None else torch.from_numpy(x) for x in tables]
+    out_a, out_b = segment_sweep_reference(
+        *tail_tables(*t, bf16=False), _as_csr(build_tail_stream(u, i, y,
+                                                                "cpu")))
+    got = (out_a[:, :12], out_b[:, :12]) + \
+        ((out_a[:, 12], out_b[:, 13]) if bias else (None, None))
+    tc = build_tail_compact(u, i, y, n_users=n if name == "every_user"
+                            else 0)
+    _assert_close(got, _jax(tables, tc, impl), **F32)
 
 
 def test_untouched_rows_read_zero():
@@ -206,20 +271,37 @@ def test_cpu_tensor_never_builds(monkeypatch):
 
 
 def test_build_command_names_the_tail_source(monkeypatch):
+    """The bf16 route is tail_bf16.cu; the f32 route is the CSR sweep's
+    segment_sweep.cu. The old f32 source and its row sweep are gone:
+    row_sweep.cuh keeps only what both kernels share (the fix-up)."""
     monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
     srcs = build.sources()
-    for route in ("tail_bf16.cu", "tail_fused.cu"):
+    for route in ("tail_bf16.cu", "segment_sweep.cu"):
         assert build.CSRC_DIR + "/" + route in srcs
         cmd = build.compile_command(build.CSRC_DIR + "/" + route, "t.o")
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert cmd[-1] == build.CSRC_DIR + "/" + route
+    assert build.CSRC_DIR + "/tail_fused.cu" not in srcs
     assert build.CSRC_DIR + "/dense_fused.cu" in srcs
     assert build.CSRC_DIR + "/row_sweep.cuh" in build.headers()
     with open(build.CSRC_DIR + "/tail_bf16.cu") as f:
         src = f.read()
     assert "hpf_tail_half_sweep_bf16" in src and "cp.async" in src
-    with open(build.CSRC_DIR + "/tail_fused.cu") as f:
-        assert "hpf_tail_half_sweep_bf16" not in f.read()
+    with open(build.CSRC_DIR + "/segment_sweep.cu") as f:
+        src = f.read()
+    assert "hpf_segment_user_pass_f32" in src
+    assert "hpf_segment_item_pass_f32" in src
+    with open(build.CSRC_DIR + "/row_sweep.cuh") as f:
+        src = f.read()
+    for gone in ("row_sweep_kernel", "launch_row_sweep", "kDotStore",
+                 "tail_fused.cu", "segment_fused.cu"):
+        assert gone not in src
+    assert "row_fixup_kernel" in src and "launch_row_fixup" in src
+
+
+# lanes per group of the f32 route's user pass at each width below
+F32_LANES = {8: 4, 16: 4, 64: 8, 72: 16, 104: 16, 128: 16, 136: 32,
+             200: 32, 256: 32}
 
 
 @pytest.mark.parametrize("kq, lanes", [(8, 8), (16, 8), (64, 8), (72, 16),
@@ -229,16 +311,24 @@ def test_plan_picks_the_entry_and_group_by_width(kq, lanes):
     assert tf.plan(True, kq) == ("hpf_tail_half_sweep_bf16", lanes)
     # one 16-byte chunk of bf16 per lane covers the row
     assert 8 * lanes >= kq and (lanes == 8 or 4 * lanes < kq)
-    assert tf.plan(False, kq) == ("hpf_tail_half_sweep_f32", 32)
+    f32 = F32_LANES[kq]
+    assert tf.plan(False, kq) == ("hpf_segment_user_pass_f32", f32)
+    # two 16-byte chunks of f32 per lane cover the row, in the fewest lanes
+    assert 8 * f32 >= kq and (f32 == 4 or 4 * f32 < kq)
+    assert tf.plan(False, kq)[0] in sf._ARGTYPES
 
 
 @pytest.mark.parametrize("nnz", [1, 31, 33, tf.RANGE - 1, tf.RANGE,
                                  tf.RANGE + 1, 8590764])
 def test_scratch_holds_two_slots_per_range(nnz):
-    ranges = -(-nnz // tf.RANGE)
-    assert tf.scratch_rows(nnz) == 2 * ranges
-    # every nonzero lies in a range, and no range is empty
-    assert (ranges - 1) * tf.RANGE < nnz <= ranges * tf.RANGE
+    """Per route's range: 256 nonzeros in bf16, the CSR sweep's 128 in
+    f32."""
+    for bf16, span in ((True, tf.RANGE), (False, sf.RANGE)):
+        ranges = -(-nnz // span)
+        assert tf.scratch_rows(nnz, bf16) == 2 * ranges
+        # every nonzero lies in a range, and no range is empty
+        assert (ranges - 1) * span < nnz <= ranges * span
+    assert (tf.RANGE, sf.RANGE) == (256, 128)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "mixed", "width", "shape",
@@ -367,3 +457,46 @@ def test_bf16_kernel_partition_on_card(k, bias):
                 continue
             assert torch.equal(g, a), name
             torch.testing.assert_close(g, w, **F32, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("k", [13, 100, 200])
+def test_f32_route_partition_on_card(k, bias):
+    """The f32 route (the CSR sweep's user pass, then its item pass over
+    the tail's slab stream) at 4-, 16- and 32-lane groups, on the
+    partition layouts with every other item absent from the tail (as the
+    head's items are), its item half in one slab, in a few and in one per
+    user (most items then lead in item order): two launches bitwise
+    equal, the plain f32 version's result at the f32 bound, and the absent
+    items' rows zero (the hybrid adds the head into them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(50 + k + bias)
+    for name, n, m, u, i, y in _partition_layouts(rng):
+        tables = [None if x is None else torch.from_numpy(x).cuda()
+                  for x in _tables(rng, n, 2 * m, k, bias)]
+        stream = build_tail_stream(u, 2 * i, y, "cuda")
+        a_t, b_t = tail_tables(*tables, bf16=False)
+        kq = a_t.shape[1]
+        want = tail_sweep_reference(*tables, stream)
+        users = np.unique(u).size
+        for slab_bytes in (tf.SLAB_BYTES, 4 * kq * 16, 1):
+            before = tf.fused_half_sweep.launches
+            got = tf.tail_halves(a_t, b_t, stream, slab_bytes)
+            again = tf.tail_halves(a_t, b_t, stream, slab_bytes)
+            torch.cuda.synchronize()
+            assert tf.fused_half_sweep.launches == before + 4
+            st = tf.tail_slabs(stream, n, 2 * m, kq, slab_bytes)
+            if slab_bytes == tf.SLAB_BYTES:
+                assert (st.slabs, st.cold) == (1, 0), name
+            assert st.slabs <= users, name
+            msg = f"{name}: {st.cold} entries first, {st.slabs} slabs"
+            for g, a in zip(got, again):
+                assert torch.equal(g, a), msg       # deterministic
+            assert got[1][1::2].abs().max().item() == 0, msg
+            sums = (got[0][:, :k], got[1][:, :k]) + \
+                ((got[0][:, k], got[1][:, k + 1]) if bias else (None, None))
+            for g, w in zip(sums, want):
+                if w is not None:
+                    torch.testing.assert_close(g, w, **F32, msg=msg)
