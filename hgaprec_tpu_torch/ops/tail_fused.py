@@ -49,8 +49,8 @@ KQ_MAX = 256           # widest table row the kernels take
 # slabs of SLAB_BYTES of A rows and weights, and an item of the tail keeps
 # slab order only where its entries outnumber SLAB_FILL times its extra
 # pair rows (the median tail item has fewer entries than there are
-# slabs). Both measured on the H100 at the EchoNest tail (PERF.md, PR 9):
-# the item half took 1.63 ms at 48 MB and fill 4, 1.90 ms at the CSR
+# slabs). Both chosen on the H100 at the EchoNest tail (PERF.md, PR 9):
+# the item half took 1.58 ms at 48 MB and fill 4, 1.78 ms at the CSR
 # sweep's 24 MB with every item in slab order.
 SLAB_BYTES = 48 << 20
 SLAB_FILL = 4
@@ -190,13 +190,13 @@ def _untouched_users(stream: TailStream, n: int) -> torch.Tensor:
 
 
 def tail_halves(a_t: torch.Tensor, b_t: torch.Tensor, stream: TailStream,
-                slab_bytes: int = SLAB_BYTES, fill: int = SLAB_FILL):
+                slab_bytes: int = SLAB_BYTES):
     """(acc_a f32 [n, kq], acc_b f32 [m, kq]): both halves of a tail sweep
     on the augmented tables a_t = [A | ba | 1], b_t = [B | 1 | bb] and a
     stream of nnz > 0 nonzeros. bf16 tables and CPU tensors take
     `fused_half_sweep` once per half; f32 tables on the card take the CSR
     sweep's user pass and then its item pass over the tail's slab stream
-    (user slabs of `slab_bytes`, sparse items first by `fill`), which
+    (user slabs of `slab_bytes`, sparse items first by SLAB_FILL), which
     reads the user pass's weights: two launches, each counted in
     `fused_half_sweep.launches`. Every row of both outputs is written
     (zero where no nonzero lies)."""
@@ -217,7 +217,7 @@ def tail_halves(a_t: torch.Tensor, b_t: torch.Tensor, stream: TailStream,
     # the user pass writes every row with an entry: only the others need
     # zeros, and the host queues them while the card runs the pass
     acc_a.index_fill_(0, _untouched_users(stream, n), 0.0)
-    slabs = tail_slabs(stream, n, m, kq, slab_bytes, fill)
+    slabs = tail_slabs(stream, n, m, kq, slab_bytes)
     acc_b = torch.empty((m, kq), dtype=torch.float32, device=a_t.device)
     sf.item_pass(a_t, b_t, slabs, acc_b, sc, tail=True)
     fused_half_sweep.launches += 1
