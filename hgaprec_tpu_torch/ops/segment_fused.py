@@ -45,7 +45,7 @@ SLAB_BYTES = 24 << 20  # a slab's A rows and weights: half the H100's L2
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
-    "hpf_segment_user_pass_f32": [_VP] * 9 + [_LL, _INT, _INT, _INT, _VP],
+    "hpf_segment_user_pass_f32": [_VP] * 9 + [_LL] + [_INT] * 4 + [_VP],
     "hpf_segment_item_pass_f32": [_VP] * 12 + [_LL] + [_INT] * 4 + [_VP],
 }
 
@@ -211,10 +211,11 @@ def user_pass(p_tab, o_tab, p_ids, o_ids, y, out, sc: Scratch,
               tail: bool = False) -> None:
     """The user pass on the card over a stream sorted by its primary ids
     p_ids (ascending), with other-side ids o_ids and counts y: w into sc.w
-    and out[r] = P[r] (.) sum_{p_j = r} w_j O[o_j] into out (rows no entry
-    touches are left as they were). `fused_segment_sweep` runs it on
-    `DeviceData`'s user-sorted COO, the tail's f32 route (tail=True: the
-    kernel's ring shape for the tail) on either half's stream."""
+    and out[r] = P[r] (.) sum_{p_j = r} w_j O[o_j] into out. Rows no entry
+    touches are left as they were, or with tail=True zeroed by the kernel
+    (which then takes the kernel's ring shape for the hybrid's tail).
+    `fused_segment_sweep` runs it on `DeviceData`'s user-sorted COO, the
+    tail's f32 route on either half's stream."""
     kq, nnz = p_tab.shape[1], p_ids.shape[0]
     with torch.cuda.device(p_tab.device):
         stream = torch.cuda.current_stream(p_tab.device).cuda_stream
@@ -222,7 +223,7 @@ def user_pass(p_tab, o_tab, p_ids, o_ids, y, out, sc: Scratch,
             p_ids.data_ptr(), o_ids.data_ptr(), y.data_ptr(),
             p_tab.data_ptr(), o_tab.data_ptr(), out.data_ptr(),
             sc.w.data_ptr(), sc.brow.data_ptr(), sc.bacc.data_ptr(), nnz,
-            kq, RANGE, int(tail), stream)
+            kq, RANGE, out.shape[0] if tail else 0, int(tail), stream)
     if err != 0:
         raise RuntimeError(f"segment sweep user pass failed: cudaError "
                            f"{err} (nnz={nnz}, kq={kq})")

@@ -46,9 +46,9 @@ class TailStream:
     # the user-sorted position of each item-sorted entry: u[order] ==
     # u_by_item, and so on
     order: torch.Tensor        # i32[PT]
-    # the f32 route's item-pass streams, by their sizing
-    # (ops/segment_fused.py::slab_stream), and the users it leaves to
-    # zero-fill, built from the fields above at first use and kept here
+    # the f32 route's item-pass streams, built from the fields above at
+    # first use and kept here, by their sizing
+    # (ops/segment_fused.py::slab_stream)
     slab_cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                          compare=False)
 

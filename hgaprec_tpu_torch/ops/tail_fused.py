@@ -135,10 +135,13 @@ def fused_half_sweep(p_tab: torch.Tensor, o_tab: torch.Tensor,
     kq = p_tab.shape[1]
     nnz = p_ids.shape[0]
     dev = p_tab.device
-    out = torch.zeros((rows, kq), dtype=torch.float32, device=dev)
+    bf16 = p_tab.dtype == torch.bfloat16
+    if nnz == 0 or bf16:
+        out = torch.zeros((rows, kq), dtype=torch.float32, device=dev)
+    else:                   # the user pass zeroes the rows it does not write
+        out = torch.empty((rows, kq), dtype=torch.float32, device=dev)
     if nnz == 0:
         return out
-    bf16 = p_tab.dtype == torch.bfloat16
     slots = scratch_rows(nnz, bf16)
     brow = torch.empty(slots, dtype=torch.int32, device=dev)
     bacc = torch.empty((slots, kq), dtype=torch.float32, device=dev)
@@ -177,18 +180,6 @@ def tail_slabs(stream: TailStream, n: int, m: int, kq: int,
                           slab_bytes, fill)
 
 
-def _untouched_users(stream: TailStream, n: int) -> torch.Tensor:
-    """i64: the users below n with no tail entry, found once and kept in
-    `stream.slab_cache`."""
-    key = ("untouched", n)
-    got = stream.slab_cache.get(key)
-    if got is None:
-        free = torch.ones(n, dtype=torch.bool, device=stream.u.device)
-        free[stream.u.long()] = False
-        got = stream.slab_cache[key] = free.nonzero().flatten()
-    return got
-
-
 def tail_halves(a_t: torch.Tensor, b_t: torch.Tensor, stream: TailStream,
                 slab_bytes: int = SLAB_BYTES):
     """(acc_a f32 [n, kq], acc_b f32 [m, kq]): both halves of a tail sweep
@@ -206,17 +197,16 @@ def tail_halves(a_t: torch.Tensor, b_t: torch.Tensor, stream: TailStream,
                 fused_half_sweep(b_t, a_t, stream.i_by_item,
                                  stream.u_by_item, stream.y_by_item, m))
     _check(a_t, b_t, stream.u, stream.i, stream.y, n)
-    _check(b_t, a_t, stream.i_by_item, stream.u_by_item, stream.y_by_item, m)
     if a_t.device.type != "cuda":
         raise ValueError(f"no kernel for device {a_t.device}")
     sc = sf.Scratch.make(stream.nnz, kq, a_t.device)
+    # every row: those with an entry summed, the others zeroed
     acc_a = torch.empty((n, kq), dtype=torch.float32, device=a_t.device)
     sf.user_pass(a_t, b_t, stream.u, stream.i, stream.y, acc_a, sc,
                  tail=True)
     fused_half_sweep.launches += 1
-    # the user pass writes every row with an entry: only the others need
-    # zeros, and the host queues them while the card runs the pass
-    acc_a.index_fill_(0, _untouched_users(stream, n), 0.0)
+    # the host checks and lays out the item half while the card runs
+    _check(b_t, a_t, stream.i_by_item, stream.u_by_item, stream.y_by_item, m)
     slabs = tail_slabs(stream, n, m, kq, slab_bytes)
     acc_b = torch.empty((m, kq), dtype=torch.float32, device=a_t.device)
     sf.item_pass(a_t, b_t, slabs, acc_b, sc, tail=True)

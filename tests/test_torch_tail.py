@@ -131,20 +131,6 @@ def test_stream_order_maps_item_sorted_onto_user_sorted(name):
     np.testing.assert_array_equal(s.y.numpy()[order], s.y_by_item.numpy())
 
 
-@pytest.mark.parametrize("name", LAYOUTS)
-def test_untouched_users_are_the_rows_the_user_pass_skips(name):
-    """The f32 route writes every user row with a tail entry through its
-    user pass and zero-fills only the others: exactly the users absent
-    from the stream, found once per row count."""
-    rng = np.random.default_rng(40 + LAYOUTS.index(name))
-    n, m, u, i, y = _layout(name, rng)
-    s = build_tail_stream(u, i, y, "cpu")
-    got = tf._untouched_users(s, n + 7)
-    assert tf._untouched_users(s, n + 7) is got
-    np.testing.assert_array_equal(
-        got.numpy(), np.setdiff1d(np.arange(n + 7), u))
-
-
 def _as_csr(stream):
     """The tail laid out as the CSR sweep's dual-sorted COO (unpadded)."""
     return DeviceData(u_ids=stream.u, i_ids=stream.i, y=stream.y,
@@ -500,3 +486,11 @@ def test_f32_route_partition_on_card(k, bias):
             for g, w in zip(sums, want):
                 if w is not None:
                     torch.testing.assert_close(g, w, **F32, msg=msg)
+        # one half alone: the user pass's kernel on either half's stream,
+        # its untouched rows zeroed by the kernel
+        for args in ((a_t, b_t, stream.u, stream.i, stream.y, n),
+                     (b_t, a_t, stream.i_by_item, stream.u_by_item,
+                      stream.y_by_item, 2 * m)):
+            torch.testing.assert_close(tf.fused_half_sweep(*args),
+                                       half_sweep_reference(*args), **F32,
+                                       msg=name)
