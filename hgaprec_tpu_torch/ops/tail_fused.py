@@ -50,7 +50,7 @@ KQ_MAX = 256           # widest table row the kernels take
 # slab order only where its entries outnumber SLAB_FILL times its extra
 # pair rows (the median tail item has fewer entries than there are
 # slabs). Both chosen on the H100 at the EchoNest tail (PERF.md, PR 9):
-# the item half took 1.58 ms at 48 MB and fill 4, 1.78 ms at the CSR
+# the item half took 1.48 ms at 48 MB and fill 4, 1.70 ms at the CSR
 # sweep's 24 MB with every item in slab order.
 SLAB_BYTES = 48 << 20
 SLAB_FILL = 4
