@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--segment | --tail]
+    python3 chip_smoke.py [--segment | --tail | --cli]
 
 With `--segment` it runs only the build and the segment path's kernel
 phases (the CSR sweep on every layout and at EchoNest shape), with
 `--tail` only the build and the tail kernel's phases (every layout and the
-EchoNest tail), and prints no result line. Without arguments it builds the port's CUDA kernels from
+EchoNest tail), with `--cli` only the build, the ML-1M runs at "highest"
+on the card and the CPU, and the command line's phase, and prints no
+result line. Without arguments it builds the port's CUDA kernels from
 `hgaprec_tpu_torch/csrc/`, holds each
 against its plain PyTorch version on the card, sweeps once at Netflix
 shape, trains HPF K=100 on MovieLens-1M-shaped synthetic data through the
 Trainer (the port's main entry point) and checks the card's run at
 "highest" (the default precision, the f32 dense kernel) against the
-port's own CPU run. The f32 kernel must beat its plain version at Netflix
-shape and on the EchoNest head, and the step at "highest" is timed at
+port's own CPU run. The command line (`python -m hgaprec_tpu_torch.cli`)
+then trains the same configuration as a user types it, against that CPU
+run, again in-process under `-trace` (kernel #1's f32 launches counted,
+the device's busy share and longest kernels read from the trace), with
+`-sweep segment-chunked -logl` (kernel #4 counted), and runs each mode on
+the trained model (-rmse, -gen-ranking, -msr, -resume, the model read
+back from its TSVs, -test, -nmf). The f32 kernel must beat its plain
+version at Netflix shape and on the EchoNest head, and the step at "highest" is timed at
 ML-1M and EchoNest. Then the big-sparse hybrid path: the tail kernel
 against its plain version on adversarial layouts and on the EchoNest
 tail (where its f32 route, the CSR sweep's two passes, must take less
@@ -494,6 +502,232 @@ def phase_cpu_reference(df, datdir, root):
         raise SystemExit("card and CPU runs disagree, or the card run at "
                          "highest never launched the f32 kernel")
     return launches, ms_iter
+
+
+# ---------------------------------------------------------------------------
+# the command line (python -m hgaprec_tpu_torch.cli) on ML-1M
+# ---------------------------------------------------------------------------
+
+CLI_CONTRACT = ("param.txt", "infer.log", "validation.txt", "test.txt",
+                "precision.txt", "max.txt", "htheta.tsv", "hbeta.tsv",
+                "thetarate.tsv", "betarate.tsv", "model.npz", "ranking.tsv",
+                "itemrank.tsv", "byusers.tsv", "byitems.tsv")
+
+
+def trace_summary(trace_dir):
+    """Device busy share and kernels by name from the one
+    `*.pt.trace.json` that torch.profiler's TensorBoard handler wrote:
+    the window runs from the first to the last event of the trace; busy
+    is the union of kernel, copy and fill intervals on the card."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise SystemExit(f"-trace wrote {files} into {trace_dir}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy, end = 0.0, t0
+    for e in sorted(device, key=lambda e: e["ts"]):
+        start, stop = max(e["ts"], end), e["ts"] + e["dur"]
+        if stop > start:
+            busy += stop - start
+            end = stop
+    by_name = {}
+    for e in device:
+        if e["cat"] == "kernel":
+            ms, n = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return dict(file=files[0], window_ms=(t1 - t0) / 1e3,
+                busy_ms=busy / 1e3, busy_share=busy / (t1 - t0),
+                kernel_ms=sum(ms for ms, _ in by_name.values()),
+                copy_ms=sum(e["dur"] for e in device
+                            if e["cat"] != "kernel") / 1e3,
+                top5=[(name, ms, n) for name, (ms, n) in top],
+                names=set(by_name))
+
+
+def cli_in_process(args):
+    """(exit code, stdout) of `hgaprec_tpu_torch.cli.main(args)`."""
+    import contextlib
+    import io
+    from hgaprec_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    if rc != 0:
+        raise SystemExit(f"cli {args} exited {rc}: {buf.getvalue()}")
+    return buf.getvalue()
+
+
+def phase_cli(df, datdir, root, cpu_ref):
+    """HPF K=100 on ML-1M through the port's command line: the training
+    run as a user types it (a subprocess) against the CPU reference run,
+    the same run in-process under -trace with kernel #1's f32 launches
+    counted, a segment run with -logl counting kernel #4, then each mode
+    on the trained model. Returns the launch counts of kernel #1's f32
+    route and of kernel #4."""
+    import shutil
+    from hgaprec_tpu_torch.data.ratings import leave_one_out_map, load_dataset
+    from hgaprec_tpu_torch.ops import segment_fused as sf
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = ["-dir", datdir, "-n", str(N_ML), "-m", str(M_ML), "-k", str(K),
+            "-hier", "-rfreq", "5", "-max-iterations", "10"]
+    out = os.path.join(root, "cli")
+    secs = {}
+
+    # 1. the entry point as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "hgaprec_tpu_torch.cli", *base, "-outdir",
+         out], cwd=here, capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=here))
+    secs["train_subprocess"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"the CLI exited {proc.returncode}: "
+                         f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    g, c = validation_ll(out), validation_ll(cpu_ref)
+    worst = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(g, c))
+    missing = [f for f in CLI_CONTRACT
+               if not os.path.exists(os.path.join(out, f))]
+    ok = [a[0] for a in g] == [b[0] for b in c] and worst < CPU_REL and \
+        not missing
+    say(f"cli: python -m hgaprec_tpu_torch.cli {' '.join(base[2:])} "
+        f"(subprocess) in {secs['train_subprocess']:.1f} s wall; validation "
+        f"ll {[(i, round(v, 6)) for i, v in g]} against the CPU run at "
+        f"highest: worst relative gap {worst:.3e} (bound {CPU_REL}); "
+        f"contract files {'present' if not missing else missing} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the CLI's run disagrees with the CPU reference "
+                         "or left its output contract incomplete")
+
+    # 2. the same run in-process under -trace, kernel #1 counted
+    trace_dir = os.path.join(root, "cli_trace")
+    df.fused_dense_sweep.launches = 0
+    t0 = time.perf_counter()
+    cli_in_process(base + ["-outdir", os.path.join(root, "cli_traced"),
+                           "-trace", trace_dir])
+    secs["train_traced"] = time.perf_counter() - t0
+    launches_f32 = df.fused_dense_sweep.launches
+    trace = trace_summary(trace_dir)
+    named = [n for n in trace["names"] if "dense_simt_f32" in n]
+    say(f"cli in-process with -trace: {secs['train_traced']:.1f} s wall; "
+        f"f32 dense kernel launches {launches_f32}; trace "
+        f"{trace['file']}: window {trace['window_ms']:.1f} ms, device busy "
+        f"{trace['busy_ms']:.1f} ms ({100 * trace['busy_share']:.2f}%), "
+        f"kernels {trace['kernel_ms']:.1f} ms, copies and fills "
+        f"{trace['copy_ms']:.1f} ms; five longest kernels "
+        f"{[(n[:60], round(ms, 3), k) for n, ms, k in trace['top5']]}")
+    if launches_f32 == 0 or not named:
+        raise SystemExit("the CLI at highest never launched the f32 dense "
+                         "kernel, or the trace does not name it")
+
+    # 3. segment training with the ELBO, kernel #4 counted
+    seg_out = os.path.join(root, "cli_segment")
+    sf.fused_segment_sweep.launches = 0
+    t0 = time.perf_counter()
+    cli_in_process(base[:-2] + ["-max-iterations", "5", "-sweep",
+                                "segment-chunked", "-logl", "-outdir",
+                                seg_out])
+    secs["train_segment"] = time.perf_counter() - t0
+    launches_seg = sf.fused_segment_sweep.launches
+    logl = logl_rows(seg_out)
+    say(f"cli -sweep segment-chunked -logl -max-iterations 5: "
+        f"{secs['train_segment']:.1f} s wall; CSR sweep launches "
+        f"{launches_seg}; logl.txt {logl}")
+    if launches_seg == 0 or not logl or \
+            not all(np.isfinite(v) for v in logl):
+        raise SystemExit("the CLI's segment run never launched the CSR "
+                         "sweep kernel or wrote no finite ELBO")
+
+    # 4. the modes, on the trained model (each on its own copy of OUT:
+    # a mode reopens the report files of its output directory)
+    store, _, test = load_dataset(datdir, N_ML, M_ML, False, 1)
+
+    def mode(name, args, copy=True):
+        d = os.path.join(root, f"cli_{name}")
+        if copy:
+            shutil.copytree(out, d)
+        t0 = time.perf_counter()
+        text = cli_in_process(base + args + ["-outdir", d])
+        secs[name] = time.perf_counter() - t0
+        return d, text
+
+    d, _ = mode("rmse", ["-rmse", "-load", out], copy=False)
+    with open(os.path.join(d, "rmse.txt")) as f:
+        rmse = float(f.read())
+    n_scores = len(open(os.path.join(d, "test_scores.tsv")).readlines())
+    if not np.isfinite(rmse) or n_scores != len(test):
+        raise SystemExit(f"-rmse: {rmse}, {n_scores} test scores")
+    d, _ = mode("gen_ranking", ["-gen-ranking"])
+    ranked = {int(r.split("\t")[0]) for r in open(
+        os.path.join(d, "ranking.tsv")) if r.strip()}
+    want = {store.seq2user[int(u)] for u in store.read_test_users(
+        os.path.join(datdir, "test_users.tsv"))}
+    if ranked != want:
+        raise SystemExit(f"-gen-ranking ranked {len(ranked)} users, "
+                         f"test_users.tsv names {len(want)}")
+    d, _ = mode("msr", ["-msr"])
+    rows = len(open(os.path.join(d, "pred.csv")).readlines()) - 1
+    if rows != len(leave_one_out_map(test)):
+        raise SystemExit(f"-msr: {rows} rows in pred.csv")
+    d, text = mode("resume", ["-resume", "-max-iterations", "15"])
+    d_it = validation_ll(d)
+    if "+ resuming from iteration 11" not in text or \
+            [i for i, _ in d_it] != [15]:
+        raise SystemExit(f"-resume: {text!r}, reports {d_it}")
+    # TSV resume: with model.npz removed, the state comes back from the
+    # model TSVs (Trainer.load_model's fallback, which -rmse, -msr,
+    # -gen-ranking and -test use); its validation ll and RMSE against the
+    # npz state's
+    tsv = os.path.join(root, "cli_tsv_model")
+    shutil.copytree(out, tsv)
+    os.remove(os.path.join(tsv, "model.npz"))
+    d, _ = mode("rmse_tsv", ["-rmse", "-load", tsv], copy=False)
+    with open(os.path.join(d, "rmse.txt")) as f:
+        rmse_tsv = float(f.read())
+    tr = train(datdir, os.path.join(root, "cli_ll"), "highest", 10, 5,
+               "cuda")
+    t0 = time.perf_counter()
+    tr.load_model(out)
+    ll_npz = tr.compute_likelihood(True)
+    tr.load_model(tsv)
+    ll_tsv = tr.compute_likelihood(True)
+    secs["tsv_load"] = time.perf_counter() - t0
+    tr.close()
+    rel = max(abs(ll_tsv - ll_npz) / abs(ll_npz),
+              abs(rmse_tsv - rmse) / abs(rmse))
+    say(f"cli modes: -rmse {rmse:.5f} over {n_scores} test pairs; "
+        f"-gen-ranking {len(ranked)} users; -msr {rows} leave-one-out rows; "
+        f"-resume from iteration 11, report at 15; TSV state: validation ll "
+        f"{ll_tsv:.9f} against {ll_npz:.9f} from model.npz, rmse "
+        f"{rmse_tsv:.5f}, worst relative gap {rel:.2e} (bound 1e-5) "
+        f"{'ok' if rel < 1e-5 else 'FAIL'}")
+    if not rel < 1e-5:
+        raise SystemExit("the state read back from the TSVs disagrees with "
+                         "model.npz")
+    items = [store.seq2movie[0], store.seq2movie[1]]
+    d, text = mode("test", ["-test", "-test-items",
+                            f"{items[0]},{items[1]}", "-load", out],
+                   copy=False)
+    titles = text.split("predictions\n", 1)[-1].strip().splitlines()
+    if "predictions" not in text or len(titles) != 21:
+        raise SystemExit(f"-test printed {text!r}")
+    d, _ = mode("nmf", ["-nmf"], copy=False)
+    shapes = [np.loadtxt(os.path.join(d, f), ndmin=2).shape
+              for f in ("nmf_theta.tsv", "nmf_beta.tsv")]
+    if shapes != [(store.n, K + 2), (store.m, K + 2)]:
+        raise SystemExit(f"-nmf wrote tables of shapes {shapes}")
+    say(f"cli modes: -test printed 21 titles for items {items}; -nmf wrote "
+        f"nmf_theta.tsv {shapes[0]} and nmf_beta.tsv {shapes[1]} on the "
+        f"card")
+    for name, t in secs.items():
+        say(f"cli seconds {name}: {t:.2f}")
+    return launches_f32, launches_seg
 
 
 # ---------------------------------------------------------------------------
@@ -1421,8 +1655,9 @@ def phase_hybrid_cpu_reference(root):
 
 def main():
     t_start = time.perf_counter()
-    if sys.argv[1:] not in ([], ["--segment"], ["--tail"]):
-        print("usage: chip_smoke.py [--segment | --tail]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--segment"], ["--tail"], ["--cli"]):
+        print("usage: chip_smoke.py [--segment | --tail | --cli]",
+              file=sys.stderr)
         return 2
     only = sys.argv[1][2:] if sys.argv[1:] else None
     if not torch.cuda.is_available():
@@ -1485,6 +1720,16 @@ def main():
                          "no wgmma in its SASS")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if only == "cli":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+            datdir = os.path.join(root, "data")
+            write_pf_dataset(datdir, np.random.default_rng(SEED), N_ML,
+                             M_ML, k=8, a=0.3, ap=1.8, b=0.3, scale=0.7)
+            phase_cpu_reference(df, datdir, root)
+            phase_cli(df, datdir, root, os.path.join(root, "cpu_highest"))
+        say(f"cli phases passed in {time.perf_counter() - t_start:.1f} s "
+            f"(no result line: --cli runs only the command line's path)")
+        return 0
     if only:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
             if only == "segment":
@@ -1511,6 +1756,8 @@ def main():
         launches = phase_main(df, datdir, root)
         launches_ml1m_highest, ms_iter_ml1m_highest = phase_cpu_reference(
             df, datdir, root)
+        cli_f32, cli_seg = phase_cli(
+            df, datdir, root, os.path.join(root, "cpu_highest"))
 
         phase_tail_layouts(gen)
         phase_segment_layouts(gen)
@@ -1542,6 +1789,7 @@ def main():
          "source_f32": "hgaprec_tpu_torch/csrc/dense_simt.cu",
          "launches_f32_by_path": {
              "ml1m_dense_highest": launches_ml1m_highest,
+             "ml1m_cli_highest": cli_f32,
              "echonest_hybrid_highest_steady": en["launches_highest"]},
          **f32_ml1m,
          "ms_f32_echonest_head": en["head"][False][0],
@@ -1569,8 +1817,9 @@ def main():
         {"name": "fused_segment_sweep", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/segment_sweep.cu",
          "replaces": "docs/design/pallas_csr_sweep.py:80",
-         "launches": seg["launches"],
+         "launches": seg["launches"] + cli_seg,
          "launches_by_path": {"echonest_segment": seg["launches"],
+                              "ml1m_cli_segment": cli_seg,
                               "small_segment_vs_cpu": seg_small},
          **{k: v for k, v in seg.items()
             if k not in ("launches", "ms_iter", "peak")},

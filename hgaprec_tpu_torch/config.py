@@ -142,9 +142,12 @@ class RunConfig:
     num_precision_users: int = 1000   # sampled users per precision report (hgaprec.cc:1715)
     topn_by_user: int = 100           # _topN_by_user (hgaprec.cc:30)
     write_marginals: bool = True
+    # when set, training runs under torch.profiler with a TensorBoard
+    # trace handler writing into this directory (-trace DIR)
+    trace_dir: Optional[str] = None
     # bridge-mode flags — only used for output-dir naming parity
-    # (env.hh:326-369)
-    nmf: bool = False
+    # (env.hh:326-369); the dispatch lives in the CLI
+    nmf: bool = False                 # -nmf or -nmfload
     lda: bool = False
     vwlda: bool = False
     chi: bool = False

@@ -14,8 +14,10 @@ contracts:
     (hgaprec.cc:1683), so its "reciprocal rank" only credits rank-0 hits;
     we reproduce that in meanrank.txt for parity and additionally report
     the true MRR in meanrank_true.txt.
-
-MSR's pred.csv and RMSE are not ported yet.
+  * gen_msr_csv (hgaprec.cc:1993-2085): leave-one-out pred.csv, including
+    the reference's `m < _m-1` scoring loop (the last item keeps a
+    default (item 0, score 0) slot in the sort).
+  * compute_rmse (hgaprec.cc:1579-1604): rmse.txt + test_scores.tsv.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from hgaprec_tpu_torch.data.ratings import CountMap, RatingsStore
-from hgaprec_tpu_torch.eval.score import Scorer, user_scores
+from hgaprec_tpu_torch.eval.score import Scorer, pair_scores, user_scores
 from hgaprec_tpu_torch.eval.topk import item_ranks, masked_topk
 
 # above this catalog size the [users, M] host matrix is replaced by the
@@ -248,3 +250,107 @@ def compute_itemrank(sc: Scorer, store: RatingsStore, index: EvalIndex,
         f.write(f"{total_users}\t{sum_rank / tu:.5f}\t{sum_rr_true / tu:.5f}\n")
     return {"users": total_users, "meanrank": sum_rank / tu,
             "mrr": sum_rr_true / tu}
+
+
+# above this many score-matrix cells gen_msr_csv switches from host
+# argsort chunks to the streamed rank counter (eval/topk.py::item_ranks)
+MSR_HOST_CELL_BUDGET = 1 << 28
+
+
+def gen_msr_csv(sc: Scorer, store: RatingsStore,
+                index: EvalIndex, leave_one_out: Dict[int, int],
+                val_users_of_movie: Dict[int, int], outdir: str) -> None:
+    """pred.csv for leave-one-out evaluation (hgaprec.cc:1993-2085).
+
+    Above MSR_HOST_CELL_BUDGET score cells (NYT: N=1.6M, M=107k) the
+    [chunk, M] host matrices are replaced by the streamed rank counter on
+    the scores' device: one (user, heldout item) rank per user, no
+    per-user argsort."""
+    item_deg = store.item_degrees()
+    lusers = np.asarray([n for n in range(store.n) if n in leave_one_out],
+                        np.int64)
+    litems = np.asarray([leave_one_out[int(n)] for n in lusers], np.int64)
+    use_device = store.n * store.m > MSR_HOST_CELL_BUDGET
+
+    def meta_of(n, test_item):
+        train_items = store.items_of_user(n)
+        vitems = np.setdiff1d(index.val_items(n), train_items)
+        training = int(np.sum(train_items < store.m - 1) +
+                       np.sum(vitems < store.m - 1))
+        negatives = (store.m - 1) - training
+        ntrain_users = int(item_deg[test_item]) \
+            if test_item < store.m else 0
+        nvalid = val_users_of_movie.get(test_item, 0)
+        return training, negatives, ntrain_users + nvalid
+
+    with open(os.path.join(outdir, "pred.csv"), "w") as f:
+        f.write("User\tHeldOutItem\tHeldOutItemIndex\tUserNegatives\t"
+                "UserCount\tItemCount\n")
+        if use_device and lusers.size:
+            # reference loop scores m in [0, M-1) (hgaprec.cc:2023-2032);
+            # the phantom (item 0, score 0.0) slot sorts after every tie
+            # (stable order), so it advances the rank only when 0 > target
+            ranks, tgt = item_ranks(sc, store, index, lusers, litems,
+                                    limit_m=store.m - 1)
+            ranks = ranks + (tgt < 0.0).astype(np.int32)
+            # Edge parity with the host path (only with negative scores,
+            # which imported chi/ctr factors can give): for target item 0
+            # with tgt < 0 the host argsort reports the phantom slot, the
+            # first id-0 hit, at #{s > 0} + #{s == 0 before it}, while the
+            # counter reports the real item's rank. Clamp those rows to
+            # the host-computed phantom position.
+            sel = np.nonzero((litems == 0) & (tgt < 0.0))[0]
+            for r in sel:
+                n = int(lusers[r])
+                s_row = masked_user_scores(
+                    sc, store, index, np.asarray([n], np.int32))[0]
+                s_row = s_row[:store.m - 1]
+                phantom = int(np.sum(s_row > 0.0) + np.sum(s_row == 0.0))
+                ranks[r] = min(int(ranks[r]), phantom)
+            # heldout item outside the scored range never matches: rank 0
+            ranks = np.where(litems >= store.m - 1, 0, ranks)
+            for n, test_item, rank in zip(lusers, litems, ranks):
+                n, test_item = int(n), int(test_item)
+                training, negatives, icount = meta_of(n, test_item)
+                f.write(f"{store.seq2user[n]}\t{store.seq2movie[test_item]}"
+                        f"\t{int(rank)}\t{negatives}\t{training}\t"
+                        f"{icount}\n")
+            return
+        chunk = 1024
+        last_ids = np.concatenate([np.arange(store.m - 1), [0]])
+        for lo in range(0, lusers.size, chunk):
+            sub = lusers[lo:lo + chunk].astype(np.int32)
+            scores = masked_user_scores(sc, store, index, sub)
+            for r, n in enumerate(sub):
+                n = int(n)
+                test_item = leave_one_out[n]
+                # reference loop scores m in [0, M-1): the last item keeps
+                # a default (item 0, score 0.0) slot in the sort
+                sub_scores = np.concatenate([scores[r, :store.m - 1], [0.0]])
+                training, negatives, icount = meta_of(n, test_item)
+                order = np.argsort(-sub_scores, kind="stable")
+                sorted_ids = last_ids[order]
+                hits = np.nonzero(sorted_ids == test_item)[0]
+                rank = int(hits[0]) if hits.size else 0
+                f.write(f"{store.seq2user[n]}\t{store.seq2movie[test_item]}\t"
+                        f"{rank}\t{negatives}\t{training}\t"
+                        f"{icount}\n")
+
+
+def compute_rmse(sc: Scorer, test: CountMap,
+                 outdir: str, rmse_file: TextIO) -> float:
+    """rmse.txt + test_scores.tsv (hgaprec.cc:1579-1604)."""
+    if not test:
+        return 0.0
+    pairs = sorted(test.keys())
+    u = np.asarray([p[0] for p in pairs], np.int64)
+    i = np.asarray([p[1] for p in pairs], np.int64)
+    y = np.asarray([test[p] for p in pairs], np.float64)
+    s = pair_scores(sc, u, i).to("cpu", torch.float64).numpy()
+    with open(os.path.join(outdir, "test_scores.tsv"), "w") as f:
+        for v, sv in zip(y, s):
+            f.write(f"{int(v)}\t{sv:.5f}\n")
+    rmse = float(np.sqrt(np.mean((s - y) ** 2)))
+    rmse_file.write(f"{rmse:.5f}\n")
+    rmse_file.flush()
+    return rmse

@@ -2,7 +2,10 @@
 
 Reference: prediction_score / prediction_score_hier (hgaprec.cc:1850-1991)
 and rating_likelihood[_hier] (1503-1560). Score = E[theta]·E[beta]
-(+ bias expectations). Raw rate is the ranking score
+(+ bias expectations), with point-estimate matrices substituted for the
+MLE/Canny variants, and imported factor matrices for the baseline bridges
+(prediction_score_{nmf,lda,chi,ctr}, hgaprec.cc:1893-1966). Raw rate is
+the ranking score
 (_use_rate_as_score = true, hgaprec.cc:30). The [S, M] score product is a
 plain f32 `torch.matmul`, as the JAX package leaves it to XLA.
 """
@@ -11,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from hgaprec_tpu_torch import config as C
@@ -36,6 +40,16 @@ def scorer_from_state(state: ModelState, cfg: ModelConfig) -> Scorer:
     bu = state.theta_bias.e if cfg.bias else None
     bi = state.beta_bias.e if cfg.bias else None
     return Scorer(su, sv, bu, bi)
+
+
+def scorer_from_foreign(theta, beta, device) -> Scorer:
+    """Imported factors (NMF / LDA / graphchi / CTR bridges) as f32
+    tensors on `device`. The bridges import no biases and no global
+    offset (the JAX CLI's callers pass none either)."""
+    def tensor(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                               device=device)
+    return Scorer(tensor(theta), tensor(beta), None, None)
 
 
 def _index(x: torch.Tensor, idx) -> torch.Tensor:

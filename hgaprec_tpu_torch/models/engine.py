@@ -18,8 +18,10 @@ It keeps the reference's operational envelope:
   * SIGTERM sets a flag polled at every report boundary.
   * -logl: the training ELBO into logl.txt at every report, after the
     ranking reports (hgaprec_tpu/models/engine.py:406-412).
-
-The RMSE and MSR outputs are not ported yet.
+  * RMSE (rmse.txt, test_scores.tsv) and MSR (pred.csv) on the loaded or
+    trained model, for the CLI's -rmse and -msr modes.
+  * -trace DIR: training runs under torch.profiler with a TensorBoard
+    trace handler (the port's counterpart of jax.profiler.trace).
 """
 
 from __future__ import annotations
@@ -36,7 +38,9 @@ import torch
 from hgaprec_tpu_torch.config import (ModelConfig, RunConfig,
                                       set_matmul_precision)
 from hgaprec_tpu_torch.data.device import DeviceData, build_device_data
-from hgaprec_tpu_torch.data.ratings import CountMap, RatingsStore
+from hgaprec_tpu_torch.data.ratings import (CountMap, RatingsStore,
+                                            leave_one_out_map,
+                                            validation_users_of_movie)
 from hgaprec_tpu_torch.eval import ranking as rank_mod
 from hgaprec_tpu_torch.eval.ranking import EvalIndex
 from hgaprec_tpu_torch.eval.score import pair_loglik, scorer_from_state
@@ -94,6 +98,8 @@ class Trainer:
         self.iteration = 0
         self.start_time = time.time()
         self.index = EvalIndex(validation, test, store)
+        self.leave_one_out = leave_one_out_map(test)
+        self.val_users_of_movie = validation_users_of_movie(validation)
         self._val_pairs = _pairs_tensors(validation, self.device)
         self._test_pairs = _pairs_tensors(test, self.device)
         self._prev_h = 0.0
@@ -227,10 +233,17 @@ class Trainer:
         self._save_thread.start()
 
     def load_model(self, indir: Optional[str] = None):
+        """The npz checkpoint in `indir` (default: the output directory)
+        with its iteration, else the model TSVs there into the current
+        state (engine.py:271-280)."""
         self._join_save()   # don't read files an in-flight save is writing
-        npz = os.path.join(indir or self.outdir, "model.npz")
-        self.state, self.iteration = ckpt.load_npz(npz, self.mcfg,
-                                                   self.device)
+        indir = indir or self.outdir
+        npz = os.path.join(indir, "model.npz")
+        if os.path.exists(npz):
+            self.state, self.iteration = ckpt.load_npz(npz, self.mcfg,
+                                                       self.device)
+        else:
+            self.state = ckpt.load_model_tsv(indir, self.mcfg, self.state)
 
     # -- eval wrappers -----------------------------------------------------
     def compute_precision(self, save_ranking: bool):
@@ -282,6 +295,15 @@ class Trainer:
         rank_mod.compute_itemrank(self.scorer(), self.store, self.index,
                                   users, self.outdir)
 
+    def compute_rmse(self) -> float:
+        return rank_mod.compute_rmse(self.scorer(), self.test,
+                                     self.outdir, self._files["rmse.txt"])
+
+    def gen_msr_csv(self):
+        rank_mod.gen_msr_csv(self.scorer(), self.store, self.index,
+                             self.leave_one_out, self.val_users_of_movie,
+                             self.outdir)
+
     def logl(self) -> float:
         """Write the training ELBO to logl.txt (engine.py:356-366)."""
         s = training_elbo(self.state, self.data, self.mcfg)
@@ -325,7 +347,24 @@ class Trainer:
             self.logl()
 
     def run(self, max_iters: Optional[int] = None) -> ModelState:
-        """Train until the stopping rule fires (or an iteration cap)."""
+        """Train until the stopping rule fires (or an iteration cap).
+
+        With rcfg.trace_dir set, the whole loop runs under torch.profiler
+        (host ops, and the card's kernels on a CUDA device) and the trace
+        is written to that directory as `*.pt.trace.json` for TensorBoard
+        (engine.py:414-424 runs jax.profiler.trace there)."""
+        if not self.rcfg.trace_dir:
+            return self._run_loop(max_iters)
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities, on_trace_ready=
+                     tensorboard_trace_handler(self.rcfg.trace_dir)):
+            return self._run_loop(max_iters)
+
+    def _run_loop(self, max_iters: Optional[int] = None) -> ModelState:
         cap = max_iters if max_iters is not None else self.resolve_cap()
         last_report = (time.time(), 0)
         while True:
