@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--segment | --tail | --cli]
+    python3 chip_smoke.py [--segment | --tail | --cli | --sharded]
 
 With `--segment` it runs only the build and the segment path's kernel
 phases (the CSR sweep on every layout and at EchoNest shape), with
 `--tail` only the build and the tail kernel's phases (every layout and the
 EchoNest tail), with `--cli` only the build, the ML-1M runs at "highest"
-on the card and the CPU, and the command line's phase, and prints no
-result line. Without arguments it builds the port's CUDA kernels from
+on the card and the CPU, and the command line's phase, with `--sharded`
+only the build, those ML-1M runs and the sharded phases below, and
+prints no result line. Without arguments it builds the port's CUDA kernels from
 `hgaprec_tpu_torch/csrc/`, holds each
 against its plain PyTorch version on the card, sweeps once at Netflix
 shape, trains HPF K=100 on MovieLens-1M-shaped synthetic data through the
@@ -20,7 +21,16 @@ run, again in-process under `-trace` (kernel #1's f32 launches counted,
 the device's busy share and longest kernels read from the trace), with
 `-sweep segment-chunked -logl` (kernel #4 counted), and runs each mode on
 the trained model (-rmse, -gen-ranking, -msr, -resume, the model read
-back from its TSVs, -test, -nmf). The f32 kernel must beat its plain
+back from its TSVs, -test, -nmf). The sharded run (parallel/) follows:
+A, the command line's `-devices 2`, clamped to this card's world of one
+(NCCL, in-process) and held to the single-device CLI run; B, the same
+data through `build_sharded_run` over a world of one in both precisions,
+held to the single-device Trainer, with its step time, the all-reduce's
+device time per step and a report's gathers; C, two ranks sharing the
+card over gloo (NCCL refuses two ranks on one device; a test harness,
+not a product path) on a small hybrid store at "highest" and in bf16 and
+a segment run, each rank launching kernels #1, #2 and #4, the gathered
+state held to the single-device Trainer. The f32 kernel must beat its plain
 version at Netflix shape and on the EchoNest head, and the step at "highest" is timed at
 ML-1M and EchoNest. Then the big-sparse hybrid path: the tail kernel
 against its plain version on adversarial layouts and on the EchoNest
@@ -416,12 +426,19 @@ def steady_ms_per_iter(mcfg, state, data, windows=5, steps=100):
     back-to-back steps, each ended by a synchronize."""
     from hgaprec_tpu_torch.models.step import make_multi_step
     multi = make_multi_step(mcfg)
-    multi(state, data, 3)
+    return window_ms(lambda n: multi(state, data, n), windows, steps)
+
+
+def window_ms(multi, windows=5, steps=100):
+    """(median, min, max) ms per step of `multi(n)` (n steps back to back)
+    over `windows` windows of `steps`, each ended by a synchronize, after
+    3 warm-up steps."""
+    multi(3)
     torch.cuda.synchronize()
     times = []
     for _ in range(windows):
         t0 = time.perf_counter()
-        multi(state, data, steps)
+        multi(steps)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) / steps * 1e3)
     return statistics.median(times), min(times), max(times)
@@ -728,6 +745,353 @@ def phase_cli(df, datdir, root, cpu_ref):
     for name, t in secs.items():
         say(f"cli seconds {name}: {t:.2f}")
     return launches_f32, launches_seg
+
+
+# ---------------------------------------------------------------------------
+# the sharded run (hgaprec_tpu_torch/parallel/): one card, so a world of one
+# over NCCL, and two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+SHARD_TOL = dict(rtol=1e-4, atol=1e-7)       # tests/test_torch_engine.py
+SMALL_N, SMALL_M, SMALL_DRAWS, SMALL_T = 20000, 70000, 300000, 1024
+
+
+def phase_sharded_cli(df, datdir, root, ref_dir):
+    """Phase A: `-devices 2` through the command line on one card clamps
+    to one device and trains the sharded loop in-process over a world of
+    one (NCCL); its validation ll is held to the single-device run in
+    `ref_dir` at every report, and kernel #1's f32 launches are counted.
+    Returns (launches, wall seconds)."""
+    if torch.cuda.device_count() != 1:
+        raise SystemExit("the sharded CLI phase needs exactly one visible "
+                         "card (set CUDA_VISIBLE_DEVICES)")
+    out = os.path.join(root, "cli_devices")
+    df.fused_dense_sweep.launches = 0
+    t0 = time.perf_counter()
+    text = cli_in_process(
+        ["-dir", datdir, "-n", str(N_ML), "-m", str(M_ML), "-k", str(K),
+         "-hier", "-rfreq", "5", "-max-iterations", "10", "-devices", "2",
+         "-outdir", out])
+    wall = time.perf_counter() - t0
+    launches = df.fused_dense_sweep.launches
+    g, c = validation_ll(out), validation_ll(ref_dir)
+    worst = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(g, c))
+    missing = [f for f in ("model.npz", "precision.txt", "ranking.tsv")
+               if not os.path.exists(os.path.join(out, f))]
+    ok = "+ only 1 devices available (requested 2)" in text and \
+        "+ sharding over 1 devices" in text and launches > 0 and \
+        [a[0] for a in g] == [b[0] for b in c] and worst < CPU_REL and \
+        not missing
+    say(f"sharded A: python -m hgaprec_tpu_torch.cli ... -devices 2 "
+        f"(in-process, clamped to a world of one over NCCL) in {wall:.1f} s "
+        f"wall; f32 dense kernel launches {launches}; validation ll "
+        f"{[(i, round(v, 6)) for i, v in g]} against the single-device run: "
+        f"worst relative gap {worst:.3e} (bound {CPU_REL}); files "
+        f"{'present' if not missing else missing} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the sharded CLI run failed its checks: {text}")
+    return launches, wall
+
+
+def compare_states(got, want, bf16=False):
+    """(max abs error, worst key) of two state_to_numpy dicts; raises
+    unless every leaf but the log expectations agrees at SHARD_TOL, or
+    with bf16 at BF16_REL relative (1e-3 clamp), the bound of `compare`.
+    An elog is digamma(a) - log b, which cancels near 0 to the f32 error
+    of its O(1) terms; the shape and rate it is computed from are
+    held."""
+    if sorted(got) != sorted(want):
+        raise SystemExit(f"state keys differ: {sorted(got)} {sorted(want)}")
+    err, worst = 0.0, None
+    for key in (k for k in want if not k.endswith("elog")):
+        if bf16:
+            rel = np.abs(got[key] - want[key]) / np.maximum(
+                np.abs(want[key]), 1e-3)
+            if rel.size and not rel.max() < BF16_REL:
+                raise SystemExit(f"{key}: relative error {rel.max():.3e} "
+                                 f">= {BF16_REL}")
+        else:
+            np.testing.assert_allclose(got[key], want[key], **SHARD_TOL,
+                                       err_msg=key)
+        e = float(np.max(np.abs(got[key] - want[key]))) if want[key].size \
+            else 0.0
+        if e >= err:
+            err, worst = e, key
+    return err, worst
+
+
+def allreduce_ms_per_step(run, steps=10):
+    """(all-reduce ms per step, device ms per step): the two all-reduces
+    of an HPF step ([K] column sums, [M, K] item statistics) on buffers
+    of those shapes, timed with CUDA events (median of 5 windows of 20
+    steps' worth), and the device time of a whole step under
+    torch.profiler over `steps` steps."""
+    import torch.distributed as dist
+    k = run.cfg.k
+    bufs = [torch.ones(k, device="cuda"),
+            torch.ones((run.cfg.m, k), device="cuda")]
+
+    def reduce_both():
+        for b in bufs:
+            dist.all_reduce(b, group=run.group)
+    ar_ms = median_ms(reduce_both, 5, batch=20)
+    by_kernel = device_ms_by_kernel(run.step, steps)
+    if not by_kernel:
+        raise SystemExit("torch.profiler saw no device activity")
+    return ar_ms, sum(by_kernel.values())
+
+
+def phase_sharded_run(df, datdir, root):
+    """Phase B: ML-1M HPF K=100 through build_sharded_run over a world of
+    one (NCCL) in both precisions, held to the single-device Trainer
+    after the same steps; ms/iter of both, the all-reduce device time
+    per step, and a report's gather seconds for both leaf sets. Returns
+    {precision: dict of numbers}."""
+    import torch.distributed as dist
+    from hgaprec_tpu_torch import cli
+    from hgaprec_tpu_torch.config import set_matmul_precision
+    from hgaprec_tpu_torch.models.state import state_to_numpy
+    from hgaprec_tpu_torch.models.step import cavi_step
+    from hgaprec_tpu_torch.parallel import distributed
+    from hgaprec_tpu_torch.parallel.sharded import build_sharded_run
+    distributed.initialize_from_env(
+        "cuda", init_method=f"tcp://localhost:{cli._free_port()}",
+        world_size=1, rank=0)
+    out = {}
+    try:
+        for precision in ("highest", "default"):
+            tr = train(datdir, os.path.join(root, f"sharded_b_{precision}"),
+                       precision, 10, 5, "cuda")
+            for _ in range(5):
+                tr.step(tr.state, tr.data)
+            want = state_to_numpy(tr.state)
+            single_ms = steady_ms_per_iter(tr.mcfg, tr.state, tr.data)[0]
+            store, mcfg = tr.store, tr.mcfg
+            tr.close()
+            del tr
+            torch.cuda.empty_cache()
+            set_matmul_precision(precision)
+            t0 = time.perf_counter()
+            run = build_sharded_run(store, mcfg, dist.group.WORLD, "cuda")
+            build_s = time.perf_counter() - t0
+            df.fused_dense_sweep.launches = 0
+            for _ in range(5):
+                run.step()
+            torch.cuda.synchronize()
+            launches = df.fused_dense_sweep.launches
+            err, worst = compare_states(state_to_numpy(run.unsharded_state()),
+                                        want)
+            ms, ms_lo, ms_hi = window_ms(run.multi_step)
+            # the same shard stepped with no group: the layout and the row
+            # mask without the collectives
+            local_ms = window_ms(lambda n: [cavi_step(
+                run.state, run.data, run.cfg, None, run.row_mask)
+                for _ in range(n)])[0]
+            ar_ms, dev_ms = allreduce_ms_per_step(run)
+            gather = {}
+            for leaves in ("full", "eval"):
+                secs = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run.unsharded_state(leaves)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                gather[leaves] = statistics.median(secs)
+            say(f"sharded B {precision}: build_sharded_run (world of one, "
+                f"NCCL) {run.true_n}x{run.cfg.m} in {build_s:.2f} s; "
+                f"kernel #1 launches {launches} in 5 steps; state after 5 "
+                f"steps against the single-device Trainer's: max abs error "
+                f"{err:.3e} ({worst}; rtol 1e-4, atol 1e-7) ok; steady "
+                f"{ms:.3f} ms/iter (median of 5 windows of 100; range "
+                f"{ms_lo:.3f}-{ms_hi:.3f}) against "
+                f"{single_ms:.3f} single-device and {local_ms:.3f} for the "
+                f"shard stepped with no group; the step's two all-reduces "
+                f"{ar_ms:.4f} ms (CUDA events) beside {dev_ms:.3f} device "
+                f"ms per step (torch.profiler); "
+                f"report gather full {gather['full'] * 1e3:.2f} ms, eval "
+                f"{gather['eval'] * 1e3:.2f} ms")
+            if launches == 0:
+                raise SystemExit("the sharded run never launched kernel #1")
+            out[precision] = dict(launches=launches, max_abs_err=err,
+                                  ms_per_iter=ms, single_ms_per_iter=single_ms,
+                                  no_group_ms_per_iter=local_ms,
+                                  allreduce_ms_per_step=ar_ms,
+                                  gather_full_s=gather["full"],
+                                  gather_eval_s=gather["eval"])
+            del run
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+GLOO_RUNS = (
+    ("hybrid_highest", dict(variant="hpf", sweep="hybrid",
+                            hybrid_head_items=SMALL_T,
+                            matmul_precision="highest")),
+    ("hybrid_bf16", dict(variant="hpf", sweep="hybrid",
+                         hybrid_head_items=SMALL_T,
+                         matmul_precision="default")),
+    ("segment", dict(variant="hpf", sweep="segment",
+                     matmul_precision="highest")),
+)
+GLOO_STEPS = 3
+
+
+def small_store():
+    from hgaprec_tpu_torch.data.ratings import RatingsStore
+    u, i, y, keys = power_law_coo(SMALL_N, SMALL_M, SMALL_DRAWS, SEED,
+                                  cover=True)
+    store = RatingsStore(SMALL_N, SMALL_M)
+    store.add_training(u, i, y)
+    store.finalize()
+    return store, keys
+
+
+def sharded_rank(rank, world, workdir):
+    """One rank of phase C (`chip_smoke.py --rank R W DIR`, started by
+    phase_sharded_gloo): joins a gloo group (NCCL refuses two ranks on one
+    device) through DIR/pg, runs GLOO_RUNS on the card with its shard and
+    writes DIR/<run>.rank<R>.json (launches per kernel, ms/iter) and, on
+    rank 0, the gathered state after one step and after GLOO_STEPS as
+    DIR/<run>.step1.npz and DIR/<run>.npz."""
+    import torch.distributed as dist
+    from hgaprec_tpu_torch.config import ModelConfig, set_matmul_precision
+    from hgaprec_tpu_torch.models.state import state_to_numpy
+    from hgaprec_tpu_torch.ops import dense_fused as df
+    from hgaprec_tpu_torch.ops import segment_fused as sf
+    from hgaprec_tpu_torch.ops import tail_fused as tf
+    from hgaprec_tpu_torch.parallel import distributed
+    from hgaprec_tpu_torch.parallel.sharded import build_sharded_run
+    distributed.initialize_from_env(
+        None, init_method="file://" + os.path.join(workdir, "pg"),
+        world_size=world, rank=rank)
+    store, _ = small_store()
+    for name, kw in GLOO_RUNS:
+        set_matmul_precision(kw["matmul_precision"])
+        cfg = ModelConfig(n=store.n, m=store.m, k=K, **kw)
+        run = build_sharded_run(store, cfg, dist.group.WORLD, "cuda")
+        counters = (df.fused_dense_sweep, tf.fused_half_sweep,
+                    sf.fused_segment_sweep)
+        for c in counters:
+            c.launches = 0
+        run.step()
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        first = state_to_numpy(run.unsharded_state())
+        for c in counters:
+            c.launches = 0
+        for _ in range(GLOO_STEPS - 1):
+            run.step()
+        torch.cuda.synchronize()
+        launches = [a + c.launches for a, c in zip(launches, counters)]
+        state = state_to_numpy(run.unsharded_state())
+        dist.barrier()
+        ms = window_ms(run.multi_step, windows=3, steps=5)[0]
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"{name}.step1.npz"), **first)
+            np.savez(os.path.join(workdir, f"{name}.npz"), **state)
+        with open(os.path.join(workdir, f"{name}.rank{rank}.json"), "w") as f:
+            json.dump(dict(launches=launches, n_local=run.n_local,
+                           ms_per_iter=ms,
+                           tail_nnz=(run.data.tail.nnz if run.data.tail
+                                     is not None else 0)), f)
+        del run
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_sharded_gloo(root):
+    """Phase C: two ranks on the one card over gloo (a test harness: it
+    is the only way one card shows a real exchange between ranks), on
+    the small 20,000 x 70,000 store: the hybrid at "highest" (kernel #1's
+    f32 route, kernel #2's f32 route) and in bf16 (kernel #1's wgmma
+    route, kernel #2's bf16 route), and the segment sweep (kernel #4).
+    Every rank must launch its kernels; the gathered state is held to the
+    single-device Trainer's at SHARD_TOL after one step and, at "highest",
+    after GLOO_STEPS. In bf16 the later steps are held at the bf16 bound:
+    the ranks' partial item sums add in another order than one device's,
+    and from the second step such f32 differences in A B^T move W's bf16
+    rounding by a whole bf16 step (2^-8) where they cross a rounding
+    boundary. Returns {run: [launches of rank 0, of rank 1]} and {run:
+    ms/iter}."""
+    from hgaprec_tpu_torch.config import ModelConfig, RunConfig
+    from hgaprec_tpu_torch.models.engine import Trainer
+    from hgaprec_tpu_torch.models.state import state_to_numpy
+    workdir = os.path.join(root, "gloo")
+    os.makedirs(workdir)
+    here = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--rank", str(r), "2", workdir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    # the single-device references while the ranks run
+    store, keys = small_store()
+    validation, test = held_out_maps(store, SMALL_N, SMALL_M, keys, SEED + 1,
+                                     2000)
+    want = {}
+    for name, kw in GLOO_RUNS:
+        tr = Trainer(store, validation, test,
+                     ModelConfig(n=store.n, m=store.m, k=K, **kw),
+                     RunConfig(datdir=root, outdir=os.path.join(
+                         workdir, f"single_{name}")), device="cuda")
+        tr.step(tr.state, tr.data)
+        first = state_to_numpy(tr.state)
+        for _ in range(GLOO_STEPS - 1):
+            tr.step(tr.state, tr.data)
+        want[name] = (first, state_to_numpy(tr.state))
+        tr.close()
+        del tr
+        torch.cuda.empty_cache()
+    for r, p in enumerate(procs):
+        try:
+            text = p.communicate(timeout=600)[0]
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise SystemExit("a gloo rank hung")
+        if p.returncode != 0:
+            raise SystemExit(f"gloo rank {r} exited {p.returncode}: "
+                             f"{text[-4000:]}")
+    wall = time.perf_counter() - t0
+    launches, ms = {}, {}
+    for name, _ in GLOO_RUNS:
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"{name}.rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        got = []
+        for f in (f"{name}.step1.npz", f"{name}.npz"):
+            with np.load(os.path.join(workdir, f)) as z:
+                got.append({k: z[k] for k in z.files})
+        err1, worst1 = compare_states(got[0], want[name][0])
+        bf16 = name.endswith("bf16")
+        err, worst = compare_states(got[1], want[name][1], bf16=bf16)
+        bound = "bf16 relative 2e-2" if bf16 else "rtol 1e-4, atol 1e-7"
+        launches[name] = [x["launches"] for x in ranks]
+        ms[name] = [x["ms_per_iter"] for x in ranks]
+        # [dense, tail, segment] launches each rank must show
+        need = [1, 1, 0] if name.startswith("hybrid") else [0, 0, 1]
+        ok = all(all(c > 0 for c, n in zip(x["launches"], need) if n)
+                 for x in ranks)
+        say(f"sharded C {name}: 2 gloo ranks on one card, "
+            f"{store.n}x{store.m} nnz={store.nratings:,}, n_local "
+            f"{ranks[0]['n_local']}, tail nonzeros per rank "
+            f"{[x['tail_nnz'] for x in ranks]}; launches [dense, tail, CSR] "
+            f"per rank {launches[name]} in {GLOO_STEPS} steps; gathered state "
+            f"against the single-device Trainer's: after one step max abs "
+            f"error {err1:.3e} ({worst1}; rtol 1e-4, atol 1e-7), after "
+            f"{GLOO_STEPS} {err:.3e} ({worst}; {bound}); "
+            f"ms/iter per rank "
+            f"{[round(v, 3) for v in ms[name]]} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"a gloo rank of {name} launched no kernel")
+    say(f"sharded C: {wall:.1f} s wall (rank start-up, store, builds, "
+        f"runs; the single-device references meanwhile)")
+    return launches, ms
 
 
 # ---------------------------------------------------------------------------
@@ -1655,9 +2019,13 @@ def phase_hybrid_cpu_reference(root):
 
 def main():
     t_start = time.perf_counter()
-    if sys.argv[1:] not in ([], ["--segment"], ["--tail"], ["--cli"]):
-        print("usage: chip_smoke.py [--segment | --tail | --cli]",
-              file=sys.stderr)
+    if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 5:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:] not in ([], ["--segment"], ["--tail"], ["--cli"],
+                            ["--sharded"]):
+        print("usage: chip_smoke.py [--segment | --tail | --cli | "
+              "--sharded]", file=sys.stderr)
         return 2
     only = sys.argv[1][2:] if sys.argv[1:] else None
     if not torch.cuda.is_available():
@@ -1720,6 +2088,19 @@ def main():
                          "no wgmma in its SASS")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if only == "sharded":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+            datdir = os.path.join(root, "data")
+            write_pf_dataset(datdir, np.random.default_rng(SEED), N_ML,
+                             M_ML, k=8, a=0.3, ap=1.8, b=0.3, scale=0.7)
+            phase_cpu_reference(df, datdir, root)
+            phase_sharded_cli(df, datdir, root,
+                              os.path.join(root, "cpu_highest"))
+            phase_sharded_run(df, datdir, root)
+            phase_sharded_gloo(root)
+        say(f"sharded phases passed in {time.perf_counter() - t_start:.1f} "
+            f"s (no result line: --sharded runs only the sharded paths)")
+        return 0
     if only == "cli":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
             datdir = os.path.join(root, "data")
@@ -1758,6 +2139,10 @@ def main():
             df, datdir, root)
         cli_f32, cli_seg = phase_cli(
             df, datdir, root, os.path.join(root, "cpu_highest"))
+        sh_cli, sh_cli_s = phase_sharded_cli(df, datdir, root,
+                                             os.path.join(root, "cli"))
+        sh_run = phase_sharded_run(df, datdir, root)
+        gloo, gloo_ms = phase_sharded_gloo(root)
 
         phase_tail_layouts(gen)
         phase_segment_layouts(gen)
@@ -1773,13 +2158,21 @@ def main():
 
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     head_ms, head_plain_ms, head_mma_ms, head_bound_ms = en["head"][True]
+
+    def per_rank(run, kernel):      # [rank 0, rank 1] launches, phase C
+        return [ranks[kernel] for ranks in gloo[run]]
     say(json.dumps({"kernels": [
         {"name": "fused_dense_sweep", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/dense_wgmma.cu",
          "replaces": "hgaprec_tpu/ops/dense_pallas.py:50",
-         "launches": launches + en["launches"][0],
+         "launches": launches + en["launches"][0] +
+         sh_run["default"]["launches"] + sum(per_rank("hybrid_bf16", 0)),
          "launches_by_path": {"ml1m_dense": launches,
-                              "echonest_hybrid": en["launches"][0]},
+                              "echonest_hybrid": en["launches"][0],
+                              "ml1m_sharded_world1_bf16":
+                                  sh_run["default"]["launches"],
+                              "gloo2_hybrid_bf16_per_rank":
+                                  per_rank("hybrid_bf16", 0)},
          **main_kernel, "hgmma": hgmma, **netflix,
          "ms_echonest_head_bf16": head_ms,
          "ms_mma_echonest_head_bf16": head_mma_ms,
@@ -1790,7 +2183,14 @@ def main():
          "launches_f32_by_path": {
              "ml1m_dense_highest": launches_ml1m_highest,
              "ml1m_cli_highest": cli_f32,
-             "echonest_hybrid_highest_steady": en["launches_highest"]},
+             "echonest_hybrid_highest_steady": en["launches_highest"],
+             "ml1m_cli_devices_world1": sh_cli,
+             "ml1m_sharded_world1_highest": sh_run["highest"]["launches"],
+             "gloo2_hybrid_highest_per_rank":
+                 per_rank("hybrid_highest", 0)},
+         "sharded": {"cli_devices_world1_s": sh_cli_s,
+                     "world1": sh_run, "gloo2_ms_per_iter_per_rank":
+                         gloo_ms},
          **f32_ml1m,
          "ms_f32_echonest_head": en["head"][False][0],
          "plain_ms_f32_echonest_head": en["head"][False][1],
@@ -1800,13 +2200,17 @@ def main():
         {"name": "fused_half_sweep", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/tail_bf16.cu",
          "replaces": "hgaprec_tpu/ops/pallas_tail.py:101",
-         "launches": en["launches"][1],
-         "launches_by_path": {"echonest_hybrid": en["launches"][1]},
+         "launches": en["launches"][1] + sum(per_rank("hybrid_bf16", 1)),
+         "launches_by_path": {"echonest_hybrid": en["launches"][1],
+                              "gloo2_hybrid_bf16_per_rank":
+                                  per_rank("hybrid_bf16", 1)},
          **en["tail"], "ms_trained": en["tail_ms_trained"],
          "source_f32": "hgaprec_tpu_torch/csrc/segment_sweep.cu",
          "launches_f32_by_path": {
              "echonest_hybrid_highest_steady":
-                 en["tail_launches_highest"]},
+                 en["tail_launches_highest"],
+             "gloo2_hybrid_highest_per_rank":
+                 per_rank("hybrid_highest", 1)},
          "ms_f32_trained": en["tail_f32_ms_trained"],
          "peak_gb_echonest_hybrid_highest": en["peak_gb_highest"]},
         {"name": "dense_probe", "route": "cuda",
@@ -1817,10 +2221,13 @@ def main():
         {"name": "fused_segment_sweep", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/segment_sweep.cu",
          "replaces": "docs/design/pallas_csr_sweep.py:80",
-         "launches": seg["launches"] + cli_seg,
+         "launches": seg["launches"] + cli_seg +
+         sum(per_rank("segment", 2)),
          "launches_by_path": {"echonest_segment": seg["launches"],
                               "ml1m_cli_segment": cli_seg,
-                              "small_segment_vs_cpu": seg_small},
+                              "small_segment_vs_cpu": seg_small,
+                              "gloo2_segment_per_rank":
+                                  per_rank("segment", 2)},
          **{k: v for k, v in seg.items()
             if k not in ("launches", "ms_iter", "peak")},
          "ms_per_iter_echonest_segment": seg["ms_iter"],

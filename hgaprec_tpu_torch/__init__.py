@@ -1,8 +1,10 @@
 """hgaprec_tpu_torch — the PyTorch/CUDA port of hgaprec_tpu.
 
 Hierarchical Gamma-Poisson factorization (Gopalan, Hofman & Blei,
-arXiv:1311.1704) trained by CAVI, for one NVIDIA H100. Module paths follow
-`hgaprec_tpu/`, so each module's counterpart is found at the same place.
+arXiv:1311.1704) trained by CAVI on NVIDIA H100s: one, or several with
+the users sharded over a torch.distributed group (`parallel/`). Module
+paths follow `hgaprec_tpu/`, so each module's counterpart is found at the
+same place.
 Plain tensor code is PyTorch; the dense CAVI sweep runs hand-written CUDA
 kernels (bf16 `csrc/dense_wgmma.cu`, f32 `csrc/dense_simt.cu`, bound in
 `ops/dense_fused.py`). The package imports torch and numpy only, never

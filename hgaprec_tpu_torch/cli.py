@@ -20,17 +20,35 @@ Extensions: -sweep dense|segment|segment-chunked|hybrid|auto,
 -head-gib G (hybrid head byte budget), -precision highest|default,
 -outdir PATH, -cpu (run on the CPU; without it the run needs a CUDA
 device), -trace DIR (run training under torch.profiler and write a
-TensorBoard trace). -devices D > 1 (multi-GPU) and -tail mxu (the TPU's
-one-hot MXU tail) are rejected by name.
+TensorBoard trace), -devices D (shard training over D devices: user rows
+split across ranks, parallel/sharded.py). -tail mxu (the TPU's one-hot
+MXU tail) is rejected by name.
+
+Multi-GPU: under torchrun (WORLD_SIZE set) each process is one rank,
+binds cuda:LOCAL_RANK (the CPU with -cpu, over gloo), ingests only its
+own user rows and trains sharded over the whole world. Without torchrun,
+`-devices D` clamps D to the visible devices (the CPU's cores with -cpu),
+trains in this process when one remains, and otherwise starts D worker
+processes of this command line, one per device, forwards SIGTERM to them
+and exits with rank 0's code. Only rank 0 prints and writes the output
+files; the other ranks' report files land in OUT/.proc{rank}.
 """
 
 from __future__ import annotations
 
 import os
+import signal
+import socket
+import subprocess
 import sys
+import time
 from typing import List, Optional
 
 import numpy as np
+
+# the flags of modes that do not train: -devices does not apply to them
+_MODES = ("gen_heldout", "rmse", "chi", "test", "msr", "write_training",
+          "nmfload", "nmf", "lda", "vwlda", "vwload", "ctr", "gen_ranking")
 
 
 def _usage():
@@ -228,10 +246,6 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 1
         i += 1
 
-    if o["devices"] > 1:
-        print(f"error: -devices {o['devices']}: multi-GPU not ported yet "
-              "(run with -devices 1)")
-        return 1
     # "auto" and "pallas" both name the hand-written tail kernel here;
     # "mxu" is the TPU's one-hot MXU workaround, which the port's tail
     # kernel does without
@@ -244,14 +258,54 @@ def main(argv: Optional[List[str]] = None) -> int:
         o["tail"] = "auto"
 
     import torch
+    import torch.distributed as dist
+
+    from hgaprec_tpu_torch.parallel import distributed
+    launched = int(os.environ.get("WORLD_SIZE", "1")) > 1
     if o["cpu"]:
         device = torch.device("cpu")
     elif torch.cuda.is_available():
-        device = torch.device("cuda")
+        device = torch.device("cuda", distributed.local_rank()) if launched \
+            else torch.device("cuda")
     else:
         print("error: no CUDA device; pass -cpu to run on the CPU")
         return 1
 
+    trains = o["batch"] and not any(o[f] for f in _MODES)
+    user_rows = None
+    if launched:
+        # one rank of a multi-process launch: shard over the whole world
+        distributed.initialize_from_env(device)
+        world = dist.get_world_size()
+        o["devices"] = world
+        print(f"+ multi-host: process {dist.get_rank()} of {world}, "
+              f"{world} devices")
+        # per-rank ingest for training: each rank materializes only its
+        # own user rows of train.tsv (the id maps and val/test maps stay
+        # global); the other modes read every row
+        if trains:
+            user_rows = distributed.host_user_rows
+    elif o["devices"] > 1 and trains:
+        ndev = min(o["devices"], os.cpu_count() if o["cpu"]
+                   else torch.cuda.device_count())
+        if ndev != o["devices"]:
+            print(f"+ only {ndev} devices available "
+                  f"(requested {o['devices']})")
+        o["devices"] = ndev
+        if ndev > 1:
+            return _spawn_workers(argv, ndev)
+        distributed.initialize_from_env(
+            device, init_method=f"tcp://localhost:{_free_port()}",
+            world_size=1, rank=0)
+    try:
+        return _main(o, device, user_rows,
+                     sharded=dist.is_initialized() and trains)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(o, device, user_rows, sharded: bool) -> int:
     from hgaprec_tpu_torch.config import ModelConfig, RunConfig
     from hgaprec_tpu_torch.data.ratings import load_dataset
 
@@ -270,9 +324,12 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     print(f"+ reading ratings dataset from {o['dir']}")
     store, validation, test = load_dataset(
-        o["dir"], o["n"], o["m"], o["binary"], o["rating_threshold"])
+        o["dir"], o["n"], o["m"], o["binary"], o["rating_threshold"],
+        user_rows=user_rows)
     print(f"read {store.n} users, {store.m} movies, "
-          f"{store.nratings} ratings")
+          f"{store.nratings} ratings"
+          + (f" (local rows {store.local_user_rows})"
+             if store.local_user_rows else ""))
 
     mcfg = ModelConfig(
         n=store.n, m=store.m, k=o["k"], variant=variant, bias=o["bias"],
@@ -292,14 +349,64 @@ def main(argv: Optional[List[str]] = None) -> int:
         chi_tool=chi_tool, wals_l=o["wals_l"], wals_C=o["wals_C"])
 
     from hgaprec_tpu_torch.models.engine import Trainer
-    tr = Trainer(store, validation, test, mcfg, rcfg, device=device)
+    # a sharded run builds each rank's shard itself (and a per-rank store
+    # holds only that rank's rows)
+    tr = Trainer(store, validation, test, mcfg, rcfg, device=device,
+                 build_data=not sharded)
     tr.install_sigterm()
     print(f"+ output directory: {tr.outdir}")
 
     try:
-        return _dispatch(o, store, validation, test, mcfg, rcfg, tr)
+        return _dispatch(o, store, validation, test, mcfg, rcfg, tr, sharded)
     finally:
         tr.close()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_workers(argv: List[str], ndev: int) -> int:
+    """Run this command line as `ndev` ranks, one process per device,
+    joined over localhost as torchrun would join them. Rank 0 prints (the
+    others' stdout is dropped); SIGTERM is forwarded to every rank; when
+    a rank fails the others are stopped (they would wait in their next
+    collective). Returns rank 0's exit code, or 1 if only another rank
+    failed."""
+    port = _free_port()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH"))
+                           if p)
+    sys.stdout.flush()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hgaprec_tpu_torch.cli", *argv],
+        env=dict(os.environ, WORLD_SIZE=str(ndev), RANK=str(r),
+                 LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                 MASTER_PORT=str(port), PYTHONPATH=path),
+        stdout=None if r == 0 else subprocess.DEVNULL) for r in range(ndev)]
+
+    def forward(signum, frame):
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signum)
+
+    previous = signal.signal(signal.SIGTERM, forward)
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                forward(signal.SIGTERM, None)
+                for p in procs:
+                    p.wait()
+                break
+            time.sleep(0.1)
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    codes = [p.returncode for p in procs]
+    if codes[0] != 0:
+        return codes[0] if codes[0] > 0 else 1
+    return 0 if not any(codes) else 1
 
 
 def _gen_heldout(o) -> int:
@@ -343,7 +450,8 @@ def _gen_heldout(o) -> int:
     return 0
 
 
-def _dispatch(o, store, validation, test, mcfg, rcfg, tr) -> int:
+def _dispatch(o, store, validation, test, mcfg, rcfg, tr,
+              sharded: bool = False) -> int:
     from hgaprec_tpu_torch.data import formats
     from hgaprec_tpu_torch.eval import ranking as rank_mod
     from hgaprec_tpu_torch.eval.score import scorer_from_foreign
@@ -542,10 +650,14 @@ def _dispatch(o, store, validation, test, mcfg, rcfg, tr) -> int:
         return 0
 
     if o["resume"]:
-        npz = os.path.join(tr.outdir, "model.npz")
+        npz = os.path.join(tr.shared_outdir, "model.npz")
         if os.path.exists(npz):
             tr.load_model()
             print(f"+ resuming from iteration {tr.iteration}")
+    if sharded:
+        import torch.distributed as dist
+        print(f"+ sharding over {o['devices']} devices")
+        tr.shard(dist.group.WORLD)
     tr.run()
     return 0
 

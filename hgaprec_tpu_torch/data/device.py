@@ -112,40 +112,60 @@ def build_device_data(store: RatingsStore, device, *,
     and a catalog that neither densifies nor gets a head keeps only the
     COO (the JAX package's layout rules)."""
     n, m = store.n, store.m
-    u = store.coo_u.astype(np.int32)
-    i = store.coo_i.astype(np.int32)
-    y = store.coo_y.astype(np.float32)
-    nnz = u.size
+    t = head_width(n, m, hybrid_head_items, head_limit_bytes,
+                   dense_row_multiple) if store.coo_u.size > 0 else 0
+    head_ids = top_degree_items(np.bincount(store.coo_i, minlength=m), t) \
+        if t > 0 else None
+    return build_layout(store.coo_u, store.coo_i, store.coo_y, n, m, device,
+                        head_ids=head_ids,
+                        dense=n * m <= dense_limit_bytes and n > 0 and m > 0,
+                        pad_multiple=pad_multiple,
+                        dense_row_multiple=dense_row_multiple)
+
+
+def top_degree_items(degrees: np.ndarray, t: int) -> np.ndarray:
+    """i32[t]: the t items of highest degree (ties to the lower id),
+    ascending: the head set of the hybrid layout."""
+    return np.sort(np.argsort(-degrees, kind="stable")[:t]).astype(np.int32)
+
+
+def build_layout(u: np.ndarray, i: np.ndarray, y: np.ndarray, n: int, m: int,
+                 device, *, head_ids: Optional[np.ndarray] = None,
+                 dense: bool = False, pad_multiple: int = 1024,
+                 dense_row_multiple: int = 512,
+                 pad_row: Optional[int] = None) -> DeviceData:
+    """The device layout of a user-sorted (user, item) COO over n user rows
+    and m items: the dual-sorted COO, `dense_y` when `dense`, and with
+    `head_ids` the hybrid head block over those items and the tail stream
+    of the other nonzeros. A user shard (parallel/sharded.py) passes its
+    own rows with local user ids and the global head set. The COO's
+    padding entries (y = 0) sit at `pad_row` (default: the last row)."""
+    u = u.astype(np.int32)
+    i = i.astype(np.int32)
+    y = y.astype(np.float32)
+    npad = -(-max(n, 1) // dense_row_multiple) * dense_row_multiple
 
     head_items = head_dense = tail = None
-    t = head_width(n, m, hybrid_head_items, head_limit_bytes,
-                   dense_row_multiple) if nnz > 0 else 0
-    if t > 0:
-        deg = np.bincount(store.coo_i, minlength=m)
-        head_ids = np.sort(np.argsort(-deg, kind="stable")[:t])
-        head_ids = head_ids.astype(np.int32)
+    if head_ids is not None:
         col_of = np.full(m, -1, np.int32)
         col_of[head_ids] = np.arange(head_ids.size, dtype=np.int32)
-        in_head = col_of[store.coo_i] >= 0
-        npad = -(-max(n, 1) // dense_row_multiple) * dense_row_multiple
-        head_dense = _scatter_counts(npad, head_ids.size,
-                                     store.coo_u[in_head],
-                                     col_of[store.coo_i[in_head]],
-                                     store.coo_y[in_head], device)
+        in_head = col_of[i] >= 0
+        head_dense = _scatter_counts(npad, head_ids.size, u[in_head],
+                                     col_of[i[in_head]], y[in_head], device)
         head_items = torch.from_numpy(head_ids).to(device)
         tail = build_tail_stream(u[~in_head], i[~in_head], y[~in_head],
                                  device)
 
     dense_y = None
-    if n * m <= dense_limit_bytes and n > 0 and m > 0:
+    if dense:
         big = n * m > (1 << 28)
-        npad = (-(-n // dense_row_multiple) * dense_row_multiple
-                if (big or n > 4096) else n)
         # scatter on the device: the host never holds the [N, M] matrix
-        dense_y = _scatter_counts(npad, m, store.coo_u, store.coo_i,
-                                  store.coo_y, device)
+        dense_y = _scatter_counts(npad if (big or n > 4096) else n, m, u, i,
+                                  y, device)
 
-    return DeviceData(**sorted_coo(u, i, y, n, m, device, pad_multiple),
+    return DeviceData(**sorted_coo(u, i, y, n if pad_row is None
+                                   else pad_row + 1, m, device,
+                                   pad_multiple),
                       dense_y=dense_y, head_items=head_items,
                       head_dense_y=head_dense, tail=tail)
 

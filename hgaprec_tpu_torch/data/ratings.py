@@ -99,6 +99,10 @@ class RatingsStore:
         self.row_ptr: np.ndarray = np.zeros(1, np.int64)  # user CSR pointers
         self._rating_lookup: Dict[Tuple[int, int], int] = {}
         self._finalized = False
+        # per-rank ingest: when set, the training COO holds only the seq
+        # rows in this range (the id maps stay GLOBAL: seq assignment is
+        # first-seen over the whole file, so every rank agrees on ids)
+        self.local_user_rows: Optional[slice] = None
 
     # -- id remap ----------------------------------------------------------
     @property
@@ -139,16 +143,24 @@ class RatingsStore:
         return un, mn
 
     # -- ingest ------------------------------------------------------------
-    def read_generic(self, path: str, cmap: Optional[CountMap]) -> None:
+    def read_generic(self, path: str, cmap: Optional[CountMap],
+                     user_rows=None) -> None:
         """ratings.cc:63-119. cmap None -> training store; else fill cmap.
 
         Note reference semantics: test/validation rows also create new ids
         when capacity remains (add_user/add_movie called for unseen ids).
         The first (training) read takes a fully vectorized path — the
         per-row loop would not scale to Netflix/EchoNest row counts.
+
+        `user_rows` (training read only): a slice over SEQ user ids, or a
+        callable (actual_n -> slice); only training rows whose user falls
+        in the range are materialized (per-rank ingest, see
+        parallel.distributed.host_user_rows). The external<->seq id maps
+        still cover the full file, so id assignment is identical on every
+        rank.
         """
         data = _parse_tsv(path)
-        if cmap is None and self._ingest_fast(data):
+        if cmap is None and self._ingest_fast(data, user_rows):
             return
         self._as_lists()
         for uid, mid, rating in data:
@@ -167,8 +179,21 @@ class RatingsStore:
                 self._y.append(y)
             else:
                 cmap[(un, mn)] = y
+        if cmap is None and user_rows is not None:
+            self._restrict_users(user_rows)
 
-    def _ingest_fast(self, data: np.ndarray) -> bool:
+    def _restrict_users(self, user_rows) -> None:
+        """Drop training rows outside this rank's seq-id range (the id
+        maps are untouched: they must stay global)."""
+        rows = user_rows(self.n) if callable(user_rows) else user_rows
+        u = np.asarray(self._u, dtype=np.int64)
+        keep = (u >= rows.start) & (u < rows.stop)
+        self._u = u[keep]
+        self._i = np.asarray(self._i, dtype=np.int64)[keep]
+        self._y = np.asarray(self._y, dtype=np.int64)[keep]
+        self.local_user_rows = rows
+
+    def _ingest_fast(self, data: np.ndarray, user_rows=None) -> bool:
         """Take the vectorized path for a first training ingest of more
         than 10,000 rows when the capacity caps cannot bind: the caps
         couple user/item minting row by row (a row dropped for one side's
@@ -182,7 +207,7 @@ class RatingsStore:
             else (y_col > 0)
         if (np.unique(data[live, 0]).size <= self.max_n and
                 np.unique(data[live, 1]).size <= self.max_m):
-            self._ingest_vectorized(data)
+            self._ingest_vectorized(data, user_rows)
             return True
         return False
 
@@ -192,7 +217,7 @@ class RatingsStore:
             self._u, self._i, self._y = (self._u.tolist(), self._i.tolist(),
                                          self._y.tolist())
 
-    def _ingest_vectorized(self, data: np.ndarray) -> None:
+    def _ingest_vectorized(self, data: np.ndarray, user_rows=None) -> None:
         """First-seen-order remap + filters, NumPy-vectorized. Matches the
         scalar path exactly: the rating-class filter runs first, then ids
         are minted in row order until capacity, and rows referencing
@@ -224,6 +249,13 @@ class RatingsStore:
         u_ext2seq, u_seq, u_ok = first_seen_remap(uid, self.max_n)
         m_ext2seq, m_seq, m_ok = first_seen_remap(mid, self.max_m)
         keep = u_ok & m_ok
+        if user_rows is not None:
+            # per-rank ingest: the remap above is global (computed from
+            # the full column), only the materialized COO is sliced
+            rows = (user_rows(len(u_ext2seq)) if callable(user_rows)
+                    else user_rows)
+            keep = keep & (u_seq >= rows.start) & (u_seq < rows.stop)
+            self.local_user_rows = rows
         self.user2seq = u_ext2seq
         self.seq2user = {v: k for k, v in u_ext2seq.items()}
         self.movie2seq = m_ext2seq
@@ -337,16 +369,24 @@ class RatingsStore:
 
 
 def load_dataset(datdir: str, max_n: int, max_m: int, binary: bool,
-                 rating_threshold: int
+                 rating_threshold: int, user_rows=None
                  ) -> Tuple[RatingsStore, CountMap, CountMap]:
     """Reference main-flow load: train.tsv, then validation.tsv/test.tsv maps.
 
     Order matters for ID assignment parity: training first
     (Ratings::read, main.cc:246), then validation, then test
     (load_validation_and_test_sets, hgaprec.cc:110-152).
+
+    `user_rows` (per-rank ingest): a slice over seq user ids, or a
+    callable (actual_n -> slice), typically
+    parallel.distributed.host_user_rows. Only this rank's training rows
+    are materialized as COO; the id maps and the validation/test maps
+    stay global (the likelihood and the stopping rule run in lockstep on
+    every rank).
     """
     store = RatingsStore(max_n, max_m, binary, rating_threshold)
-    store.read_generic(os.path.join(datdir, "train.tsv"), None)
+    store.read_generic(os.path.join(datdir, "train.tsv"), None,
+                       user_rows=user_rows)
     store.finalize()
     # Reference parity: Ratings::read() resets env.n/env.m to the training
     # counts (ratings.cc:34-36), so later validation/test reads cannot mint

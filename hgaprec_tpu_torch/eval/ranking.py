@@ -27,10 +27,12 @@ from typing import Dict, Optional, TextIO
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hgaprec_tpu_torch.data.ratings import CountMap, RatingsStore
 from hgaprec_tpu_torch.eval.score import Scorer, pair_scores, user_scores
 from hgaprec_tpu_torch.eval.topk import item_ranks, masked_topk
+from hgaprec_tpu_torch.parallel import sharded
 
 # above this catalog size the [users, M] host matrix is replaced by the
 # streamed device top-k (eval/topk.py)
@@ -133,11 +135,20 @@ def build_mask_matrix(store: RatingsStore, index: EvalIndex,
 
 
 def top_candidates(sc: Scorer, store: RatingsStore, index: EvalIndex,
-                   users: np.ndarray, topn: int):
+                   users: np.ndarray, topn: int, group=None):
     """(values [S, topn], ids [S, topn]) of the masked ranking: a host
     stable argsort over the full score rows, or the streamed top-k above
-    DEVICE_TOPK_THRESHOLD items."""
+    DEVICE_TOPK_THRESHOLD items.
+
+    group: a process group of more than one rank shards the items over
+    it (parallel/sharded.py::sharded_masked_topk): every rank must call.
+    The store must hold the users' training rows (of a per-rank store,
+    parallel/sharded.py::user_view)."""
     topn_eff = min(topn, store.m)
+    if group is not None and dist.get_world_size(group) > 1:
+        return sharded.sharded_masked_topk(
+            sc, group, users, build_mask_matrix(store, index, users),
+            k=topn_eff)
     if store.m > DEVICE_TOPK_THRESHOLD:
         return masked_topk(sc, store, index, users, k=topn_eff)
     scores = masked_user_scores(sc, store, index, users)
@@ -149,9 +160,10 @@ def compute_precision(sc: Scorer, store: RatingsStore, index: EvalIndex,
                       users: np.ndarray,
                       precision_file: Optional[TextIO],
                       ranking_path: Optional[str] = None,
-                      topn: int = 100) -> Dict[str, float]:
-    """One precision report; optionally writes ranking.tsv."""
-    top_vals, top_idx = top_candidates(sc, store, index, users, topn)
+                      topn: int = 100, group=None) -> Dict[str, float]:
+    """One precision report; optionally writes ranking.tsv. With a
+    `group` of several ranks every rank joins the item-sharded top-k."""
+    top_vals, top_idx = top_candidates(sc, store, index, users, topn, group)
     topn_eff = top_idx.shape[1]
     # vectorized hit lookup against the sorted (u*M + m) test-hit keys —
     # same predicate as the reference's per-candidate map lookup +

@@ -1,7 +1,7 @@
 """Training loop: CAVI iterations + reporting cadence + stopping + contract.
 
-Port of `hgaprec_tpu/models/engine.py` for one process and one device.
-It keeps the reference's operational envelope:
+Port of `hgaprec_tpu/models/engine.py`. It keeps the reference's
+operational envelope:
 
   * per-run output directory named from the config (env.hh:283-369),
     containing param.txt, infer.log, validation.txt, test.txt,
@@ -22,6 +22,15 @@ It keeps the reference's operational envelope:
     trained model, for the CLI's -rmse and -msr modes.
   * -trace DIR: training runs under torch.profiler with a TensorBoard
     trace handler (the port's counterpart of jax.profiler.trace).
+
+In a sharded run (`Trainer.shard`, parallel/sharded.py) every rank
+holds a Trainer and runs the same loop with its share of the step: at a
+report boundary the state is gathered and a SIGTERM agreed over the
+group, and all ranks run the same eval and stopping code on the gathered
+state (the decisions are deterministic on it, so the ranks stay in
+lockstep) and join the item-sharded top-k through `eval_group`; only the
+primary (rank 0) writes the output-file contract, the others write their
+report files into `.proc{rank}` under it.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hgaprec_tpu_torch.config import (ModelConfig, RunConfig,
                                       set_matmul_precision)
@@ -49,6 +59,7 @@ from hgaprec_tpu_torch.models.elbo import training_elbo
 from hgaprec_tpu_torch.models.state import (ModelState, init_state,
                                             state_to_numpy)
 from hgaprec_tpu_torch.models.step import make_multi_step, make_step
+from hgaprec_tpu_torch.parallel import distributed, sharded
 
 
 def _pairs_tensors(cmap: CountMap, device):
@@ -61,12 +72,18 @@ def _pairs_tensors(cmap: CountMap, device):
 
 
 class Trainer:
-    """Single-device trainer. `device` is required: the run happens where
-    the caller says, never on a device picked behind its back."""
+    """The trainer of one device. `device` is required: the run happens
+    where the caller says, never on a device picked behind its back.
+
+    `primary` (default: rank 0 of the default process group, or True
+    without one) writes the output files; `build_data=False` builds no
+    single-device layout (the sharded loop builds each rank's shard
+    itself, and a per-rank store holds only that rank's rows)."""
 
     def __init__(self, store: RatingsStore, validation: CountMap,
                  test: CountMap, mcfg: ModelConfig, rcfg: RunConfig,
-                 device, device_data: Optional[DeviceData] = None):
+                 device, device_data: Optional[DeviceData] = None,
+                 primary: Optional[bool] = None, build_data: bool = True):
         self.device = torch.device(device)
         set_matmul_precision(mcfg.matmul_precision)
         self.store = store
@@ -74,10 +91,25 @@ class Trainer:
         self.test = test
         self.mcfg = mcfg
         self.rcfg = rcfg
-        self.outdir = rcfg.resolve_outdir(mcfg)
+        self.primary = distributed.is_primary() if primary is None \
+            else primary
+        self.shared_outdir = rcfg.resolve_outdir(mcfg)
+        self.outdir = self.shared_outdir
+        if not self.primary:
+            self.outdir = os.path.join(self.shared_outdir,
+                                       f".proc{distributed.rank()}")
         os.makedirs(self.outdir, exist_ok=True)
+        # set by shard(): the group the ranking eval's items are sharded
+        # over (every rank joins the top-k collective), and this rank's
+        # share of the sharded step
+        self.eval_group = None
+        self.sharded: Optional[sharded.ShardedRun] = None
+        # the evaluated users' rows gathered from a per-rank store
+        self._view: Optional[tuple] = None
         if device_data is not None:
             self.data = device_data
+        elif not build_data:
+            self.data = None
         else:
             # the JAX package's layout decision (engine.py:96-116):
             # catalogs too wide to densify get the hybrid head/tail layout
@@ -105,6 +137,7 @@ class Trainer:
         self._prev_h = 0.0
         self._nh = 0
         self._stop_requested = False
+        self._sigterm = False
         self._on_stop_done = False
         self._rng = np.random.default_rng(
             (rcfg.seed or 0) + 1000003)  # eval sampling stream
@@ -112,9 +145,11 @@ class Trainer:
         self._save_thread: Optional[threading.Thread] = None
         self._files: Dict[str, object] = {}
         self._open_outputs()
-        self._write_param_txt()
-        if rcfg.write_marginals:
-            store.write_marginal_distributions(self.outdir)
+        if self.primary:
+            self._write_param_txt()
+            # the marginals need every user's nonzeros
+            if rcfg.write_marginals and store.local_user_rows is None:
+                store.write_marginal_distributions(self.outdir)
 
     # -- plumbing ----------------------------------------------------------
     def _open_outputs(self):
@@ -161,7 +196,21 @@ class Trainer:
         signal.signal(signal.SIGTERM, self._on_sigterm)
 
     def _on_sigterm(self, signum, frame):
-        self._stop_requested = True
+        # a sharded run's ranks stop together, at a report boundary
+        if self.sharded is None:
+            self._stop_requested = True
+        self._sigterm = True
+
+    def shard(self, group):
+        """Train sharded over user rows across `group` (every rank calls
+        it, and then run()): this rank builds its own shard and starts
+        from its rows of the current state (the initial draw, or a
+        resumed model); the ranking eval's items are sharded over the
+        group."""
+        self.eval_group = group
+        self.sharded = sharded.build_sharded_run(
+            self.store, self.mcfg, group, self.device,
+            arrays=state_to_numpy(self.state))
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -218,7 +267,9 @@ class Trainer:
         The host copy is owning and complete before this returns: the next
         step rewrites the state's device tensors in place. The file writes
         (the reference blocks its loop on them every rfreq, hgaprec.cc:966)
-        overlap the next training chunk."""
+        overlap the next training chunk. Only the primary writes."""
+        if not self.primary:
+            return
         arrays = state_to_numpy(self.state)
         iteration = self.iteration
         self._join_save()
@@ -233,11 +284,11 @@ class Trainer:
         self._save_thread.start()
 
     def load_model(self, indir: Optional[str] = None):
-        """The npz checkpoint in `indir` (default: the output directory)
-        with its iteration, else the model TSVs there into the current
-        state (engine.py:271-280)."""
+        """The npz checkpoint in `indir` (default: the shared output
+        directory, which the primary wrote) with its iteration, else the
+        model TSVs there into the current state (engine.py:271-280)."""
         self._join_save()   # don't read files an in-flight save is writing
-        indir = indir or self.outdir
+        indir = indir or self.shared_outdir
         npz = os.path.join(indir, "model.npz")
         if os.path.exists(npz):
             self.state, self.iteration = ckpt.load_npz(npz, self.mcfg,
@@ -246,6 +297,22 @@ class Trainer:
             self.state = ckpt.load_model_tsv(indir, self.mcfg, self.state)
 
     # -- eval wrappers -----------------------------------------------------
+    def _eval_store(self, users: np.ndarray, gather: bool = True):
+        """The store the ranking eval reads for `users`. A per-rank store
+        of a sharded run holds only this rank's users, so theirs are
+        gathered from every rank (a collective: `gather` is False on the
+        primary's own paths, which reuse the gather of the report's
+        precision for the same users)."""
+        if self.store.local_user_rows is None or self.eval_group is None:
+            return self.store
+        if self._view is None or self._view[0] is not users:
+            if not gather:
+                raise RuntimeError("the evaluated users' rows were not "
+                                   "gathered on every rank")
+            self._view = (users, sharded.user_view(
+                self.store, users, self.eval_group, self.device))
+        return self._view[1]
+
     def compute_precision(self, save_ranking: bool):
         """One precision report (hgaprec.cc:1703-1848).
 
@@ -259,21 +326,26 @@ class Trainer:
         if not save_ranking or self._sampled_users is None:
             self._sampled_users = rank_mod.sample_users(
                 self._rng, self.store.n, self.rcfg.num_precision_users)
-        path = os.path.join(self.outdir, "ranking.tsv") if save_ranking \
-            else None
+        path = os.path.join(self.outdir, "ranking.tsv") \
+            if save_ranking and self.primary else None
+        # with eval_group every rank joins the item-sharded top-k; only
+        # the primary's report is the output contract
         return rank_mod.compute_precision(
-            self.scorer(), self.store, self.index, self._sampled_users,
-            self._files["precision.txt"], path,
-            self.rcfg.topn_by_user)
+            self.scorer(), self._eval_store(self._sampled_users),
+            self.index, self._sampled_users,
+            self._files["precision.txt"] if self.primary else None, path,
+            self.rcfg.topn_by_user, self.eval_group)
 
     def compute_itemrank(self, final: bool):
+        if not self.primary:
+            return None   # no collective: the primary's work alone
         if self.iteration % 100 == 0 and self.iteration > 0:
             final = True
         if not final or self._sampled_users is None:
             return None
-        return rank_mod.compute_itemrank(self.scorer(), self.store,
-                                         self.index, self._sampled_users,
-                                         self.outdir)
+        return rank_mod.compute_itemrank(
+            self.scorer(), self._eval_store(self._sampled_users, False),
+            self.index, self._sampled_users, self.outdir)
 
     def gen_ranking_for_users(self, load: bool):
         """hgaprec.cc:2087-2112: rank for users in test_users.tsv."""
@@ -287,13 +359,17 @@ class Trainer:
         if users.size == 0:
             return
         self._sampled_users = users
-        rank_mod.compute_precision(
-            self.scorer(), self.store, self.index, users,
-            self._files["precision.txt"],
-            os.path.join(self.outdir, "ranking.tsv"),
-            self.rcfg.topn_by_user)
-        rank_mod.compute_itemrank(self.scorer(), self.store, self.index,
-                                  users, self.outdir)
+        if self.primary or self.eval_group is not None:
+            rank_mod.compute_precision(
+                self.scorer(), self._eval_store(users), self.index, users,
+                self._files["precision.txt"] if self.primary else None,
+                (os.path.join(self.outdir, "ranking.tsv")
+                 if self.primary else None),
+                self.rcfg.topn_by_user, self.eval_group)
+        if self.primary:
+            rank_mod.compute_itemrank(self.scorer(),
+                                      self._eval_store(users, False),
+                                      self.index, users, self.outdir)
 
     def compute_rmse(self) -> float:
         return rank_mod.compute_rmse(self.scorer(), self.test,
@@ -306,6 +382,10 @@ class Trainer:
 
     def logl(self) -> float:
         """Write the training ELBO to logl.txt (engine.py:356-366)."""
+        if self.data is None:
+            # a sharded run holds no single-device layout of the nonzeros
+            self.log("logl skipped: no single-device data (sharded run)")
+            return 0.0
         s = training_elbo(self.state, self.data, self.mcfg)
         f = self._files["logl.txt"]
         f.write(f"{s:.5f}\n")
@@ -332,19 +412,24 @@ class Trainer:
         return None
 
     def report(self):
+        # every rank: the validation likelihood drives the stopping rule
         self.compute_likelihood(True)
         if self._stop_requested:
             return
-        self.compute_likelihood(False)
-        if not self.mcfg.mle:
-            self.save_model()
-        self.compute_precision(False)
-        if (self.mcfg.variant in ("bpf", "hpf", "canny")
-                and not self.mcfg.bias):
-            # reference: vb/vb_hier/vb_canny also run itemrank
-            self.compute_itemrank(False)
-        if self.rcfg.logl:
-            self.logl()
+        if self.primary:
+            self.compute_likelihood(False)
+            if not self.mcfg.mle:
+                self.save_model()
+        # with eval_group, precision is a collective: every rank calls it
+        if self.primary or self.eval_group is not None:
+            self.compute_precision(False)
+        if self.primary:
+            if (self.mcfg.variant in ("bpf", "hpf", "canny")
+                    and not self.mcfg.bias):
+                # reference: vb/vb_hier/vb_canny also run itemrank
+                self.compute_itemrank(False)
+            if self.rcfg.logl:
+                self.logl()
 
     def run(self, max_iters: Optional[int] = None) -> ModelState:
         """Train until the stopping rule fires (or an iteration cap).
@@ -364,6 +449,17 @@ class Trainer:
                      tensorboard_trace_handler(self.rcfg.trace_dir)):
             return self._run_loop(max_iters)
 
+    def _gather(self):
+        """A sharded run's report boundary: the whole state on every rank
+        (the same gathers on every rank, since a report may save), and a
+        SIGTERM taken by all ranks if any rank got one."""
+        run = self.sharded
+        self.state = run.unsharded_state()
+        flag = torch.tensor([float(self._sigterm)], device=self.device)
+        if sharded.all_reduce(flag, run.group,
+                              dist.ReduceOp.MAX)[0] > 0:
+            self._stop_requested = True
+
     def _run_loop(self, max_iters: Optional[int] = None) -> ModelState:
         cap = max_iters if max_iters is not None else self.resolve_cap()
         last_report = (time.time(), 0)
@@ -373,11 +469,13 @@ class Trainer:
             # every iteration up to the next report boundary back to back,
             # with no host round trip in between
             n_steps, bound = self.next_chunk(cap)
-            if n_steps > 1:
+            if self.sharded is not None:
+                self.sharded.multi_step(n_steps)
+            elif n_steps > 1:
                 self.state = self.multi_step(self.state, self.data, n_steps)
-                self.iteration = bound
             else:
                 self.state = self.step(self.state, self.data)
+            self.iteration = bound
             if self.iteration % self.rcfg.rfreq == 0:
                 self._sync()
                 now = time.time()
@@ -387,12 +485,16 @@ class Trainer:
                     self.log(f"iteration {self.iteration}: "
                              f"{rate:.1f} iters/s")
                 last_report = (now, self.iteration)
+                if self.sharded is not None:
+                    self._gather()
                 self.report()
             if self._stop_requested:
                 self.log(f"stopping at iteration {self.iteration} "
                          f"duration {self.duration()}s")
                 break
             self.iteration += 1
+        if self.sharded is not None:
+            self.state = self.sharded.unsharded_state()
         # reference exits via do_on_stop on max_iterations (hgaprec.cc:
         # 1336-1339) and SIGTERM (973-976), not just on convergence
         if not self._on_stop_done:

@@ -17,11 +17,22 @@ The step writes its result into the state's own tensors (the JAX package
 donates them to the jitted step instead), so a run keeps one set of state
 buffers. Every old value a later update reads is consumed or copied before
 its buffer is overwritten.
+
+With a process `group` (parallel/sharded.py) the user-side tables and
+nonzeros are this rank's row block, the item-side tables are replicated,
+and the only traffic is an all-reduce (SUM) of the item-side statistics
+and of the K-length user-axis column sums, issued in the same order on
+every rank; `row_mask` zeroes the expectations of the padding rows, so
+they add nothing to those sums (the JAX step's `axis_name` and
+`row_mask`, hgaprec_tpu/models/step.py:34-66).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.distributed as dist
 
 from hgaprec_tpu_torch import config as C
 from hgaprec_tpu_torch.config import ModelConfig
@@ -31,22 +42,44 @@ from hgaprec_tpu_torch.ops.gamma import expectations
 from hgaprec_tpu_torch.ops.sweep import sweep
 
 
-def _update(g: Gam, shape, rate) -> None:
-    """Write a fresh posterior and its expectations into g's buffers."""
+def _update(g: Gam, shape, rate, row_mask=None) -> None:
+    """Write a fresh posterior and its expectations into g's buffers;
+    `row_mask` zeroes the expectations of padding rows."""
     e, elog = expectations(shape, rate)
+    if row_mask is not None:
+        e = e * row_mask.reshape((-1,) + (1,) * (e.dim() - 1))
     g.shape.copy_(shape)
     g.rate.copy_(rate)
     g.e.copy_(e)
     g.elog.copy_(elog)
 
 
-def _bias_updates(cfg: ModelConfig, state: ModelState, res) -> None:
+def _usum(x: torch.Tensor, group) -> torch.Tensor:
+    """Column sum over the (possibly rank-sharded) user axis."""
+    s = x.sum(0)
+    if group is not None:
+        dist.all_reduce(s, group=group)
+    return s
+
+
+def _ipsum(x: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce an item-side accumulator computed from this rank's
+    nonzeros (in place, or in a contiguous copy of a strided view, which
+    the collective cannot take); returns the sum."""
+    if group is not None:
+        x = x.contiguous()
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def _bias_updates(cfg: ModelConfig, state: ModelState, res,
+                  group=None) -> None:
     """Bias Gamma(0.3, 0.3) updates: shape += y*phi[bias slot], rate =
     prior + count of opposite-side entities (update_rate_next_all,
     hgaprec.cc:1265-1270, gpbase.hh:231-237)."""
     _update(state.theta_bias, 0.3 + res.acc_bias_a,
             torch.full_like(state.theta_bias.rate, 0.3 + cfg.m))
-    _update(state.beta_bias, 0.3 + res.acc_bias_b,
+    _update(state.beta_bias, 0.3 + _ipsum(res.acc_bias_b, group),
             torch.full_like(state.beta_bias.rate, 0.3 + cfg.n))
 
 
@@ -67,19 +100,22 @@ def _resolve_mode(cfg: ModelConfig, data: DeviceData) -> str:
     return mode
 
 
-def cavi_step(state: ModelState, data: DeviceData,
-              cfg: ModelConfig) -> ModelState:
-    """One CAVI iteration, written into `state`'s tensors; returns it."""
+def cavi_step(state: ModelState, data: DeviceData, cfg: ModelConfig,
+              group=None, row_mask: Optional[torch.Tensor] = None
+              ) -> ModelState:
+    """One CAVI iteration, written into `state`'s tensors; returns it.
+    With `group`, the state and data are one rank's user shard (module
+    docstring); `cfg.n` is the true user count all the same."""
     mode = _resolve_mode(cfg, data)
     if cfg.variant == C.VARIANT_BPF:
-        _step_bpf(state, data, cfg, mode)
+        _step_bpf(state, data, cfg, mode, group, row_mask)
     elif cfg.variant == C.VARIANT_HPF:
-        _step_hpf(state, data, cfg, mode)
+        _step_hpf(state, data, cfg, mode, group, row_mask)
     elif cfg.variant == C.VARIANT_MLE_USER:
-        _step_mle_user(state, data, cfg, mode)
+        _step_mle_user(state, data, cfg, mode, group)
     elif cfg.variant in (C.VARIANT_MLE_ITEM, C.VARIANT_CANNY):
         _step_mle_item(state, data, cfg, mode,
-                       canny=cfg.variant == C.VARIANT_CANNY)
+                       cfg.variant == C.VARIANT_CANNY, group, row_mask)
     else:
         raise ValueError(cfg.variant)
     return state
@@ -97,19 +133,19 @@ def _sweep(state: ModelState, data: DeviceData, cfg: ModelConfig, mode,
                  cfg.matmul_precision)
 
 
-def _step_bpf(state, data, cfg, mode):
+def _step_bpf(state, data, cfg, mode, group=None, row_mask=None):
     res = _sweep(state, data, cfg, mode)
     betasum = state.beta.e.sum(0)                  # old beta [K]
-    old_thetasum = None if cfg.vb else state.theta.e.sum(0)
-    _update(state.theta, cfg.a + res.acc_a, cfg.b + betasum)
+    old_thetasum = None if cfg.vb else _usum(state.theta.e, group)
+    _update(state.theta, cfg.a + res.acc_a, cfg.b + betasum, row_mask)
     # vb: beta rate from the NEW theta; -novb: from the old one
-    thetasum = state.theta.e.sum(0) if cfg.vb else old_thetasum
-    _update(state.beta, cfg.c + res.acc_b, cfg.d + thetasum)
+    thetasum = _usum(state.theta.e, group) if cfg.vb else old_thetasum
+    _update(state.beta, cfg.c + _ipsum(res.acc_b, group), cfg.d + thetasum)
     if cfg.bias:
-        _bias_updates(cfg, state, res)
+        _bias_updates(cfg, state, res, group)
 
 
-def _step_hpf(state, data, cfg, mode):
+def _step_hpf(state, data, cfg, mode, group=None, row_mask=None):
     res = _sweep(state, data, cfg, mode)
     xi, eta = state.theta_rate, state.beta_rate
     # prior rates in effect for this update, kept for the hier ELBO term
@@ -120,40 +156,43 @@ def _step_hpf(state, data, cfg, mode):
     # theta: prior rate := E[xi] per row (replacing b), plus old-beta colsum
     betarowsum = state.beta.e.sum(0)
     _update(state.theta, cfg.a + res.acc_a,
-            xi.e[:, None] + betarowsum[None, :])
+            xi.e[:, None] + betarowsum[None, :], row_mask)
     # beta: symmetric with the NEW theta (hgaprec.cc:1380-1386)
-    thetarowsum = state.theta.e.sum(0)
-    _update(state.beta, cfg.c + res.acc_b,
+    thetarowsum = _usum(state.theta.e, group)
+    _update(state.beta, cfg.c + _ipsum(res.acc_b, group),
             eta.e[:, None] + thetarowsum[None, :])
     if cfg.bias:
-        _bias_updates(cfg, state, res)
+        _bias_updates(cfg, state, res, group)
     # scales last, from NEW factor expectations (hgaprec.cc:1398-1414):
     # shape = prior + K*prior; rate = prior + row-sums of E.
     _update(xi, torch.full_like(xi.shape, cfg.ap + cfg.k * cfg.ap),
-            cfg.bp + state.theta.e.sum(1))
+            cfg.bp + state.theta.e.sum(1), row_mask)
     _update(eta, torch.full_like(eta.shape, cfg.cp + cfg.k * cfg.cp),
             cfg.dp + state.beta.e.sum(1))
 
 
-def _step_mle_user(state, data, cfg, mode):
+def _step_mle_user(state, data, cfg, mode, group=None):
     res = _sweep(state, data, cfg, mode, elog_a=torch.log(state.theta_mle))
     betasum = state.beta.e.sum(0)                  # old beta [K]
     td = res.acc_a / betasum[None, :]              # EM normalize
-    _update(state.beta, cfg.c + res.acc_b, cfg.d + td.sum(0))
+    _update(state.beta, cfg.c + _ipsum(res.acc_b, group),
+            cfg.d + _usum(td, group))
     state.theta_mle.copy_(td)
 
 
-def _step_mle_item(state, data, cfg, mode, canny: bool):
+def _step_mle_item(state, data, cfg, mode, canny: bool, group=None,
+                   row_mask=None):
     res = _sweep(state, data, cfg, mode, elog_b=torch.log(state.beta_mle))
-    thetasum = state.theta.e.sum(0)                # old theta [K]
+    thetasum = _usum(state.theta.e, group)         # old theta [K]
+    acc_b = _ipsum(res.acc_b, group)
     if canny:
         # floor *before* normalizing (hgaprec.cc:1173-1176), then per-factor
         # L1 column normalization (1179-1187)
-        bd = torch.clamp_min(res.acc_b, 1e-10) / thetasum[None, :]
+        bd = torch.clamp_min(acc_b, 1e-10) / thetasum[None, :]
         bd = bd / bd.sum(0, keepdim=True)
     else:
-        bd = res.acc_b / thetasum[None, :]
-    _update(state.theta, cfg.a + res.acc_a, cfg.b + bd.sum(0))
+        bd = acc_b / thetasum[None, :]
+    _update(state.theta, cfg.a + res.acc_a, cfg.b + bd.sum(0), row_mask)
     state.beta_mle.copy_(bd)
 
 

@@ -10,7 +10,10 @@ modes write byte-equal files.
 
 import os
 import shutil
+import signal
 import stat
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -504,9 +507,8 @@ def test_cli_missing_value_equal(flag):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["-devices", "2"], "multi-GPU not ported yet"),
     (["-tail", "mxu"], "-tail mxu"),
-], ids=["devices", "tail-mxu"])
+], ids=["tail-mxu"])
 def test_cli_rejects_unported_by_name(dataset, tmp_path, capsys, flags,
                                       needle):
     out = tmp_path / "never"
@@ -545,6 +547,165 @@ def test_cli_without_cuda_needs_cpu_flag(dataset, tmp_path, capsys,
     assert rc == 1
     assert "-cpu" in capsys.readouterr().out
     assert not out.exists()
+
+
+def _cli_subprocess(args, timeout=300, world=None):
+    """(exit code, stdout) of `python -m hgaprec_tpu_torch.cli args` in a
+    session of its own: on a timeout the CLI and the ranks it started
+    are killed together, and the test fails. With `world`, the command
+    runs as that many ranks with torchrun's variables, and rank 0's exit
+    code and output are returned."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ranks = [{}] if world is None else [
+        dict(WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+             MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        for port in [tcli._free_port()] for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hgaprec_tpu_torch.cli", *args],
+        env=dict(os.environ, PYTHONPATH=root, **extra),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True) for extra in ranks]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.communicate()
+        pytest.fail(f"the sharded CLI run {args} hung")
+    for p, out in zip(procs[1:], outs[1:]):
+        assert p.returncode == 0, out
+    return procs[0].returncode, outs[0]
+
+
+def _rerank(outdir, dest, args, world=None):
+    """The ranking files of `-gen-ranking` on a copy of `outdir`'s model
+    in `dest`: {name: text}."""
+    shutil.copytree(outdir, dest)
+    for name in RANKING_FILES:
+        os.remove(dest / name)
+    rc, text = _cli_subprocess(args + ["-cpu", "-gen-ranking", "-outdir",
+                                       str(dest)], world=world)
+    assert rc == 0, text
+    return {name: (dest / name).read_text() for name in RANKING_FILES}
+
+
+RANKING_FILES = ("ranking.tsv", "itemrank.tsv", "meanrank.txt")
+
+
+def _up_to_ties(text):
+    """ranking.tsv's lines, and its (user, score) sequence: the order of
+    items with equal scores is the top-k's own (a stable sort on one
+    device, the ranks' candidates merged in a sharded run)."""
+    rows = [tuple(line.split("\t")) for line in text.splitlines()]
+    return sorted(rows), [(r[0], r[2]) for r in rows]
+
+
+def _ll(path):
+    return [float(r[2]) for r in _rows(path / "validation.txt")]
+
+
+@pytest.mark.parametrize("flags", [[], ["-sweep", "hybrid"]],
+                         ids=["dense", "hybrid"])
+def test_cli_sharded_devices(dataset, tmp_path, capsys, flags):
+    """`-cpu -devices 2` (two gloo ranks, each ingesting its own user
+    rows) trains, reports and checkpoints: its validation trajectory is
+    within 1e-4 relative of the port's single-device run and within
+    5e-3 of the JAX package's `-devices 8` run (tests/test_cli.py:125);
+    only rank 0 writes model.npz (the dense case ports
+    test_cli_sharded_devices, the hybrid one
+    test_cli_sharded_hybrid_devices)."""
+    args = ["-dir", str(dataset), *BASE, "-rfreq", "3", "-max-iterations",
+            "6", "-hier", *flags]
+    out = tmp_path / "sharded"
+    rc, text = _cli_subprocess(args + ["-cpu", "-devices", "2", "-outdir",
+                                       str(out)])
+    assert rc == 0, text
+    assert "+ multi-host: process 0 of 2, 2 devices" in text
+    assert "+ sharding over 2 devices" in text
+    assert "(local rows slice(0, " in text      # rank 0 ingests its rows
+    assert tcli.main(args + ["-cpu", "-outdir", str(tmp_path / "one")]) == 0
+    assert jcli.main(args + ["-devices", "8", "-outdir",
+                             str(tmp_path / "jax")]) == 0
+    got, one = _ll(out), _ll(tmp_path / "one")
+    jax8 = _ll(tmp_path / "jax")
+    assert len(got) == len(one) == len(jax8) >= 3
+    np.testing.assert_allclose(got, one, rtol=1e-4)
+    for a, b in zip(got, jax8):
+        assert abs(a - b) < 5e-3 * max(1.0, abs(b))
+    for name in ("model.npz", "htheta.tsv", "precision.txt", "param.txt"):
+        assert (out / name).exists(), name
+    assert not (out / ".proc1" / "model.npz").exists()
+    assert len(_rows(out / ".proc1" / "validation.txt")) == len(got)
+    # the reports and the stop's ranking of test_users.tsv, through the
+    # item-sharded top-k
+    assert [r[0] for r in _rows(out / "precision.txt")] == \
+        [r[0] for r in _rows(tmp_path / "one" / "precision.txt")]
+    # each rank holds only its own users' rows, and the stop's ranking
+    # files are still the single-device eval's of the same model (the
+    # training masks, counts and item degrees of every user)
+    want = _rerank(out, tmp_path / "rerank", args)
+    assert len(_rows(out / "itemrank.tsv")) > 0
+    assert _up_to_ties((out / "ranking.tsv").read_text()) == \
+        _up_to_ties(want["ranking.tsv"])
+    for name in ("itemrank.tsv", "meanrank.txt"):
+        assert (out / name).read_text() == want[name], name
+
+
+def test_cli_launched_gen_ranking_reads_every_row(dataset, tmp_path):
+    """Under a launch of two ranks (torchrun's variables) a mode that does
+    not train ingests every user's rows: `-gen-ranking` writes what the
+    single process writes."""
+    args = ["-dir", str(dataset), *BASE, "-rfreq", "3", "-max-iterations",
+            "3", "-hier"]
+    out = tmp_path / "one"
+    assert tcli.main(args + ["-cpu", "-outdir", str(out)]) == 0
+    want = _rerank(out, tmp_path / "single", args)
+    got = _rerank(out, tmp_path / "launched", args, world=2)
+    assert len(_rows(tmp_path / "single" / "itemrank.tsv")) > 0
+    assert got == want
+
+
+def test_cli_devices_clamped_to_one(dataset, tmp_path, capsys, monkeypatch):
+    """With one device visible `-devices 2` says so and trains the
+    sharded loop in this process over a world of one, which gives the
+    single-device run's trajectory."""
+    monkeypatch.setattr(os, "cpu_count", lambda: 1)
+    args = ["-dir", str(dataset), *BASE, "-rfreq", "3", "-max-iterations",
+            "6", "-hier", "-cpu"]
+    capsys.readouterr()
+    assert tcli.main(args + ["-devices", "2", "-outdir",
+                             str(tmp_path / "w1")]) == 0
+    text = capsys.readouterr().out
+    assert "+ only 1 devices available (requested 2)" in text
+    assert "+ sharding over 1 devices" in text
+    assert tcli.main(args + ["-outdir", str(tmp_path / "one")]) == 0
+    np.testing.assert_allclose(_ll(tmp_path / "w1"), _ll(tmp_path / "one"),
+                               rtol=1e-4)
+    assert (tmp_path / "w1" / "model.npz").exists()
+
+
+def test_cli_sharded_resume_starts_from_the_model(dataset, tmp_path,
+                                                  capsys, monkeypatch):
+    """`-resume` with `-devices` continues from model.npz (the JAX
+    sharded loop draws a fresh state and keeps only the iteration
+    count): the sharded resumed run reports what the single-device
+    resumed run reports from a copy of the same model."""
+    monkeypatch.setattr(os, "cpu_count", lambda: 1)
+    args = ["-dir", str(dataset), *BASE, "-rfreq", "3", "-hier", "-cpu"]
+    out = tmp_path / "sharded"
+    assert tcli.main(args + ["-max-iterations", "3", "-devices", "2",
+                             "-outdir", str(out)]) == 0
+    shutil.copytree(out, tmp_path / "one")
+    capsys.readouterr()
+    for d, extra in ((out, ["-devices", "2"]), (tmp_path / "one", [])):
+        assert tcli.main(args + ["-max-iterations", "9", "-resume",
+                                 "-outdir", str(d), *extra]) == 0
+        assert "+ resuming from iteration 4" in capsys.readouterr().out
+    got, want = _rows(out / "validation.txt"), \
+        _rows(tmp_path / "one" / "validation.txt")
+    assert [r[0] for r in got] == [r[0] for r in want] == ["6", "9"]
+    np.testing.assert_allclose([float(r[2]) for r in got],
+                               [float(r[2]) for r in want], rtol=1e-4)
 
 
 def test_cli_trace_writes_profiler_trace(dataset, tmp_path):
@@ -675,3 +836,24 @@ def test_cli_trains_on_card_through_kernel(dataset, tmp_path):
     assert df.fused_dense_sweep.launches > 0
     ll = [float(r[2]) for r in _rows(out / "validation.txt")]
     assert len(ll) == 2 and np.isfinite(ll).all()
+
+
+@pytest.mark.cuda
+def test_cli_sharded_world_of_one_on_card(dataset, tmp_path):
+    """`-devices 2` on one card: a world of one over NCCL in this process,
+    whose validation trajectory is the single-device run's (1e-4
+    relative) and which launches kernel #1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    if torch.cuda.device_count() != 1:
+        pytest.skip("the world of one needs exactly one visible card")
+    from hgaprec_tpu_torch.ops import dense_fused as df
+    args = ["-dir", str(dataset), "-n", str(N), "-m", str(M), "-k", "8",
+            "-hier", "-rfreq", "3", "-max-iterations", "6"]
+    df.fused_dense_sweep.launches = 0
+    assert tcli.main(args + ["-devices", "2", "-outdir",
+                             str(tmp_path / "w1")]) == 0
+    assert df.fused_dense_sweep.launches > 0
+    assert tcli.main(args + ["-outdir", str(tmp_path / "one")]) == 0
+    np.testing.assert_allclose(_ll(tmp_path / "w1"), _ll(tmp_path / "one"),
+                               rtol=1e-4)
