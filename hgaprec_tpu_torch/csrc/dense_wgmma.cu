@@ -17,7 +17,7 @@
 // at K = 100, above the card's ~295 bf16 FLOPs per byte: the products bound
 // it, at 989 TFLOP/s. The design puts all four products on wgmma (the only
 // route to that rate) and keeps the tensor cores fed from a TMA ring:
-//   * Roles (as csrc/dense_fused.cu, shared code in dense_roles.cuh):
+//   * Roles (csrc/dense_roles.cuh, shared with csrc/dense_simt.cu):
 //     item-stationary CTAs own acc_b rows, user-stationary CTAs own acc_a
 //     rows; no atomics, so two launches give the same bits. A CTA holds 128
 //     stationary rows X (two consumer warpgroups of 64) and sweeps its
@@ -83,6 +83,19 @@
 //      serializes that instantiation (C7512), which is off the main path
 //      (K > 126). ptxas (-v in the build flags) reports no spills for any
 //      instantiation; chip_smoke.py fails if it does.
+//
+// Stage probe (kernel #3, csrc/dense_roles.cuh's Stage): the kernel takes
+// the stage as a template parameter, built for every stage at kq = 112
+// only (K = 100) and launched through hpf_dense_wgmma_probe_bf16;
+// hpf_dense_wgmma_bf16 launches kProd, so the probe's prod is this kernel.
+// kBf16Recip forms W as bf16x2 (h2rcp, one bf16 multiply); kNoRecip keeps
+// the prmt widen and drops the reciprocal and the multiply; kNoYLoad
+// issues no Y TMA (the full barrier then expects only the Z tile's bytes)
+// and no Y read from shared memory; kMmOnly issues only the S products,
+// one group in flight per warpgroup (issue, wait, fold S * 0 into acc),
+// and no contraction. Every stage builds without spills and without the
+// serialization warnings of hazard 5 (chip_smoke.py checks both): a stage
+// that serialized would measure the serialization, not its stage.
 
 #include <cuda.h>   // CUtensorMap and its enums only; the driver call is
                     // reached through cudaGetDriverEntryPoint
@@ -366,7 +379,7 @@ __device__ __forceinline__ uint32_t lds_u8(uint32_t addr) {
 // chunk c ^ (r % 8) (128-byte rows), c ^ ((r / 2) % 4) (64-byte rows) or c
 // (16-byte rows). The offsets are split so that what varies with j is an
 // immediate and the rest is fixed per thread.
-template <bool kItem, int kTc>
+template <bool kItem, int kTc, int kStage>
 __device__ __forceinline__ void make_w_role(uint32_t (&wf)[kTc / 16][4],
                                             const float (&sacc)[kTc / 2],
                                             uint32_t ys, uint32_t x,
@@ -376,7 +389,9 @@ __device__ __forceinline__ void make_w_role(uint32_t (&wf)[kTc / 16][4],
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float y0, y1;
-      if constexpr (!kItem) {
+      if constexpr (!stage_reads_y(kStage)) {
+        y0 = y1 = 1.f;
+      } else if constexpr (!kItem) {
         // Y [x = user][z = item], kTc bytes a row; the pair is two
         // neighbouring bytes of row x + 8 h, which shares row x's key
         const uint32_t key = ((x * kTc) >> 3) & (kTc - 16);
@@ -394,10 +409,20 @@ __device__ __forceinline__ void make_w_role(uint32_t (&wf)[kTc / 16][4],
         y1 = widen_u8(lds_u8(ys + (8 * j + 2 * q + 1) * kX +
                              (col ^ ((2 * q + 1) << 4))), 0x7440);
       }
-      wf[j / 2][(j % 2) * 2 + h] =
-          pack_bf16x2(y0 * rcp_approx(fmaxf(sacc[4 * j + 2 * h], 1e-30f)),
-                      y1 * rcp_approx(fmaxf(sacc[4 * j + 2 * h + 1],
-                                            1e-30f)));
+      const float s0 = sacc[4 * j + 2 * h], s1 = sacc[4 * j + 2 * h + 1];
+      uint32_t w;
+      if constexpr (kStage == kProd) {
+        w = pack_bf16x2(y0 * rcp_approx(fmaxf(s0, 1e-30f)),
+                        y1 * rcp_approx(fmaxf(s1, 1e-30f)));
+      } else if constexpr (kStage == kBf16Recip) {
+        const __nv_bfloat162 r =
+            h2rcp(__floats2bfloat162_rn(fmaxf(s0, 1e-30f), fmaxf(s1, 1e-30f)));
+        const __nv_bfloat162 v = __hmul2(__floats2bfloat162_rn(y0, y1), r);
+        w = *reinterpret_cast<const uint32_t*>(&v);
+      } else {   // kNoRecip: W = Y; kNoYLoad: W = 1; S kept in use
+        w = pack_bf16x2(fmaf(s0, 0.f, y0), fmaf(s1, 0.f, y1));
+      }
+      wf[j / 2][(j % 2) * 2 + h] = w;
     }
   }
 }
@@ -444,14 +469,14 @@ __device__ __forceinline__ void issue_c(
   wgmma_commit();
 }
 
-template <int kTc>
+template <int kTc, int kStage>
 __device__ __forceinline__ void make_w(bool item, uint32_t (&wf)[kTc / 16][4],
                                        const float (&sacc)[kTc / 2],
                                        uint32_t ys, uint32_t x, uint32_t q) {
   if (item)
-    make_w_role<true, kTc>(wf, sacc, ys, x, q);
+    make_w_role<true, kTc, kStage>(wf, sacc, ys, x, q);
   else
-    make_w_role<false, kTc>(wf, sacc, ys, x, q);
+    make_w_role<false, kTc, kStage>(wf, sacc, ys, x, q);
 }
 
 // The (Z, Y) ring: tile t sits in stage t % kStages (Z tile, then Y tile);
@@ -494,7 +519,7 @@ __device__ __forceinline__ void fence_frags(uint32_t (&w)[N][4]) {
 // retires, W(t + 1) is formed into wnext while the contraction still runs
 // (FlashAttention-3's intra-warpgroup overlap). Both retire, and tile t's
 // stage is released, before it returns.
-template <int kKq>
+template <int kKq, int kStage>
 __device__ __forceinline__ void tile_step(
     int t, float (&acc)[Plan<kKq>::kAccChunks][Plan<kKq>::kAccN / 2],
     float (&sacc)[Plan<kKq>::kTc / 2],
@@ -507,7 +532,8 @@ __device__ __forceinline__ void tile_step(
   issue_c<kKq>(acc, wcur, ring.zs(t));
   wgmma_wait<1>();   // S(t + 1) has retired; the contraction may not have
   fence_regs(sacc);
-  make_w<Plan<kKq>::kTc>(item, wnext, sacc, ring.ys(t + 1), xrow, q);
+  make_w<Plan<kKq>::kTc, kStage>(item, wnext, sacc, ring.ys(t + 1), xrow,
+                                 q);
   wgmma_wait<0>();
 #pragma unroll
   for (int c = 0; c < Plan<kKq>::kAccChunks; ++c) fence_regs(acc[c]);
@@ -527,9 +553,30 @@ __device__ __forceinline__ void last_tile(
   for (int c = 0; c < Plan<kKq>::kAccChunks; ++c) fence_regs(acc[c]);
 }
 
+// kMmOnly: the S products of every tile and nothing else, one group in
+// flight (issued, waited on, then S * 0 added to acc, so that the outputs
+// depend on S and stay zero); nothing is in flight across the loop's back
+// edge.
+template <int kKq>
+__device__ __forceinline__ void s_only(
+    int ntiles, float (&acc)[Plan<kKq>::kAccChunks][Plan<kKq>::kAccN / 2],
+    float (&sacc)[Plan<kKq>::kTc / 2], uint64_t dx, const Ring<kKq>& ring) {
+  static_assert(Plan<kKq>::kTc <= Plan<kKq>::kAccN, "S * 0 lands in acc[0]");
+  for (int t = 0; t < ntiles; ++t) {
+    ring.wait_full(t);
+    issue_s<kKq>(sacc, dx, ring.zs(t));
+    wgmma_wait<0>();
+    fence_regs(sacc);
+#pragma unroll
+    for (int i = 0; i < Plan<kKq>::kTc / 2; ++i)
+      acc[0][i] = fmaf(sacc[i], 0.f, acc[0][i]);
+    ring.release(t);
+  }
+}
+
 // ---- the kernel ----------------------------------------------------------
 
-template <int kKq>
+template <int kKq, int kStage = kProd>
 __global__ void __launch_bounds__(kThreadsW, 1)
 dense_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_b,
@@ -576,14 +623,19 @@ dense_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       if (t >= kStages) ring.wait_empty(t);
       const uint32_t full = ring.full(t), zs = ring.zs(t);
       const int z0 = role.z_begin + t * kTc;
-      mbar_expect_tx(full, P::kStageBytes);
+      // a stage that reads no Y must not expect its bytes, or the
+      // consumers would wait forever
+      mbar_expect_tx(full, stage_reads_y(kStage) ? P::kStageBytes
+                                                 : P::kZBytes);
       for (int b = 0; b < P::kBlocks; ++b)
         for (int r = 0; r < kTc; r += P::kBox)
           tma_load(zs + b * P::kZBlock + r * 128, mz, 64 * b, z0 + r, full);
-      if (role.item)   // Y tile [z = users][x = items]
-        tma_load(ring.ys(t), &map_yi, role.x0, z0, full);
-      else             // Y tile [x = users][z = items]
-        tma_load(ring.ys(t), &map_yu, z0, role.x0, full);
+      if constexpr (stage_reads_y(kStage)) {
+        if (role.item)   // Y tile [z = users][x = items]
+          tma_load(ring.ys(t), &map_yi, role.x0, z0, full);
+        else             // Y tile [x = users][z = items]
+          tma_load(ring.ys(t), &map_yu, z0, role.x0, full);
+      }
     }
     return;
   }
@@ -620,25 +672,30 @@ dense_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   // flight: otherwise ptxas serializes every wgmma (C7514, C7515).
   const uint32_t xrow = 64 * g + r0;
   mbar_wait(xbar, 0);
-  if (ntiles > 0) {
-    ring.wait_full(0);
-    issue_s<kKq>(sacc, dx, ring.zs(0));
-    wgmma_wait<0>();
-    fence_regs(sacc);
-    make_w<kTc>(item, wf, sacc, ring.ys(0), xrow, q);
-  }
-  // W(t) sits in wf for even t, in wn for odd t: the loop is unrolled by
-  // two so that the fragments in flight are never copied.
-  int t = 0;
-  for (; t + 2 < ntiles; t += 2) {
-    tile_step<kKq>(t, acc, sacc, wf, wn, dx, ring, item, xrow, q);
-    tile_step<kKq>(t + 1, acc, sacc, wn, wf, dx, ring, item, xrow, q);
-  }
-  if (t + 1 < ntiles) {
-    tile_step<kKq>(t, acc, sacc, wf, wn, dx, ring, item, xrow, q);
-    last_tile<kKq>(acc, wn, ring.zs(t + 1));
-  } else if (t < ntiles) {
-    last_tile<kKq>(acc, wf, ring.zs(t));
+  if constexpr (kStage == kMmOnly) {
+    s_only<kKq>(ntiles, acc, sacc, dx, ring);
+  } else {
+    if (ntiles > 0) {
+      ring.wait_full(0);
+      issue_s<kKq>(sacc, dx, ring.zs(0));
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      make_w<kTc, kStage>(item, wf, sacc, ring.ys(0), xrow, q);
+    }
+    // W(t) sits in wf for even t, in wn for odd t: the loop is unrolled by
+    // two so that the fragments in flight are never copied.
+    int t = 0;
+    for (; t + 2 < ntiles; t += 2) {
+      tile_step<kKq, kStage>(t, acc, sacc, wf, wn, dx, ring, item, xrow, q);
+      tile_step<kKq, kStage>(t + 1, acc, sacc, wn, wf, dx, ring, item, xrow,
+                             q);
+    }
+    if (t + 1 < ntiles) {
+      tile_step<kKq, kStage>(t, acc, sacc, wf, wn, dx, ring, item, xrow, q);
+      last_tile<kKq>(acc, wn, ring.zs(t + 1));
+    } else if (t < ntiles) {
+      last_tile<kKq>(acc, wf, ring.zs(t));
+    }
   }
 
   const int nx = item ? m : n;
@@ -697,7 +754,7 @@ bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kKq>
+template <int kKq, int kStage = kProd>
 int launch_wgmma(const void* a, const void* b, const void* y, void* acc_a,
                  void* acc_b, void* part_a, void* part_b, int n, int m,
                  long long ldy, int split_a, int split_b,
@@ -715,7 +772,7 @@ int launch_wgmma(const void* a, const void* b, const void* y, void* acc_a,
                  kTc == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE) ||
       !encode_2d(&myi, u8, y, m, n, ldy, kX, kTc, sw128))
     return (int)cudaErrorInvalidValue;
-  auto kernel = dense_wgmma_kernel<kKq>;
+  auto kernel = dense_wgmma_kernel<kKq, kStage>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (err != cudaSuccess) return (int)err;
@@ -728,6 +785,17 @@ int launch_wgmma(const void* a, const void* b, const void* y, void* acc_a,
   if (err != cudaSuccess) return (int)err;
   return reduce_partials(acc_a, acc_b, part_a, part_b, n, m, kKq, split_a,
                          split_b, stream);
+}
+
+// What both entries refuse: the arguments no instantiation takes.
+bool bad_args(const void* a, const void* b, const void* y,
+              const void* part_a, const void* part_b, int n, int m,
+              long long ldy, int split_a, int split_b) {
+  return n <= 0 || m <= 0 || ldy < m || ldy % 16 != 0 || split_a < 1 ||
+         split_b < 1 || (split_a > 1 && part_a == nullptr) ||
+         (split_b > 1 && part_b == nullptr) ||
+         ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(y)) & 15) != 0;
 }
 
 }  // namespace
@@ -743,11 +811,7 @@ extern "C" int hpf_dense_wgmma_bf16(const void* a, const void* b,
                                     void* part_a, void* part_b, int n, int m,
                                     int kq, long long ldy, int split_a,
                                     int split_b, void* stream) {
-  if (n <= 0 || m <= 0 || ldy < m || ldy % 16 != 0 || split_a < 1 ||
-      split_b < 1 || (split_a > 1 && part_a == nullptr) ||
-      (split_b > 1 && part_b == nullptr) ||
-      ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
-        reinterpret_cast<uintptr_t>(y)) & 15) != 0)
+  if (bad_args(a, b, y, part_a, part_b, n, m, ldy, split_a, split_b))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kq) {
@@ -763,6 +827,46 @@ extern "C" int hpf_dense_wgmma_bf16(const void* a, const void* b,
     case 256:
       return launch_wgmma<256>(a, b, y, acc_a, acc_b, part_a, part_b, n, m,
                                ldy, split_a, split_b, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The stage probe: the entry above at kq = 112 (K <= 110 zero-padded, the
+// only width its stages are built for) with the kernel built for `stage`
+// (0 = prod, 1 = bf16recip, 2 = norecip, 3 = noyload, 4 = mmonly; see
+// csrc/dense_roles.cuh). Returns the cudaError_t of the launches.
+extern "C" int hpf_dense_wgmma_probe_bf16(const void* a, const void* b,
+                                          const void* y, void* acc_a,
+                                          void* acc_b, void* part_a,
+                                          void* part_b, int n, int m, int kq,
+                                          long long ldy, int split_a,
+                                          int split_b, int stage,
+                                          void* stream) {
+  if (kq != 112 ||
+      bad_args(a, b, y, part_a, part_b, n, m, ldy, split_a, split_b))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (stage) {
+    case kProd:
+      return launch_wgmma<112, kProd>(a, b, y, acc_a, acc_b, part_a, part_b,
+                                      n, m, ldy, split_a, split_b, st);
+    case kBf16Recip:
+      return launch_wgmma<112, kBf16Recip>(a, b, y, acc_a, acc_b, part_a,
+                                           part_b, n, m, ldy, split_a,
+                                           split_b, st);
+    case kNoRecip:
+      return launch_wgmma<112, kNoRecip>(a, b, y, acc_a, acc_b, part_a,
+                                         part_b, n, m, ldy, split_a, split_b,
+                                         st);
+    case kNoYLoad:
+      return launch_wgmma<112, kNoYLoad>(a, b, y, acc_a, acc_b, part_a,
+                                         part_b, n, m, ldy, split_a, split_b,
+                                         st);
+    case kMmOnly:
+      return launch_wgmma<112, kMmOnly>(a, b, y, acc_a, acc_b, part_a,
+                                        part_b, n, m, ldy, split_a, split_b,
+                                        st);
     default:
       return (int)cudaErrorInvalidValue;
   }

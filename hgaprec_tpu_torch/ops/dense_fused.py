@@ -18,10 +18,9 @@ ring). A sweep costs 8 N M kq FLOPs (four products of 2 N M kq:
 both of the kernels' two deterministic roles recompute S) against two
 uint8 reads of Y, about 400 FLOPs per byte at K = 100, so it is
 compute-bound on the H100. The two-role design trades the fourth product
-for sums without atomics and no item-count limit. The bf16 `mma.sync`
-kernel of `csrc/dense_fused.cu`, the earlier design, stays in the
-library as the stage probe's base (`ops/dense_probe.py`); the production
-routes do not run it.
+for sums without atomics and no item-count limit. Each kernel is also
+built once per stage of the stage probe (`ops/dense_probe.py`), whose
+prod stage is the production kernel itself.
 
 On a CUDA tensor `fused_dense_sweep` launches a kernel or raises; only
 a CPU tensor takes `fused_dense_sweep_reference`, the same function in
@@ -31,6 +30,7 @@ blocked torch ops.
 from __future__ import annotations
 
 import ctypes
+import functools
 import re
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -43,22 +43,42 @@ KP_MAX = 256           # widest packed factor row the kernels take
 
 class _Kernel(NamedTuple):
     entry: str         # the library's C entry point
+    probe: str         # the entry of its stage probe's instantiations
+    probe_kq: int      # the widest packed row the probe's stages take
     tile: int          # stationary rows per CTA, the unit splits_for plans in
     per_sm: int        # CTAs resident on one SM
     min_chunk: int     # fewest tiles of moving rows one CTA sweeps when split
 
 
 KERNELS = {
-    # bf16 production: csrc/dense_wgmma.cu (one 384-thread CTA per SM)
-    "wgmma": _Kernel("hpf_dense_wgmma_bf16", 128, 1, 8),
-    # f32 production: csrc/dense_simt.cu (one 256-thread CTA per SM, 224,256
-    # bytes of shared memory at kq = 104)
-    "f32": _Kernel("hpf_dense_simt_f32", 128, 1, 8),
-    # csrc/dense_fused.cu: the earlier bf16 design (mma.sync), kept for the
-    # stage probe and its comparison
-    "mma": _Kernel("hpf_dense_fused_sweep_bf16", 64, 2, 16),
+    # bf16: csrc/dense_wgmma.cu (one 384-thread CTA per SM); its stages are
+    # built at kq = 112 only
+    "wgmma": _Kernel("hpf_dense_wgmma_bf16", "hpf_dense_wgmma_probe_bf16",
+                     112, 128, 1, 8),
+    # f32: csrc/dense_simt.cu (one 256-thread CTA per SM, 224,256 bytes of
+    # shared memory at kq = 104); its stages at the 64-row moving tile
+    "f32": _Kernel("hpf_dense_simt_f32", "hpf_dense_simt_probe_f32", 104, 128,
+                   1, 8),
 }
 _CLAMP = 1e-30
+# (a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq, ldy, split_a, split_b
+# [, stage], stream)
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+_ARGTYPES = {
+    **{k.entry: _ARGS + [ctypes.c_void_p] for k in KERNELS.values()},
+    **{k.probe: _ARGS + [ctypes.c_int, ctypes.c_void_p]
+       for k in KERNELS.values()},
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """The library's C entry `name`, typed once per process."""
+    fn = getattr(build.load_library(), name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _pack(a_lin, b_lin, ba_lin, bb_lin, width=None, dtype=torch.float32):
@@ -90,17 +110,16 @@ def _unpack(acc_a, acc_b, k: int, bias: bool):
 
 def packed_width(kaug: int, kernel: str) -> int:
     """The zero-padded width kq of the packed rows `kernel` takes for
-    `kaug` values (K, plus 2 with bias). f32 and mma copy rows in 16-byte
-    chunks (multiples of 4 and 16 values; the f32 kernel loops over this
-    true width, 100 at K = 100); wgmma stages them as
+    `kaug` values (K, plus 2 with bias). f32 copies rows in 16-byte
+    chunks (multiples of 4 values; the kernel loops over this true width,
+    100 at K = 100); wgmma stages them as
     128-byte-swizzled k-blocks of 64 values (TMA zero-fills the rest of a
     last partial block) and is built for kq = 64, 112, 128 and 256
     (K = 100 takes 112, with or without bias)."""
     if kernel == "wgmma":
         kq = next((w for w in (64, 112, 128, 256) if kaug <= w), kaug)
     else:
-        quantum = 4 if kernel == "f32" else 16
-        kq = -(-kaug // quantum) * quantum
+        kq = -(-kaug // 4) * 4
     if kq > KP_MAX:
         raise ValueError(f"packed factor width {kq} > {KP_MAX}")
     return kq
@@ -194,14 +213,20 @@ def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
                  kernel: str, stage: Optional[int] = None):
     """Pack the factors, launch `kernel` (a key of KERNELS) on the card and
     return the raw packed outputs (f32 [N, kq], [M, kq]). An int `stage`
-    runs the mma kernel built for that stage of the stage probe
-    (ops/dense_probe.py). Inputs are checked by the caller; the wgmma
-    kernel's Y layout is checked here."""
+    (ops/dense_probe.py's STAGES) runs that kernel built for that stage of
+    the stage probe, on rows packed to the probe's width (wgmma: 112; f32:
+    at most 104). Inputs are checked by the caller; the wgmma kernel's Y
+    layout is checked here."""
     n, k = a_lin.shape
     m = b_lin.shape[0]
-    if stage is not None and kernel != "mma":
-        raise ValueError("the stage probe's stages are mma kernels")
+    spec = KERNELS[kernel]
     kq = packed_width(k + 2 if ba_lin is not None else k, kernel)
+    if stage is not None:
+        if kq > spec.probe_kq:
+            raise ValueError(f"the {kernel} probe's stages take packed rows "
+                             f"of at most {spec.probe_kq} values, not {kq}")
+        if kernel == "wgmma":
+            kq = spec.probe_kq      # its stages are built for this width
     if kernel == "wgmma":
         check_tma_layout(dense_y)
     a, b = _pack(a_lin, b_lin, ba_lin, bb_lin, kq,
@@ -217,13 +242,7 @@ def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
                           device=a.device) if split_a > 1 else None)
     part_b = (torch.empty((split_b, m, kq), dtype=torch.float32,
                           device=a.device) if split_b > 1 else None)
-    lib = build.load_library()
-    fn = getattr(lib, "hpf_dense_probe_bf16" if stage is not None
-                 else KERNELS[kernel].entry)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + (
-        [ctypes.c_int] if stage is not None else []) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _entry(spec.entry if stage is None else spec.probe)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(a.data_ptr(), b.data_ptr(), dense_y.data_ptr(),
@@ -244,13 +263,14 @@ fused_dense_sweep.launches = 0
 
 def hgmma_counts() -> Dict[int, int]:
     """Warpgroup tensor-core instructions (HGMMA) in the wgmma kernel's
-    machine code, by instantiation (packed width kq): a width whose count
-    is zero had its products folded away."""
+    machine code, by production instantiation (packed width kq; the stage
+    probe's other stages are not counted): a width whose count is zero had
+    its products folded away."""
     counts: Dict[int, int] = {}
     kq = None
     for line in build.sass().splitlines():
         if "Function :" in line:
-            hit = re.search(r"dense_wgmma_kernelILi(\d+)E", line)
+            hit = re.search(r"dense_wgmma_kernelILi(\d+)ELi0EE", line)
             kq = int(hit.group(1)) if hit else None
             if kq is not None:
                 counts[kq] = 0

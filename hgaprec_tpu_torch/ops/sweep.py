@@ -133,7 +133,11 @@ def sweep_segment(elog_a: torch.Tensor, elog_b: torch.Tensor,
     logits = nonzero_logits(elog_a, elog_b, elog_bias_a, elog_bias_b, u,
                             data.i_ids.long())
     lse = torch.logsumexp(logits, dim=1, keepdim=True)
-    phis = data.y[:, None] * torch.exp(logits - lse)  # y * phi; 0 on padding
+    # y * phi, and 0 on a padding entry (y = 0) even where its row's Elog
+    # is -inf (an MLE row of zeros: -inf - -inf is NaN), which a rank whose
+    # rows are all padding cannot avoid
+    y = data.y[:, None]
+    phis = torch.where(y > 0, y * torch.exp(logits - lse), 0.0)
     acc_a = logits.new_zeros((n, k)).index_add_(0, u, phis[:, :k])
     phis_i = phis[data.item_order.long()]
     i_sorted = data.i_ids_sorted.long()

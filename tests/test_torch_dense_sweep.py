@@ -117,7 +117,6 @@ def test_build_command_targets_sm90a_from_csrc(monkeypatch):
     (480189, 17770, "wgmma", (1, 2)),    # Netflix: long loops, item role halved
     (40, 30, "wgmma", (1, 1)),
     (962399, 4096, "wgmma", (1, 9)),     # EchoNest head: 32 item tiles
-    (6040, 3681, "mma", (4, 6)),         # the 64-row design: 732 CTAs
     (480189, 17770, "f32", (1, 2)),      # f32: 128-row tiles, as wgmma
     (6040, 3681, "f32", (4, 6)),
     (962399, 4096, "f32", (1, 9)),
@@ -142,7 +141,6 @@ def test_kernel_splits_fill_the_card(n, m, kernel, want):
     (13, "wgmma", 64),
     (64, "wgmma", 64),
     (200, "wgmma", 256),
-    (100, "mma", 112),
     (102, "f32", 104),
     (13, "f32", 16),
 ])
@@ -150,7 +148,7 @@ def test_packed_width_per_kernel(kaug, kernel, want):
     assert df.packed_width(kaug, kernel) == want
 
 
-@pytest.mark.parametrize("kernel", ["wgmma", "mma", "f32"])
+@pytest.mark.parametrize("kernel", ["wgmma", "f32"])
 def test_packed_width_rejects_wide_rows(kernel):
     with pytest.raises(ValueError):
         df.packed_width(257, kernel)
@@ -180,36 +178,90 @@ def test_wgmma_route_checks_y_before_building(monkeypatch):
 
 def test_f32_route_runs_the_simt_kernel():
     """`fused_dense_sweep(bf16=False)` launches the register-tiled kernel
-    of csrc/dense_simt.cu; csrc/dense_fused.cu keeps only the mma.sync
-    design and its probe."""
-    entry = df.KERNELS["f32"].entry
-    with open(f"{build.CSRC_DIR}/dense_simt.cu") as f:
-        assert f'extern "C" int {entry}(' in f.read()
-    with open(f"{build.CSRC_DIR}/dense_fused.cu") as f:
-        fused = f.read()
-    assert "hpf_dense_fused_sweep_f32" not in fused
-    assert "dense_fused_f32_kernel" not in fused
-    assert "hpf_dense_fused_sweep_bf16" in fused
+    of csrc/dense_simt.cu and bf16 the wgmma kernel of csrc/dense_wgmma.cu,
+    each source also holding its stage probe's entry; the mma.sync design
+    (csrc/dense_fused.cu) is gone."""
+    for kernel, src in (("f32", "dense_simt.cu"), ("wgmma", "dense_wgmma.cu")):
+        with open(f"{build.CSRC_DIR}/{src}") as f:
+            text = f.read()
+        for entry in (df.KERNELS[kernel].entry, df.KERNELS[kernel].probe):
+            assert f'extern "C" int {entry}(' in text
+    assert set(df.KERNELS) == {"wgmma", "f32"}
+    assert build.CSRC_DIR + "/dense_fused.cu" not in build.sources()
+    for src in build.sources() + build.headers():
+        with open(src) as f:
+            text = f.read()
+        for gone in ("hpf_dense_fused_sweep_bf16", "hpf_dense_probe_bf16",
+                     "mma.sync.aligned", "dense_fused.cu"):
+            assert gone not in text, (src, gone)
 
 
-def test_probe_stages_stay_on_the_mma_kernel():
-    a, b = torch.rand(6, 3), torch.rand(5, 3)
+def test_probe_stages_are_instantiations_of_the_production_kernels():
+    """Each kernel takes the stage as a template parameter whose default
+    is the production stage, and each probe entry launches that kernel
+    (no copy of it); the stage enum is the one of ops/dense_probe.py."""
+    from hgaprec_tpu_torch.ops import dense_probe as dp
+    with open(f"{build.CSRC_DIR}/dense_roles.cuh") as f:
+        roles = f.read()
+    for name, value in dp.STAGES.items():
+        const = "k" + {"prod": "Prod", "bf16recip": "Bf16Recip",
+                       "norecip": "NoRecip", "noyload": "NoYLoad",
+                       "mmonly": "MmOnly"}[name]
+        assert f"{const} = {value}" in roles
+    for src, kernel in (("dense_wgmma.cu", "dense_wgmma_kernel"),
+                        ("dense_simt.cu", "dense_simt_f32_kernel")):
+        with open(f"{build.CSRC_DIR}/{src}") as f:
+            text = f.read()
+        assert text.count("__global__") == 1
+        assert f"int kStage = kProd>\n__global__ void __launch_bounds__" \
+            in text
+        assert f"auto kernel = {kernel}<" in text
+    # a stage on a row wider than the probe's instantiations is refused
+    a, b = torch.rand(6, 120), torch.rand(5, 120)
     y = torch.zeros(6, 16, dtype=torch.uint8)[:, :5]
-    with pytest.raises(ValueError, match="mma"):
+    with pytest.raises(ValueError, match="probe"):
         df.launch_dense(a, b, y, kernel="wgmma", stage=0)
 
 
+def test_entries_are_typed_once(monkeypatch):
+    """Each C entry of the dense kernels, production and probe, gets its
+    argument types when first used, not per call."""
+    loads = []
+
+    class Lib:
+        pass
+
+    for name in df._ARGTYPES:
+        setattr(Lib, name, type("Fn", (), {})())
+    monkeypatch.setattr(build, "load_library",
+                        lambda: loads.append(1) or Lib)
+    df._entry.cache_clear()
+    try:
+        assert set(df._ARGTYPES) == {e for k in df.KERNELS.values()
+                                     for e in (k.entry, k.probe)}
+        for name, types in df._ARGTYPES.items():
+            assert df._entry(name) is df._entry(name)
+            assert df._entry(name).argtypes == types
+            assert len(types) == 14 + (name.endswith(("probe_bf16",
+                                                      "probe_f32")))
+        assert len(loads) == len(df._ARGTYPES)
+    finally:
+        df._entry.cache_clear()
+
+
 def test_hgmma_counts_per_instantiation(monkeypatch):
-    """Each packed width's kernel is counted on its own, so a width whose
-    products were folded away shows zero; other kernels do not count."""
+    """Each packed width's production kernel is counted on its own, so a
+    width whose products were folded away shows zero; the probe's other
+    stages and other kernels do not count."""
     sass = "\n".join([
-        "Function : _Z18dense_wgmma_kernelILi112EEv14CUtensorMap_st",
+        "Function : _Z18dense_wgmma_kernelILi112ELi0EEv14CUtensorMap_st",
         "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
         "  HGMMA.64x112x16.F32.BF16 R88, R8, gdesc[UR8], R88 ;",
-        "Function : _Z18dense_wgmma_kernelILi128EEv14CUtensorMap_st",
+        "Function : _Z18dense_wgmma_kernelILi128ELi0EEv14CUtensorMap_st",
         "  FFMA R1, R2, R3, R4 ;",
-        "Function : _Z22dense_fused_bf16_kernelILi128ELi0EEvPKv",
-        "  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+        "Function : _Z18dense_wgmma_kernelILi112ELi4EEv14CUtensorMap_st",
+        "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "Function : _Z21dense_simt_f32_kernelILi64ELi0EEvPKf",
         "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;"])
     monkeypatch.setattr(build, "sass", lambda: sass)
     assert df.hgmma_counts() == {112: 2, 128: 0}

@@ -13,6 +13,9 @@ tests/test_sharded_hybrid.py made from the same seed:
     (tests/test_torch_hybrid.py:39): three variants, ragged shards and
     multi_step;
   * uneven rows masked, worlds of 2 and 3;
+  * a rank whose whole row block is padding (4 users on 3 ranks) under
+    MLE-user on the `segment` sweep: finite, and the single-device run's
+    state at the sharded bound (rtol 1e-4, atol 1e-7);
   * the item-sharded top-k against the port's streamed top-k (also at
     world size 1) and the JAX sharded top-k;
   * a report of the Trainer's sharded loop issues the same collectives,
@@ -50,6 +53,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 STEP = dict(rtol=2e-4, atol=1e-6)
 HYBRID = dict(rtol=2e-4, atol=1e-5)
+SHARD = dict(rtol=1e-4, atol=1e-7)       # chip_smoke.py's SHARD_TOL
 
 STEP_CASES = [("bpf", {}, True), ("bpf", {"bias": True}, False),
               ("hpf", {}, True), ("hpf", {}, False),
@@ -89,6 +93,7 @@ STORES = {
     "streamed": lambda: make_synthetic(_rng(), n=37, m=61, density=0.25),
     "bias_k_over_shard": lambda: make_synthetic(_rng(), n=19, m=17,
                                                 density=0.3),
+    "pad4": lambda: make_synthetic(_rng(), n=4, m=15, density=0.8),
 }
 
 
@@ -145,6 +150,9 @@ def _tasks():
                       cfg=dict(variant="hpf", **HYBRID_CFG)))
     tasks.append(dict(kind="step", name="uneven", store="s41", seed=5,
                       steps=2, cfg=dict(k=3, variant="hpf")))
+    tasks.append(dict(kind="step", name="padrank", store="pad4", seed=5,
+                      steps=3, cfg=dict(k=3, variant="mle_user",
+                                        sweep="segment")))
     for name, c in TOPK_CASES.items():
         tasks.append(dict(kind="topk", name=f"topk-{name}", k=c["k"]))
     _, validation, test = STORES["s53"]()
@@ -210,7 +218,7 @@ def worlds(tmp_path_factory):
     dirs = {2: str(base / "w2"), 3: str(base / "w3")}
     procs = {2: _spawn(dirs[2], 2, _tasks()),
              3: _spawn(dirs[3], 3, [t for t in _tasks()
-                                    if t["name"] == "uneven"])}
+                                    if t["name"] in ("uneven", "padrank")])}
     for world in (2, 3):
         _wait(procs[world], timeout=300)
     return dirs
@@ -332,6 +340,26 @@ def test_uneven_rows_masked(worlds, world):
         np.testing.assert_allclose(got[key], _jax_leaf(single, family, "e"),
                                    **STEP, err_msg=key)
         assert got[key].shape == _jax_leaf(single, family, "e").shape
+
+
+def test_all_padding_rank_stays_finite(worlds):
+    """4 users over 3 ranks: the third rank's two rows are both padding,
+    so no real row of its own can carry its COO padding entries. Under
+    MLE-user theta_mle is 0 on padding rows (Elog -inf), and the segment
+    sweep's log-softmax must still give those entries a zero share: the
+    gathered state is finite and the single-device run's."""
+    store = STORES["pad4"]()[0]
+    assert store.n == 4
+    cfg = JCfg(n=store.n, m=store.m, k=3, variant="mle_user",
+               sweep="segment")
+    single = _jax_single(store, cfg, 3, 5)
+    got = _result(worlds, "padrank", world=3)
+    assert int(got["n_local"]) * 2 >= store.n        # rank 2: padding only
+    assert not bool(got["layout"][0])                 # the segment layout
+    for key, family, part in _fields("mle_user", False):
+        assert np.isfinite(got[key]).all(), key
+        np.testing.assert_allclose(got[key], _jax_leaf(single, family, part),
+                                   **SHARD, err_msg=key)
 
 
 def _same_up_to_ties(ids, ref_ids, ref_vals):
