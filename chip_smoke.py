@@ -22,17 +22,22 @@ the device's busy share and longest kernels read from the trace), with
 `-sweep segment-chunked -logl` (kernel #4 counted), and runs each mode on
 the trained model (-rmse, -gen-ranking, -msr, -resume, the model read
 back from its TSVs, -test, -nmf). The sharded run (parallel/) follows:
-A, the command line's `-devices 2`, clamped to this card's world of one
-(NCCL, in-process) and held to the single-device CLI run; B, the same
+A, the command line's `-devices 2 -logl`, clamped to this card's world of
+one (NCCL, in-process) and held to the single-device CLI run, training
+ELBO included; B, the same
 data through `build_sharded_run` over a world of one in both precisions,
 held to the single-device Trainer, with its step time, the all-reduce's
 device time per step and a report's gathers; C, two ranks sharing the
 card over gloo (NCCL refuses two ranks on one device; a test harness,
 not a product path) on a small hybrid store at "highest" and in bf16 and
 a segment run, each rank launching kernels #1, #2 and #4, the gathered
-state held to the single-device Trainer. The f32 kernel must beat its plain
-version at Netflix shape and on the EchoNest head, and the step at "highest" is timed at
-ML-1M and EchoNest. Then the big-sparse hybrid path: the tail kernel
+state held to the single-device Trainer. The f32 route's kernel
+(`dense_split_kernel`, f32-accurate products from three bf16 pieces on
+the tensor cores) must beat `csrc/dense_simt.cu`, run on the same inputs
+as its yardstick, and the plain version at Netflix shape and on the
+EchoNest head, and be no further from f64 sums than dense_simt.cu; the bf16
+route's machine code must be the recorded one; the step at "highest" is
+timed at ML-1M and EchoNest. Then the big-sparse hybrid path: the tail kernel
 against its plain version on adversarial layouts and on the EchoNest
 tail (where its f32 route, the CSR sweep's two passes, must take less
 than 1.5x its bf16 route's time), HPF K=100 at the
@@ -43,7 +48,7 @@ through the Trainer with `sweep="segment-chunked"` and the training ELBO
 (every nonzero through the CSR kernel, no head block, no tail), and five
 small segment runs (HPF + ELBO, BPF + bias, MLE user, MLE item, Canny) on
 the card against the CPU. The dense kernels' stage probe (every stage of
-the bf16 and the f32 route) is held to its plain versions at ML-1M and
+the bf16 and the f32 route, both wgmma kernels) is held to its plain versions at ML-1M and
 Netflix shape and timed at Netflix shape beside the floor of each stage's
 work, the f32 stages again on the trained EchoNest head. Prints one line
 per phase, a JSON line with each kernel's
@@ -73,6 +78,34 @@ CPU_REL = 1e-4
 # one H100 SXM (NVIDIA's data sheet, dense rates): HBM bytes/s, bf16
 # tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+# bf16 products per f32-accurate product on the tensor cores: three bf16
+# pieces a factor (dense_split_kernel; 3 TF32 products at 495 TFLOP/s give
+# the same 165 TFLOP/s of f32-accurate multiply-adds)
+SPLIT_PRODUCTS = 6
+# the bf16 route's machine code (cuobjdump -sass: each instantiation's
+# instructions and encodings, whitespace collapsed, sha256) as this
+# toolkit built it before the f32 route's split kernel joined it in
+# csrc/dense_wgmma.cu: it must not change
+BF16_SASS = dict(
+    nvcc="Build cuda_12.9.r12.9/compiler.36037853_0",
+    digests={
+        "dense_wgmma_kernelILi112ELi0EE":
+            "90637d087093eb07afb0fc894da64f4dbe384123507b42614a47ab902f5c6be6",
+        "dense_wgmma_kernelILi112ELi1EE":
+            "bffa09de76ed323b020b73d299fb18ea442124b18377d54881c8236ec4f5ffdd",
+        "dense_wgmma_kernelILi112ELi2EE":
+            "08e4a44a56fe9b91cae0081e24b141753f9edcddcc426f32833d964b81bcf129",
+        "dense_wgmma_kernelILi112ELi3EE":
+            "c986776dfe677935ec89933724a9f6e9042b245b5928c6bc71d8532979b7b661",
+        "dense_wgmma_kernelILi112ELi4EE":
+            "3c4658da4722d6ea2a56d8294c22d9afbed6d69039e159d0f9ef6440a54ee0b6",
+        "dense_wgmma_kernelILi128ELi0EE":
+            "00d3066942d18cf05a7318d5fd8fcab6233ef4db5b1ff8b9425bfaa93bc9914f",
+        "dense_wgmma_kernelILi256ELi0EE":
+            "2b978849b993b390ae53db9728c411939b939bb762d06a2b65751612633be285",
+        "dense_wgmma_kernelILi64ELi0EE":
+            "8acccb9b9ccc72848d28a7574d8b7d729c68dc144569631c99878f14bac67600",
+    })
 TAIL_F32_TOL = dict(rtol=2e-5, atol=1e-6)   # tests/test_pallas_tail.py:62-63
 SEG_TOL = dict(rtol=2e-4, atol=1e-5)        # tests/test_sweep.py:62-65
 N_EN, M_EN = 1019318, 384546           # EchoNest preset (run.pl:84-87)
@@ -150,21 +183,66 @@ def dense_bound(n, m, kaug, peak=BF16_FLOPS):
 
 
 def dense_bound_f32(n, m, kaug):
-    """The f32 dense sweep's bound: the same bytes and FLOPs at the FP32
-    rate outside the tensor cores."""
-    return dense_bound(n, m, kaug, F32_FLOPS)
+    """The f32 dense sweep's bound, whatever kernel computes it: the same
+    bytes, and 6 N M K f32-accurate multiply-adds at the card's fastest
+    f32-accurate rate, the tensor cores' 989 / 6 = 165 TFLOP/s (six bf16
+    products of three pieces; three TF32 ones at 495 give the same). The
+    FP32 pipes' 67 TFLOP/s is no bound of the function: dense_simt.cu is
+    held to this one too."""
+    return dense_bound(n, m, kaug, BF16_FLOPS / SPLIT_PRODUCTS)
 
 
 def tflops(n, m, k, ms, kernel="wgmma"):
-    """A dense route's rate on the function's three products at width K
+    """A dense kernel's rate on the function's three products at width K
     (K + 2 with bias), and the rate it issues: four products (both roles
     form S) at the kernel's packed width kq (zero-padded to 112 on the
-    tensor cores, 100 at K = 100 in f32)."""
+    tensor cores, 100 at K = 100 on dense_simt.cu), six bf16 products each
+    on the split kernel ("f32")."""
     from hgaprec_tpu_torch.ops.dense_fused import packed_width
     kq = packed_width(k, kernel)
+    issued = 8 * n * m * kq * (SPLIT_PRODUCTS if kernel == "f32" else 1)
     return (f"{6 * n * m * k / ms / 1e9:.1f} TFLOP/s of 6 N M K, "
-            f"{8 * n * m * kq / ms / 1e9:.1f} issued as 8 N M kq at "
+            f"{issued / ms / 1e9:.1f} issued as 8 N M kq"
+            f"{' x 6 bf16 products' if kernel == 'f32' else ''} at "
             f"kq = {kq}")
+
+
+def sass_digests(sass, pattern=r"dense_wgmma_kernelILi\d+ELi\d+EE"):
+    """{instantiation: sha256 of its machine code} for the functions of a
+    cuobjdump -sass listing whose name matches `pattern`: every instruction
+    and encoding line, whitespace collapsed (cuobjdump pads its columns to
+    the longest name in the file)."""
+    import hashlib
+    import re
+    out, cur, body = {}, None, []
+    for line in sass.splitlines() + ["Function : end"]:
+        if "Function :" in line:
+            if cur:
+                out[cur] = hashlib.sha256("\n".join(body).encode()).hexdigest()
+            hit = re.search(pattern, line)
+            cur, body = (hit.group(0) if hit else None), []
+        elif cur and "/*" in line:
+            body.append(" ".join(line.split()))
+    return out
+
+
+def f64_rel_err(got, lin, y):
+    """Largest relative distance of each output of `got` (raw_a, raw_b of
+    the factors `lin`, no bias) to the exact sums, in f64."""
+    exact = f64_stage_sums(lin, y, "prod")
+    err = max(((g.double() - e).abs() / e.abs().clamp_min(1e-300)).max()
+              .item() for g, e in zip(got, exact))
+    del exact
+    return err
+
+
+def simt_sweep(df, lin, y):
+    """dense_simt.cu on these inputs (the f32 route above kq = 128; here
+    the yardstick of the split kernel at any width): raw outputs at K."""
+    k = lin[0].shape[1]
+    bias = len(lin) == 4
+    return df._unpack(*df.launch_dense(*lin[:2], y, *lin[2:], kernel="simt"),
+                      k, bias)
 
 
 def random_inputs(gen, n, m, k, rows, bias, density):
@@ -201,67 +279,111 @@ def compare(got, ref, bf16):
 
 
 def phase_kernel(df, gen):
-    """Kernel against its plain version at a ragged and the ML-1M shape.
-    The bf16 route (csrc/dense_wgmma.cu) reads an aligned Y with ragged N
-    and M and is timed beside its bound; its two launches must be bitwise
-    equal. The f32 route also reads the ragged Y unaligned (contiguous rows
-    of M bytes) and is printed beside its own bound (dense_bound_f32)."""
+    """Each dense kernel against its plain version at a ragged and the
+    ML-1M shape, two launches bitwise equal, each beside its bound: the
+    bf16 route (dense_wgmma_kernel), the f32 route at kq <= 128
+    (dense_split_kernel) and dense_simt.cu on the same inputs, its
+    yardstick. On the ragged shape an unaligned Y (contiguous rows of M
+    bytes) must raise ValueError on the f32 route at kq <= 128, and above
+    kq = 128 (K = 130, zero-padded factors) the route takes dense_simt.cu,
+    which reads it. Returns the bf16 and the f32 route's ML-1M figures."""
     main = f32 = None
     for n, m, k, rows in ((1000, 777, 13, 1024), (N_ML, M_ML, K, 6144)):
         for bias in (False, True):
             lin, y, _ = random_inputs(gen, n, m, k, rows, bias, 0.045)
             ref32 = df.fused_dense_sweep_reference(*lin[:2], y, *lin[2:])
-            for bf16 in (False, True):
-                yy = y if bf16 or n == N_ML else y.contiguous()
-                got = df.fused_dense_sweep(*lin[:2], yy, *lin[2:], bf16=bf16)
-                again = df.fused_dense_sweep(*lin[:2], yy, *lin[2:],
-                                             bf16=bf16)
+            kaug = k + 2 if bias else k
+            simt_ms = None
+            for kernel in ("f32", "simt", "wgmma"):
+                bf16 = kernel == "wgmma"
+                if kernel == "simt":
+                    def call():
+                        return simt_sweep(df, lin, y)
+                else:
+                    def call():
+                        return df.fused_dense_sweep(*lin[:2], y, *lin[2:],
+                                                    bf16=bf16)
+                got, again = call(), call()
                 torch.cuda.synchronize()
                 err, ok = compare(got, ref32, bf16)
                 same = all(torch.equal(a, b) for a, b in zip(got, again))
-                like = df.fused_dense_sweep_reference(*lin[:2], yy, *lin[2:],
+                like = df.fused_dense_sweep_reference(*lin[:2], y, *lin[2:],
                                                       bf16=bf16)
                 err_like = compare(got, like, bf16)[0]
-                ms = median_ms(lambda: df.fused_dense_sweep(
-                    *lin[:2], yy, *lin[2:], bf16=bf16), 20)
+                ms = median_ms(call, 20)
                 plain_ms = median_ms(lambda: df.fused_dense_sweep_reference(
-                    *lin[:2], yy, *lin[2:], bf16=bf16), 20)
-                line = (f"kernel {n}x{m}x{k} rows={rows} ldy={yy.stride(0)} "
-                        f"bias={bias} bf16={bf16}: max_abs_err vs f32 plain "
-                        f"{err:.3e} (vs plain in the same mode "
-                        f"{err_like:.3e}), two launches bitwise "
-                        f"{'equal' if same else 'DIFFERENT'} "
-                        f"{'ok' if ok and same else 'FAIL'}; kernel "
-                        f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20)")
-                kaug = k + 2 if bias else k
-                if not bf16:
-                    bound_ms, bound_by = dense_bound_f32(n, m, kaug)
-                    line += (f"; {tflops(n, m, kaug, ms, 'f32')}; bound "
-                             f"{bound_ms:.4f} ms ({bound_by}), kernel at "
-                             f"{ms / bound_ms:.2f}x it")
-                    if (n, bias) == (N_ML, False):
-                        f32 = dict(ms_f32_ml1m=ms, plain_ms_f32_ml1m=plain_ms,
-                                   bound_ms_f32_ml1m=bound_ms)
-                else:
-                    bound_ms, bound_by = dense_bound(n, m, kaug)
-                    line += f"; bound {bound_ms:.4f} ms ({bound_by})"
-                say(line)
+                    *lin[:2], y, *lin[2:], bf16=bf16), 20)
+                bound_ms, bound_by = (dense_bound(n, m, kaug) if bf16 else
+                                      dense_bound_f32(n, m, kaug))
+                say(f"kernel {n}x{m}x{k} rows={rows} ldy={y.stride(0)} "
+                    f"bias={bias} {kernel}: max_abs_err vs f32 plain "
+                    f"{err:.3e} (vs plain in the same mode {err_like:.3e}), "
+                    f"two launches bitwise "
+                    f"{'equal' if same else 'DIFFERENT'} "
+                    f"{'ok' if ok and same else 'FAIL'}; kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms (median of 20); "
+                    f"{tflops(n, m, kaug, ms, kernel)}; bound "
+                    f"{bound_ms:.4f} ms ({bound_by}), kernel at "
+                    f"{ms / bound_ms:.2f}x it")
                 if not (ok and same):
-                    raise SystemExit(f"kernel disagrees with its plain "
-                                     f"version or itself at {n}x{m}x{k}")
-                if (n, bias, bf16) == (N_ML, False, True):
-                    # the main path's configuration: HPF, no bias, bf16
-                    main = dict(max_abs_err=err_like, ms=ms,
-                                plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by, library_ms=None)
+                    raise SystemExit(f"the {kernel} kernel disagrees with its "
+                                     f"plain version or itself at "
+                                     f"{n}x{m}x{k}")
+                figures = dict(max_abs_err=err_like, ms=ms,
+                               plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=None)
+                if kernel == "simt":
+                    simt_ms = ms
+                if (n, bias) == (N_ML, False):
+                    # the main path's configuration: HPF, no bias
+                    if bf16:
+                        main = figures
+                    elif kernel == "f32":
+                        f32 = figures
+            if (n, bias) == (N_ML, False):
+                f32["simt_ms"] = simt_ms
+            if n != N_ML and not bias:
+                check_unaligned_y(df, lin, y, ref32)
             del lin, y, ref32
     return main, f32
 
 
+def check_unaligned_y(df, lin, y, ref32):
+    """An unaligned Y raises ValueError on the f32 route at kq <= 128 (its
+    kernel loads Y by TMA); with the factors zero-padded to K = 130 the
+    route takes dense_simt.cu, which reads the same Y byte by byte, and
+    the first K columns are the unpadded sums."""
+    k = lin[0].shape[1]
+    yu = y.contiguous()                # rows of M bytes
+    try:
+        df.fused_dense_sweep(*lin[:2], yu)
+        raised = False
+    except ValueError:
+        raised = True
+    wide = [torch.nn.functional.pad(x, (0, 130 - k)) for x in lin[:2]]
+    before = dict(df.fused_dense_sweep.launches_by_kernel)
+    got = df.fused_dense_sweep(*wide, yu)
+    torch.cuda.synchronize()
+    took = {kn: df.fused_dense_sweep.launches_by_kernel[kn] - before[kn]
+            for kn in before}
+    ok = raised and took == {"wgmma": 0, "f32": 0, "simt": 1} and all(
+        torch.allclose(g[:, :k], r, **F32_TOL) for g, r in zip(got, ref32))
+    say(f"kernel unaligned Y (row stride {yu.stride(0)} bytes): the f32 route "
+        f"at kq = {df.packed_width(k, 'f32')} "
+        f"{'raises ValueError' if raised else 'DID NOT RAISE'}; at K = 130 "
+        f"it launched {took} and matches the plain version "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the f32 route's width rule or its Y check failed")
+
+
 def phase_netflix(df, gen):
-    """One sweep at Netflix shape in both modes against the plain version,
-    then the stage probe of both routes on the same Y; the f32 route must be
-    faster than its plain version."""
+    """One sweep at Netflix shape with each dense kernel against the plain
+    version and its bound (the f32 route's split kernel, dense_simt.cu on
+    the same inputs, the bf16 route), the f32 kernels' distance to f64
+    sums on a slice of the Y, then the stage probe of both routes on the
+    same Y. The split kernel must be faster than dense_simt.cu and the
+    plain version, and no further from f64 than dense_simt.cu."""
     rows = -(-N_NF // 512) * 512
     t0 = time.perf_counter()
     lin, y, nnz = random_inputs(gen, N_NF, M_NF, K, rows, False, 0.01)
@@ -270,22 +392,34 @@ def phase_netflix(df, gen):
         f"{nnz:,} nonzeros) made on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     kernel_ms = {}
-    for bf16 in (False, True):
-        got = df.fused_dense_sweep(*lin, y, bf16=bf16)
-        ref = df.fused_dense_sweep_reference(*lin, y)
+    ref = df.fused_dense_sweep_reference(*lin, y)
+    for kernel in ("f32", "simt", "wgmma"):
+        bf16 = kernel == "wgmma"
+        if kernel == "simt":
+            def call():
+                return simt_sweep(df, lin, y)
+        else:
+            def call():
+                return df.fused_dense_sweep(*lin, y, bf16=bf16)
+        got = call()
         torch.cuda.synchronize()
         err, ok = compare(got, ref, bf16)
-        ms = median_ms(lambda: df.fused_dense_sweep(*lin, y, bf16=bf16), 3)
-        plain_ms = median_ms(
-            lambda: df.fused_dense_sweep_reference(*lin, y, bf16=bf16), 3)
-        say(f"netflix {N_NF}x{M_NF}x{K} bf16={bf16}: all rows of acc_a and "
+        del got
+        ms = median_ms(call, 3)
+        plain_ms = (kernel_ms["f32"][1] if kernel == "simt" else median_ms(
+            lambda: df.fused_dense_sweep_reference(*lin, y, bf16=bf16), 3))
+        bound_ms, bound_by = (dense_bound(N_NF, M_NF, K) if bf16 else
+                              dense_bound_f32(N_NF, M_NF, K))
+        say(f"netflix {N_NF}x{M_NF}x{K} {kernel}: all rows of acc_a and "
             f"acc_b vs f32 plain max_abs_err {err:.3e} "
             f"{'ok' if ok else 'FAIL'}; kernel {ms:.2f} ms, plain "
-            f"{plain_ms:.2f} ms (median of 3)")
+            f"{plain_ms:.2f} ms (median of 3); "
+            f"{tflops(N_NF, M_NF, K, ms, kernel)}; bound {bound_ms:.2f} ms "
+            f"({bound_by}), kernel at {ms / bound_ms:.2f}x it")
         if not ok:
             raise SystemExit("netflix-shape sweep disagrees with plain")
-        kernel_ms[bf16] = ms, plain_ms
-        del got, ref
+        kernel_ms[kernel] = ms, plain_ms, bound_ms
+    del ref
     # the kq = 128 instantiation at full width: the factors zero-padded to
     # K = 128 give bitwise the same sums in the first K columns
     lin128 = [torch.nn.functional.pad(x, (0, 128 - K)) for x in lin]
@@ -300,54 +434,61 @@ def phase_netflix(df, gen):
         raise SystemExit("the kq = 128 instantiation disagrees with the "
                          "main path's width on zero-padded factors")
     del got, got128, lin128
-    # the f32 route ("highest", the default precision) against its bound
-    # and the plain version it must beat
-    f32_ms, f32_plain_ms = kernel_ms[False]
-    f32_bound_ms, f32_bound_by = dense_bound_f32(N_NF, M_NF, K)
-    faster = f32_ms < f32_plain_ms
-    say(f"netflix f32: kernel {f32_ms:.2f} ms "
-        f"({tflops(N_NF, M_NF, K, f32_ms, 'f32')}); plain "
-        f"{f32_plain_ms:.2f} ms; bound {f32_bound_ms:.2f} ms "
-        f"({f32_bound_by}), kernel at {f32_ms / f32_bound_ms:.2f}x it "
-        f"{'ok' if faster else 'FAIL'}")
-    if not faster:
-        raise SystemExit("the f32 kernel is slower than its plain version at "
-                         "Netflix shape")
-    ms = kernel_ms[True][0]
-    bound_ms, bound_by = dense_bound(N_NF, M_NF, K)
-    say(f"netflix bf16: wgmma kernel {ms:.2f} ms "
-        f"({tflops(N_NF, M_NF, K, ms)}); bound {bound_ms:.2f} ms "
-        f"({bound_by}), kernel at {ms / bound_ms:.2f}x it")
+    # the f32 route ("highest", the default precision): faster than the
+    # kernel it replaces and than the plain version, and no less accurate
+    # on a slice of the users (f64 sums of the same inputs)
+    sl = [lin[0][:65536].contiguous(), lin[1]]
+    ys = y[:65536]
+    rel = {"f32": f64_rel_err(df.fused_dense_sweep(*sl, ys), sl, ys),
+           "simt": f64_rel_err(simt_sweep(df, sl, ys), sl, ys),
+           "plain": f64_rel_err(df.fused_dense_sweep_reference(*sl, ys), sl,
+                                ys)}
+    split_ms, simt_ms = kernel_ms["f32"][0], kernel_ms["simt"][0]
+    ok = (split_ms < simt_ms and split_ms < kernel_ms["f32"][1] and
+          rel["f32"] <= rel["simt"])
+    say(f"netflix f32 route: split kernel {split_ms:.2f} ms, dense_simt.cu "
+        f"{simt_ms:.2f} ms ({simt_ms / split_ms:.2f}x), plain "
+        f"{kernel_ms['f32'][1]:.2f} ms, bound {kernel_ms['f32'][2]:.2f} ms; "
+        f"relative to f64 sums on the first 65,536 users: split "
+        f"{rel['f32']:.3e}, dense_simt.cu {rel['simt']:.3e}, plain "
+        f"{rel['plain']:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the f32 route's split kernel is slower than "
+                         "dense_simt.cu or the plain version at Netflix "
+                         "shape, or further from f64 than dense_simt.cu")
     probe = phase_probe(df, gen, lin, y)
     del lin, y
     torch.cuda.empty_cache()
-    return probe, dict(ms_netflix=ms, bound_ms_netflix=bound_ms,
-                       ms_f32_netflix=f32_ms,
-                       plain_ms_f32_netflix=f32_plain_ms,
-                       bound_ms_f32_netflix=f32_bound_ms)
+    return probe, dict(ms_netflix=kernel_ms["wgmma"][0],
+                       bound_ms_netflix=kernel_ms["wgmma"][2],
+                       plain_ms_netflix=kernel_ms["wgmma"][1]), dict(
+        ms_netflix=split_ms, plain_ms_netflix=kernel_ms["f32"][1],
+        bound_ms_netflix=kernel_ms["f32"][2], simt_ms_netflix=simt_ms,
+        f64_rel_err_netflix_slice=rel)
 
 
-# the packed widths each route's probe stages run at K = 100
-PROBE_KQ = {"wgmma": 112, "f32": 100}
+# the packed width both routes' probe stages run at, K <= 110
+PROBE_KQ = 112
 # static instruction classes of the stages' machine code (dp.sass_counts):
-# the bf16 route's S products (m64n64k16) and contraction (m64n112k16), the
-# f32 route's FMAs and its contraction's Z pair loads (LDS.64, which only
-# the contraction issues), Y's reads from shared memory and the copies
-# into it (TMA on the bf16 route, cp.async on the f32 route)
-SASS_OPS = ("HGMMA.64x64x16", "HGMMA.64x112x16", "FFMA", "LDS.64",
-            "LDS.U8", "LDS.U16", "UTMALDG", "LDGSTS")
+# the S products (m64n64k16, both routes; the split kernel's contraction
+# issues them too), the contraction's other products (bf16 m64n112k16,
+# split m64n48k16), Y's reads from shared memory and the TMA copies
+SASS_OPS = ("HGMMA.64x64x16", "HGMMA.64x112x16", "HGMMA.64x48x16",
+            "LDS.U8", "LDS.U16", "UTMALDG")
 
 
 def stage_floor(n, m, stage, bf16):
     """(floor ms, bound_by) of the work one probe stage issues: its
     products as issued (8 N M kq, both roles forming S; 4 N M kq for
-    mmonly, S only) at the route's peak, against the bytes it moves (Y's
-    two reads where it reads Y, the factors once, the outputs once)."""
-    kq = PROBE_KQ["wgmma" if bf16 else "f32"]
-    flops = (4 if stage == "mmonly" else 8) * n * m * kq
+    mmonly, S only; six bf16 products each on the f32 route) at 989
+    TFLOP/s, against the bytes it moves (Y's two reads where it reads Y,
+    the factors once, bf16 or their three bf16 pieces, the outputs
+    once)."""
+    flops = (4 if stage == "mmonly" else 8) * n * m * PROBE_KQ * (
+        1 if bf16 else SPLIT_PRODUCTS)
     y_bytes = 2 * n * m if stage in ("prod", "bf16recip", "norecip") else 0
-    nbytes = y_bytes + (n + m) * kq * ((2 if bf16 else 4) + 4)
-    return bound(nbytes, flops, BF16_FLOPS if bf16 else F32_FLOPS)
+    nbytes = y_bytes + (n + m) * PROBE_KQ * (2 * (1 if bf16 else 3) + 4)
+    return bound(nbytes, flops, BF16_FLOPS)
 
 
 def timed_once(fn):
@@ -380,17 +521,19 @@ def f64_stage_sums(lin, y, stage):
 
 
 def summation_bound(df, n, m):
-    """gamma_n = n u / (1 - n u) for the longest f32 sum a kernel thread
-    runs on the f32 route at [n, m] (its moving chunk of 64-row tiles,
-    both roles, plus S's kq = 100 terms and the fixed-order sum of the
-    split partials), u = 2^-24: with W, A and B nonnegative every such sum
-    lies within gamma_n of the exact one, relative."""
+    """gamma_n = n u / (1 - n u), u = 2^-24, for the longest chain of f32
+    additions behind one output of the f32 route's split kernel at [n, m]:
+    the sums of its moving chunk's 64-row tiles (both roles), a tile's
+    partial and S summed by the tensor cores (counted twice, 2 x 64 and
+    2 x kq, for their truncating adder), and the fixed-order sum of the
+    split partials. With W, A and B nonnegative every such sum lies within
+    gamma_n of the exact one, relative."""
     split_a, split_b = df.splits_for(
         n, m, torch.cuda.get_device_properties(0).multi_processor_count,
         "f32")
-    chunk = max(-(-(-(-nz // 64)) // split) * 64
+    tiles = max(-(-(-(-nz // 64)) // split)
                 for nz, split in ((m, split_a), (n, split_b)))
-    terms = chunk + PROBE_KQ["f32"] + max(split_a, split_b)
+    terms = tiles + 2 * (64 + PROBE_KQ) + max(split_a, split_b)
     return terms * 2.0 ** -24 / (1 - terms * 2.0 ** -24)
 
 
@@ -441,11 +584,12 @@ def check_probe_sass(dp):
     """Each stage kept its products and dropped what it removes, read from
     the machine code (static counts, not instructions executed): mmonly
     keeps the S products and has no contraction (bf16: no m64n112k16
-    product; f32: no Z pair load, LDS.64); noyload and mmonly read no Y
-    from shared memory and copy less into it than norecip. S and the
+    product; f32: no m64n48k16 chunk); noyload and mmonly read no Y from
+    shared memory and copy less into it than norecip. S and the
     contraction issue the same products per tile (bf16: 7 m64n64k16 =
-    4 m64n112k16 in multiply-adds; f32: the two halves issue equal FMAs),
-    so mmonly issues half of prod's products."""
+    4 m64n112k16 in multiply-adds; f32: six times 7 m64n64k16 = six times
+    4 (m64n64k16 + m64n48k16)), so mmonly issues half of prod's
+    products."""
     counts = dp.sass_counts(SASS_OPS)
     say(f"probe: static instruction counts per stage {json.dumps(counts)}")
     bad = []
@@ -454,9 +598,9 @@ def check_probe_sass(dp):
         if sorted(got) != sorted(stages):
             raise SystemExit(f"probe: {route} stages in the machine code "
                              f"{sorted(got)}, expected {sorted(stages)}")
-        s_op, c_op, copy_op = (("HGMMA.64x64x16", "HGMMA.64x112x16",
-                                "UTMALDG") if route == "wgmma" else
-                               ("FFMA", "LDS.64", "LDGSTS"))
+        s_op, c_op, copy_op = ("HGMMA.64x64x16", "HGMMA.64x112x16"
+                               if route == "wgmma" else "HGMMA.64x48x16",
+                               "UTMALDG")
         for s in stages:
             c = got[s]
             y_reads = c["LDS.U8"] + c["LDS.U16"]
@@ -470,18 +614,21 @@ def check_probe_sass(dp):
                     c[copy_op] >= got["norecip"][copy_op]:
                 bad.append(f"{route} {s}: {c[copy_op]} {copy_op}, not "
                            f"fewer than norecip's")
-    # the counts are static (the loop is peeled and unrolled differently per
-    # stage); per moving tile a warpgroup issues one S group (kq / 16 = 7
-    # m64n64k16) and one contraction group (kTc / 16 = 4 m64n112k16)
-    macs = {s: 7 * 64 * 64 * 16 * (c["HGMMA.64x64x16"] > 0) +
-            4 * 64 * 112 * 16 * (c["HGMMA.64x112x16"] > 0)
-            for s, c in counts["wgmma"].items()}
-    say(f"probe: tensor-core multiply-adds per moving tile and warpgroup "
-        f"{macs}: mmonly issues {macs['mmonly'] / macs['prod']:.2f} of "
-        f"prod's; f32: mmonly keeps the S half's FMAs (FFMA "
-        f"{counts['f32']['mmonly']['FFMA']} of prod's "
-        f"{counts['f32']['prod']['FFMA']} in the code) and drops the "
-        f"contraction half's, which issues as many per step")
+    # the counts are static (the loops are peeled and unrolled differently
+    # per stage); per moving tile a warpgroup issues one S group (kq / 16 =
+    # 7 m64n64k16) and one contraction group (kTc / 16 = 4 m64n112k16) on
+    # the bf16 route, six of each on the f32 route, whose contraction is
+    # 4 m64n64k16 and 4 m64n48k16
+    macs = {route: {s: 7 * 64 * 64 * 16 * (c["HGMMA.64x64x16"] > 0) +
+                    4 * 64 * 112 * 16 * (c[c_op] > 0)
+                    for s, c in counts[route].items()}
+            for route, c_op in (("wgmma", "HGMMA.64x112x16"),
+                                ("f32", "HGMMA.64x48x16"))}
+    say(f"probe: tensor-core multiply-adds per moving tile and warpgroup, "
+        f"per piece pair on the f32 route {macs}: mmonly issues "
+        f"{macs['wgmma']['mmonly'] / macs['wgmma']['prod']:.2f} (bf16) and "
+        f"{macs['f32']['mmonly'] / macs['f32']['prod']:.2f} (f32) of "
+        f"prod's")
     say(f"probe: each stage kept its products and dropped what it removes "
         f"{'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
     if bad:
@@ -553,7 +700,8 @@ def phase_probe(df, gen, lin, y):
                 sass_counts=counts)
 
 
-def train(datdir, outdir, precision, max_iterations, rfreq, device):
+def train(datdir, outdir, precision, max_iterations, rfreq, device,
+          logl=False):
     from hgaprec_tpu_torch.config import ModelConfig, RunConfig
     from hgaprec_tpu_torch.data.ratings import load_dataset
     from hgaprec_tpu_torch.models.engine import Trainer
@@ -562,7 +710,8 @@ def train(datdir, outdir, precision, max_iterations, rfreq, device):
                  ModelConfig(n=store.n, m=store.m, k=K, variant="hpf",
                              matmul_precision=precision),
                  RunConfig(datdir=datdir, outdir=outdir, rfreq=rfreq,
-                           max_iterations=max_iterations), device=device)
+                           max_iterations=max_iterations, logl=logl),
+                 device=device)
     return tr
 
 
@@ -640,30 +789,42 @@ def phase_main(df, datdir, root):
 def phase_cpu_reference(df, datdir, root):
     """Same config at "highest" (the default precision: the f32 dense
     route) on the card and on the CPU (the CPU run is the reference here,
-    not a fallback); the card's steady-state step time at "highest"."""
-    lls = {}
+    not a fallback), validation ll and the training ELBO (logl.txt) held
+    to each other; the card's steady-state step time at "highest"."""
+    lls, elbo = {}, {}
     for device in ("cuda", "cpu"):
         outdir = os.path.join(root, f"{device}_highest")
-        tr = train(datdir, outdir, "highest", 10, 5, device)
+        tr = train(datdir, outdir, "highest", 10, 5, device, logl=True)
         df.fused_dense_sweep.launches = 0
+        split_before = df.fused_dense_sweep.launches_by_kernel["f32"]
         t0 = time.perf_counter()
         tr.run()
         wall = time.perf_counter() - t0
         if device == "cuda":
             launches = df.fused_dense_sweep.launches
+            split = df.fused_dense_sweep.launches_by_kernel["f32"] - \
+                split_before
             ms_iter, ms_lo, ms_hi = steady_ms_per_iter(tr.mcfg, tr.state,
                                                        tr.data)
         tr.close()
         lls[device] = validation_ll(outdir)
+        elbo[device] = logl_rows(outdir)
         say(f"{device} run at highest, 11 iterations: {wall:.1f} s, "
-            f"validation ll {[round(v, 6) for _, v in lls[device]]}")
+            f"validation ll {[round(v, 6) for _, v in lls[device]]}, "
+            f"training ELBO {elbo[device]}")
     g, c = lls["cuda"], lls["cpu"]
     worst = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(g, c))
+    worst_elbo = max(abs(a - b) / abs(b) for a, b in zip(elbo["cuda"],
+                                                        elbo["cpu"]))
     ok = [a[0] for a in g] == [b[0] for b in c] and worst < CPU_REL and \
-        launches > 0
+        launches > 0 and split == launches and \
+        len(elbo["cuda"]) == len(elbo["cpu"]) == len(g) and \
+        worst_elbo < CPU_REL
     say(f"card vs CPU reference: worst relative gap {worst:.3e} over "
-        f"{len(g)} reports (bound {CPU_REL}); f32 dense kernel launches "
-        f"{launches} {'ok' if ok else 'FAIL'}; card steady state at highest "
+        f"{len(g)} reports, training ELBO {worst_elbo:.3e} (bound "
+        f"{CPU_REL}); f32 dense kernel launches {launches}, "
+        f"{split} of them the split kernel {'ok' if ok else 'FAIL'}; card "
+        f"steady state at highest "
         f"{ms_iter:.3f} ms/iter = {1e3 / ms_iter:.1f} iters/s (median of 5 "
         f"windows of 100; range {ms_lo:.3f}-{ms_hi:.3f})")
     if not ok:
@@ -747,12 +908,12 @@ def phase_cli(df, datdir, root, cpu_ref):
     out = os.path.join(root, "cli")
     secs = {}
 
-    # 1. the entry point as a user runs it
+    # 1. the entry point as a user runs it, with the training ELBO
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "hgaprec_tpu_torch.cli", *base, "-outdir",
-         out], cwd=here, capture_output=True, text=True, timeout=900,
-        env=dict(os.environ, PYTHONPATH=here))
+        [sys.executable, "-m", "hgaprec_tpu_torch.cli", *base, "-logl",
+         "-outdir", out], cwd=here, capture_output=True, text=True,
+        timeout=900, env=dict(os.environ, PYTHONPATH=here))
     secs["train_subprocess"] = time.perf_counter() - t0
     if proc.returncode != 0:
         raise SystemExit(f"the CLI exited {proc.returncode}: "
@@ -782,7 +943,7 @@ def phase_cli(df, datdir, root, cpu_ref):
     secs["train_traced"] = time.perf_counter() - t0
     launches_f32 = df.fused_dense_sweep.launches
     trace = trace_summary(trace_dir)
-    named = [n for n in trace["names"] if "dense_simt_f32" in n]
+    named = [n for n in trace["names"] if "dense_split_kernel" in n]
     say(f"cli in-process with -trace: {secs['train_traced']:.1f} s wall; "
         f"f32 dense kernel launches {launches_f32}; trace "
         f"{trace['file']}: window {trace['window_ms']:.1f} ms, device busy "
@@ -908,11 +1069,12 @@ SMALL_N, SMALL_M, SMALL_DRAWS, SMALL_T = 20000, 70000, 300000, 1024
 
 
 def phase_sharded_cli(df, datdir, root, ref_dir):
-    """Phase A: `-devices 2` through the command line on one card clamps
-    to one device and trains the sharded loop in-process over a world of
-    one (NCCL); its validation ll is held to the single-device run in
-    `ref_dir` at every report, and kernel #1's f32 launches are counted.
-    Returns (launches, wall seconds)."""
+    """Phase A: `-devices 2 -logl` through the command line on one card
+    clamps to one device and trains the sharded loop in-process over a
+    world of one (NCCL); its validation ll and its training ELBO (the
+    sharded logl: each rank's nonzero sums all-reduced) are held to the
+    single-device run in `ref_dir` at every report, and kernel #1's f32
+    launches are counted. Returns (launches, wall seconds)."""
     if torch.cuda.device_count() != 1:
         raise SystemExit("the sharded CLI phase needs exactly one visible "
                          "card (set CUDA_VISIBLE_DEVICES)")
@@ -922,22 +1084,27 @@ def phase_sharded_cli(df, datdir, root, ref_dir):
     text = cli_in_process(
         ["-dir", datdir, "-n", str(N_ML), "-m", str(M_ML), "-k", str(K),
          "-hier", "-rfreq", "5", "-max-iterations", "10", "-devices", "2",
-         "-outdir", out])
+         "-logl", "-outdir", out])
     wall = time.perf_counter() - t0
     launches = df.fused_dense_sweep.launches
     g, c = validation_ll(out), validation_ll(ref_dir)
     worst = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(g, c))
+    elbo, elbo_ref = logl_rows(out), logl_rows(ref_dir)
+    worst_elbo = max((abs(a - b) / abs(b) for a, b in zip(elbo, elbo_ref)),
+                     default=float("inf"))
     missing = [f for f in ("model.npz", "precision.txt", "ranking.tsv")
                if not os.path.exists(os.path.join(out, f))]
     ok = "+ only 1 devices available (requested 2)" in text and \
         "+ sharding over 1 devices" in text and launches > 0 and \
         [a[0] for a in g] == [b[0] for b in c] and worst < CPU_REL and \
+        len(elbo) == len(elbo_ref) == len(g) and worst_elbo < CPU_REL and \
         not missing
-    say(f"sharded A: python -m hgaprec_tpu_torch.cli ... -devices 2 "
+    say(f"sharded A: python -m hgaprec_tpu_torch.cli ... -devices 2 -logl "
         f"(in-process, clamped to a world of one over NCCL) in {wall:.1f} s "
         f"wall; f32 dense kernel launches {launches}; validation ll "
         f"{[(i, round(v, 6)) for i, v in g]} against the single-device run: "
-        f"worst relative gap {worst:.3e} (bound {CPU_REL}); files "
+        f"worst relative gap {worst:.3e}; training ELBO {elbo}: worst "
+        f"relative gap {worst_elbo:.3e} (bound {CPU_REL}); files "
         f"{'present' if not missing else missing} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"the sharded CLI run failed its checks: {text}")
@@ -1970,9 +2137,10 @@ def phase_echonest(df, tf, tr, gen, smi):
             abs(data.tail.nnz / EN_TAIL - 1) > 1e-2):
         raise SystemExit("the EchoNest layout is not the expected hybrid")
 
-    # the head kernel at the head shape (offsets past 2^31 bytes of Y): each
-    # route twice (bitwise equal) beside its bound, f32 faster than the
-    # plain version
+    # the head kernels at the head shape (offsets past 2^31 bytes of Y):
+    # each twice (bitwise equal) beside its bound; the f32 route's split
+    # kernel faster than dense_simt.cu on the same inputs and than the
+    # plain version, and no further from f64 sums than dense_simt.cu
     from hgaprec_tpu_torch.ops import dense_probe as dp
     n, m = tr.store.n, tr.store.m
     a_lin = torch.exp(0.3 * torch.randn((n, K), device="cuda",
@@ -1981,36 +2149,51 @@ def phase_echonest(df, tf, tr, gen, smi):
                                          generator=gen))
     hy = data.head_dense_y
     ref = df.fused_dense_sweep_reference(a_lin, b_head, hy)
-    head = {}
-    for bf16 in (False, True):
-        got = df.fused_dense_sweep(a_lin, b_head, hy, bf16=bf16)
-        again = df.fused_dense_sweep(a_lin, b_head, hy, bf16=bf16)
+    head, rel = {}, {}
+    for kernel in ("f32", "simt", "wgmma"):
+        bf16 = kernel == "wgmma"
+        if kernel == "simt":
+            def call():
+                return simt_sweep(df, [a_lin, b_head], hy)
+        else:
+            def call():
+                return df.fused_dense_sweep(a_lin, b_head, hy, bf16=bf16)
+        got, again = call(), call()
         torch.cuda.synchronize()
         err, ok = compare(got, ref, bf16)
         ok &= all(torch.equal(a, b) for a, b in zip(got, again))
+        if not bf16:
+            rel[kernel] = f64_rel_err(got, [a_lin, b_head], hy)
         del got, again
-        ms = median_ms(lambda: df.fused_dense_sweep(
-            a_lin, b_head, hy, bf16=bf16), 5)
-        plain_ms = median_ms(lambda: df.fused_dense_sweep_reference(
-            a_lin, b_head, hy, bf16=bf16), 3)
-        line = (f"head kernel {n}x{t}x{K} ldy={hy.stride(0)} bf16={bf16}: "
-                f"max_abs_err vs f32 plain {err:.3e}, two launches bitwise "
-                f"equal {'ok' if ok else 'FAIL'}; kernel {ms:.2f} ms, plain "
-                f"{plain_ms:.2f} ms; "
-                f"{tflops(n, t, K, ms, 'wgmma' if bf16 else 'f32')}")
-        if bf16:
-            bound_ms, bound_by = dense_bound(n, t, K)
-        else:           # the f32 route must beat its plain version
-            bound_ms, bound_by = dense_bound_f32(n, t, K)
-            ok &= ms < plain_ms
-        line += (f"; bound {bound_ms:.2f} ms ({bound_by}), kernel at "
-                 f"{ms / bound_ms:.2f}x it")
-        say(line)
+        ms = median_ms(call, 5)
+        plain_ms = (head["f32"][1] if kernel == "simt" else median_ms(
+            lambda: df.fused_dense_sweep_reference(a_lin, b_head, hy,
+                                                   bf16=bf16), 3))
+        bound_ms, bound_by = (dense_bound(n, t, K) if bf16 else
+                              dense_bound_f32(n, t, K))
+        say(f"head kernel {n}x{t}x{K} ldy={hy.stride(0)} {kernel}: "
+            f"max_abs_err vs f32 plain {err:.3e}, two launches bitwise "
+            f"equal {'ok' if ok else 'FAIL'}; kernel {ms:.2f} ms, plain "
+            f"{plain_ms:.2f} ms; {tflops(n, t, K, ms, kernel)}; bound "
+            f"{bound_ms:.2f} ms ({bound_by}), kernel at "
+            f"{ms / bound_ms:.2f}x it")
         if not ok:
-            raise SystemExit("head kernel disagrees with its plain version or "
-                             "itself, or (f32) is slower than the plain "
-                             "version")
-        head[bf16] = (ms, plain_ms, bound_ms)
+            raise SystemExit(f"the {kernel} head kernel disagrees with its "
+                             f"plain version or itself")
+        head[kernel] = (ms, plain_ms, bound_ms)
+    rel["plain"] = f64_rel_err(ref, [a_lin, b_head], hy)
+    ok = (head["f32"][0] < head["simt"][0] and head["f32"][0] <
+          head["f32"][1] and rel["f32"] <= rel["simt"])
+    say(f"head f32 route: split kernel {head['f32'][0]:.2f} ms, "
+        f"dense_simt.cu {head['simt'][0]:.2f} ms "
+        f"({head['simt'][0] / head['f32'][0]:.2f}x), plain "
+        f"{head['f32'][1]:.2f} ms; relative to f64 sums: split "
+        f"{rel['f32']:.3e}, dense_simt.cu {rel['simt']:.3e}, plain "
+        f"{rel['plain']:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the f32 route's split kernel is slower than "
+                         "dense_simt.cu or the plain version on the EchoNest "
+                         "head, or further from f64 than dense_simt.cu")
     del a_lin, b_head, ref
 
     tail = phase_echonest_tail(data, n, m, gen, smi)
@@ -2084,10 +2267,13 @@ def phase_echonest(df, tf, tr, gen, smi):
     # the default precision, "highest" (f32 head and tail), on the same
     # trained state
     hcfg = dataclasses.replace(tr.mcfg, matmul_precision="highest")
-    before = (df.fused_dense_sweep.launches, tf.fused_half_sweep.launches)
+    before = (df.fused_dense_sweep.launches, tf.fused_half_sweep.launches,
+              df.fused_dense_sweep.launches_by_kernel["f32"])
     torch.cuda.reset_peak_memory_stats()
     hi_iter, hi_lo, hi_hi = steady_ms_per_iter(hcfg, st, data, windows=3,
                                                steps=5)
+    split_launches = (df.fused_dense_sweep.launches_by_kernel["f32"] -
+                      before[2])
     hi_peak = torch.cuda.max_memory_allocated() / 1e9
     hi_launches = (df.fused_dense_sweep.launches - before[0],
                    tf.fused_half_sweep.launches - before[1])
@@ -2104,9 +2290,11 @@ def phase_echonest(df, tf, tr, gen, smi):
         f"({100 * head_f32_ms / hi_iter:.0f}%), f32 tail kernel "
         f"{tail_f32_ms:.2f} ms ({100 * tail_f32_ms / hi_iter:.0f}%, both "
         f"halves), rest {glue_ms:.2f} ms ({100 * glue_ms / hi_iter:.0f}%)")
-    if min(hi_launches) == 0 or hi_launches[1] != 2 * hi_launches[0]:
+    if min(hi_launches) == 0 or hi_launches[1] != 2 * hi_launches[0] or \
+            split_launches != hi_launches[0]:
         raise SystemExit(f"the hybrid step at highest launched the f32 head "
-                         f"and tail kernels {hi_launches} times")
+                         f"and tail kernels {hi_launches} times, or a head "
+                         f"kernel other than the split one")
     # the f32 route's probe stages on the trained head (kernel #3)
     head_lin = (a_lin, b_lin[hd].contiguous())
     times, probe_launches = time_probe(dp, head_lin, data.head_dense_y,
@@ -2123,7 +2311,7 @@ def phase_echonest(df, tf, tr, gen, smi):
     probe = dict(stage_ms=times, stage_floor_ms=floors, stage_plain_ms=plain,
                  stage_max_abs_err=errs, launches=probe_launches)
     return dict(launches=launches, tail=tail, head=head, ms_iter=ms_iter,
-                probe_f32=probe,
+                probe_f32=probe, head_f64_rel_err=rel,
                 head_ms_trained=head_ms, ms_iter_highest=hi_iter,
                 launches_highest=hi_launches[0],
                 tail_launches_highest=hi_launches[1],
@@ -2236,22 +2424,39 @@ def main():
             if spills:
                 raise SystemExit(f"csrc/{src} spills: {spills}")
         # ptxas serializes wgmma where a fragment may be touched in flight
-        # (csrc/dense_wgmma.cu, hazard 5): the main path's width, every
+        # (csrc/dense_wgmma.cu, hazard 5): the bf16 route's main width and
+        # every width of the f32 route's split kernel (all <= 128), every
         # stage of the probe included, must build without it
         serial = [x.strip() for x in log.splitlines()
                   if "Potential Performance Loss" in x and
-                  "dense_wgmma_kernelILi112E" in x]
+                  ("dense_wgmma_kernelILi112E" in x or
+                   "dense_split_kernel" in x)]
         if serial:
-            raise SystemExit(f"wgmma serialized at kq = 112: {serial}")
+            raise SystemExit(f"wgmma serialized at kq <= 128: {serial}")
     hgmma = df.hgmma_counts()
     main_kq = df.packed_width(K, "wgmma")
-    hgmma_ok = hgmma.get(main_kq, 0) > 0 and min(hgmma.values()) > 0
+    hgmma_ok = all(counts.get(main_kq, 0) > 0 and min(counts.values()) > 0
+                   for counts in hgmma.values()) and \
+        sorted(hgmma["f32"]) == [64, 112, 128]
     say(f"warpgroup tensor-core instructions (HGMMA) in the SASS of "
-        f"csrc/dense_wgmma.cu, by packed width kq: {hgmma} (the main path "
-        f"runs kq = {main_kq}) {'ok' if hgmma_ok else 'FAIL'}")
+        f"csrc/dense_wgmma.cu, by kernel and packed width kq: {hgmma} (the "
+        f"main path runs kq = {main_kq}) {'ok' if hgmma_ok else 'FAIL'}")
     if not hgmma_ok:
-        raise SystemExit("an instantiation of the bf16 route's kernel has "
-                         "no wgmma in its SASS")
+        raise SystemExit("an instantiation of a wgmma kernel has no wgmma "
+                         "in its SASS")
+    nvcc_build = nvcc.splitlines()[-1]
+    digests = sass_digests(build.sass())
+    same = digests == BF16_SASS["digests"]
+    comparable = nvcc_build == BF16_SASS["nvcc"]
+    say(f"bf16 route's machine code (dense_wgmma_kernel, "
+        f"{len(digests)} instantiations): "
+        + ("the recorded one, instruction for instruction ok" if same else
+           ("DIFFERENT from the recorded one FAIL" if comparable else
+            f"not compared: recorded under {BF16_SASS['nvcc']}, built by "
+            f"{nvcc_build}"))
+        + f"; digests {json.dumps(digests)}")
+    if comparable and not same:
+        raise SystemExit("the bf16 route's machine code changed")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if only == "sharded":
@@ -2291,7 +2496,7 @@ def main():
             f"(no result line: --{only} runs only the {only} path)")
         return 0
     main_kernel, f32_ml1m = phase_kernel(df, gen)
-    probe, netflix = phase_netflix(df, gen)
+    probe, netflix, netflix_f32 = phase_netflix(df, gen)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         datdir = os.path.join(root, "data")
@@ -2323,11 +2528,19 @@ def main():
         seg_small = phase_segment_cpu_reference(root)
 
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    head_ms, head_plain_ms, head_bound_ms = en["head"][True]
+    head_ms, head_plain_ms, head_bound_ms = en["head"]["wgmma"]
+    head32 = en["head"]["f32"]
     probe_en = en["probe_f32"]
 
     def per_rank(run, kernel):      # [rank 0, rank 1] launches, phase C
         return [ranks[kernel] for ranks in gloo[run]]
+    f32_paths = {"ml1m_dense_highest": launches_ml1m_highest,
+                 "ml1m_cli_highest": cli_f32,
+                 "echonest_hybrid_highest_steady": en["launches_highest"],
+                 "ml1m_cli_devices_world1": sh_cli,
+                 "ml1m_sharded_world1_highest": sh_run["highest"]["launches"],
+                 "gloo2_hybrid_highest_per_rank":
+                     per_rank("hybrid_highest", 0)}
     say(json.dumps({"kernels": [
         {"name": "fused_dense_sweep", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/dense_wgmma.cu",
@@ -2340,29 +2553,32 @@ def main():
                                   sh_run["default"]["launches"],
                               "gloo2_hybrid_bf16_per_rank":
                                   per_rank("hybrid_bf16", 0)},
-         **main_kernel, "hgmma": hgmma, **netflix,
+         **main_kernel, "hgmma": hgmma["wgmma"], **netflix,
          "ms_echonest_head_bf16": head_ms,
          "plain_ms_echonest_head_bf16": head_plain_ms,
          "bound_ms_echonest_head_bf16": head_bound_ms,
          "ms_per_iter_echonest_hybrid": en["ms_iter"],
-         "source_f32": "hgaprec_tpu_torch/csrc/dense_simt.cu",
-         "launches_f32_by_path": {
-             "ml1m_dense_highest": launches_ml1m_highest,
-             "ml1m_cli_highest": cli_f32,
-             "echonest_hybrid_highest_steady": en["launches_highest"],
-             "ml1m_cli_devices_world1": sh_cli,
-             "ml1m_sharded_world1_highest": sh_run["highest"]["launches"],
-             "gloo2_hybrid_highest_per_rank":
-                 per_rank("hybrid_highest", 0)},
+         "sass_sha256": digests,
          "sharded": {"cli_devices_world1_s": sh_cli_s,
                      "world1": sh_run, "gloo2_ms_per_iter_per_rank":
-                         gloo_ms},
-         **f32_ml1m,
-         "ms_f32_echonest_head": en["head"][False][0],
-         "plain_ms_f32_echonest_head": en["head"][False][1],
-         "bound_ms_f32_echonest_head": en["head"][False][2],
+                         gloo_ms}},
+        {"name": "fused_dense_sweep_f32", "route": "cuda",
+         "source": "hgaprec_tpu_torch/csrc/dense_wgmma.cu",
+         "kernel": "dense_split_kernel",
+         "replaces": "hgaprec_tpu/ops/dense_pallas.py:50",
+         "launches": sum(sum(v) if isinstance(v, list) else v
+                         for v in f32_paths.values()),
+         "launches_by_path": f32_paths,
+         **f32_ml1m, "hgmma": hgmma["f32"], **netflix_f32,
+         "ms_echonest_head": head32[0],
+         "plain_ms_echonest_head": head32[1],
+         "bound_ms_echonest_head": head32[2],
+         "simt_ms_echonest_head": en["head"]["simt"][0],
+         "f64_rel_err_echonest_head": en["head_f64_rel_err"],
+         "simt_source": "hgaprec_tpu_torch/csrc/dense_simt.cu",
          "ms_per_iter_ml1m_highest": ms_iter_ml1m_highest,
-         "ms_per_iter_echonest_hybrid_highest": en["ms_iter_highest"]},
+         "ms_per_iter_echonest_hybrid_highest": en["ms_iter_highest"],
+         "head_ms_trained_highest": en["head_f32_ms_trained"]},
         {"name": "fused_half_sweep", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/tail_bf16.cu",
          "replaces": "hgaprec_tpu/ops/pallas_tail.py:101",
@@ -2381,9 +2597,8 @@ def main():
          "peak_gb_echonest_hybrid_highest": en["peak_gb_highest"]},
         {"name": "dense_probe", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/dense_wgmma.cu",
-         "source_f32": "hgaprec_tpu_torch/csrc/dense_simt.cu",
-         "routes": {"wgmma": "hgaprec_tpu_torch/csrc/dense_wgmma.cu",
-                    "f32": "hgaprec_tpu_torch/csrc/dense_simt.cu"},
+         "routes": {"wgmma": "dense_wgmma_kernel", "f32":
+                    "dense_split_kernel"},
          "replaces": "scripts/dense_mfu_probe.py:51",
          "launches": sum(sum(p.values()) for p in
                          probe["launches_by_path"].values()) +

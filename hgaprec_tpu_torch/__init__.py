@@ -6,7 +6,8 @@ the users sharded over a torch.distributed group (`parallel/`). Module
 paths follow `hgaprec_tpu/`, so each module's counterpart is found at the
 same place.
 Plain tensor code is PyTorch; the dense CAVI sweep runs hand-written CUDA
-kernels (bf16 `csrc/dense_wgmma.cu`, f32 `csrc/dense_simt.cu`, bound in
+kernels (bf16 and f32 up to 128 packed values on the tensor cores,
+`csrc/dense_wgmma.cu`; wider f32 rows `csrc/dense_simt.cu`; bound in
 `ops/dense_fused.py`). The package imports torch and numpy only, never
 jax.
 """

@@ -12,7 +12,10 @@ summed over nonzeros only.
 The JAX package materialises the [P, K] logits at once (18 GB at EchoNest
 shape). Here the nonzero terms stream over chunks of SEGMENT_CHUNK: each
 chunk is summed in f32 and the chunk sums, with the f32 Gamma terms, are
-added in f64. The result is a Python float.
+added in f64. The result is a Python float. A sharded run sums each
+rank's nonzeros (`training_nonzero_sum` on its shard), all-reduces the
+sums and adds the Gamma terms of the gathered state (`training_gamma`;
+models/engine.py, Trainer.logl).
 """
 
 from __future__ import annotations
@@ -76,6 +79,15 @@ def _gamma_terms(state: ModelState, cfg: ModelConfig, hier_prior):
 def training_elbo(state: ModelState, data: DeviceData, cfg: ModelConfig,
                   chunk: int = SEGMENT_CHUNK) -> float:
     """The reference's reported ELBO (`hgaprec_tpu/models/elbo.py:33-78`)."""
+    return float(training_nonzero_sum(state, data, cfg, chunk) +
+                 training_gamma(state, cfg))
+
+
+def training_nonzero_sum(state: ModelState, data: DeviceData,
+                         cfg: ModelConfig,
+                         chunk: int = SEGMENT_CHUNK) -> torch.Tensor:
+    """The training ELBO's terms over the nonzeros of `data` (f64, on the
+    device): a shard's share when `state` and `data` are a rank's."""
     theta, beta = state.theta, state.beta
 
     def term(lse, y, u, i):
@@ -85,13 +97,17 @@ def training_elbo(state: ModelState, data: DeviceData, cfg: ModelConfig,
             rate = rate + state.theta_bias.e[u] + state.beta_bias.e[i]
         return y * y * (lse - logy), -rate
 
-    s = _nonzero_sum(state, data, cfg, chunk, term)
+    return _nonzero_sum(state, data, cfg, chunk, term)
+
+
+def training_gamma(state: ModelState, cfg: ModelConfig) -> torch.Tensor:
+    """The training ELBO's Gamma terms (f64) of the whole state."""
     # hier prior rates: E[xi]/Elog[xi] captured at update time
     # (gpbase.hh:360-373 via set_prior_rate)
-    s += _gamma_terms(state, cfg, (state.theta_prior_e,
-                                   state.theta_prior_elog,
-                                   state.beta_prior_e, state.beta_prior_elog))
-    return float(s)
+    return _gamma_terms(state, cfg, (state.theta_prior_e,
+                                     state.theta_prior_elog,
+                                     state.beta_prior_e,
+                                     state.beta_prior_elog))
 
 
 def true_elbo(state: ModelState, data: DeviceData, cfg: ModelConfig,

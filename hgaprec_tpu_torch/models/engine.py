@@ -17,7 +17,9 @@ operational envelope:
     1572-1577, 2087-2112).
   * SIGTERM sets a flag polled at every report boundary.
   * -logl: the training ELBO into logl.txt at every report, after the
-    ranking reports (hgaprec_tpu/models/engine.py:406-412).
+    ranking reports (hgaprec_tpu/models/engine.py:406-412); in a sharded
+    run every rank sums its own shard's nonzeros and the sums are
+    all-reduced.
   * RMSE (rmse.txt, test_scores.tsv) and MSR (pred.csv) on the loaded or
     trained model, for the CLI's -rmse and -msr modes.
   * -trace DIR: training runs under torch.profiler with a TensorBoard
@@ -55,7 +57,8 @@ from hgaprec_tpu_torch.eval import ranking as rank_mod
 from hgaprec_tpu_torch.eval.ranking import EvalIndex
 from hgaprec_tpu_torch.eval.score import pair_loglik, scorer_from_state
 from hgaprec_tpu_torch.io import checkpoint as ckpt
-from hgaprec_tpu_torch.models.elbo import training_elbo
+from hgaprec_tpu_torch.models.elbo import (training_elbo, training_gamma,
+                                           training_nonzero_sum)
 from hgaprec_tpu_torch.models.state import (ModelState, init_state,
                                             state_to_numpy)
 from hgaprec_tpu_torch.models.step import make_multi_step, make_step
@@ -381,12 +384,26 @@ class Trainer:
                              self.outdir)
 
     def logl(self) -> float:
-        """Write the training ELBO to logl.txt (engine.py:356-366)."""
-        if self.data is None:
-            # a sharded run holds no single-device layout of the nonzeros
+        """Write the training ELBO to logl.txt (engine.py:356-366).
+
+        In a sharded run it is a collective, called by every rank at a
+        report: each rank sums the nonzero terms of its own shard (local
+        user ids; padding entries add nothing), the sums are all-reduced
+        in f64 over `eval_group`, and the Gamma terms are taken from the
+        gathered state the report holds, so every rank has the same
+        value."""
+        if self.sharded is not None:
+            run = self.sharded
+            part = training_nonzero_sum(run.state, run.data, self.mcfg)
+            s = float(sharded.all_reduce(part, self.eval_group) +
+                      training_gamma(self.state, self.mcfg))
+        elif self.data is None:
+            # a per-process store of a rank that does not train holds only
+            # its own rows: the ELBO of every row is out of its reach
             self.log("logl skipped: no single-device data (sharded run)")
             return 0.0
-        s = training_elbo(self.state, self.data, self.mcfg)
+        else:
+            s = training_elbo(self.state, self.data, self.mcfg)
         f = self._files["logl.txt"]
         f.write(f"{s:.5f}\n")
         f.flush()
@@ -428,8 +445,9 @@ class Trainer:
                     and not self.mcfg.bias):
                 # reference: vb/vb_hier/vb_canny also run itemrank
                 self.compute_itemrank(False)
-            if self.rcfg.logl:
-                self.logl()
+        # a sharded run's ELBO is a collective: every rank calls it
+        if self.rcfg.logl and (self.primary or self.sharded is not None):
+            self.logl()
 
     def run(self, max_iters: Optional[int] = None) -> ModelState:
         """Train until the stopping rule fires (or an iteration cap).

@@ -9,18 +9,28 @@ uint8 count matrix Y, with W = Y / max(A B^T, 1e-30):
 The caller multiplies by A and B (and the bias expectations) to get the
 CAVI sufficient statistics (ops/sweep.py).
 
-Two kernels replace the TPU kernel
-`hgaprec_tpu/ops/dense_pallas.py::_kernel`: bf16 ("default") runs
-`csrc/dense_wgmma.cu` (wgmma products on TMA-fed tiles), f32 ("highest",
-the default precision of `ModelConfig` and the CLI) runs
-`csrc/dense_simt.cu` (register-tiled FP32 FMAs fed by a cp.async
-ring). A sweep costs 8 N M kq FLOPs (four products of 2 N M kq:
-both of the kernels' two deterministic roles recompute S) against two
-uint8 reads of Y, about 400 FLOPs per byte at K = 100, so it is
-compute-bound on the H100. The two-role design trades the fourth product
-for sums without atomics and no item-count limit. Each kernel is also
-built once per stage of the stage probe (`ops/dense_probe.py`), whose
-prod stage is the production kernel itself.
+Hand-written kernels replace the TPU kernel
+`hgaprec_tpu/ops/dense_pallas.py::_kernel`, chosen by precision and by
+the packed width kq (K, plus 2 with bias, zero-padded):
+
+  * bf16 ("default"): `dense_wgmma_kernel` of `csrc/dense_wgmma.cu`
+    (wgmma products on TMA-fed tiles), every width up to 256;
+  * f32 ("highest", the default precision of `ModelConfig` and the CLI)
+    up to kq = 128 (K <= 128, K <= 126 with bias; K = 100 runs at 112):
+    `dense_split_kernel` of `csrc/dense_wgmma.cu`, f32-accurate products
+    from three bf16 pieces of each factor on the same wgmma pipeline
+    (`split_pieces` writes the piece tables);
+  * f32 above kq = 128: `csrc/dense_simt.cu` (register-tiled FP32 FMAs
+    fed by a cp.async ring), which takes any Y row stride.
+
+The choice is by width between two hand-written kernels, not a fallback:
+a launch that fails raises. A sweep costs 8 N M kq FLOPs (four products
+of 2 N M kq: both of the kernels' two deterministic roles recompute S),
+six bf16 products each on the f32 route, against two uint8 reads of Y,
+so it is compute-bound on the H100. The two-role design trades the fourth
+product for sums without atomics and no item-count limit. The two wgmma
+kernels are also built once per stage of the stage probe
+(`ops/dense_probe.py`), whose prod stage is the production kernel itself.
 
 On a CUDA tensor `fused_dense_sweep` launches a kernel or raises; only
 a CPU tensor takes `fused_dense_sweep_reference`, the same function in
@@ -39,26 +49,30 @@ import torch
 from hgaprec_tpu_torch.ops import build
 
 KP_MAX = 256           # widest packed factor row the kernels take
+SPLIT_KQ_MAX = 128     # widest packed row of the f32 route's wgmma kernel
 
 
 class _Kernel(NamedTuple):
     entry: str         # the library's C entry point
-    probe: str         # the entry of its stage probe's instantiations
-    probe_kq: int      # the widest packed row the probe's stages take
+    probe: Optional[str]   # the entry of its stage probe's instantiations
+    probe_kq: int      # the packed width the probe's stages are built for
     tile: int          # stationary rows per CTA, the unit splits_for plans in
     per_sm: int        # CTAs resident on one SM
     min_chunk: int     # fewest tiles of moving rows one CTA sweeps when split
 
 
 KERNELS = {
-    # bf16: csrc/dense_wgmma.cu (one 384-thread CTA per SM); its stages are
+    # bf16: dense_wgmma_kernel (one 384-thread CTA per SM); its stages are
     # built at kq = 112 only
     "wgmma": _Kernel("hpf_dense_wgmma_bf16", "hpf_dense_wgmma_probe_bf16",
                      112, 128, 1, 8),
-    # f32: csrc/dense_simt.cu (one 256-thread CTA per SM, 224,256 bytes of
-    # shared memory at kq = 104); its stages at the 64-row moving tile
-    "f32": _Kernel("hpf_dense_simt_f32", "hpf_dense_simt_probe_f32", 104, 128,
-                   1, 8),
+    # f32 up to kq = 128: dense_split_kernel (one 256-thread CTA per SM);
+    # its stages are built at kq = 112 only
+    "f32": _Kernel("hpf_dense_split_f32", "hpf_dense_split_probe_f32", 112,
+                   128, 1, 8),
+    # f32 above kq = 128: csrc/dense_simt.cu (one 256-thread CTA per SM); no
+    # stages
+    "simt": _Kernel("hpf_dense_simt_f32", None, 0, 128, 1, 8),
 }
 _CLAMP = 1e-30
 # (a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq, ldy, split_a, split_b
@@ -68,7 +82,7 @@ _ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
 _ARGTYPES = {
     **{k.entry: _ARGS + [ctypes.c_void_p] for k in KERNELS.values()},
     **{k.probe: _ARGS + [ctypes.c_int, ctypes.c_void_p]
-       for k in KERNELS.values()},
+       for k in KERNELS.values() if k.probe},
 }
 
 
@@ -102,6 +116,21 @@ def _pack(a_lin, b_lin, ba_lin, bb_lin, width=None, dtype=torch.float32):
     return a, b
 
 
+def split_pieces(x: torch.Tensor) -> torch.Tensor:
+    """The three bf16 pieces of f32 `x`, [3, *x.shape]: x1 = bf16(x),
+    x2 = bf16(x - x1), x3 = bf16(x - x1 - x2), rounded to nearest, each
+    difference exact in f32, so that x1 + x2 + x3 is within 2^-27 |x| of
+    x for normal values. The f32 route's kernel multiplies pieces."""
+    out = torch.empty((3,) + tuple(x.shape), dtype=torch.bfloat16,
+                      device=x.device)
+    rest = x
+    for p in range(3):
+        out[p] = rest
+        if p < 2:
+            rest = rest - out[p].float()
+    return out
+
+
 def _unpack(acc_a, acc_b, k: int, bias: bool):
     if bias:
         return acc_a[:, :k], acc_b[:, :k], acc_a[:, k], acc_b[:, k + 1]
@@ -110,29 +139,41 @@ def _unpack(acc_a, acc_b, k: int, bias: bool):
 
 def packed_width(kaug: int, kernel: str) -> int:
     """The zero-padded width kq of the packed rows `kernel` takes for
-    `kaug` values (K, plus 2 with bias). f32 copies rows in 16-byte
-    chunks (multiples of 4 values; the kernel loops over this true width,
-    100 at K = 100); wgmma stages them as
+    `kaug` values (K, plus 2 with bias). The wgmma kernels stage rows as
     128-byte-swizzled k-blocks of 64 values (TMA zero-fills the rest of a
-    last partial block) and is built for kq = 64, 112, 128 and 256
-    (K = 100 takes 112, with or without bias)."""
-    if kernel == "wgmma":
-        kq = next((w for w in (64, 112, 128, 256) if kaug <= w), kaug)
-    else:
+    last partial block): bf16 ("wgmma") is built for kq = 64, 112, 128 and
+    256, f32 ("f32") for 64, 112 and 128 (K = 100 takes 112, with or
+    without bias). "simt" copies rows in 16-byte chunks (multiples of 4
+    values; the kernel loops over this true width)."""
+    widths = {"wgmma": (64, 112, 128, KP_MAX),
+              "f32": (64, 112, SPLIT_KQ_MAX)}.get(kernel)
+    if widths is None:
         kq = -(-kaug // 4) * 4
+    else:
+        kq = next((w for w in widths if kaug <= w), kaug)
+        if kq > widths[-1]:
+            raise ValueError(f"packed factor width {kq} > {widths[-1]} for "
+                             f"the {kernel} kernel")
     if kq > KP_MAX:
         raise ValueError(f"packed factor width {kq} > {KP_MAX}")
     return kq
 
 
+def f32_kernel(kaug: int) -> str:
+    """The f32 route's kernel (a key of KERNELS) for `kaug` values: the
+    split-product wgmma kernel ("f32") up to kq = 128, dense_simt.cu
+    ("simt") above."""
+    return "f32" if kaug <= SPLIT_KQ_MAX else "simt"
+
+
 def check_tma_layout(dense_y: torch.Tensor) -> None:
-    """The wgmma kernel loads Y with TMA, which needs a row stride and a
-    base that are multiples of 16 bytes (the Trainer's layouts are:
-    data/device.py, dense_count_matrix). Raises ValueError otherwise;
-    there is no byte-load fallback."""
+    """The wgmma kernels (bf16, and f32 up to kq = 128) load Y with TMA,
+    which needs a row stride and a base that are multiples of 16 bytes
+    (the Trainer's layouts are: data/device.py, dense_count_matrix).
+    Raises ValueError otherwise; there is no byte-load fallback."""
     if dense_y.stride(0) % 16 or dense_y.data_ptr() % 16:
         raise ValueError(
-            f"the bf16 kernel loads Y with TMA: its row stride "
+            f"the wgmma kernels load Y with TMA: its row stride "
             f"({dense_y.stride(0)} bytes) and base must be multiples of 16 "
             f"bytes (build Y with data.device.dense_count_matrix)")
 
@@ -192,9 +233,10 @@ def fused_dense_sweep(a_lin: torch.Tensor, b_lin: torch.Tensor,
     a_lin f32 [N, K], b_lin f32 [M, K], dense_y u8 [>= N, >= M] (rows may
     be padded, rows may be wider than M), ba_lin/bb_lin optional f32 [N],
     [M]. bf16=True reads A and B as bf16 and rounds W to bf16 before the
-    contraction products, accumulating in f32; on a CUDA tensor it needs
-    Y's row stride and base at multiples of 16 bytes (`check_tma_layout`).
-    Returns 2 or 4 f32 tensors.
+    contraction products, accumulating in f32. On a CUDA tensor the wgmma
+    kernels (bf16, and f32 up to 128 packed values) need Y's row stride
+    and base at multiples of 16 bytes (`check_tma_layout`). Returns 2 or 4
+    f32 tensors.
     """
     _check(a_lin, b_lin, dense_y, ba_lin, bb_lin)
     if dense_y.device.type == "cpu":
@@ -202,10 +244,13 @@ def fused_dense_sweep(a_lin: torch.Tensor, b_lin: torch.Tensor,
                                            bb_lin, bf16=bf16)
     if dense_y.device.type != "cuda":
         raise ValueError(f"no kernel for device {dense_y.device}")
+    kaug = a_lin.shape[1] + (2 if ba_lin is not None else 0)
+    kernel = "wgmma" if bf16 else f32_kernel(kaug)
     acc_a, acc_b = launch_dense(a_lin, b_lin, dense_y, ba_lin, bb_lin,
-                                kernel="wgmma" if bf16 else "f32")
+                                kernel=kernel)
     if a_lin.shape[0] and b_lin.shape[0]:     # an empty side launches nothing
         fused_dense_sweep.launches += 1
+        fused_dense_sweep.launches_by_kernel[kernel] += 1
     return _unpack(acc_a, acc_b, a_lin.shape[1], ba_lin is not None)
 
 
@@ -214,23 +259,26 @@ def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
     """Pack the factors, launch `kernel` (a key of KERNELS) on the card and
     return the raw packed outputs (f32 [N, kq], [M, kq]). An int `stage`
     (ops/dense_probe.py's STAGES) runs that kernel built for that stage of
-    the stage probe, on rows packed to the probe's width (wgmma: 112; f32:
-    at most 104). Inputs are checked by the caller; the wgmma kernel's Y
-    layout is checked here."""
+    the stage probe, on rows packed to the probe's width (112, for both
+    wgmma kernels; "simt" has no stages). Inputs are checked by the
+    caller; the wgmma kernels' Y layout is checked here."""
     n, k = a_lin.shape
     m = b_lin.shape[0]
     spec = KERNELS[kernel]
     kq = packed_width(k + 2 if ba_lin is not None else k, kernel)
     if stage is not None:
+        if spec.probe is None:
+            raise ValueError(f"the {kernel} kernel has no probe stages")
         if kq > spec.probe_kq:
             raise ValueError(f"the {kernel} probe's stages take packed rows "
                              f"of at most {spec.probe_kq} values, not {kq}")
-        if kernel == "wgmma":
-            kq = spec.probe_kq      # its stages are built for this width
-    if kernel == "wgmma":
+        kq = spec.probe_kq          # its stages are built for this width
+    if kernel != "simt":
         check_tma_layout(dense_y)
     a, b = _pack(a_lin, b_lin, ba_lin, bb_lin, kq,
-                 torch.float32 if kernel == "f32" else torch.bfloat16)
+                 torch.bfloat16 if kernel == "wgmma" else torch.float32)
+    if kernel == "f32":
+        a, b = split_pieces(a), split_pieces(b)
     acc_a = torch.empty((n, kq), dtype=torch.float32, device=a.device)
     acc_b = torch.empty((m, kq), dtype=torch.float32, device=a.device)
     if n == 0 or m == 0:
@@ -259,23 +307,32 @@ def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
 
 
 fused_dense_sweep.launches = 0
+fused_dense_sweep.launches_by_kernel = {kernel: 0 for kernel in KERNELS}
 
 
-def hgmma_counts() -> Dict[int, int]:
-    """Warpgroup tensor-core instructions (HGMMA) in the wgmma kernel's
-    machine code, by production instantiation (packed width kq; the stage
-    probe's other stages are not counted): a width whose count is zero had
-    its products folded away."""
-    counts: Dict[int, int] = {}
-    kq = None
+# each wgmma kernel's production instantiations in the machine code
+_PRODUCTION = {"wgmma": r"dense_wgmma_kernelILi(\d+)ELi0EE",
+               "f32": r"dense_split_kernelILi(\d+)ELi0EE"}
+
+
+def hgmma_counts() -> Dict[str, Dict[int, int]]:
+    """{kernel: {kq: count}}: warpgroup tensor-core instructions (HGMMA)
+    in the machine code of each wgmma kernel ("wgmma" bf16, "f32" split),
+    by production instantiation (packed width kq; the stage probe's other
+    stages are not counted): a width whose count is zero had its products
+    folded away."""
+    counts: Dict[str, Dict[int, int]] = {k: {} for k in _PRODUCTION}
+    cur = None
     for line in build.sass().splitlines():
         if "Function :" in line:
-            hit = re.search(r"dense_wgmma_kernelILi(\d+)ELi0EE", line)
-            kq = int(hit.group(1)) if hit else None
-            if kq is not None:
-                counts[kq] = 0
-        elif kq is not None and "HGMMA" in line:
-            counts[kq] += 1
+            cur = None
+            for kernel, pattern in _PRODUCTION.items():
+                hit = re.search(pattern, line)
+                if hit:
+                    cur, kq = counts[kernel], int(hit.group(1))
+                    cur[kq] = 0
+        elif cur is not None and "HGMMA" in line:
+            cur[kq] += 1
     return counts
 
 

@@ -1,8 +1,8 @@
 """Stage probe of the dense sweep kernels: which stage bounds each route?
 
 Port of `scripts/dense_mfu_probe.py` (TPU kernel `_kernel_variant`,
-wrapper `run_variant`). Both production kernels of the dense sweep take
-the stage as a compile-time template parameter, and each stage is one
+wrapper `run_variant`). Both wgmma kernels of the dense sweep take the
+stage as a compile-time template parameter, and each stage is one
 instantiation, timed on the same data:
 
     prod       the production kernel itself (its entry launches the same
@@ -14,19 +14,20 @@ instantiation, timed on the same data:
     mmonly     only the S products (outputs S * 0): half of the products
                of prod, with no W and no contraction
 
-bf16 runs the stages of `csrc/dense_wgmma.cu` (built at kq = 112, K up to
-110), f32 ("highest") those of `csrc/dense_simt.cu` (kq up to 104), where
-bf16recip has no meaning and is refused. Each stage has a plain torch
-version here, held against the kernel on the card and against the TPU
-probe's formulas on the CPU. Run on a card:
+bf16 runs the stages of `dense_wgmma_kernel`, f32 ("highest") those of
+`dense_split_kernel` (the split-product kernel of the f32 route, where
+bf16recip has no meaning and is refused), both in `csrc/dense_wgmma.cu`
+and built at kq = 112 (K up to 110). Each stage has a plain torch version
+here, held against the kernel on the card and against the TPU probe's
+formulas on the CPU. Run on a card:
 
     python -m hgaprec_tpu_torch.ops.dense_probe [--f32] [n_users] [stages...]
 
 It prints each stage's median time and the rate of 8 N M kq (the
-production sweep's operation count, whatever the stage computes) at the
-Netflix item count, with the card's name and power limit, and the count
-of the route's product instructions (HGMMA or FFMA) in each stage's
-machine code.
+production sweep's operation count, whatever the stage computes; six bf16
+products each on the f32 route) at the Netflix item count, with the
+card's name and power limit, and the count of tensor-core product
+instructions (HGMMA) in each stage's machine code.
 """
 
 from __future__ import annotations
@@ -48,11 +49,13 @@ STAGES = {"prod": 0, "bf16recip": 1, "norecip": 2, "noyload": 3,
 # the stages each route builds: wgmma is bf16, f32 is "highest"
 ROUTE_STAGES = {"wgmma": tuple(STAGES),
                 "f32": ("prod", "norecip", "noyload", "mmonly")}
-# each route's kernel in the machine code, and its product instruction
+# each route's kernel in the machine code
 _KERNEL_NAMES = {"wgmma": r"dense_wgmma_kernelILi112ELi(\d+)EE",
-                 "f32": r"dense_simt_f32_kernelILi64ELi(\d+)EE"}
-PRODUCT_OPCODE = {"wgmma": "HGMMA", "f32": "FFMA"}
+                 "f32": r"dense_split_kernelILi112ELi(\d+)EE"}
 M_PROBE, K_PROBE = 17770, 100          # Netflix items, the production K
+PROBE_KQ = 112                         # both routes' stages' packed width
+# bf16 products per f32-accurate product on each route
+PRODUCTS = {"wgmma": 1, "f32": 6}
 _CLAMP = 1e-30
 
 
@@ -77,9 +80,9 @@ def dense_probe(a_lin: torch.Tensor, b_lin: torch.Tensor,
     """(raw_a f32 [N, K], raw_b f32 [M, K]): the dense sweep of the bf16
     (wgmma) or f32 route with `stage` (a key of ROUTE_STAGES[route]) in
     place of the production W stage; no bias. a_lin f32 [N, K], b_lin
-    f32 [M, K] (K <= 110 in bf16, <= 104 in f32), dense_y u8 [>= N, >= M]
-    (in bf16 its row stride and base at multiples of 16 bytes). A CPU
-    tensor takes the plain version; any other device but CUDA raises."""
+    f32 [M, K] (K <= 110), dense_y u8 [>= N, >= M] (its row stride and
+    base at multiples of 16 bytes on a card). A CPU tensor takes the plain
+    version; any other device but CUDA raises."""
     check_stage(stage, bf16)
     _check(a_lin, b_lin, dense_y, None, None)
     if dense_y.device.type == "cpu":
@@ -207,14 +210,11 @@ def sass_counts(opcodes: Iterable[str],
 
 
 def mma_counts(sass: Optional[str] = None) -> Dict[str, Dict[str, int]]:
-    """{route: {stage: count}} of each route's product instructions in
-    each stage's kernel: HGMMA (warpgroup tensor-core products) for the
-    wgmma stages, FFMA for the f32 stages. A stage whose count fell to
-    zero had its products folded away."""
-    both = sass_counts(PRODUCT_OPCODE.values(), sass)
-    return {route: {stage: c[PRODUCT_OPCODE[route]]
-                    for stage, c in stages.items()}
-            for route, stages in both.items()}
+    """{route: {stage: count}} of the warpgroup tensor-core products
+    (HGMMA) in each stage's kernel. A stage whose count fell to zero had
+    its products folded away."""
+    return {route: {stage: c["HGMMA"] for stage, c in stages.items()}
+            for route, stages in sass_counts(["HGMMA"], sass).items()}
 
 
 def card_line() -> str:
@@ -248,16 +248,16 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(1)
     a, b = (torch.from_numpy(rng.gamma(0.3, 1.0, (r, K_PROBE)).astype(
         np.float32) + 0.01).cuda() for r in (n, M_PROBE))
-    kq = 112 if bf16 else -(-K_PROBE // 4) * 4
-    flops = 8 * n * M_PROBE * kq
-    print(f"dense probe: n={n} m={M_PROBE} k={K_PROBE} (kq={kq}) "
+    flops = 8 * n * M_PROBE * PROBE_KQ
+    print(f"dense probe: n={n} m={M_PROBE} k={K_PROBE} (kq={PROBE_KQ}) "
           f"{'bf16' if bf16 else 'f32'} ({route}), 8 N M kq = "
-          f"{flops / 1e12:.2f} TFLOP; {card_line()}", flush=True)
-    print(f"{PRODUCT_OPCODE[route]} instructions per stage: "
-          f"{mma_counts()[route]}", flush=True)
+          f"{flops / 1e12:.2f} TFLOP, as {PRODUCTS[route]} bf16 product(s) "
+          f"each; {card_line()}", flush=True)
+    print(f"HGMMA instructions per stage: {mma_counts()[route]}", flush=True)
     for s, ms in time_stages(a, b, y, stages, 5, bf16=bf16).items():
         print(f"{s:10s}: {ms:8.3f} ms  ({flops / ms / 1e9:6.1f} TFLOP/s "
-              f"of 8 N M kq)", flush=True)
+              f"of 8 N M kq, {PRODUCTS[route] * flops / ms / 1e9:6.1f} "
+              f"issued on the tensor cores)", flush=True)
     return 0
 
 

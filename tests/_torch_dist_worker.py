@@ -88,15 +88,38 @@ def task_topk(task, workdir):
     return out
 
 
+def task_elbo(task, workdir):
+    """Trainer.logl on a sharded run after `steps` sharded steps (the
+    report's collective), and the gathered state it was taken on."""
+    from hgaprec_tpu_torch.models.engine import Trainer
+    store = load_store(workdir, task["store"], per_rank=task["per_rank"])
+    cfg = ModelConfig(n=store.n, m=store.m, **task["cfg"])
+    rcfg = RunConfig(datdir=workdir,
+                     outdir=os.path.join(workdir, task["name"]), logl=True)
+    tr = Trainer(store, {}, {}, cfg, rcfg, device="cpu", build_data=False)
+    try:
+        tr.shard(dist.group.WORLD)
+        tr.sharded.multi_step(task["steps"])
+        tr.state = tr.sharded.unsharded_state()
+        elbo = tr.logl()
+    finally:
+        tr.close()
+    with open(os.path.join(tr.outdir, "logl.txt")) as f:
+        logl_txt = f.read()
+    return dict(state_to_numpy(tr.state), elbo=np.asarray(elbo),
+                logl_txt=np.asarray(logl_txt))
+
+
 def task_report(task, workdir):
     """The Trainer's sharded loop through reports on a per-rank store,
-    with every collective call recorded (op and shapes) in order."""
+    with the training ELBO, and every collective call recorded (op and
+    shapes) in order."""
     from hgaprec_tpu_torch.models.engine import Trainer
     store = load_store(workdir, task["store"], per_rank=True)
     cfg = ModelConfig(n=store.n, m=store.m, **task["cfg"])
     rcfg = RunConfig(datdir=workdir, outdir=os.path.join(workdir, "report"),
                      rfreq=task["rfreq"], max_iterations=task["iters"],
-                     num_precision_users=10)
+                     num_precision_users=10, logl=True)
     tr = Trainer(store, maps(task["validation"]), maps(task["test"]), cfg,
                  rcfg, device="cpu", build_data=False)
     calls = []
@@ -123,7 +146,8 @@ def task_report(task, workdir):
                 outdir=np.asarray(tr.outdir))
 
 
-TASKS = {"step": task_step, "topk": task_topk, "report": task_report}
+TASKS = {"step": task_step, "topk": task_topk, "report": task_report,
+         "elbo": task_elbo}
 
 
 def main():

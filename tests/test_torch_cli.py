@@ -604,8 +604,8 @@ def _ll(path):
     return [float(r[2]) for r in _rows(path / "validation.txt")]
 
 
-@pytest.mark.parametrize("flags", [[], ["-sweep", "hybrid"]],
-                         ids=["dense", "hybrid"])
+@pytest.mark.parametrize("flags", [[], ["-sweep", "hybrid"], ["-logl"]],
+                         ids=["dense", "hybrid", "dense-logl"])
 def test_cli_sharded_devices(dataset, tmp_path, capsys, flags):
     """`-cpu -devices 2` (two gloo ranks, each ingesting its own user
     rows) trains, reports and checkpoints: its validation trajectory is
@@ -613,7 +613,10 @@ def test_cli_sharded_devices(dataset, tmp_path, capsys, flags):
     5e-3 of the JAX package's `-devices 8` run (tests/test_cli.py:125);
     only rank 0 writes model.npz (the dense case ports
     test_cli_sharded_devices, the hybrid one
-    test_cli_sharded_hybrid_devices)."""
+    test_cli_sharded_hybrid_devices). With -logl, logl.txt holds the
+    training ELBO of every report, within 1e-4 relative of the port's
+    single-device run and of the JAX package's single-device -logl run,
+    as the -logl training case holds the two CLIs."""
     args = ["-dir", str(dataset), *BASE, "-rfreq", "3", "-max-iterations",
             "6", "-hier", *flags]
     out = tmp_path / "sharded"
@@ -624,14 +627,25 @@ def test_cli_sharded_devices(dataset, tmp_path, capsys, flags):
     assert "+ sharding over 2 devices" in text
     assert "(local rows slice(0, " in text      # rank 0 ingests its rows
     assert tcli.main(args + ["-cpu", "-outdir", str(tmp_path / "one")]) == 0
-    assert jcli.main(args + ["-devices", "8", "-outdir",
-                             str(tmp_path / "jax")]) == 0
+    # the JAX package's -devices 8 run writes no ELBO on the CPU mesh (its
+    # gathered state holds no Elog), so -logl is held to its
+    # single-device run below
+    assert jcli.main([a for a in args if a != "-logl"] +
+                     ["-devices", "8", "-outdir", str(tmp_path / "jax")]) == 0
     got, one = _ll(out), _ll(tmp_path / "one")
     jax8 = _ll(tmp_path / "jax")
     assert len(got) == len(one) == len(jax8) >= 3
     np.testing.assert_allclose(got, one, rtol=1e-4)
     for a, b in zip(got, jax8):
         assert abs(a - b) < 5e-3 * max(1.0, abs(b))
+    if "-logl" in flags:
+        assert jcli.main(args + ["-outdir", str(tmp_path / "jax1")]) == 0
+        elbo = [float(r[0]) for r in _rows(out / "logl.txt")]
+        assert len(elbo) == len(got)
+        for ref in (tmp_path / "one", tmp_path / "jax1"):
+            np.testing.assert_allclose(
+                elbo, [float(r[0]) for r in _rows(ref / "logl.txt")],
+                rtol=1e-4, err_msg=str(ref))
     for name in ("model.npz", "htheta.tsv", "precision.txt", "param.txt"):
         assert (out / name).exists(), name
     assert not (out / ".proc1" / "model.npz").exists()

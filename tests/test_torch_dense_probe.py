@@ -6,7 +6,8 @@ at n = 512 users and 1024 items (one 512-row tile, two 512-item tiles) on
 the same bf16-rounded factors and counts; the port's plain version of each
 stage (`ops/dense_probe.py::dense_probe_reference`) is held to it at the
 bf16 bound of tests/test_dense_pallas.py (2e-2 relative, floor 1e-3). The
-f32 route's stages (no rounding) are held to it where W = Y and W = 1 are
+f32 route's stages (the split-product kernel's; their plain versions
+round nothing) are held to it where W = Y and W = 1 are
 the same in bf16 and f32 (norecip, noyload, mmonly, on those bf16-exact
 inputs), and f32 prod to the JAX fused kernel in f32
 (`hgaprec_tpu.ops.dense_pallas.fused_dense_sweep(bf16=False)`, the
@@ -213,11 +214,12 @@ def test_stage_routing(monkeypatch):
     assert set(dp.ROUTE_STAGES["f32"]) == set(dp.STAGES) - {"bf16recip"}
     assert {r: df.KERNELS[r].probe for r in dp.ROUTE_STAGES} == {
         "wgmma": "hpf_dense_wgmma_probe_bf16",
-        "f32": "hpf_dense_simt_probe_f32"}
+        "f32": "hpf_dense_split_probe_f32"}
+    assert {df.KERNELS[r].probe_kq for r in dp.ROUTE_STAGES} == {dp.PROBE_KQ}
     # past the stages' widths the wrapper refuses before any build
     monkeypatch.setattr(build, "load_library", lambda: pytest.fail(
         "a row too wide for the probe reached the kernel build"))
-    for kernel, k in (("wgmma", 113), ("f32", 105)):
+    for kernel, k in (("wgmma", 113), ("f32", 113)):
         with pytest.raises(ValueError, match="at most"):
             df.launch_dense(torch.rand(6, k), torch.rand(5, k),
                             torch.zeros(6, 16, dtype=torch.uint8)[:, :5],
@@ -227,7 +229,8 @@ def test_stage_routing(monkeypatch):
 def test_sass_counts_per_route_and_stage(monkeypatch):
     """The per-route count parser on a synthetic listing: each stage's
     kernel is counted on its own, by mnemonic prefix (predicated
-    instructions too); other kernels and other widths do not count."""
+    instructions too); other kernels (dense_simt.cu's, reduce_splits) and
+    other widths do not count."""
     sass = "\n".join([
         "Function : _ZN47_GLOBAL__N__5aa_14_dense_wgmma_cu_0718dense_wgmma_"
         "kernelILi112ELi0EEEv14CUtensorMap_stS1_S1_S1_PfS2_S2_S2_iiii",
@@ -243,14 +246,18 @@ def test_sass_counts_per_route_and_stage(monkeypatch):
         "Function : _ZN47_GLOBAL__N__5aa_14_dense_wgmma_cu_0718dense_wgmma_"
         "kernelILi128ELi0EEEv14CUtensorMap_stS1_S1_S1_PfS2_S2_S2_iiii",
         "  /*0a50*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;",
-        "Function : _ZN46_GLOBAL__N__8188_13_dense_simt_cu_9e21dense_simt_"
-        "f32_kernelILi64ELi2EEEvPKfS2_PKhPfS5_S5_S5_iiixiii",
-        "  /*0100*/  FFMA R4, R5, R6, R4 ;",
+        "Function : _ZN47_GLOBAL__N__5aa_14_dense_wgmma_cu_0718dense_split_"
+        "kernelILi112ELi2EEEv14CUtensorMap_stS1_S1_S1_PfS2_S2_S2_iiii",
+        "  /*0100*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;",
+        "  /*0108*/  HGMMA.64x112x16.F32.BF16 R88, R8, gdesc[UR8], R88 ;",
         "  /*0110*/  FFMA.FTZ R4, R5, R6, R4 ;",
         "  /*0120*/  LDS.U8 R7, [R9] ;",
-        "  /*0130*/  LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ;",
+        "  /*0130*/  UTMALDG.3D [UR8], [UR4] ;",
+        "Function : _ZN47_GLOBAL__N__5aa_14_dense_wgmma_cu_0718dense_split_"
+        "kernelILi128ELi0EEEv14CUtensorMap_stS1_S1_S1_PfS2_S2_S2_iiii",
+        "  /*0100*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;",
         "Function : _ZN46_GLOBAL__N__8188_13_dense_simt_cu_9e21dense_simt_"
-        "f32_kernelILi32ELi0EEEvPKfS2_PKhPfS5_S5_S5_iiixiii",
+        "f32_kernelILi64EEEvPKfS2_PKhPfS5_S5_S5_iiixiii",
         "  /*0100*/  FFMA R4, R5, R6, R4 ;",
         "Function : _ZN46_GLOBAL__N__8188_13_dense_simt_cu_9e13reduce_"
         "splitsEPKfPfix",
@@ -263,8 +270,8 @@ def test_sass_counts_per_route_and_stage(monkeypatch):
         "mmonly": {"HGMMA.64x64x16": 1, "HGMMA.64x112x16": 0, "FFMA": 1,
                    "LDS.U": 0, "UTMALDG": 0, "LDGSTS": 0}}
     assert counts["f32"] == {
-        "norecip": {"HGMMA.64x64x16": 0, "HGMMA.64x112x16": 0, "FFMA": 2,
-                    "LDS.U": 1, "UTMALDG": 0, "LDGSTS": 1}}
+        "norecip": {"HGMMA.64x64x16": 1, "HGMMA.64x112x16": 1, "FFMA": 1,
+                    "LDS.U": 1, "UTMALDG": 1, "LDGSTS": 0}}
     monkeypatch.setattr(build, "sass", lambda: sass)
     assert dp.mma_counts() == {"wgmma": {"prod": 2, "mmonly": 1},
                                "f32": {"norecip": 2}}

@@ -120,6 +120,8 @@ def test_build_command_targets_sm90a_from_csrc(monkeypatch):
     (480189, 17770, "f32", (1, 2)),      # f32: 128-row tiles, as wgmma
     (6040, 3681, "f32", (4, 6)),
     (962399, 4096, "f32", (1, 9)),
+    (480189, 17770, "simt", (1, 2)),     # f32 past kq = 128: the same plan
+    (6040, 3681, "simt", (4, 6)),
 ])
 def test_kernel_splits_fill_the_card(n, m, kernel, want):
     """The moving-loop chunks the wrapper asks for on a 132-SM H100."""
@@ -141,17 +143,33 @@ def test_kernel_splits_fill_the_card(n, m, kernel, want):
     (13, "wgmma", 64),
     (64, "wgmma", 64),
     (200, "wgmma", 256),
-    (102, "f32", 104),
-    (13, "f32", 16),
+    (102, "f32", 112),       # the split kernel's widths are the wgmma ones
+    (13, "f32", 64),
+    (126, "f32", 128),       # K = 124 with bias: the widest it takes
+    (102, "simt", 104),      # 16-byte chunks at the true width
+    (13, "simt", 16),
+    (200, "simt", 200),
 ])
 def test_packed_width_per_kernel(kaug, kernel, want):
     assert df.packed_width(kaug, kernel) == want
 
 
-@pytest.mark.parametrize("kernel", ["wgmma", "f32"])
+@pytest.mark.parametrize("kernel", ["wgmma", "f32", "simt"])
 def test_packed_width_rejects_wide_rows(kernel):
     with pytest.raises(ValueError):
         df.packed_width(257, kernel)
+
+
+@pytest.mark.parametrize("kaug,want", [(13, "f32"), (102, "f32"),
+                                       (128, "f32"), (129, "simt"),
+                                       (202, "simt")])
+def test_f32_route_takes_the_kernel_of_its_width(kaug, want):
+    """Up to 128 packed values the f32 route runs the split-product wgmma
+    kernel, above it dense_simt.cu; the split kernel refuses wider rows."""
+    assert df.f32_kernel(kaug) == want
+    if want == "simt":
+        with pytest.raises(ValueError, match="128"):
+            df.packed_width(kaug, "f32")
 
 
 def test_tma_layout_check():
@@ -176,23 +194,49 @@ def test_wgmma_route_checks_y_before_building(monkeypatch):
                         kernel="wgmma")
 
 
+@pytest.mark.parametrize("k,bias", [(3, False), (100, True), (126, False)])
+def test_f32_route_checks_y_before_building(monkeypatch, k, bias):
+    """The f32 route up to kq = 128 loads Y by TMA too: an unaligned Y
+    raises ValueError before any build; dense_simt.cu, past kq = 128,
+    takes any stride."""
+    def no_build():
+        raise AssertionError("an unaligned Y reached the kernel build")
+    monkeypatch.setattr(build, "load_library", no_build)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: type(
+        "Props", (), {"multi_processor_count": 132})())
+    a, b = torch.rand(6, k), torch.rand(5, k)
+    extra = dict(ba_lin=torch.rand(6), bb_lin=torch.rand(5)) if bias else {}
+    with pytest.raises(ValueError, match="TMA"):
+        df.launch_dense(a, b, torch.zeros(6, 5, dtype=torch.uint8),
+                        kernel="f32", **extra)
+    with pytest.raises(AssertionError, match="reached the kernel build"):
+        df.launch_dense(torch.rand(6, 130), torch.rand(5, 130),
+                        torch.zeros(6, 5, dtype=torch.uint8), kernel="simt")
+
+
 def test_f32_route_runs_the_simt_kernel():
-    """`fused_dense_sweep(bf16=False)` launches the register-tiled kernel
-    of csrc/dense_simt.cu and bf16 the wgmma kernel of csrc/dense_wgmma.cu,
-    each source also holding its stage probe's entry; the mma.sync design
+    """`fused_dense_sweep(bf16=False)` launches the split-product wgmma
+    kernel of csrc/dense_wgmma.cu up to kq = 128 and the register-tiled
+    kernel of csrc/dense_simt.cu above it, bf16 the wgmma kernel of
+    csrc/dense_wgmma.cu; the wgmma kernels' source also holds their stage
+    probe's entries, dense_simt.cu none; the mma.sync design
     (csrc/dense_fused.cu) is gone."""
-    for kernel, src in (("f32", "dense_simt.cu"), ("wgmma", "dense_wgmma.cu")):
+    for kernel, src in (("f32", "dense_wgmma.cu"), ("wgmma", "dense_wgmma.cu"),
+                        ("simt", "dense_simt.cu")):
         with open(f"{build.CSRC_DIR}/{src}") as f:
             text = f.read()
         for entry in (df.KERNELS[kernel].entry, df.KERNELS[kernel].probe):
-            assert f'extern "C" int {entry}(' in text
-    assert set(df.KERNELS) == {"wgmma", "f32"}
+            if entry is not None:
+                assert f'extern "C" int {entry}(' in text
+    assert df.KERNELS["simt"].probe is None
+    assert set(df.KERNELS) == {"wgmma", "f32", "simt"}
     assert build.CSRC_DIR + "/dense_fused.cu" not in build.sources()
     for src in build.sources() + build.headers():
         with open(src) as f:
             text = f.read()
         for gone in ("hpf_dense_fused_sweep_bf16", "hpf_dense_probe_bf16",
-                     "mma.sync.aligned", "dense_fused.cu"):
+                     "hpf_dense_simt_probe_f32", "mma.sync.aligned",
+                     "dense_fused.cu"):
             assert gone not in text, (src, gone)
 
 
@@ -208,19 +252,28 @@ def test_probe_stages_are_instantiations_of_the_production_kernels():
                        "norecip": "NoRecip", "noyload": "NoYLoad",
                        "mmonly": "MmOnly"}[name]
         assert f"{const} = {value}" in roles
-    for src, kernel in (("dense_wgmma.cu", "dense_wgmma_kernel"),
-                        ("dense_simt.cu", "dense_simt_f32_kernel")):
-        with open(f"{build.CSRC_DIR}/{src}") as f:
-            text = f.read()
-        assert text.count("__global__") == 1
-        assert f"int kStage = kProd>\n__global__ void __launch_bounds__" \
-            in text
+    with open(f"{build.CSRC_DIR}/dense_wgmma.cu") as f:
+        text = f.read()
+    # both wgmma kernels, each with its stages
+    assert text.count("__global__ void") == 2
+    assert text.count("int kStage = kProd>\n__global__ void "
+                      "__launch_bounds__") == 2
+    for kernel in ("dense_wgmma_kernel", "dense_split_kernel"):
         assert f"auto kernel = {kernel}<" in text
-    # a stage on a row wider than the probe's instantiations is refused
+    # dense_simt.cu is built only as the production kernel
+    with open(f"{build.CSRC_DIR}/dense_simt.cu") as f:
+        text = f.read()
+    assert text.count("__global__ void") == 1 and "kStage" not in text
+    assert "auto kernel = dense_simt_f32_kernel<" in text
+    # a stage on a row wider than the probe's instantiations is refused,
+    # and dense_simt.cu has none
     a, b = torch.rand(6, 120), torch.rand(5, 120)
     y = torch.zeros(6, 16, dtype=torch.uint8)[:, :5]
-    with pytest.raises(ValueError, match="probe"):
-        df.launch_dense(a, b, y, kernel="wgmma", stage=0)
+    for kernel in ("wgmma", "f32"):
+        with pytest.raises(ValueError, match="probe"):
+            df.launch_dense(a, b, y, kernel=kernel, stage=0)
+    with pytest.raises(ValueError, match="no probe stages"):
+        df.launch_dense(a[:, :8], b[:, :8], y, kernel="simt", stage=0)
 
 
 def test_entries_are_typed_once(monkeypatch):
@@ -238,7 +291,7 @@ def test_entries_are_typed_once(monkeypatch):
     df._entry.cache_clear()
     try:
         assert set(df._ARGTYPES) == {e for k in df.KERNELS.values()
-                                     for e in (k.entry, k.probe)}
+                                     for e in (k.entry, k.probe) if e}
         for name, types in df._ARGTYPES.items():
             assert df._entry(name) is df._entry(name)
             assert df._entry(name).argtypes == types
@@ -250,9 +303,10 @@ def test_entries_are_typed_once(monkeypatch):
 
 
 def test_hgmma_counts_per_instantiation(monkeypatch):
-    """Each packed width's production kernel is counted on its own, so a
-    width whose products were folded away shows zero; the probe's other
-    stages and other kernels do not count."""
+    """Each wgmma kernel's production instantiation at each packed width
+    is counted on its own, so a width whose products were folded away
+    shows zero; the probe's other stages and other kernels do not
+    count."""
     sass = "\n".join([
         "Function : _Z18dense_wgmma_kernelILi112ELi0EEv14CUtensorMap_st",
         "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
@@ -261,10 +315,19 @@ def test_hgmma_counts_per_instantiation(monkeypatch):
         "  FFMA R1, R2, R3, R4 ;",
         "Function : _Z18dense_wgmma_kernelILi112ELi4EEv14CUtensorMap_st",
         "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
-        "Function : _Z21dense_simt_f32_kernelILi64ELi0EEvPKf",
+        "Function : _Z18dense_split_kernelILi112ELi0EEv14CUtensorMap_st",
+        "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR6], R24 ;",
+        "  HGMMA.64x112x16.F32.BF16 R88, R8, gdesc[UR8], R88 ;",
+        "Function : _Z18dense_split_kernelILi112ELi3EEv14CUtensorMap_st",
+        "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "Function : _Z18dense_split_kernelILi64ELi0EEv14CUtensorMap_st",
+        "  LDS.U8 R1, [R2] ;",
+        "Function : _Z21dense_simt_f32_kernelILi64EEvPKf",
         "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;"])
     monkeypatch.setattr(build, "sass", lambda: sass)
-    assert df.hgmma_counts() == {112: 2, 128: 0}
+    assert df.hgmma_counts() == {"wgmma": {112: 2, 128: 0},
+                                 "f32": {112: 3, 64: 0}}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contig", "ystride",
@@ -309,9 +372,8 @@ def test_kernel_matches_plain_on_card(bias, bf16):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    # an unaligned Y stays on the f32 route only: the bf16 route loads Y
-    # with TMA
-    lin, y = _card_inputs(1000, 777, 13, bias, aligned=bf16)
+    # both routes load Y with TMA at this width
+    lin, y = _card_inputs(1000, 777, 13, bias, aligned=True)
     before = df.fused_dense_sweep.launches
     got = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
     torch.cuda.synchronize()
@@ -351,19 +413,28 @@ def test_wgmma_kernel_matches_plain_and_repeats(n, m, k, bias):
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("aligned", [False, True])
 def test_f32_kernel_matches_plain_and_repeats(n, m, k, bias, aligned):
-    """The f32 route (csrc/dense_simt.cu) on ragged shapes, on an aligned
-    Y (cp.async) and an unaligned one (byte loads): within rtol=2e-4,
-    atol=1e-5 of the plain version, and two launches bitwise equal. K = 200
-    takes rows wider than 128 values, contracted in two column windows."""
+    """The f32 route on ragged shapes: up to kq = 128 the split-product
+    wgmma kernel, which takes an aligned Y only (an unaligned one raises
+    ValueError); K = 200 the kernel of csrc/dense_simt.cu, on an aligned
+    Y (cp.async) and an unaligned one (byte loads), its rows wider than
+    128 values contracted in two column windows. Within rtol=2e-4,
+    atol=1e-5 of the plain version, and two launches bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     lin, y = _card_inputs(n, m, k, bias, aligned=aligned, seed=n + k)
+    kernel = df.f32_kernel(k + 2 * bias)
+    if kernel == "f32" and not aligned:
+        with pytest.raises(ValueError, match="TMA"):
+            df.fused_dense_sweep(*lin[:2], y, *lin[2:])
+        return
     before = df.fused_dense_sweep.launches
+    by_kernel = df.fused_dense_sweep.launches_by_kernel[kernel]
     got = df.fused_dense_sweep(*lin[:2], y, *lin[2:])
     again = df.fused_dense_sweep(*lin[:2], y, *lin[2:])
     torch.cuda.synchronize()
     assert df.fused_dense_sweep.launches == before + 2
+    assert df.fused_dense_sweep.launches_by_kernel[kernel] == by_kernel + 2
     ref = df.fused_dense_sweep_reference(*lin[:2], y, *lin[2:])
     for gg, aa, r in zip(got, again, ref):
         assert torch.equal(gg, aa)

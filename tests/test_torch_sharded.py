@@ -19,7 +19,13 @@ tests/test_sharded_hybrid.py made from the same seed:
   * the item-sharded top-k against the port's streamed top-k (also at
     world size 1) and the JAX sharded top-k;
   * a report of the Trainer's sharded loop issues the same collectives,
-    in the same order, on the primary and on the other rank.
+    in the same order, on the primary and on the other rank, the training
+    ELBO's all-reduce included;
+  * the sharded training ELBO (`Trainer.logl`: each rank's nonzero sum
+    all-reduced in f64, the Gamma terms of the gathered state) against
+    the single-device `training_elbo` of the gathered state, rtol 1e-6,
+    on per-rank stores and on a world of 3 where one rank's block is all
+    padding.
 """
 
 import json
@@ -44,9 +50,13 @@ from hgaprec_tpu.models.step import make_step as j_make_step
 from hgaprec_tpu.parallel.sharded import build_sharded_run as j_sharded
 from hgaprec_tpu.parallel.sharded import make_mesh
 from hgaprec_tpu.parallel.sharded import sharded_masked_topk as j_topk
+from hgaprec_tpu_torch.config import ModelConfig as TCfg
+from hgaprec_tpu_torch.data.device import build_device_data
 from hgaprec_tpu_torch.eval.ranking import EvalIndex
 from hgaprec_tpu_torch.eval.score import Scorer
 from hgaprec_tpu_torch.eval.topk import masked_topk
+from hgaprec_tpu_torch.models.elbo import training_elbo
+from hgaprec_tpu_torch.models.state import state_from_numpy
 from test_torch_step import port_store
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -61,6 +71,14 @@ STEP_CASES = [("bpf", {}, True), ("bpf", {"bias": True}, False),
 HYBRID_CASES = [("hpf", {}), ("bpf", {"bias": True}), ("bpf", {})]
 HYBRID_CFG = dict(k=4, sweep="hybrid", hybrid_head_items=8,
                   dense_limit_bytes=64)
+# (name, world, store, per-rank store, steps, config) of the ELBO cases
+ELBO_CASES = [
+    ("elbo-hpf-dense", 2, "s53", True, 3, dict(k=3, variant="hpf")),
+    ("elbo-bpf-bias-segment", 2, "s53", True, 2,
+     dict(k=3, variant="bpf", bias=True, sweep="segment")),
+    ("elbo-hpf-padrank", 3, "pad4", False, 3,
+     dict(k=3, variant="hpf", sweep="segment")),
+]
 TOPK_CASES = {"streamed": dict(n=37, m=61, k=7, variant="bpf", bias=False,
                                seed=3, steps=2, users=(0, 37, 3)),
               "bias_k_over_shard": dict(n=19, m=17, k=12, variant="bpf",
@@ -155,6 +173,9 @@ def _tasks():
                                         sweep="segment")))
     for name, c in TOPK_CASES.items():
         tasks.append(dict(kind="topk", name=f"topk-{name}", k=c["k"]))
+    for name, world, store, per_rank, steps, cfg in ELBO_CASES:
+        tasks.append(dict(kind="elbo", name=name, world=world, store=store,
+                          per_rank=per_rank, steps=steps, cfg=cfg))
     _, validation, test = STORES["s53"]()
     tasks.append(dict(kind="report", name="report", store="s53", rfreq=2,
                       iters=4, cfg=dict(k=3, variant="hpf"),
@@ -216,9 +237,11 @@ def worlds(tmp_path_factory):
     """{world size: work directory} after both worlds ran their tasks."""
     base = tmp_path_factory.mktemp("sharded")
     dirs = {2: str(base / "w2"), 3: str(base / "w3")}
-    procs = {2: _spawn(dirs[2], 2, _tasks()),
+    procs = {2: _spawn(dirs[2], 2, [t for t in _tasks()
+                                    if t.get("world", 2) == 2]),
              3: _spawn(dirs[3], 3, [t for t in _tasks()
-                                    if t["name"] in ("uneven", "padrank")])}
+                                    if t["name"] in ("uneven", "padrank") or
+                                    t.get("world") == 3])}
     for world in (2, 3):
         _wait(procs[world], timeout=300)
     return dirs
@@ -422,3 +445,34 @@ def test_report_collectives_match(worlds):
     assert os.path.exists(os.path.join(out0, "itemrank.tsv"))
     assert not os.path.exists(os.path.join(out1, "model.npz"))
     assert os.path.exists(os.path.join(out1, "validation.txt"))
+    # the training ELBO at each report: one f64 all-reduce of its shard
+    # sums on every rank, and the primary's logl.txt
+    assert calls0.count("all_reduce[()]") == 3
+    with open(os.path.join(out0, "logl.txt")) as f:
+        rows = [float(r) for r in f.read().split()]
+    assert len(rows) == 3 and all(np.isfinite(rows))
+
+
+@pytest.mark.parametrize("name,world,store,per_rank,steps,cfg", ELBO_CASES,
+                         ids=[c[0] for c in ELBO_CASES])
+def test_sharded_training_elbo(worlds, name, world, store, per_rank, steps,
+                               cfg):
+    """`-devices N -logl`: Trainer.logl over the ranks equals the
+    single-device training ELBO of the gathered state (rtol 1e-6: f64 sums
+    of f32 chunk sums taken in another order) on every rank, and the
+    primary writes it to logl.txt as the single-device run does."""
+    js = STORES[store]()[0]
+    ts = port_store(js)
+    tcfg = TCfg(n=ts.n, m=ts.m, **cfg)
+    got = [_result(worlds, name, world, rank) for rank in range(world)]
+    if name.endswith("padrank"):     # the last rank holds padding only
+        assert -(-ts.n // world) * (world - 1) >= ts.n
+    state = state_from_numpy({k: v for k, v in got[0].items()
+                              if k not in ("elbo", "logl_txt")}, tcfg,
+                             "cpu")
+    want = training_elbo(state, build_device_data(ts, "cpu"), tcfg)
+    assert np.isfinite(want)
+    for r in got:
+        assert float(r["elbo"]) == pytest.approx(want, rel=1e-6)
+        assert float(r["elbo"]) == float(got[0]["elbo"])
+    assert str(got[0]["logl_txt"]) == f"{float(got[0]['elbo']):.5f}\n"
