@@ -1,9 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--segment | --tail | --cli | --sharded]
+    python3 chip_smoke.py [--segment | --tail | --cli | --sharded | --wide]
 
-With `--segment` it runs only the build and the segment path's kernel
+With `--wide` it runs only the build and the wide routes' phase (packed
+rows past 256 values: every wide route against its plain version at
+ML-1M shape at K = 255 with bias, 300, 640 and 1000 in both precisions,
+both dense routes at Netflix shape and the EchoNest tail and CSR sweep at
+K = 300 beside their bounds, and the ML-1M command line at K = 300 and
+K = 255 with bias on the card against the CPU), with `--segment` only
+the build and the segment path's kernel
 phases (the CSR sweep on every layout and at EchoNest shape), with
 `--tail` only the build and the tail kernel's phases (every layout and the
 EchoNest tail), with `--cli` only the build, the ML-1M runs at "highest"
@@ -50,8 +56,12 @@ small segment runs (HPF + ELBO, BPF + bias, MLE user, MLE item, Canny) on
 the card against the CPU. The dense kernels' stage probe (every stage of
 the bf16 and the f32 route, both wgmma kernels) is held to its plain versions at ML-1M and
 Netflix shape and timed at Netflix shape beside the floor of each stage's
-work, the f32 stages again on the trained EchoNest head. Prints one line
-per phase, a JSON line with each kernel's
+work, the f32 stages again on the trained EchoNest head. The build holds the
+narrow production instantiations of the split kernel, the bf16 tail
+kernel and the CSR sweep's passes to the machine code recorded before
+the wide routes joined their sources, and the wide routes' phase
+follows the EchoNest phases. Prints one line per phase, a JSON line with
+each kernel's
 launches, error and times, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, with no result line,
 when there is no GPU or any phase fails.
@@ -106,6 +116,81 @@ BF16_SASS = dict(
         "dense_wgmma_kernelILi64ELi0EE":
             "8acccb9b9ccc72848d28a7574d8b7d729c68dc144569631c99878f14bac67600",
     })
+# the production instantiations of the f32 route's split kernel, the bf16
+# tail kernel and the CSR sweep's passes at widths up to 256 (the item
+# pass's reduce included), as this toolkit built them before the wide
+# routes joined their sources: they must not change. Keys are the
+# mangled names of that build; a later build's names carry the chunk
+# count a lane holds (ELi1 / ELi2), which narrow_digests drops.
+NARROW_SASS = dict(
+    nvcc="Build cuda_12.9.r12.9/compiler.36037853_0",
+    digests={
+        "dense_split_kernelILi112ELi0EE":
+            "d6114c9d72e25dbce026538e70ad36d655259ce14607c4dbf33c5528786e11c3",
+        "dense_split_kernelILi128ELi0EE":
+            "d236c6bd19d97532fe720a9e2aaac42a8df5e658ff9571e2188b32597bf75c29",
+        "dense_split_kernelILi64ELi0EE":
+            "3b6cbb649ed4465b653820c82790ea1aa1ac282d0912d1a251effd538667b794",
+        "item_reduce_kernelILi1EE":
+            "02f56935192ee9e2378441d193a16e59b04c8022e2544b0c220638773a21c422",
+        "item_reduce_kernelILi2EE":
+            "8bb736918af637ffeb61a4018707332bb5d8fbb83adbea48321486cb5504322a",
+        "segment_pass_kernelILi16ELb0ENS_4RingILi2ELi7ELb0EEEE":
+            "e4fe9bae9a020be147ee555a6047543e8d49beffa9c98fbd2390af0a179d206b",
+        "segment_pass_kernelILi16ELb0ENS_4RingILi3ELi7ELb0EEEE":
+            "604ff8eb799582bdf31f2fdd155d23d353843a8d46db00acb85ab85c167d1a7b",
+        "segment_pass_kernelILi16ELb1ENS_4RingILi3ELi6ELb0EEEE":
+            "191d004ad6b45688ef3dfced5f3c4de584541b2b7b614f4e23503e049fc59487",
+        "segment_pass_kernelILi16ELb1ENS_4RingILi4ELi4ELb1EEEE":
+            "13b0b6138340c9e1712ecdca86a5acec2ad412f702fb054cf65a07ac1ac4525e",
+        "segment_pass_kernelILi32ELb0ENS_4RingILi2ELi7ELb0EEEE":
+            "85f1a6b597e67f3ae20171a3750f4f79cd1de864912af8b5843df97ef1741942",
+        "segment_pass_kernelILi32ELb0ENS_4RingILi3ELi7ELb0EEEE":
+            "b8cc39d60470c8ced82614baadd2488eb85c96368c74c60f987ba130875c674b",
+        "segment_pass_kernelILi32ELb1ENS_4RingILi3ELi6ELb0EEEE":
+            "10148975efe6546fbb09da40e6395eda7c8d4635e89f24bb215534edb1e65823",
+        "segment_pass_kernelILi32ELb1ENS_4RingILi4ELi4ELb1EEEE":
+            "532f54a8d5b96d25b6ea8fbbebce2df96971ef9db650aed5ee49f4ffb8df78d8",
+        "segment_pass_kernelILi4ELb0ENS_4RingILi2ELi7ELb0EEEE":
+            "eb0b6ac3e4eae52a34f09713a070987ca460ef4797d2c455ca54b193341a5286",
+        "segment_pass_kernelILi4ELb0ENS_4RingILi3ELi7ELb0EEEE":
+            "95487206aaf8f0598db063283a5bdf2bfc183b8d6236f426c6549c546c863381",
+        "segment_pass_kernelILi4ELb1ENS_4RingILi3ELi6ELb0EEEE":
+            "431824f79469c305f170a5011304dd4ffda68c07bfd4666daf35e9048d1e74c4",
+        "segment_pass_kernelILi4ELb1ENS_4RingILi4ELi4ELb1EEEE":
+            "6069b891217a7f5c10abb4d27f3753c2de8ce676617429bd630e02509528d3fb",
+        "segment_pass_kernelILi8ELb0ENS_4RingILi2ELi7ELb0EEEE":
+            "ddcfe208117d15f203dc6d8f41b1031249b84d942669bb51c7ef4106c158a35e",
+        "segment_pass_kernelILi8ELb0ENS_4RingILi3ELi7ELb0EEEE":
+            "eaf013c7173a93e84c1cc99f9a74685bca194537427490c1aa2d61e6319562d9",
+        "segment_pass_kernelILi8ELb1ENS_4RingILi3ELi6ELb0EEEE":
+            "e8cd60a3b89808dc63110741ce2b11f0d55e70acdcb6c902424ed3e856b2ac2f",
+        "segment_pass_kernelILi8ELb1ENS_4RingILi4ELi4ELb1EEEE":
+            "ccde7485af7d47a02ad1781bfbd9baaecf86cf7b8ef5465da7414a15029a6f77",
+        "tail_bf16_kernelILi16EE":
+            "fdb555242eb494f0a93a551b4e7f266debc6f18ca2d2d3d35ddf017a97b6dbe4",
+        "tail_bf16_kernelILi32EE":
+            "14b442fad5bd37035b475cd3fa87f75ee438dbe318ed623c2f3804901daf6ffe",
+        "tail_bf16_kernelILi8EE":
+            "4ffd1d07e064accb2c4390487662934b4b451214f4550c3e3f0dcebf28191b2d",
+    })
+NARROW_PATTERN = (r"dense_split_kernelILi\d+ELi0EE|"
+                  r"tail_bf16_kernelILi\d+(?:ELi1)?EE|"
+                  r"segment_pass_kernelILi\d+(?:ELi2)?ELb[01]ENS_4Ring"
+                  r"ILi\d+ELi\d+ELb[01]EEEE|item_reduce_kernelILi[12]EE")
+# the wide routes (packed rows past 256 values): the factor width of their
+# timings and paths, and each (K, bias) they are held to plain at
+K_WIDE = 300
+WIDE_KS = ((255, True), (300, False), (640, False), (1000, False))
+# K = 100 kernel times recorded in PERF.md section 6 (NVIDIA H100 80GB
+# HBM3, 700.00 W), ms: printed beside this run's
+K100_RANGES = {"dense bf16, ML-1M": (0.1666, 0.2687),
+               "dense bf16, Netflix": (12.18, 12.56),
+               "dense f32 split, ML-1M": (0.5493, 0.5572),
+               "dense f32 split, Netflix": (63.48, 64.44),
+               "tail bf16, EchoNest": (1.8388, 1.9200),
+               "tail f32, EchoNest": (2.6241, 2.8269),
+               "CSR sweep, EchoNest": (8.9187, 9.0476)}
 TAIL_F32_TOL = dict(rtol=2e-5, atol=1e-6)   # tests/test_pallas_tail.py:62-63
 SEG_TOL = dict(rtol=2e-4, atol=1e-5)        # tests/test_sweep.py:62-65
 N_EN, M_EN = 1019318, 384546           # EchoNest preset (run.pl:84-87)
@@ -224,6 +309,16 @@ def sass_digests(sass, pattern=r"dense_wgmma_kernelILi\d+ELi\d+EE"):
         elif cur and "/*" in line:
             body.append(" ".join(line.split()))
     return out
+
+
+def narrow_digests(sass):
+    """sass_digests of the narrow production instantiations
+    (NARROW_PATTERN), keyed by their names before the wide routes joined
+    them."""
+    import re
+    return {re.sub(r"(tail_bf16_kernelILi\d+)ELi1EE", r"\1EE",
+                   re.sub(r"(segment_pass_kernelILi\d+)ELi2E", r"\1E", k)): v
+            for k, v in sass_digests(sass, NARROW_PATTERN).items()}
 
 
 def f64_rel_err(got, lin, y):
@@ -349,29 +444,34 @@ def phase_kernel(df, gen):
 
 
 def check_unaligned_y(df, lin, y, ref32):
-    """An unaligned Y raises ValueError on the f32 route at kq <= 128 (its
-    kernel loads Y by TMA); with the factors zero-padded to K = 130 the
-    route takes dense_simt.cu, which reads the same Y byte by byte, and
-    the first K columns are the unpadded sums."""
+    """An unaligned Y raises ValueError on the f32 route at kq <= 128 and
+    on both wide routes (their kernels load Y by TMA); with the factors
+    zero-padded to K = 130 the f32 route takes dense_simt.cu, which reads
+    the same Y byte by byte, and the first K columns are the unpadded
+    sums."""
     k = lin[0].shape[1]
     yu = y.contiguous()                # rows of M bytes
-    try:
-        df.fused_dense_sweep(*lin[:2], yu)
-        raised = False
-    except ValueError:
-        raised = True
+    raised = []
+    for width, bf16 in ((k, False), (K_WIDE, False), (K_WIDE, True)):
+        try:
+            df.fused_dense_sweep(*[torch.nn.functional.pad(x, (0, width - k))
+                                   for x in lin[:2]], yu, bf16=bf16)
+        except ValueError:
+            raised.append(df.dense_kernel(width, bf16))
     wide = [torch.nn.functional.pad(x, (0, 130 - k)) for x in lin[:2]]
     before = dict(df.fused_dense_sweep.launches_by_kernel)
     got = df.fused_dense_sweep(*wide, yu)
     torch.cuda.synchronize()
     took = {kn: df.fused_dense_sweep.launches_by_kernel[kn] - before[kn]
             for kn in before}
-    ok = raised and took == {"wgmma": 0, "f32": 0, "simt": 1} and all(
-        torch.allclose(g[:, :k], r, **F32_TOL) for g, r in zip(got, ref32))
-    say(f"kernel unaligned Y (row stride {yu.stride(0)} bytes): the f32 route "
-        f"at kq = {df.packed_width(k, 'f32')} "
-        f"{'raises ValueError' if raised else 'DID NOT RAISE'}; at K = 130 "
-        f"it launched {took} and matches the plain version "
+    ok = raised == ["f32", "wide_f32", "wide"] and \
+        {kn: n for kn, n in took.items() if n} == {"simt": 1} and all(
+            torch.allclose(g[:, :k], r, **F32_TOL)
+            for g, r in zip(got, ref32))
+    say(f"kernel unaligned Y (row stride {yu.stride(0)} bytes): raised "
+        f"ValueError on {raised} (the f32 route at kq = "
+        f"{df.packed_width(k, 'f32')}, both wide routes at K = {K_WIDE}); "
+        f"at K = 130 it launched {took} and matches the plain version "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the f32 route's width rule or its Y check failed")
@@ -1166,14 +1266,13 @@ def phase_sharded_run(df, datdir, root):
     per step, and a report's gather seconds for both leaf sets. Returns
     {precision: dict of numbers}."""
     import torch.distributed as dist
-    from hgaprec_tpu_torch import cli
     from hgaprec_tpu_torch.config import set_matmul_precision
     from hgaprec_tpu_torch.models.state import state_to_numpy
     from hgaprec_tpu_torch.models.step import cavi_step
     from hgaprec_tpu_torch.parallel import distributed
     from hgaprec_tpu_torch.parallel.sharded import build_sharded_run
     distributed.initialize_from_env(
-        "cuda", init_method=f"tcp://localhost:{cli._free_port()}",
+        "cuda", init_method="file://" + os.path.join(root, "pg_world1"),
         world_size=1, rank=0)
     out = {}
     try:
@@ -2364,15 +2463,338 @@ def phase_hybrid_cpu_reference(root):
         raise SystemExit("hybrid card and CPU runs disagree")
 
 
+# ---------------------------------------------------------------------------
+# the wide routes: packed rows past 256 values (K > 256, K > 254 with bias)
+# ---------------------------------------------------------------------------
+
+def wide_issued(n, m, kaug, kernel):
+    """(kq, windows, FLOPs as issued) of a wide dense launch: both roles
+    form S over the whole row once per column window (4 N M kq per
+    window) and contract once (4 N M kq), six bf16 products each on the
+    f32 route."""
+    from hgaprec_tpu_torch.ops import dense_fused as df
+    kq = df.packed_width(kaug, kernel)
+    nwin = df.windows(kq, kernel)
+    pieces = SPLIT_PRODUCTS if kernel == "wide_f32" else 1
+    return kq, nwin, 4 * n * m * kq * (nwin + 1) * pieces
+
+
+def check_wide_dense(df, lin, y, bias, bf16, reps):
+    """One wide dense route against its plain versions (f32, and in the
+    same mode), two launches bitwise; timed over `reps` when reps > 0.
+    Returns the route's figures."""
+    n, k = lin[0].shape
+    m = lin[1].shape[0]
+    kaug = k + 2 * bias
+    kernel = df.dense_kernel(kaug, bf16)
+
+    def call():
+        return df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
+    before = df.fused_dense_sweep.launches_by_kernel[kernel]
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    counted = df.fused_dense_sweep.launches_by_kernel[kernel] - before
+    ref32 = df.fused_dense_sweep_reference(*lin[:2], y, *lin[2:])
+    err, ok = compare(got, ref32, bf16)
+    del ref32
+    like = df.fused_dense_sweep_reference(*lin[:2], y, *lin[2:], bf16=bf16)
+    err_like = compare(got, like, bf16)[0]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del got, again, like
+    kq, nwin, issued = wide_issued(n, m, kaug, kernel)
+    bound_ms, bound_by = (dense_bound(n, m, kaug) if bf16 else
+                          dense_bound_f32(n, m, kaug))
+    fig = dict(kq=kq, windows=nwin, max_abs_err=err_like, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
+    timing = ""
+    if reps:
+        fig["ms"] = median_ms(call, reps)
+        fig["plain_ms"] = median_ms(lambda: df.fused_dense_sweep_reference(
+            *lin[:2], y, *lin[2:], bf16=bf16), reps)
+        timing = (f"; kernel {fig['ms']:.4f} ms, plain {fig['plain_ms']:.4f} "
+                  f"ms (median of {reps}); "
+                  f"{6 * n * m * kaug / fig['ms'] / 1e9:.1f} TFLOP/s of "
+                  f"6 N M K, {issued / fig['ms'] / 1e9:.1f} issued as "
+                  f"4 N M kq (windows + 1)"
+                  f"{' x 6 bf16 products' if not bf16 else ''}; bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), kernel at "
+                  f"{fig['ms'] / bound_ms:.2f}x it")
+    good = ok and same and counted == 2 and kernel in ("wide", "wide_f32")
+    say(f"wide dense {n}x{m}x{k} bias={bias} {kernel} (kq = {kq}, {nwin} "
+        f"windows): max_abs_err vs f32 plain {err:.3e} (vs plain in the "
+        f"same mode {err_like:.3e}), two launches bitwise "
+        f"{'equal' if same else 'DIFFERENT'}, counted {counted} "
+        f"{'ok' if good else 'FAIL'}{timing}")
+    if not good:
+        raise SystemExit(f"the wide dense route {kernel} disagrees with its "
+                         f"plain version or itself at {n}x{m}x{k}")
+    return fig
+
+
+def phase_wide_kernels(df, gen):
+    """Every wide route against its plain version at ML-1M shape on random
+    inputs, at each K of WIDE_KS, in both precisions: the dense kernel
+    (F32_TOL, BF16_REL), both tail routes and the CSR sweep's two passes
+    on an ML-1M-sized power-law stream (f32 TAIL_F32_TOL, bf16 BF16_REL),
+    two launches bitwise everywhere. Returns the figures at K_WIDE."""
+    from hgaprec_tpu_torch.data.device import DeviceData, sorted_coo
+    from hgaprec_tpu_torch.ops.tail import build_tail_stream
+    u, i, y, _ = power_law_coo(N_ML, M_ML, 1_000_000, SEED, cover=True)
+    stream = build_tail_stream(u, i, y, "cuda")
+    data = DeviceData(**sorted_coo(u, i, y, N_ML, M_ML, "cuda", 1000),
+                      dense_y=None)
+    out = {}
+    for k, bias in WIDE_KS:
+        lin, yd, _ = random_inputs(gen, N_ML, M_ML, k, 6144, bias, 0.045)
+        for bf16 in (False, True):
+            fig = check_wide_dense(df, lin, yd, bias, bf16,
+                                   10 if k == K_WIDE else 0)
+            if k == K_WIDE:
+                out["wide" if bf16 else "wide_f32"] = fig
+        del lin, yd
+        tail = check_tail(f"ml-1m, wide K={k}", N_ML, M_ML, k, stream, gen,
+                          bias, 3 if k == K_WIDE else 1)
+        seg = check_segment(f"ml-1m, wide K={k}", data,
+                            random_lin(gen, N_ML, M_ML, k, bias),
+                            3 if k == K_WIDE else 1)
+        if k == K_WIDE:
+            out["tail"], out["segment"] = tail, seg
+    del stream, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_wide_netflix(df, gen):
+    """Both wide dense routes at Netflix shape and K_WIDE against the
+    plain version, each timed beside its bound (15.5 ms bf16, 93.1 f32 on
+    the H100's rates); the f32 route's distance to f64 sums on a slice of
+    the users beside the plain version's; and at K = 200, where the f32
+    route takes dense_simt.cu, the wide kernel's f32 windows timed beside
+    it on the same inputs (the route there is unchanged)."""
+    rows = -(-N_NF // 512) * 512
+    t0 = time.perf_counter()
+    lin, y, nnz = random_inputs(gen, N_NF, M_NF, K_WIDE, rows, False, 0.01)
+    torch.cuda.synchronize()
+    say(f"wide netflix: Y u8 {rows}x{M_NF} ({nnz:,} nonzeros) made on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    ref = df.fused_dense_sweep_reference(*lin, y)
+    out = {}
+    for bf16 in (True, False):
+        kernel = df.dense_kernel(K_WIDE, bf16)
+
+        def call():
+            return df.fused_dense_sweep(*lin, y, bf16=bf16)
+        got = call()
+        torch.cuda.synchronize()
+        err, ok = compare(got, ref, bf16)
+        del got
+        ms = median_ms(call, 3)
+        plain_ms = median_ms(
+            lambda: df.fused_dense_sweep_reference(*lin, y, bf16=bf16), 3)
+        bound_ms, bound_by = (dense_bound(N_NF, M_NF, K_WIDE) if bf16 else
+                              dense_bound_f32(N_NF, M_NF, K_WIDE))
+        kq, nwin, issued = wide_issued(N_NF, M_NF, K_WIDE, kernel)
+        say(f"wide netflix {N_NF}x{M_NF}x{K_WIDE} {kernel} (kq = {kq}, "
+            f"{nwin} windows): vs f32 plain max_abs_err {err:.3e} "
+            f"{'ok' if ok else 'FAIL'}; kernel {ms:.2f} ms, plain "
+            f"{plain_ms:.2f} ms (median of 3); "
+            f"{6 * N_NF * M_NF * K_WIDE / ms / 1e9:.1f} TFLOP/s of 6 N M K, "
+            f"{issued / ms / 1e9:.1f} issued; bound {bound_ms:.2f} ms "
+            f"({bound_by}), kernel at {ms / bound_ms:.2f}x it")
+        if not ok:
+            raise SystemExit(f"the wide {kernel} route disagrees with plain "
+                             f"at Netflix shape")
+        out[kernel] = dict(ms_netflix=ms, plain_ms_netflix=plain_ms,
+                           bound_ms_netflix=bound_ms,
+                           issued_tflop_netflix=issued / 1e12)
+    del ref
+    sl = [lin[0][:65536].contiguous(), lin[1]]
+    ys = y[:65536]
+    rel = {"wide_f32": f64_rel_err(df.fused_dense_sweep(*sl, ys), sl, ys),
+           "plain": f64_rel_err(df.fused_dense_sweep_reference(*sl, ys), sl,
+                                ys)}
+    say(f"wide netflix f32 route relative to f64 sums on the first 65,536 "
+        f"users: wide kernel {rel['wide_f32']:.3e}, plain "
+        f"{rel['plain']:.3e}")
+    out["wide_f32"]["f64_rel_err_netflix_slice"] = rel
+    del lin, sl
+    lin = random_lin(gen, N_NF, M_NF, 200, False)[:2]
+    ref = df.fused_dense_sweep_reference(*lin, y)
+    got_simt = simt_sweep(df, lin, y)
+    got_win = df._unpack(*df.launch_dense(*lin, y, kernel="wide_f32"), 200,
+                         False)
+    torch.cuda.synchronize()
+    err_simt, ok_simt = compare(got_simt, ref, False)
+    err_win, ok_win = compare(got_win, ref, False)
+    del got_simt, got_win, ref
+    simt_ms = median_ms(lambda: simt_sweep(df, lin, y), 3)
+    win_ms = median_ms(lambda: df.launch_dense(*lin, y, kernel="wide_f32"),
+                       3)
+    say(f"netflix K=200 at highest (the route: {df.f32_kernel(200)}): "
+        f"dense_simt.cu {simt_ms:.2f} ms (max_abs_err {err_simt:.3e}), the "
+        f"wide kernel's f32 windows on the same inputs {win_ms:.2f} ms "
+        f"(max_abs_err {err_win:.3e}) "
+        f"{'ok' if ok_simt and ok_win else 'FAIL'}")
+    if not (ok_simt and ok_win):
+        raise SystemExit("a K = 200 f32 kernel disagrees with plain")
+    out["k200"] = dict(simt_ms_netflix=simt_ms, wide_f32_ms_netflix=win_ms)
+    del lin, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_wide_echonest(tr, gen):
+    """The EchoNest tail stream and segment store (the hybrid Trainer's
+    layout; no other Trainer is built) at K_WIDE: both tail routes and
+    the CSR sweep's two passes, each timed beside its bound and held to
+    its plain version."""
+    data, n, m = tr.data, tr.store.n, tr.store.m
+    tail = check_tail("echonest tail, wide", n, m, K_WIDE, data.tail, gen,
+                      False, 3)
+    seg = check_segment("echonest", data, random_lin(gen, n, m, K_WIDE,
+                                                     False), 2)
+    torch.cuda.empty_cache()
+    return tail, seg
+
+
+# the user's wide paths at ML-1M (cli flags past the common ones); each is
+# run on the card and on the CPU
+WIDE_BASE = ["-n", str(N_ML), "-m", str(M_ML), "-rfreq", "1",
+             "-max-iterations", "2"]
+WIDE_RUNS = (
+    ("highest", ["-hier", "-k", str(K_WIDE)]),
+    ("bf16", ["-hier", "-k", str(K_WIDE), "-precision", "default"]),
+    ("segment_logl", ["-hier", "-k", str(K_WIDE), "-sweep",
+                      "segment-chunked", "-logl"]),
+    ("bias", ["-hier", "-k", "255", "-bias"]),     # 257 packed values
+    # a head of 512 items (3 MB over 6,144 rows), the rest in the tail
+    ("hybrid_bf16", ["-hier", "-k", str(K_WIDE), "-sweep", "hybrid",
+                     "-head-gib", "0.003", "-precision", "default"]),
+    ("hybrid_highest", ["-hier", "-k", str(K_WIDE), "-sweep", "hybrid",
+                        "-head-gib", "0.003"]),
+)
+
+
+def start_wide_cpu_runs(datdir, root):
+    """The WIDE_RUNS on the CPU, one command-line subprocess after the
+    other in a thread, so that they run while the card works. Returns the
+    thread; its `secs` holds each run's wall seconds, its `failed` the
+    runs that did not exit 0."""
+    import threading
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def work():
+        for name, args in WIDE_RUNS:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "hgaprec_tpu_torch.cli", "-dir",
+                 datdir, *WIDE_BASE, *args, "-cpu", "-outdir",
+                 os.path.join(root, f"wide_{name}_cpu")], cwd=here,
+                capture_output=True, text=True, timeout=900,
+                env=dict(os.environ, PYTHONPATH=here))
+            thread.secs[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                thread.failed[name] = proc.stdout[-2000:] + \
+                    proc.stderr[-2000:]
+    thread = threading.Thread(target=work, daemon=True)
+    thread.secs, thread.failed = {}, {}
+    thread.start()
+    return thread
+
+
+def phase_wide_paths(df, tf, datdir, root, cpu_runs):
+    """The wide routes on the user's path: the ML-1M command line at
+    K_WIDE in both precisions, with -sweep segment-chunked -logl, HPF
+    -bias at K = 255 (257 packed values) and a hybrid in both precisions,
+    each on the card (in-process, every kernel's count set to 0 just
+    before it and read just after) against its CPU run (`cpu_runs`,
+    start_wide_cpu_runs), validation ll (and the ELBO) within CPU_REL.
+    Returns {run: launches by kernel}."""
+    from hgaprec_tpu_torch.ops import segment_fused as sf
+    launches, secs = {}, {}
+    for name, args in WIDE_RUNS:
+        out = os.path.join(root, f"wide_{name}_cuda")
+        for kernel in df.fused_dense_sweep.launches_by_kernel:
+            df.fused_dense_sweep.launches_by_kernel[kernel] = 0
+        tf.fused_half_sweep.launches = 0
+        sf.fused_segment_sweep.launches = 0
+        t0 = time.perf_counter()
+        cli_in_process(["-dir", datdir, *WIDE_BASE, *args, "-outdir", out])
+        secs[name] = time.perf_counter() - t0
+        launches[name] = dict(
+            {k: v for k, v in df.fused_dense_sweep.launches_by_kernel.items()
+             if v}, tail=tf.fused_half_sweep.launches,
+            segment=sf.fused_segment_sweep.launches)
+    t0 = time.perf_counter()
+    cpu_runs.join()
+    say(f"wide paths: the card's runs took {sum(secs.values()):.1f} s, the "
+        f"CPU's {sum(cpu_runs.secs.values()):.1f} s beside the card's work "
+        f"(waited {time.perf_counter() - t0:.1f} s for them)")
+    if cpu_runs.failed:
+        raise SystemExit(f"wide CPU runs failed: {cpu_runs.failed}")
+    for name, args in WIDE_RUNS:
+        outs = {d: os.path.join(root, f"wide_{name}_{d}")
+                for d in ("cuda", "cpu")}
+        g, c = validation_ll(outs["cuda"]), validation_ll(outs["cpu"])
+        worst = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(g, c))
+        ok = [a[0] for a in g] == [b[0] for b in c] and len(g) >= 3 and \
+            worst < CPU_REL
+        elbo = ""
+        if "-logl" in args:
+            eg, ec = logl_rows(outs["cuda"]), logl_rows(outs["cpu"])
+            worst_elbo = max(abs(a - b) / abs(b) for a, b in zip(eg, ec))
+            ok = ok and len(eg) == len(ec) == len(g) and \
+                worst_elbo < CPU_REL
+            elbo = f", training ELBO {worst_elbo:.3e}"
+        want = {"highest": "wide_f32", "bf16": "wide", "bias": "wide_f32",
+                "hybrid_bf16": "wide", "hybrid_highest": "wide_f32"}
+        took = launches[name]
+        ok = ok and (took.get(want[name], 0) > 0 if name in want else
+                     took["segment"] > 0) and \
+            (took["tail"] > 0) == name.startswith("hybrid")
+        say(f"wide path {name}: python -m hgaprec_tpu_torch.cli "
+            f"{' '.join(args)} -rfreq 1 -max-iterations 2, card "
+            f"{secs[name]:.1f} s, CPU {cpu_runs.secs[name]:.1f} s; "
+            f"launches {took}; validation ll "
+            f"{[(i, round(v, 6)) for i, v in g]}, worst relative gap to the "
+            f"CPU run {worst:.3e}{elbo} (bound {CPU_REL}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the wide path {name} disagrees with the CPU "
+                             f"run or missed its kernels")
+    return launches
+
+
+def phase_wide(df, tf, gen, smi, root, tr):
+    """The wide routes' phase (`--wide`): kernels at ML-1M shape, Netflix,
+    the EchoNest tail and store at K_WIDE (on the hybrid Trainer `tr`'s
+    layout), then the user's paths on an ML-1M dataset. Returns the
+    figures of the kernels line's wide entries."""
+    from hgaprec_tpu_torch.data.synthetic import write_pf_dataset
+    t0 = time.perf_counter()
+    datdir = os.path.join(root, "wide_data")
+    write_pf_dataset(datdir, np.random.default_rng(SEED), N_ML, M_ML, k=8,
+                     a=0.3, ap=1.8, b=0.3, scale=0.7)
+    cpu_runs = start_wide_cpu_runs(datdir, root)
+    fig = phase_wide_kernels(df, gen)
+    fig["netflix"] = phase_wide_netflix(df, gen)
+    fig["echonest_tail"], fig["echonest_segment"] = \
+        phase_wide_echonest(tr, gen)
+    fig["launches"] = phase_wide_paths(df, tf, datdir, root, cpu_runs)
+    fig["seconds"] = time.perf_counter() - t0
+    say(f"wide phase passed in {fig['seconds']:.1f} s on {smi}")
+    return fig
+
+
 def main():
     t_start = time.perf_counter()
     if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 5:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if sys.argv[1:] not in ([], ["--segment"], ["--tail"], ["--cli"],
-                            ["--sharded"]):
+                            ["--sharded"], ["--wide"]):
         print("usage: chip_smoke.py [--segment | --tail | --cli | "
-              "--sharded]", file=sys.stderr)
+              "--sharded | --wide]", file=sys.stderr)
         return 2
     only = sys.argv[1][2:] if sys.argv[1:] else None
     if not torch.cuda.is_available():
@@ -2430,14 +2852,18 @@ def main():
         serial = [x.strip() for x in log.splitlines()
                   if "Potential Performance Loss" in x and
                   ("dense_wgmma_kernelILi112E" in x or
-                   "dense_split_kernel" in x)]
+                   "dense_split_kernel" in x or "dense_wide_kernel" in x)]
         if serial:
-            raise SystemExit(f"wgmma serialized at kq <= 128: {serial}")
+            raise SystemExit(f"wgmma serialized at kq <= 128 or in the "
+                             f"wide kernel: {serial}")
     hgmma = df.hgmma_counts()
     main_kq = df.packed_width(K, "wgmma")
-    hgmma_ok = all(counts.get(main_kq, 0) > 0 and min(counts.values()) > 0
+    hgmma_ok = all(min(counts.values(), default=0) > 0
                    for counts in hgmma.values()) and \
-        sorted(hgmma["f32"]) == [64, 112, 128]
+        all(main_kq in hgmma[k] for k in ("wgmma", "f32")) and \
+        sorted(hgmma["f32"]) == [64, 112, 128] and \
+        all(sorted(hgmma[k]) == [df.KERNELS[k].window]
+            for k in ("wide", "wide_f32"))
     say(f"warpgroup tensor-core instructions (HGMMA) in the SASS of "
         f"csrc/dense_wgmma.cu, by kernel and packed width kq: {hgmma} (the "
         f"main path runs kq = {main_kq}) {'ok' if hgmma_ok else 'FAIL'}")
@@ -2457,6 +2883,20 @@ def main():
         + f"; digests {json.dumps(digests)}")
     if comparable and not same:
         raise SystemExit("the bf16 route's machine code changed")
+    narrow = narrow_digests(build.sass())
+    same = narrow == NARROW_SASS["digests"]
+    comparable = nvcc_build == NARROW_SASS["nvcc"]
+    say(f"narrow production instantiations of dense_split_kernel, "
+        f"tail_bf16.cu and segment_sweep.cu ({len(narrow)}): "
+        + ("the parent build's, instruction for instruction ok" if same else
+           ("DIFFERENT from the parent build's FAIL: " + json.dumps(
+               {k: v for k, v in narrow.items()
+                if NARROW_SASS["digests"].get(k) != v})
+            if comparable else
+            f"not compared: recorded under {NARROW_SASS['nvcc']}, built by "
+            f"{nvcc_build}")))
+    if comparable and not same:
+        raise SystemExit("a narrow instantiation's machine code changed")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if only == "sharded":
@@ -2481,6 +2921,13 @@ def main():
             phase_cli(df, datdir, root, os.path.join(root, "cpu_highest"))
         say(f"cli phases passed in {time.perf_counter() - t_start:.1f} s "
             f"(no result line: --cli runs only the command line's path)")
+        return 0
+    if only == "wide":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+            tr = echonest_trainer(root)
+            phase_wide(df, tf, gen, smi, root, tr)
+        say(f"wide phases passed in {time.perf_counter() - t_start:.1f} s "
+            f"(no result line: --wide runs only the wide routes' phase)")
         return 0
     if only:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
@@ -2522,12 +2969,23 @@ def main():
         tr = echonest_trainer(root)
         en = phase_echonest(df, tf, tr, gen, smi)
         seg = phase_echonest_segment(df, tf, tr, root, smi)
+        wide = phase_wide(df, tf, gen, smi, root, tr)
         del tr
         torch.cuda.empty_cache()
         phase_hybrid_cpu_reference(root)
         seg_small = phase_segment_cpu_reference(root)
 
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    k100 = {"dense bf16, ML-1M": main_kernel["ms"],
+            "dense bf16, Netflix": netflix["ms_netflix"],
+            "dense f32 split, ML-1M": f32_ml1m["ms"],
+            "dense f32 split, Netflix": netflix_f32["ms_netflix"],
+            "tail bf16, EchoNest": en["tail"]["ms"],
+            "tail f32, EchoNest": en["tail"]["ms_f32"],
+            "CSR sweep, EchoNest": seg["ms"]}
+    say("K = 100 kernel times beside PERF.md's recorded ranges (ms): " +
+        "; ".join(f"{k} {v:.4f} (recorded {K100_RANGES[k][0]}-"
+                  f"{K100_RANGES[k][1]})" for k, v in k100.items()))
     head_ms, head_plain_ms, head_bound_ms = en["head"]["wgmma"]
     head32 = en["head"]["f32"]
     probe_en = en["probe_f32"]
@@ -2623,7 +3081,40 @@ def main():
          **{k: v for k, v in seg.items()
             if k not in ("launches", "ms_iter", "peak")},
          "ms_per_iter_echonest_segment": seg["ms_iter"],
-         "peak_gb_echonest_segment": seg["peak"]}]}))
+         "peak_gb_echonest_segment": seg["peak"]},
+        {"name": "fused_dense_sweep_wide", "route": "cuda",
+         "source": "hgaprec_tpu_torch/csrc/dense_wgmma.cu",
+         "kernel": "dense_wide_kernel<1, 256>",
+         "replaces": "hgaprec_tpu/ops/dense_pallas.py:50",
+         "launches": sum(w.get("wide", 0)
+                         for w in wide["launches"].values()),
+         "launches_by_path": {f"ml1m_cli_{r}": w.get("wide", 0)
+                              for r, w in wide["launches"].items()},
+         **wide["wide"], **wide["netflix"]["wide"], "hgmma": hgmma["wide"]},
+        {"name": "fused_dense_sweep_wide_f32", "route": "cuda",
+         "source": "hgaprec_tpu_torch/csrc/dense_wgmma.cu",
+         "kernel": "dense_wide_kernel<3, 128>",
+         "replaces": "hgaprec_tpu/ops/dense_pallas.py:50",
+         "launches": sum(w.get("wide_f32", 0)
+                         for w in wide["launches"].values()),
+         "launches_by_path": {f"ml1m_cli_{r}": w.get("wide_f32", 0)
+                              for r, w in wide["launches"].items()},
+         **wide["wide_f32"], **wide["netflix"]["wide_f32"],
+         "k200_netflix": wide["netflix"]["k200"],
+         "hgmma": hgmma["wide_f32"]},
+        {"name": "fused_half_sweep_wide", "route": "cuda",
+         "source": "hgaprec_tpu_torch/csrc/tail_bf16.cu",
+         "replaces": "hgaprec_tpu/ops/pallas_tail.py:101",
+         "launches": wide["launches"]["hybrid_bf16"]["tail"],
+         "source_f32": "hgaprec_tpu_torch/csrc/segment_sweep.cu",
+         "launches_f32": wide["launches"]["hybrid_highest"]["tail"],
+         **wide["tail"], "echonest": wide["echonest_tail"]},
+        {"name": "fused_segment_sweep_wide", "route": "cuda",
+         "source": "hgaprec_tpu_torch/csrc/segment_sweep.cu",
+         "replaces": "docs/design/pallas_csr_sweep.py:80",
+         "launches": wide["launches"]["segment_logl"]["segment"],
+         **wide["segment"], "echonest": wide["echonest_segment"],
+         "wide_phase_s": wide["seconds"]}]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -29,18 +29,22 @@ binds cuda:LOCAL_RANK (the CPU with -cpu, over gloo), ingests only its
 own user rows and trains sharded over the whole world. Without torchrun,
 `-devices D` clamps D to the visible devices (the CPU's cores with -cpu),
 trains in this process when one remains, and otherwise starts D worker
-processes of this command line, one per device, forwards SIGTERM to them
-and exits with rank 0's code. Only rank 0 prints and writes the output
-files; the other ranks' report files land in OUT/.proc{rank}.
+processes of this command line, one per device, joined through a file in
+a private temporary directory (no port another process could take first),
+forwards SIGTERM to them and exits with rank 0's code. Only rank 0 prints
+and writes the output files; the other ranks' report files land in
+OUT/.proc{rank}. Every rank of a run that ends normally meets the others
+at a barrier before it tears its process group down.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import signal
-import socket
 import subprocess
 import sys
+import tempfile
 import time
 from typing import List, Optional
 
@@ -273,8 +277,11 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     trains = o["batch"] and not any(o[f] for f in _MODES)
     user_rows = None
+    rendezvous = None
     if launched:
         # one rank of a multi-process launch: shard over the whole world
+        # (torchrun's MASTER_ADDR/MASTER_PORT, or the file this CLI's
+        # spawner names in distributed.INIT_METHOD_ENV)
         distributed.initialize_from_env(device)
         world = dist.get_world_size()
         o["devices"] = world
@@ -294,15 +301,24 @@ def main(argv: Optional[List[str]] = None) -> int:
         o["devices"] = ndev
         if ndev > 1:
             return _spawn_workers(argv, ndev)
+        rendezvous = tempfile.mkdtemp(prefix="hgaprec_pg_")
         distributed.initialize_from_env(
-            device, init_method=f"tcp://localhost:{_free_port()}",
+            device, init_method="file://" + os.path.join(rendezvous, "pg"),
             world_size=1, rank=0)
     try:
-        return _main(o, device, user_rows,
-                     sharded=dist.is_initialized() and trains)
+        rc = _main(o, device, user_rows,
+                   sharded=dist.is_initialized() and trains)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            # no rank tears down its links while a peer's last collective
+            # may still be reading them (a rank that raised skips this:
+            # its peers are stopped by the spawner or by torchrun)
+            dist.barrier()
+        return rc
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+        if rendezvous is not None:
+            shutil.rmtree(rendezvous, ignore_errors=True)
 
 
 def _main(o, device, user_rows, sharded: bool) -> int:
@@ -362,30 +378,38 @@ def _main(o, device, user_rows, sharded: bool) -> int:
         tr.close()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _spawn_workers(argv: List[str], ndev: int) -> int:
     """Run this command line as `ndev` ranks, one process per device,
-    joined over localhost as torchrun would join them. Rank 0 prints (the
-    others' stdout is dropped); SIGTERM is forwarded to every rank; when
-    a rank fails the others are stopped (they would wait in their next
-    collective). Returns rank 0's exit code, or 1 if only another rank
-    failed."""
-    port = _free_port()
+    with torchrun's WORLD_SIZE, RANK and LOCAL_RANK, joined through a
+    file in a private temporary directory (distributed.INIT_METHOD_ENV):
+    no port is chosen, so none can be taken by another process between
+    its choice and rank 0's bind. Rank 0 prints (the others' stdout is
+    dropped); SIGTERM is forwarded to every rank; when a rank fails the
+    others are stopped (they would wait in their next collective).
+    Returns rank 0's exit code, or 1 if only another rank failed."""
+    from hgaprec_tpu_torch.parallel import distributed
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     path = os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH"))
                            if p)
+    rendezvous = tempfile.mkdtemp(prefix="hgaprec_pg_")
+    init = "file://" + os.path.join(rendezvous, "pg")
     sys.stdout.flush()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "hgaprec_tpu_torch.cli", *argv],
-        env=dict(os.environ, WORLD_SIZE=str(ndev), RANK=str(r),
-                 LOCAL_RANK=str(r), MASTER_ADDR="localhost",
-                 MASTER_PORT=str(port), PYTHONPATH=path),
-        stdout=None if r == 0 else subprocess.DEVNULL) for r in range(ndev)]
+    try:
+        return _wait_workers([subprocess.Popen(
+            [sys.executable, "-m", "hgaprec_tpu_torch.cli", *argv],
+            env=dict(os.environ, WORLD_SIZE=str(ndev), RANK=str(r),
+                     LOCAL_RANK=str(r), PYTHONPATH=path,
+                     **{distributed.INIT_METHOD_ENV: init}),
+            stdout=None if r == 0 else subprocess.DEVNULL)
+            for r in range(ndev)])
+    finally:
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+
+def _wait_workers(procs) -> int:
+    """Wait for the ranks `procs`, forwarding SIGTERM and stopping the
+    others when one fails; returns rank 0's code, or 1 if only another
+    rank failed."""
 
     def forward(signum, frame):
         for p in procs:

@@ -8,7 +8,9 @@
 //     of ModelConfig and the CLI) for packed rows up to 128 values (K <= 128,
 //     K <= 126 with bias): f32-accurate products from three bf16 pieces, on
 //     the same machinery (see "The f32 route" below). csrc/dense_simt.cu
-//     takes wider f32 rows.
+//     takes f32 rows of 129-256 values;
+//   * dense_wide_kernel, both modes past 256 packed values (see "wide rows"
+//     at the end of the file).
 //
 // The bf16 route. For a uint8 count matrix
 // Y [N, M] (row stride ldy) and packed factor rows a = [A | ba | 1] bf16
@@ -1495,4 +1497,405 @@ extern "C" int hpf_dense_split_probe_f32(const void* a, const void* b,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// ---- wide rows: both routes past 256 packed values ------------------------
+//
+// dense_wide_kernel takes packed rows wider than 256 values (K > 256,
+// K > 254 with bias), which neither kernel above can hold: a wgmma makes
+// at most 256 output columns, the bf16 kernel's accumulator already takes
+// 128 registers a thread at kq = 256, and the split kernel's resident
+// stationary pieces (96 KB at kq = 128) would pass the 227 KB a block may
+// use at kq = 320. It replaces the TPU kernel dense_pallas.py::_kernel at
+// those widths, which the JAX package takes at any width (K padded to
+// 128-lane multiples). One template serves both routes: kP = 1 piece a
+// factor (bf16, W = bf16(Y * rcp.approx(max(S, 1e-30))) as
+// dense_wgmma_kernel forms it) or kP = 3 pieces (f32, W = Y / max(S,
+// 1e-30) with the IEEE divide's fast path and six split products, as
+// dense_split_kernel). Rows are zero-padded to a multiple of 64 values
+// (whole 128-byte k-blocks).
+//   * Grid: (role block, column window). The role blocks are
+//     csrc/dense_roles.cuh's (blockIdx.x: stationary tile and split
+//     chunk, two deterministic roles, reduce_splits for split > 1); the
+//     window (blockIdx.y) is the output columns [kWn y, kWn y + kWn) of
+//     the stationary rows, at most 256 for bf16 and 128 for f32.
+//   * Per moving tile of 64 rows each CTA forms S = X Z^T over the full kq,
+//     one k-block of 64 values at a time, with the stationary and the
+//     moving k-blocks both streamed by TMA through the ring (the stationary
+//     tile no longer stays resident), then W once, then contracts W into
+//     its window's columns only, read as their own boxes of the moving
+//     tile together with the Y tile. S is formed once per window: the
+//     kernel issues 4 N M kq (nwin + 1) products (x 6 bf16 products on the
+//     f32 route) where the function needs 6 N M K.
+//   * Promotion. Each k-block's S products (4, x 6 on the f32 route) start
+//     from zero and are added to the f32 S sums once retired; each 64-column
+//     chunk of the contraction the same into the window's f32 sums. No wgmma
+//     accumulator sums more than 24 products, so the tensor cores'
+//     truncating adder does not drift over a wide row or a long moving
+//     chunk.
+//   * Ring. Each stage holds one item of a tile's sequence: kb = kq / 64
+//     S items (the k-block's stationary and moving pieces), then one C item
+//     (the window's moving k-blocks and Y). The CTA is the two consumer
+//     warpgroups (256 threads, up to 255 registers a thread; see hazard 5
+//     above and the split kernel's budget), and the ring is refilled from
+//     inside them as in SplitLoader. Every product retires inside its item,
+//     so nothing is in flight across a branch or the loop's back edge: the
+//     k-block loop is a runtime loop and one instantiation per route serves
+//     every width.
+// Registers: the window's sums (kWn / 2), S's sums and one k-block's
+// products (32 each) during S, W's fragments (16 kP) and one chunk's
+// accumulator (32) after it: ptxas allocates 209 a thread on the bf16
+// route and 179 on the f32 route, with no spills and no serialized wgmma
+// (chip_smoke.py checks both).
+
+namespace {
+
+constexpr int kWideWnBf16 = 256;   // window columns, bf16 route
+constexpr int kWideWnF32 = 128;    // window columns, f32 route
+
+template <int kP>
+__host__ __device__ constexpr int wide_pairs() {
+  return kP == 1 ? 1 : kPairs;
+}
+template <int kP>
+__host__ __device__ constexpr int wide_x(int p) {
+  return kP == 1 ? 0 : pair_x(p);
+}
+template <int kP>
+__host__ __device__ constexpr int wide_z(int p) {
+  return kP == 1 ? 0 : pair_z(p);
+}
+
+// Shared-memory plan of the wide kernel: kStages stages of the larger item
+// (S item: the stationary k-block's kP pieces, then the moving k-block's;
+// C item: the window's moving k-blocks, kP pieces each, then the Y tile),
+// then the full and empty mbarriers and one claim per stage, each stage on
+// a 1024-byte boundary. 5 stages of 40 KB on the bf16 route, 3 of 72 KB on
+// the f32 route.
+template <int kP, int kWn>
+struct WidePlan {
+  static constexpr int kTc = 64;                     // moving rows per tile
+  static constexpr int kXBlock = kX * 128;           // X k-block, one piece
+  static constexpr int kZBlock = kTc * 128;          // Z k-block, one piece
+  static constexpr int kWinBlocks = kWn / 64;
+  static constexpr int kZOff = kP * kXBlock;         // S item: X, then Z
+  static constexpr int kSBytes = kP * (kXBlock + kZBlock);
+  static constexpr int kYOff = kP * kWinBlocks * kZBlock;   // C item: Z, Y
+  static constexpr int kCBytes = kYOff + kTc * kX;
+  static constexpr int kStageBytes = kSBytes > kCBytes ? kSBytes : kCBytes;
+  static constexpr int kFit = (kMaxSmem - 1024) / (kStageBytes + 20);
+  static constexpr int kStages = kFit < 6 ? kFit : 6;
+  static constexpr int kBarOff = kStages * kStageBytes;
+  static constexpr int kClaimOff = kBarOff + 2 * kStages * 8;
+  static constexpr int kSmem = 1024 + kClaimOff + 4 * kStages;
+  static_assert(kWn % 64 == 0 && kStageBytes % 1024 == 0,
+                "whole k-blocks on 1024-byte stages");
+  static_assert(kStages >= 2 && kSmem <= kMaxSmem, "the ring must fit");
+};
+
+// The wide kernel's ring: item it (of tile it / (kb + 1)) in stage
+// it % kStages, loaded by TMA from inside the consumer warpgroups.
+template <int kP, int kWn>
+struct WideRing {
+  using P = WidePlan<kP, kWn>;
+  uint32_t base, bars;
+  const CUtensorMap *mx, *mz, *myu, *myi;
+  bool item;
+  int x0, z_begin;
+  int kb;       // k-blocks of a row (S items per tile)
+  int c0;       // the window's first column
+  int nchunk;   // its k-blocks (fewer than kWn / 64 in a last window)
+  int* claims;  // per stage, the item last loaded into it
+  __device__ __forceinline__ uint32_t stage(int it) const {
+    return base + (it % P::kStages) * P::kStageBytes;
+  }
+  __device__ __forceinline__ uint32_t full(int it) const {
+    return bars + 8 * (it % P::kStages);
+  }
+  __device__ __forceinline__ uint32_t empty(int it) const {
+    return bars + 8 * (P::kStages + it % P::kStages);
+  }
+  __device__ __forceinline__ void wait_full(int it) const {
+    mbar_wait(full(it), (it / P::kStages) & 1);
+  }
+  __device__ __forceinline__ void load(int it) const {
+    const int t = it / (kb + 1), j = it - t * (kb + 1);
+    const int z0 = z_begin + t * P::kTc;
+    const uint32_t st = stage(it), bar = full(it);
+    if (j < kb) {   // S item: k-block j of the stationary and moving rows
+      mbar_expect_tx(bar, P::kSBytes);
+      for (int p = 0; p < kP; ++p) {
+        for (int r = 0; r < kX; r += 64)
+          tma_load_3d(st + p * P::kXBlock + r * 128, mx, 64 * j, x0 + r, p,
+                      bar);
+        tma_load_3d(st + P::kZOff + p * P::kZBlock, mz, 64 * j, z0, p, bar);
+      }
+    } else {        // C item: the window's moving k-blocks and the Y tile
+      mbar_expect_tx(bar, kP * nchunk * P::kZBlock + P::kTc * kX);
+      for (int p = 0; p < kP; ++p)
+        for (int c = 0; c < nchunk; ++c)
+          tma_load_3d(st + (p * P::kWinBlocks + c) * P::kZBlock, mz,
+                      c0 + 64 * c, z0, p, bar);
+      if (item)   // Y tile [z = users][x = items]
+        tma_load(st + P::kYOff, myi, x0, z0, bar);
+      else        // Y tile [x = users][z = items]
+        tma_load(st + P::kYOff, myu, z0, x0, bar);
+    }
+  }
+  // as SplitLoader::release: the leader that finds both warpgroups done
+  // with item it loads item it + kStages into its stage
+  __device__ __forceinline__ void release(int it, int g, int nitems) const {
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + g) : "memory");
+    if (threadIdx.x % 128 != 0) return;
+    const uint32_t e = empty(it);
+    mbar_arrive(e);
+    const int s = it % P::kStages;
+    if (it + P::kStages < nitems && mbar_test(e, (it / P::kStages) & 1) &&
+        atomicCAS(claims + s, it, it + P::kStages) == it)
+      load(it + P::kStages);
+  }
+};
+
+// S item it, k-block j: S's products over this k-block, from zero, retired
+// and added to the S sums s.
+template <int kP, int kWn>
+__device__ __forceinline__ void wide_s_block(float (&s)[32],
+                                             float (&sacc)[32],
+                                             const WideRing<kP, kWn>& ring,
+                                             int it, int g, int nitems) {
+  using P = WidePlan<kP, kWn>;
+  ring.wait_full(it);
+  const uint32_t st = ring.stage(it);
+  const uint64_t dx = desc_sw128(st + g * 64 * 128, 1, 64);
+  const uint64_t dz = desc_sw128(st + P::kZOff, 1, 64);
+  fence_regs(sacc);
+  wgmma_fence();
+#pragma unroll
+  for (int p = 0; p < wide_pairs<kP>(); ++p)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<64>(sacc, dx + ((wide_x<kP>(p) * P::kXBlock + ks * 32) >> 4),
+                   dz + ((wide_z<kP>(p) * P::kZBlock + ks * 32) >> 4),
+                   p > 0 || ks > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sacc);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] += sacc[i];
+  ring.release(it, g, nitems);
+}
+
+// Chunk c (64 columns) of the window's contraction, W's fragments against
+// the C item's moving k-block c (MN-major), from zero, retired and added
+// to the window's sums.
+template <int kP, int kWn>
+__device__ __forceinline__ void wide_chunk(float (&sums)[kWn / 2],
+                                           const uint32_t (&wf)[kP][4][4],
+                                           uint32_t st, int c) {
+  using P = WidePlan<kP, kWn>;
+  const uint64_t dz =
+      desc_sw128(st + c * P::kZBlock, P::kZBlock / 16, 64);
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int p = 0; p < wide_pairs<kP>(); ++p)
+#pragma unroll
+    for (int zk = 0; zk < 4; ++zk)
+      wgmma_rs<64>(acc, wf[wide_x<kP>(p)][zk],
+                   dz + ((wide_z<kP>(p) * P::kWinBlocks * P::kZBlock +
+                          zk * 2048) >> 4));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sums[32 * c + i] += acc[i];
+}
+
+// The C item it: W from the S sums and the Y tile, then the window's
+// chunks, each retired before the next.
+template <int kP, int kWn>
+__device__ __forceinline__ void wide_contract(
+    float (&sums)[kWn / 2], const float (&s)[32], uint32_t (&wf)[kP][4][4],
+    const WideRing<kP, kWn>& ring, int it, int g, int nitems, bool item,
+    uint32_t xrow, uint32_t q) {
+  using P = WidePlan<kP, kWn>;
+  ring.wait_full(it);
+  const uint32_t st = ring.stage(it);
+  if constexpr (kP == 1)
+    make_w<64, kProd>(item, wf[0], s, st + P::kYOff, xrow, q);
+  else
+    make_w_split<kProd>(item, wf, s, st + P::kYOff, xrow, q);
+#pragma unroll
+  for (int p = 0; p < kP; ++p) fence_frags(wf[p]);
+#pragma unroll
+  for (int c = 0; c < P::kWinBlocks; ++c)
+    if (c < ring.nchunk) wide_chunk<kP, kWn>(sums, wf, st, c);
+  ring.release(it, g, nitems);
+}
+
+// Grid (role blocks, windows); the factor tables are [kP, rows, kq] bf16
+// (the pieces on the f32 route, the bf16 rows on the other), loaded
+// through 3-D tensor maps.
+template <int kP, int kWn>
+__global__ void __launch_bounds__(kThreadsSplit, 1)
+dense_wide_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b,
+                  const __grid_constant__ CUtensorMap map_yu,
+                  const __grid_constant__ CUtensorMap map_yi,
+                  float* __restrict__ acc_a, float* __restrict__ acc_b,
+                  float* __restrict__ part_a, float* __restrict__ part_b,
+                  int n, int m, int kq, int split_a, int split_b) {
+  using P = WidePlan<kP, kWn>;
+  constexpr int kTc = P::kTc;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t ring0 = smem_u32(base);
+  const uint32_t bars = ring0 + P::kBarOff;
+
+  const Role role = role_of<kX, kTc>(n, m, kq, split_a, split_b, acc_a,
+                                     acc_b, part_a, part_b);
+  const int kb = kq / 64;
+  const int c0 = blockIdx.y * kWn;
+  const int nchunk = (kq - c0 < kWn ? kq - c0 : kWn) / 64;
+  const int ntiles = (role.z_end - role.z_begin + kTc - 1) / kTc;
+  const int nitems = ntiles * (kb + 1);
+  const int tid = threadIdx.x;
+  int* claims = reinterpret_cast<int*>(base + P::kClaimOff);
+  const WideRing<kP, kWn> ring{ring0, bars,
+                               role.item ? &map_b : &map_a,
+                               role.item ? &map_a : &map_b,
+                               &map_yu, &map_yi, role.item, role.x0,
+                               role.z_begin, kb, c0, nchunk, claims};
+  if (tid == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);                          // full
+      mbar_init(bars + 8 * (P::kStages + s), 2);           // empty
+      claims[s] = s;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int it = 0; it < P::kStages && it < nitems; ++it) ring.load(it);
+
+  const int g = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int lane = tid % 32;
+  const uint32_t r0 = 16 * ((tid % 128) / 32) + lane / 4, q = lane % 4;
+  const uint32_t xrow = 64 * g + r0;
+
+  float sums[kWn / 2];        // the window's promoted sums
+  float s[32], sacc[32];      // S's promoted sums, one k-block's products
+  uint32_t wf[kP][4][4];      // W (its pieces) as A fragments
+#pragma unroll
+  for (int i = 0; i < kWn / 2; ++i) sums[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int it0 = t * (kb + 1);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    for (int j = 0; j < kb; ++j)
+      wide_s_block<kP, kWn>(s, sacc, ring, it0 + j, g, nitems);
+    wide_contract<kP, kWn>(sums, s, wf, ring, it0 + kb, g, nitems,
+                           role.item, xrow, q);
+  }
+
+  const int nx = role.item ? m : n;
+#pragma unroll
+  for (int c = 0; c < P::kWinBlocks; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = role.x0 + 64 * g + r0 + 8 * ((i / 2) % 2);
+      const int col = c0 + 64 * c + 8 * (i / 4) + 2 * q;
+      if (c < nchunk && row < nx)
+        *reinterpret_cast<float2*>(role.out + (long long)row * kq + col) =
+            make_float2(sums[32 * c + i], sums[32 * c + i + 1]);
+    }
+}
+
+// [pieces, rows, cols] bf16, row-major, loaded in 64 x 64 boxes of one
+// piece with the 128-byte swizzle; out-of-range elements load as zero
+bool encode_wide(CUtensorMap* map, const void* ptr, uint64_t cols,
+                 uint64_t rows, uint64_t pieces) {
+  const cuuint64_t dims[3] = {cols, rows, pieces};
+  const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                   const_cast<void*>(ptr), dims, strides, box, unit,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kP, int kWn>
+int launch_wide(const void* a, const void* b, const void* y, void* acc_a,
+                void* acc_b, void* part_a, void* part_b, int n, int m,
+                int kq, long long ldy, int split_a, int split_b,
+                cudaStream_t stream) {
+  using P = WidePlan<kP, kWn>;
+  if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+  const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUtensorMap ma, mb, myu, myi;
+  if (!encode_wide(&ma, a, kq, n, kP) || !encode_wide(&mb, b, kq, m, kP) ||
+      !encode_2d(&myu, u8, y, m, n, ldy, P::kTc, kX,
+                 CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode_2d(&myi, u8, y, m, n, ldy, kX, P::kTc,
+                 CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = dense_wide_kernel<kP, kWn>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_a = (n + kX - 1) / kX, tiles_b = (m + kX - 1) / kX;
+  const dim3 grid(tiles_a * split_a + tiles_b * split_b,
+                  (kq + kWn - 1) / kWn);
+  kernel<<<grid, kThreadsSplit, P::kSmem, stream>>>(
+      ma, mb, myu, myi, static_cast<float*>(acc_a),
+      static_cast<float*>(acc_b), static_cast<float*>(part_a),
+      static_cast<float*>(part_b), n, m, kq, split_a, split_b);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return reduce_partials(acc_a, acc_b, part_a, part_b, n, m, kq, split_a,
+                         split_b, stream);
+}
+
+}  // namespace
+
+// The bf16 route's wide kernel: a, b bf16 [n, kq], [m, kq] with kq a
+// multiple of 64 (any width; ops/dense_fused.py sends it rows past 256
+// values), rows zero-padded past the factors; y, outputs, splits and
+// scratch as hpf_dense_wgmma_bf16. Returns the cudaError_t of the launches.
+extern "C" int hpf_dense_wide_bf16(const void* a, const void* b,
+                                   const void* y, void* acc_a, void* acc_b,
+                                   void* part_a, void* part_b, int n, int m,
+                                   int kq, long long ldy, int split_a,
+                                   int split_b, void* stream) {
+  if (kq <= 0 || kq % 64 != 0 ||
+      bad_args(a, b, y, part_a, part_b, n, m, ldy, split_a, split_b))
+    return (int)cudaErrorInvalidValue;
+  return launch_wide<1, kWideWnBf16>(a, b, y, acc_a, acc_b, part_a, part_b,
+                                     n, m, kq, ldy, split_a, split_b,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// The f32 route's wide kernel: a, b the three bf16 pieces of the packed
+// f32 rows, [3, n, kq] and [3, m, kq], kq a multiple of 64; the rest as
+// hpf_dense_wide_bf16.
+extern "C" int hpf_dense_wide_f32(const void* a, const void* b,
+                                  const void* y, void* acc_a, void* acc_b,
+                                  void* part_a, void* part_b, int n, int m,
+                                  int kq, long long ldy, int split_a,
+                                  int split_b, void* stream) {
+  if (kq <= 0 || kq % 64 != 0 ||
+      bad_args(a, b, y, part_a, part_b, n, m, ldy, split_a, split_b))
+    return (int)cudaErrorInvalidValue;
+  return launch_wide<kPieces, kWideWnF32>(
+      a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq, ldy, split_a,
+      split_b, static_cast<cudaStream_t>(stream));
 }

@@ -20,8 +20,14 @@ the packed width kq (K, plus 2 with bias, zero-padded):
     `dense_split_kernel` of `csrc/dense_wgmma.cu`, f32-accurate products
     from three bf16 pieces of each factor on the same wgmma pipeline
     (`split_pieces` writes the piece tables);
-  * f32 above kq = 128: `csrc/dense_simt.cu` (register-tiled FP32 FMAs
-    fed by a cp.async ring), which takes any Y row stride.
+  * f32 from kq = 129 to 256: `csrc/dense_simt.cu` (register-tiled FP32
+    FMAs fed by a cp.async ring), which takes any Y row stride;
+  * both precisions past 256 packed values (K > 256, K > 254 with bias):
+    `dense_wide_kernel` of `csrc/dense_wgmma.cu` ("wide" bf16, "wide_f32"
+    f32 from the three pieces), rows padded to whole k-blocks of 64
+    values and cut into column windows of 256 (bf16) or 128 (f32), S
+    formed per window over the whole row with both k-blocks streamed by
+    TMA. No width cap: one instantiation per route takes every width.
 
 The choice is by width between two hand-written kernels, not a fallback:
 a launch that fails raises. A sweep costs 8 N M kq FLOPs (four products
@@ -48,7 +54,7 @@ import torch
 
 from hgaprec_tpu_torch.ops import build
 
-KP_MAX = 256           # widest packed factor row the kernels take
+KP_MAX = 256           # widest packed row of the narrow kernels
 SPLIT_KQ_MAX = 128     # widest packed row of the f32 route's wgmma kernel
 
 
@@ -59,6 +65,7 @@ class _Kernel(NamedTuple):
     tile: int          # stationary rows per CTA, the unit splits_for plans in
     per_sm: int        # CTAs resident on one SM
     min_chunk: int     # fewest tiles of moving rows one CTA sweeps when split
+    window: int = 0    # output columns per CTA (the wide kernels), else all
 
 
 KERNELS = {
@@ -73,6 +80,10 @@ KERNELS = {
     # f32 above kq = 128: csrc/dense_simt.cu (one 256-thread CTA per SM); no
     # stages
     "simt": _Kernel("hpf_dense_simt_f32", None, 0, 128, 1, 8),
+    # past kq = 256: dense_wide_kernel (one 256-thread CTA per SM and
+    # column window), bf16 and f32 (the pieces); no stages
+    "wide": _Kernel("hpf_dense_wide_bf16", None, 0, 128, 1, 8, 256),
+    "wide_f32": _Kernel("hpf_dense_wide_f32", None, 0, 128, 1, 8, 128),
 }
 _CLAMP = 1e-30
 # (a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq, ldy, split_a, split_b
@@ -143,27 +154,51 @@ def packed_width(kaug: int, kernel: str) -> int:
     128-byte-swizzled k-blocks of 64 values (TMA zero-fills the rest of a
     last partial block): bf16 ("wgmma") is built for kq = 64, 112, 128 and
     256, f32 ("f32") for 64, 112 and 128 (K = 100 takes 112, with or
-    without bias). "simt" copies rows in 16-byte chunks (multiples of 4
-    values; the kernel loops over this true width)."""
+    without bias), and the wide kernels ("wide", "wide_f32") take any
+    whole number of k-blocks. "simt" copies rows in 16-byte chunks
+    (multiples of 4 values; the kernel loops over this true width) up to
+    256. A narrow kernel refuses a wider row with a ValueError that names
+    the wide kernel its route takes there."""
+    if kernel in ("wide", "wide_f32"):
+        return -(-kaug // 64) * 64
     widths = {"wgmma": (64, 112, 128, KP_MAX),
               "f32": (64, 112, SPLIT_KQ_MAX)}.get(kernel)
     if widths is None:
         kq = -(-kaug // 4) * 4
+        widest = KP_MAX
     else:
         kq = next((w for w in widths if kaug <= w), kaug)
-        if kq > widths[-1]:
-            raise ValueError(f"packed factor width {kq} > {widths[-1]} for "
-                             f"the {kernel} kernel")
-    if kq > KP_MAX:
-        raise ValueError(f"packed factor width {kq} > {KP_MAX}")
+        widest = widths[-1]
+    if kq > widest:
+        raise ValueError(f"packed factor width {kq} > {widest} for the "
+                         f"{kernel} kernel (its route takes the "
+                         f"{dense_kernel(kaug, kernel == 'wgmma')} kernel "
+                         f"there)")
     return kq
+
+
+def dense_kernel(kaug: int, bf16: bool) -> str:
+    """The kernel (a key of KERNELS) a sweep takes for `kaug` values:
+    bf16 "wgmma" up to 256 packed values, f32 `f32_kernel`'s, and past
+    256 the wide kernel of the precision ("wide", "wide_f32")."""
+    if kaug > KP_MAX:
+        return "wide" if bf16 else "wide_f32"
+    return "wgmma" if bf16 else ("f32" if kaug <= SPLIT_KQ_MAX else "simt")
 
 
 def f32_kernel(kaug: int) -> str:
     """The f32 route's kernel (a key of KERNELS) for `kaug` values: the
     split-product wgmma kernel ("f32") up to kq = 128, dense_simt.cu
-    ("simt") above."""
-    return "f32" if kaug <= SPLIT_KQ_MAX else "simt"
+    ("simt") up to 256, the wide kernel's f32 route ("wide_f32") above."""
+    return dense_kernel(kaug, False)
+
+
+def windows(kq: int, kernel: str) -> int:
+    """Column windows of a launch of `kernel` on rows of kq values: one
+    for the narrow kernels (dense_simt.cu's own windows are launches of
+    its own), ceil(kq / window) for the wide ones."""
+    w = KERNELS[kernel].window
+    return -(-kq // w) if w else 1
 
 
 def check_tma_layout(dense_y: torch.Tensor) -> None:
@@ -178,7 +213,8 @@ def check_tma_layout(dense_y: torch.Tensor) -> None:
             f"bytes (build Y with data.device.dense_count_matrix)")
 
 
-def splits_for(n: int, m: int, sms: int, kernel: str) -> Tuple[int, int]:
+def splits_for(n: int, m: int, sms: int, kernel: str,
+               nwin: int = 1) -> Tuple[int, int]:
     """(split_a, split_b): chunks per user-role and item-role CTA loop.
 
     One CTA per stationary tile leaves most of the card idle when N and M
@@ -186,11 +222,14 @@ def splits_for(n: int, m: int, sms: int, kernel: str) -> Tuple[int, int]:
     moving loop is cut into chunks of at least `min_chunk` tiles, aiming
     at about four CTAs per resident slot. At Netflix shape the chunks are
     thousands of tiles long and the item role splits in two; at the
-    EchoNest head (4096 items) the item role splits in nine."""
+    EchoNest head (4096 items) the item role splits in nine. The wide
+    kernels run `nwin` column windows of each, which count toward the
+    four."""
     spec = KERNELS[kernel]
     tiles_a, tiles_b = -(-n // spec.tile), -(-m // spec.tile)
     slots = spec.per_sm * sms
-    chunk = max(spec.min_chunk, -(-2 * tiles_a * tiles_b // (4 * slots)))
+    chunk = max(spec.min_chunk,
+                -(-2 * tiles_a * tiles_b * nwin // (4 * slots)))
     return -(-tiles_b // chunk), -(-tiles_a // chunk)
 
 
@@ -245,7 +284,7 @@ def fused_dense_sweep(a_lin: torch.Tensor, b_lin: torch.Tensor,
     if dense_y.device.type != "cuda":
         raise ValueError(f"no kernel for device {dense_y.device}")
     kaug = a_lin.shape[1] + (2 if ba_lin is not None else 0)
-    kernel = "wgmma" if bf16 else f32_kernel(kaug)
+    kernel = dense_kernel(kaug, bf16)
     acc_a, acc_b = launch_dense(a_lin, b_lin, dense_y, ba_lin, bb_lin,
                                 kernel=kernel)
     if a_lin.shape[0] and b_lin.shape[0]:     # an empty side launches nothing
@@ -276,8 +315,9 @@ def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
     if kernel != "simt":
         check_tma_layout(dense_y)
     a, b = _pack(a_lin, b_lin, ba_lin, bb_lin, kq,
-                 torch.bfloat16 if kernel == "wgmma" else torch.float32)
-    if kernel == "f32":
+                 torch.bfloat16 if kernel in ("wgmma", "wide")
+                 else torch.float32)
+    if kernel in ("f32", "wide_f32"):
         a, b = split_pieces(a), split_pieces(b)
     acc_a = torch.empty((n, kq), dtype=torch.float32, device=a.device)
     acc_b = torch.empty((m, kq), dtype=torch.float32, device=a.device)
@@ -285,7 +325,7 @@ def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
         return acc_a.zero_(), acc_b.zero_()
     split_a, split_b = splits_for(
         n, m, torch.cuda.get_device_properties(a.device).multi_processor_count,
-        kernel)
+        kernel, windows(kq, kernel))
     part_a = (torch.empty((split_a, n, kq), dtype=torch.float32,
                           device=a.device) if split_a > 1 else None)
     part_b = (torch.empty((split_b, m, kq), dtype=torch.float32,
@@ -310,17 +350,21 @@ fused_dense_sweep.launches = 0
 fused_dense_sweep.launches_by_kernel = {kernel: 0 for kernel in KERNELS}
 
 
-# each wgmma kernel's production instantiations in the machine code
+# each wgmma kernel's production instantiations in the machine code, by
+# packed width (the wide kernels: by window width)
 _PRODUCTION = {"wgmma": r"dense_wgmma_kernelILi(\d+)ELi0EE",
-               "f32": r"dense_split_kernelILi(\d+)ELi0EE"}
+               "f32": r"dense_split_kernelILi(\d+)ELi0EE",
+               "wide": r"dense_wide_kernelILi1ELi(\d+)EE",
+               "wide_f32": r"dense_wide_kernelILi3ELi(\d+)EE"}
 
 
 def hgmma_counts() -> Dict[str, Dict[int, int]]:
     """{kernel: {kq: count}}: warpgroup tensor-core instructions (HGMMA)
-    in the machine code of each wgmma kernel ("wgmma" bf16, "f32" split),
-    by production instantiation (packed width kq; the stage probe's other
-    stages are not counted): a width whose count is zero had its products
-    folded away."""
+    in the machine code of each wgmma kernel ("wgmma" bf16, "f32" split,
+    "wide" and "wide_f32"), by production instantiation (packed width kq,
+    window width for the wide kernels; the stage probe's other stages are
+    not counted): a width whose count is zero had its products folded
+    away."""
     counts: Dict[str, Dict[int, int]] = {k: {} for k in _PRODUCTION}
     cur = None
     for line in build.sass().splitlines():

@@ -40,7 +40,10 @@ from hgaprec_tpu_torch.ops.segment import segment_sweep_reference
 from hgaprec_tpu_torch.ops.tail import tail_tables
 
 RANGE = 128            # nonzeros per range (a multiple of 32)
-KQ_MAX = 256           # widest table row the kernel takes
+# widest table row the kernel takes: a lane of a 32-lane group holds up to
+# eight 16-byte chunks of a row in registers (two up to 256 floats); the
+# plain version takes any width
+KQ_MAX = 1024
 SLAB_BYTES = 24 << 20  # a slab's A rows and weights: half the H100's L2
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -160,6 +163,15 @@ def data_slabs(data: DeviceData, n: int, m: int, kq: int,
                        slab_bytes)
 
 
+def check_width(kq: int) -> None:
+    """The kernels' width limit (this wrapper's and the tail's): a
+    ValueError past KQ_MAX packed values."""
+    if kq > KQ_MAX:
+        raise ValueError(f"table width {kq} > {KQ_MAX} packed values: the "
+                         f"kernels hold a row's chunks in a lane's "
+                         f"registers")
+
+
 def _check(a_tab, b_tab, data: DeviceData, slab_bytes: int):
     if a_tab.dim() != 2 or b_tab.dim() != 2 or \
             a_tab.shape[1] != b_tab.shape[1]:
@@ -169,9 +181,9 @@ def _check(a_tab, b_tab, data: DeviceData, slab_bytes: int):
         raise ValueError(f"tables must be float32, got {a_tab.dtype}, "
                          f"{b_tab.dtype}")
     kq = a_tab.shape[1]
-    if kq % 4 or kq > KQ_MAX:
+    if kq % 4:
         raise ValueError(f"table width {kq} is not a multiple of 4 "
-                         f"(16-byte rows) up to {KQ_MAX}")
+                         f"(16-byte rows)")
     if slab_bytes <= 0:
         raise ValueError(f"slab budget {slab_bytes} must be positive")
     p = data.u_ids.shape[0]
@@ -263,6 +275,7 @@ def fused_segment_sweep(a_tab: torch.Tensor, b_tab: torch.Tensor,
     _check(a_tab, b_tab, data, slab_bytes)
     if a_tab.device.type == "cpu":
         return segment_sweep_reference(a_tab, b_tab, data)
+    check_width(a_tab.shape[1])
     if a_tab.device.type != "cuda":
         raise ValueError(f"no kernel for device {a_tab.device}")
     (n, kq), m = a_tab.shape, b_tab.shape[0]

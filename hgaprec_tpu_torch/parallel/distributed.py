@@ -4,10 +4,13 @@
 The JAX package joins hosts with `jax.distributed` and shards over every
 chip of the pod. Here one process drives one device: a rank of a
 `torch.distributed` process group, NCCL between CUDA devices and gloo on
-the CPU. The launch is torchrun's (or the CLI's own, which sets the same
-variables for the workers it starts):
+the CPU. The launch is torchrun's:
 
     MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK
+
+or the CLI's own, which sets WORLD_SIZE, RANK and LOCAL_RANK for the
+workers it starts and, in place of an address and a port, names a
+rendezvous file in INIT_METHOD_ENV.
 
 Usage (the same script on every rank):
 
@@ -24,17 +27,23 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+# the init method of a launch that is not torchrun's (the CLI's spawned
+# ranks: a file:// rendezvous), read when no init_method is passed
+INIT_METHOD_ENV = "HGAPREC_INIT_METHOD"
+
 
 def initialize_from_env(device=None, init_method: Optional[str] = None,
                         world_size: Optional[int] = None,
                         rank: Optional[int] = None) -> bool:
     """Initialize the default process group when a multi-process launch is
     detected. Explicit arguments take the place of the environment
-    (WORLD_SIZE, RANK; the init method defaults to `env://`, which reads
-    MASTER_ADDR and MASTER_PORT), so a caller can pass a `file://` or
-    `tcp://localhost:PORT` method. The backend is NCCL for a CUDA
-    `device` and gloo otherwise. Returns True when the group was
-    initialized, False for a plain single-process run (nothing to do)."""
+    (WORLD_SIZE, RANK; the init method defaults to INIT_METHOD_ENV's value
+    and without it to `env://`, which reads MASTER_ADDR and MASTER_PORT),
+    so a caller can pass a `file://` or `tcp://localhost:PORT` method.
+    The backend is NCCL for a CUDA `device` and gloo otherwise. Returns
+    True when the group was initialized, False for a plain single-process
+    run (nothing to do)."""
+    init_method = init_method or os.environ.get(INIT_METHOD_ENV)
     if world_size is None and "WORLD_SIZE" in os.environ:
         world_size = int(os.environ["WORLD_SIZE"])
     if rank is None and "RANK" in os.environ:

@@ -116,6 +116,22 @@ def test_cli_training_agrees(dataset, tmp_path, capsys, flags):
         assert (td / name).read_bytes() == (jd / name).read_bytes(), name
 
 
+@pytest.mark.parametrize("k,flags", [(300, []), (255, ["-bias"])],
+                         ids=["k300", "k255-bias"])
+def test_cli_training_agrees_wide(dataset, tmp_path, capsys, k, flags):
+    """HPF past 256 packed values through both CLIs on the CPU (K = 300;
+    K = 255 with bias, 257 values): the port's plain versions, which the
+    wide kernels are held to on the card, give the JAX package's
+    validation and test likelihoods within 1e-4 relative."""
+    args = ["-dir", str(dataset), "-n", str(N), "-m", str(M), "-k", str(k),
+            "-hier", "-rfreq", "2", "-max-iterations", "4", "-seed", "2",
+            *flags]
+    jrc, trc, jout, tout, jd, td = _both(args, tmp_path, capsys)
+    assert jrc == trc == 0
+    assert tout == jout
+    _assert_reports_agree(jd, td)
+
+
 def test_cli_resume_agrees(dataset, tmp_path, capsys):
     """-resume continues from model.npz at the saved iteration (the
     stop save after iteration 3 records 4, as in the JAX package)."""
@@ -549,6 +565,15 @@ def test_cli_without_cuda_needs_cpu_flag(dataset, tmp_path, capsys,
     assert not out.exists()
 
 
+def _free_port() -> int:
+    """A port that was free a moment ago: torchrun's launch (MASTER_PORT)
+    can only be handed one so (the CLI's own spawned ranks take none)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def _cli_subprocess(args, timeout=300, world=None):
     """(exit code, stdout) of `python -m hgaprec_tpu_torch.cli args` in a
     session of its own: on a timeout the CLI and the ranks it started
@@ -559,7 +584,7 @@ def _cli_subprocess(args, timeout=300, world=None):
     ranks = [{}] if world is None else [
         dict(WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
              MASTER_ADDR="localhost", MASTER_PORT=str(port))
-        for port in [tcli._free_port()] for r in range(world)]
+        for port in [_free_port()] for r in range(world)]
     procs = [subprocess.Popen(
         [sys.executable, "-m", "hgaprec_tpu_torch.cli", *args],
         env=dict(os.environ, PYTHONPATH=root, **extra),
@@ -602,6 +627,38 @@ def _up_to_ties(text):
 
 def _ll(path):
     return [float(r[2]) for r in _rows(path / "validation.txt")]
+
+
+def test_cli_spawned_ranks_take_no_port(dataset, tmp_path, monkeypatch):
+    """The ranks that `-cpu -devices 2` starts join through a file in a
+    private temporary directory, not through a port chosen, released and
+    handed on (which another process can take before rank 0 binds it):
+    with the port a spawner would hand out held by another listener (the
+    race made certain), three two-rank runs in a row each train, write
+    their reports, meet at the barrier before teardown and exit 0, and no
+    rendezvous directory is left behind."""
+    import socket
+    import tempfile
+    taken = socket.create_server(("", 0), family=socket.AF_INET6,
+                                 dualstack_ipv6=True)
+    port = taken.getsockname()[1]
+    # a spawner that picks a free port gets this one
+    monkeypatch.setattr(tcli, "_free_port", lambda: port, raising=False)
+    tmp = tmp_path / "tmp"
+    tmp.mkdir()
+    monkeypatch.setenv("TMPDIR", str(tmp))
+    monkeypatch.setattr(tempfile, "tempdir", None)
+    args = ["-dir", str(dataset), *BASE, "-rfreq", "3", "-max-iterations",
+            "3", "-hier", "-cpu", "-devices", "2"]
+    try:
+        for run in range(3):
+            out = tmp_path / f"run{run}"
+            assert tcli.main(args + ["-outdir", str(out)]) == 0, run
+            assert len(_rows(out / "validation.txt")) >= 2
+            assert (out / "model.npz").exists()
+            assert not list(tmp.glob("hgaprec_pg_*"))
+    finally:
+        taken.close()
 
 
 @pytest.mark.parametrize("flags", [[], ["-sweep", "hybrid"], ["-logl"]],

@@ -73,6 +73,26 @@ def test_plain_matches_jax(rng, case):
             np.testing.assert_allclose(g.numpy(), np.asarray(r), **F32)
 
 
+@pytest.mark.parametrize("k,bias", [(300, False), (255, True)])
+def test_plain_matches_jax_wide(rng, k, bias):
+    """Past 256 packed values (K = 300; K = 255 with bias, 257 values) the
+    JAX fused kernel pads the rows to kp = 384 and runs in the
+    interpreter; the port's fused_dense_sweep on the CPU (the plain
+    version the wide kernels are held to) agrees at the f32 bound, bias
+    sums included."""
+    elogs, y = _inputs(rng, 40, 30, k, 16, bias, 0, 0)
+    j_lin = [jnp.exp(jnp.asarray(e)) for e in elogs]
+    t_lin = [torch.exp(torch.from_numpy(e)) for e in elogs]
+    j_raw = j_fused(*j_lin[:2], jnp.asarray(y), *j_lin[2:], tile_u=8,
+                    tile_c=16, interpret=True)
+    t_raw = df.fused_dense_sweep(*t_lin[:2], torch.from_numpy(y),
+                                 *t_lin[2:])
+    assert len(t_raw) == len(j_raw) == (4 if bias else 2)
+    assert t_raw[0].shape == (40, k)
+    for got, ref in zip(t_raw, j_raw):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32)
+
+
 @pytest.mark.parametrize("bias", [False, True])
 def test_plain_bf16_close_to_f32(rng, bias):
     elogs, y = _inputs(rng, 45, 29, 4, 16, bias, 0, 0)
@@ -149,6 +169,10 @@ def test_kernel_splits_fill_the_card(n, m, kernel, want):
     (102, "simt", 104),      # 16-byte chunks at the true width
     (13, "simt", 16),
     (200, "simt", 200),
+    (257, "wide", 320),      # K = 255 with bias: whole k-blocks of 64
+    (302, "wide_f32", 320),  # K = 300 with bias
+    (1000, "wide", 1024),
+    (64, "wide_f32", 64),    # the wide kernels take any width
 ])
 def test_packed_width_per_kernel(kaug, kernel, want):
     assert df.packed_width(kaug, kernel) == want
@@ -156,20 +180,53 @@ def test_packed_width_per_kernel(kaug, kernel, want):
 
 @pytest.mark.parametrize("kernel", ["wgmma", "f32", "simt"])
 def test_packed_width_rejects_wide_rows(kernel):
-    with pytest.raises(ValueError):
+    """A narrow kernel refuses 257 packed values (K = 255 with bias), naming
+    the wide kernel its route takes there; the route takes that kernel,
+    on rows of five k-blocks (320 values) in column windows."""
+    bf16 = kernel == "wgmma"
+    wide = "wide" if bf16 else "wide_f32"
+    with pytest.raises(ValueError, match=wide):
         df.packed_width(257, kernel)
+    assert df.dense_kernel(257, bf16) == wide
+    assert df.packed_width(257, wide) == 320
+    assert df.windows(320, wide) == (2 if bf16 else 3)
 
 
 @pytest.mark.parametrize("kaug,want", [(13, "f32"), (102, "f32"),
                                        (128, "f32"), (129, "simt"),
-                                       (202, "simt")])
+                                       (202, "simt"), (256, "simt"),
+                                       (257, "wide_f32"), (302, "wide_f32")])
 def test_f32_route_takes_the_kernel_of_its_width(kaug, want):
     """Up to 128 packed values the f32 route runs the split-product wgmma
-    kernel, above it dense_simt.cu; the split kernel refuses wider rows."""
+    kernel, up to 256 dense_simt.cu, above that the wide kernel's f32
+    route; the split kernel and dense_simt.cu refuse wider rows."""
     assert df.f32_kernel(kaug) == want
     if want == "simt":
         with pytest.raises(ValueError, match="128"):
             df.packed_width(kaug, "f32")
+    if want == "wide_f32":
+        with pytest.raises(ValueError, match="wide_f32"):
+            df.packed_width(kaug, "simt")
+
+
+@pytest.mark.parametrize("kaug", [257, 320, 1024])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wide_routing(kaug, bf16):
+    """Past 256 packed values both precisions take the wide kernel: rows
+    padded to whole k-blocks of 64, windows of 256 columns (bf16) or 128
+    (f32), and the windows count toward the CTAs that fill the card (at
+    ML-1M shape, 132 SMs)."""
+    kernel = df.dense_kernel(kaug, bf16)
+    assert kernel == ("wide" if bf16 else "wide_f32")
+    kq = df.packed_width(kaug, kernel)
+    assert kq % 64 == 0 and kaug <= kq < kaug + 64
+    window = 256 if bf16 else 128
+    assert df.KERNELS[kernel].window == window
+    nwin = df.windows(kq, kernel)
+    assert nwin == -(-kq // window)
+    split_a, split_b = df.splits_for(6040, 3681, 132, kernel, nwin)
+    ctas = nwin * (48 * split_a + 29 * split_b)
+    assert 2 * 132 <= ctas <= 8 * 132
 
 
 def test_tma_layout_check():
@@ -229,7 +286,12 @@ def test_f32_route_runs_the_simt_kernel():
             if entry is not None:
                 assert f'extern "C" int {entry}(' in text
     assert df.KERNELS["simt"].probe is None
-    assert set(df.KERNELS) == {"wgmma", "f32", "simt"}
+    assert set(df.KERNELS) == {"wgmma", "f32", "simt", "wide", "wide_f32"}
+    with open(f"{build.CSRC_DIR}/dense_wgmma.cu") as f:
+        text = f.read()
+    for kernel in ("wide", "wide_f32"):      # the wide kernels, no stages
+        assert df.KERNELS[kernel].probe is None
+        assert f'extern "C" int {df.KERNELS[kernel].entry}(' in text
     assert build.CSRC_DIR + "/dense_fused.cu" not in build.sources()
     for src in build.sources() + build.headers():
         with open(src) as f:
@@ -254,10 +316,12 @@ def test_probe_stages_are_instantiations_of_the_production_kernels():
         assert f"{const} = {value}" in roles
     with open(f"{build.CSRC_DIR}/dense_wgmma.cu") as f:
         text = f.read()
-    # both wgmma kernels, each with its stages
-    assert text.count("__global__ void") == 2
+    # both wgmma kernels, each with its stages, and the wide kernel, which
+    # has none
+    assert text.count("__global__ void") == 3
     assert text.count("int kStage = kProd>\n__global__ void "
                       "__launch_bounds__") == 2
+    assert "auto kernel = dense_wide_kernel<kP, kWn>;" in text
     for kernel in ("dense_wgmma_kernel", "dense_split_kernel"):
         assert f"auto kernel = {kernel}<" in text
     # dense_simt.cu is built only as the production kernel
@@ -324,10 +388,16 @@ def test_hgmma_counts_per_instantiation(monkeypatch):
         "Function : _Z18dense_split_kernelILi64ELi0EEv14CUtensorMap_st",
         "  LDS.U8 R1, [R2] ;",
         "Function : _Z21dense_simt_f32_kernelILi64EEvPKf",
-        "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;"])
+        "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "Function : _Z17dense_wide_kernelILi1ELi256EEv14CUtensorMap_st",
+        "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "Function : _Z17dense_wide_kernelILi3ELi128EEv14CUtensorMap_st",
+        "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "  HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR6], R24 ;"])
     monkeypatch.setattr(build, "sass", lambda: sass)
     assert df.hgmma_counts() == {"wgmma": {112: 2, 128: 0},
-                                 "f32": {112: 3, 64: 0}}
+                                 "f32": {112: 3, 64: 0},
+                                 "wide": {256: 1}, "wide_f32": {128: 2}}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contig", "ystride",
@@ -439,3 +509,34 @@ def test_f32_kernel_matches_plain_and_repeats(n, m, k, bias, aligned):
     for gg, aa, r in zip(got, again, ref):
         assert torch.equal(gg, aa)
         torch.testing.assert_close(gg, r, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,k,bias", [(1000, 777, 300, False),
+                                        (333, 129, 255, True),
+                                        (517, 300, 640, False),
+                                        (64, 1, 1000, True)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wide_kernel_matches_plain_and_repeats(n, m, k, bias, bf16):
+    """Past 256 packed values both routes take dense_wide_kernel: on ragged
+    shapes within rtol=2e-4, atol=1e-5 (f32) or bf16 relative 2e-2 (clamp
+    1e-3) of the plain version, two launches bitwise equal, each counted
+    under its wide kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lin, y = _card_inputs(n, m, k, bias, aligned=True, seed=n + k)
+    kernel = df.dense_kernel(k + 2 * bias, bf16)
+    assert kernel == ("wide" if bf16 else "wide_f32")
+    by_kernel = df.fused_dense_sweep.launches_by_kernel[kernel]
+    got = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
+    again = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
+    torch.cuda.synchronize()
+    assert df.fused_dense_sweep.launches_by_kernel[kernel] == by_kernel + 2
+    ref = df.fused_dense_sweep_reference(*lin[:2], y, *lin[2:], bf16=bf16)
+    for gg, aa, r in zip(got, again, ref):
+        assert torch.equal(gg, aa)
+        if bf16:
+            assert ((gg - r).abs() / r.abs().clamp_min(1e-3)).max() < 2e-2
+        else:
+            torch.testing.assert_close(gg, r, **F32)

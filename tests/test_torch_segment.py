@@ -90,6 +90,43 @@ def test_segment_sweeps_match_jax_and_naive(rng, fn, bias):
         np.testing.assert_allclose(g.numpy(), r, **F32)
 
 
+@pytest.mark.parametrize("k,bias", [(300, False), (255, True)])
+@pytest.mark.parametrize("fn", sorted(SWEEPS))
+def test_segment_sweeps_match_jax_wide(rng, fn, bias, k):
+    """Past 256 packed values (K = 300; K = 255 with bias, 257 values):
+    the port's segment sweeps and the CSR kernel's plain version (the
+    function the wide passes are held to on the card) against the JAX
+    segment sweep and the naive loop, at the f32 bound."""
+    store, jdata, tdata, elogs = _both(rng, bias, k=k)
+    ref = naive_sweep(*[None if e is None else e.astype(np.float64)
+                        for e in elogs], store.coo_u, store.coo_i,
+                      store.coo_y)
+    want = j_sweep.sweep_segment(*_j(elogs), jdata)
+    got = SWEEPS[fn](*_t(elogs), tdata)
+    assert got[0].shape == (store.n, k)
+    for g, w, r in zip(got, want, ref):
+        if w is None:
+            assert g is None
+            continue
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32)
+        np.testing.assert_allclose(g.numpy(), r, **F32)
+
+
+@pytest.mark.parametrize("kq", [104, 320, 1024])
+def test_slab_budget_follows_the_row_width(kq):
+    """The item pass's user slabs are sized from kq: a user costs its A row
+    (4 kq bytes) and its weights, and a slab takes the users whose running
+    cost starts inside its budget, so wider rows give proportionally more
+    slabs under the same budget."""
+    counts = torch.full((20000,), 3, dtype=torch.int64)
+    u_ids = torch.repeat_interleave(torch.arange(20000), counts).int()
+    budget = 1 << 20
+    slab = sf.user_slabs(u_ids, 20000, kq, budget)
+    cost = 4 * kq + 4 * 3
+    assert torch.equal(slab, torch.arange(20000) * cost // budget)
+    assert int(slab.max()) + 1 == -(-20000 * cost // budget)
+
+
 @pytest.mark.parametrize("bias", [False, True])
 def test_chunked_equals_one_shot(rng, bias):
     _, _, tdata, elogs = _both(rng, bias, n=23, m=19, nnz=130)
@@ -380,7 +417,7 @@ def test_entries_are_typed_once(monkeypatch):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "width", "mixed", "ids", "length",
-                                 "contig", "device", "slab"])
+                                 "contig", "device", "slab", "too_wide"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     u = np.array([0, 1, 1], np.int32)
     i = np.array([2, 0, 1], np.int32)
@@ -393,6 +430,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         a_tab, b_tab = a_tab.double(), b_tab.double()
     elif bad == "width":
         a_tab, b_tab = a_tab[:, :6].contiguous(), b_tab[:, :6].contiguous()
+    elif bad == "too_wide":     # past eight 16-byte chunks a lane of 32
+        # the plain version (a CPU tensor) takes the row; a tensor bound
+        # for the kernel is refused, naming the limit
+        a_tab = torch.rand(3, sf.KQ_MAX + 4)
+        b_tab = torch.rand(4, sf.KQ_MAX + 4)
+        out_a, _ = sf.fused_segment_sweep(a_tab, b_tab, DeviceData(
+            **fields, dense_y=None))
+        assert out_a.shape == (3, sf.KQ_MAX + 4)
+        a_tab, b_tab = a_tab.to("meta"), b_tab.to("meta")
+        fields = {k: v.to("meta") for k, v in fields.items()}
+        with pytest.raises(ValueError, match=str(sf.KQ_MAX)):
+            sf.fused_segment_sweep(a_tab, b_tab, DeviceData(**fields,
+                                                            dense_y=None))
     elif bad == "mixed":
         b_tab = torch.rand(4, 4)
     elif bad == "ids":
@@ -437,11 +487,15 @@ def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("k,slab_bytes", [(13, sf.SLAB_BYTES), (13, 4096),
-                                          (100, 20000), (200, 30000)])
+                                          (100, 20000), (200, 30000),
+                                          (255, sf.SLAB_BYTES),
+                                          (300, 40000), (640, 80000),
+                                          (1000, 120000)])
 def test_kernel_matches_plain_on_card(bias, k, slab_bytes):
     """One slab, and several (the item pass adds each slab's rows onto
     the last), at widths of one group size each (kq 16, 100 or 104, 200
-    or 204)."""
+    or 204), and past 256 floats at 32 lanes of 4, 6 and 8 chunks (kq
+    256 or 260, 300 or 304, 640 or 644, 1000 or 1004)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     rng = np.random.default_rng(9)

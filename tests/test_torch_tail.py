@@ -115,6 +115,30 @@ def test_plain_matches_jax_f32(name, bias, impl):
     _assert_close(_port(tables, u, i, y), _jax(tables, tc, impl), **F32)
 
 
+@pytest.mark.parametrize("k,bias", [(300, False), (255, True)])
+def test_plain_matches_jax_wide(k, bias):
+    """Past 256 packed values (K = 300; K = 255 with bias, 257 values) the
+    Pallas tail kernel pads the rows to kp = 384 and runs in the
+    interpreter; the port's tail on the CPU (the plain version both wide
+    routes are held to) and the tail laid out as the CSR sweep's COO
+    through its plain version (the f32 route's function) agree with it
+    at the f32 bound."""
+    rng = np.random.default_rng(k)
+    n, m, u, i, y = _layout("random", rng)
+    tables = _tables(rng, n, m, k, bias)
+    tc = build_tail_compact(u, i, y, n_users=0)
+    want = _jax(tables, tc, "pallas")
+    _assert_close(_port(tables, u, i, y), want, **F32)
+    stream = build_tail_stream(u, i, y, "cpu")
+    a_t, b_t = tail_tables(*[None if x is None else torch.from_numpy(x)
+                             for x in tables], bf16=False)
+    assert a_t.shape[1] == (k + 2 * bias + 3) // 4 * 4
+    acc_a, acc_b = segment_sweep_reference(a_t, b_t, _as_csr(stream))
+    got = (acc_a[:, :k], acc_b[:, :k]) + (
+        (acc_a[:, k], acc_b[:, k + 1]) if bias else (None, None))
+    _assert_close(got, want, **F32)
+
+
 @pytest.mark.parametrize("name", LAYOUTS)
 def test_stream_order_maps_item_sorted_onto_user_sorted(name):
     """TailStream.order is the user-sorted position of each item-sorted
@@ -292,15 +316,23 @@ F32_LANES = {8: 4, 16: 4, 64: 8, 72: 16, 104: 16, 128: 16, 136: 32,
 
 @pytest.mark.parametrize("kq, lanes", [(8, 8), (16, 8), (64, 8), (72, 16),
                                        (104, 16), (128, 16), (136, 32),
-                                       (200, 32), (256, 32)])
+                                       (200, 32), (256, 32), (264, 32),
+                                       (320, 32), (1024, 32)])
 def test_plan_picks_the_entry_and_group_by_width(kq, lanes):
-    assert tf.plan(True, kq) == ("hpf_tail_half_sweep_bf16", lanes)
-    # one 16-byte chunk of bf16 per lane covers the row
-    assert 8 * lanes >= kq and (lanes == 8 or 4 * lanes < kq)
-    f32 = F32_LANES[kq]
-    assert tf.plan(False, kq) == ("hpf_segment_user_pass_f32", f32)
+    """Up to 256 values one 16-byte chunk a lane (bf16) or two (f32) in
+    the fewest lanes; past 256 (K = 255 with bias is 264 bf16 values, K =
+    300 is 304 and 320) groups of 32 lanes of ceil(kq / 256) chunks
+    (bf16) or twice that (f32), up to 1024."""
+    chunks = max(1, -(-kq // 256))
+    assert tf.plan(True, kq) == ("hpf_tail_half_sweep_bf16", lanes, chunks)
+    # chunks of bf16 per lane cover the row, in the fewest lanes and chunks
+    assert 8 * lanes * chunks >= kq and (lanes == 8 or 4 * lanes < kq)
+    assert chunks == 1 or 8 * lanes * (chunks - 1) < kq
+    f32 = F32_LANES.get(kq, 32)
+    assert tf.plan(False, kq) == ("hpf_segment_user_pass_f32", f32,
+                                  2 * chunks)
     # two 16-byte chunks of f32 per lane cover the row, in the fewest lanes
-    assert 8 * f32 >= kq and (f32 == 4 or 4 * f32 < kq)
+    assert 4 * f32 * 2 * chunks >= kq and (f32 == 4 or 4 * f32 < kq)
     assert tf.plan(False, kq)[0] in sf._ARGTYPES
 
 
@@ -343,9 +375,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "bf16_width":      # 12 bf16 values: not whole 16-byte rows
         p_tab = torch.rand(6, 12).bfloat16()
         o_tab = torch.rand(5, 12).bfloat16()
-    elif bad == "bf16_wide":       # past one 16-byte chunk for each of 32 lanes
-        p_tab = torch.rand(6, 264).bfloat16()
-        o_tab = torch.rand(5, 264).bfloat16()
+    elif bad == "bf16_wide":
+        # 264 values take 32 lanes of two 16-byte chunks; past four chunks
+        # for each of 32 lanes (1024 values) the kernels' registers end:
+        # the plain version (a CPU tensor) takes the row, a tensor bound
+        # for a kernel is refused
+        assert tf.plan(True, 264) == ("hpf_tail_half_sweep_bf16", 32, 2)
+        assert tf.plan(True, tf.KQ_MAX) == ("hpf_tail_half_sweep_bf16", 32,
+                                            4)
+        p_tab = torch.rand(6, tf.KQ_MAX + 8).bfloat16()
+        o_tab = torch.rand(5, tf.KQ_MAX + 8).bfloat16()
+        assert tf.fused_half_sweep(p_tab, o_tab, p, o, y, rows).shape == \
+            (rows, tf.KQ_MAX + 8)
+        p_tab, o_tab, p, o, y = (t.to("meta") for t in (p_tab, o_tab, p, o,
+                                                         y))
     else:
         y = torch.ones(4, device="meta")
     with pytest.raises(ValueError):
@@ -421,12 +464,13 @@ def _partition_layouts(rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bias", [False, True])
-@pytest.mark.parametrize("k", [13, 100, 200])
+@pytest.mark.parametrize("k", [13, 100, 200, 255, 300, 1000])
 def test_bf16_kernel_partition_on_card(k, bias):
-    """The bf16 route (csrc/tail_bf16.cu) at 8-, 16- and 32-lane groups:
-    two launches bitwise equal and the plain bf16 version's result at the
-    f32 bound. The last layout's counts reach 299, past the divide's fast
-    range, so both of its paths run."""
+    """The bf16 route (csrc/tail_bf16.cu) at 8-, 16- and 32-lane groups,
+    and past 256 values at 32 lanes of 2 to 4 chunks: two launches bitwise
+    equal and the plain bf16 version's result at the f32 bound. The last
+    layout's counts reach 299, past the divide's fast range, so both of
+    its paths run."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     rng = np.random.default_rng(k + bias)
@@ -447,10 +491,11 @@ def test_bf16_kernel_partition_on_card(k, bias):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bias", [False, True])
-@pytest.mark.parametrize("k", [13, 100, 200])
+@pytest.mark.parametrize("k", [13, 100, 200, 255, 300, 1000])
 def test_f32_route_partition_on_card(k, bias):
     """The f32 route (the CSR sweep's user pass, then its item pass over
-    the tail's slab stream) at 4-, 16- and 32-lane groups, on the
+    the tail's slab stream) at 4-, 16- and 32-lane groups, and past 256
+    values at 32 lanes of 4 to 8 chunks, on the
     partition layouts with every other item absent from the tail (as the
     head's items are), its item half in one slab, in a few and in one per
     user (most items then lead in item order): two launches bitwise
