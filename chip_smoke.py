@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py [--segment | --tail | --cli | --sharded | --wide]
 
-With `--wide` it runs only the build and the wide routes' phase (packed
-rows past 256 values: every wide route against its plain version at
-ML-1M shape at K = 255 with bias, 300, 640 and 1000 in both precisions,
-both dense routes at Netflix shape and the EchoNest tail and CSR sweep at
-K = 300 beside their bounds, and the ML-1M command line at K = 300 and
-K = 255 with bias on the card against the CPU), with `--segment` only
+With `--wide` it runs only the build and the wide routes' phase (every
+wide route against its plain version at ML-1M shape at K = 255 with
+bias, 300, 330, 640 and 1000 in both precisions, the f32 route's resident
+kernel also at K = 130, 200 and 254 with bias; both dense routes at
+Netflix shape and K = 300 beside their bounds, the streamed wide kernel
+and the plan's issued FLOPs and staged bytes of both wide kernels, the
+f32 route at K = 200 and 254 with bias beside dense_simt.cu; the
+EchoNest tail and CSR sweep at K = 300; and the ML-1M command line at
+K = 300, K = 255 with bias and K = 400 on the card against the CPU),
+with `--segment` only
 the build and the segment path's kernel
 phases (the CSR sweep on every layout and at EchoNest shape), with
 `--tail` only the build and the tail kernel's phases (every layout and the
@@ -179,9 +183,18 @@ NARROW_PATTERN = (r"dense_split_kernelILi\d+ELi0EE|"
                   r"segment_pass_kernelILi\d+(?:ELi2)?ELb[01]ENS_4Ring"
                   r"ILi\d+ELi\d+ELb[01]EEEE|item_reduce_kernelILi[12]EE")
 # the wide routes (packed rows past 256 values): the factor width of their
-# timings and paths, and each (K, bias) they are held to plain at
+# timings and paths, and each (K, bias) they are held to plain at (K = 330:
+# the bf16 resident kernel at kq = 384, the f32 route's streamed kernel)
 K_WIDE = 300
-WIDE_KS = ((255, True), (300, False), (640, False), (1000, False))
+WIDE_KS = ((255, True), (300, False), (330, False), (640, False),
+           (1000, False))
+# the f32 route's resident widths below 257 values (kq = 192 and 256),
+# where dense_simt.cu was the route before
+F32_RES_KS = ((130, False), (200, False), (254, True))
+# the streamed wide kernel's distance to f64 sums on 65,536 Netflix users,
+# its larger of two runs (PERF.md, section 6, NVIDIA H100 80GB HBM3,
+# 700 W): the f32 wide route may not be further from them
+F64_WIDE_MAX = 1.708e-6
 # K = 100 kernel times recorded in PERF.md section 6 (NVIDIA H100 80GB
 # HBM3, 700.00 W), ms: printed beside this run's
 K100_RANGES = {"dense bf16, ML-1M": (0.1666, 0.2687),
@@ -379,9 +392,9 @@ def phase_kernel(df, gen):
     bf16 route (dense_wgmma_kernel), the f32 route at kq <= 128
     (dense_split_kernel) and dense_simt.cu on the same inputs, its
     yardstick. On the ragged shape an unaligned Y (contiguous rows of M
-    bytes) must raise ValueError on the f32 route at kq <= 128, and above
-    kq = 128 (K = 130, zero-padded factors) the route takes dense_simt.cu,
-    which reads it. Returns the bf16 and the f32 route's ML-1M figures."""
+    bytes) must raise ValueError on every route's kernel, and
+    dense_simt.cu must read it (check_unaligned_y). Returns the bf16 and
+    the f32 route's ML-1M figures."""
     main = f32 = None
     for n, m, k, rows in ((1000, 777, 13, 1024), (N_ML, M_ML, K, 6144)):
         for bias in (False, True):
@@ -444,35 +457,32 @@ def phase_kernel(df, gen):
 
 
 def check_unaligned_y(df, lin, y, ref32):
-    """An unaligned Y raises ValueError on the f32 route at kq <= 128 and
-    on both wide routes (their kernels load Y by TMA); with the factors
-    zero-padded to K = 130 the f32 route takes dense_simt.cu, which reads
-    the same Y byte by byte, and the first K columns are the unpadded
-    sums."""
+    """An unaligned Y raises ValueError on every kernel of the routes (they
+    load it by TMA): the f32 route at kq <= 128 and, on the factors
+    zero-padded to K = 130, its resident wide kernel at kq = 192, and both
+    wide routes at K = 300; dense_simt.cu, the f32 routes' yardstick,
+    reads the same Y byte by byte at K = 130, and its first K columns are
+    the unpadded sums."""
     k = lin[0].shape[1]
     yu = y.contiguous()                # rows of M bytes
     raised = []
-    for width, bf16 in ((k, False), (K_WIDE, False), (K_WIDE, True)):
+    for width, bf16 in ((k, False), (130, False), (K_WIDE, False),
+                        (K_WIDE, True)):
         try:
             df.fused_dense_sweep(*[torch.nn.functional.pad(x, (0, width - k))
                                    for x in lin[:2]], yu, bf16=bf16)
         except ValueError:
             raised.append(df.dense_kernel(width, bf16))
     wide = [torch.nn.functional.pad(x, (0, 130 - k)) for x in lin[:2]]
-    before = dict(df.fused_dense_sweep.launches_by_kernel)
-    got = df.fused_dense_sweep(*wide, yu)
+    got = simt_sweep(df, wide, yu)
     torch.cuda.synchronize()
-    took = {kn: df.fused_dense_sweep.launches_by_kernel[kn] - before[kn]
-            for kn in before}
-    ok = raised == ["f32", "wide_f32", "wide"] and \
-        {kn: n for kn, n in took.items() if n} == {"simt": 1} and all(
-            torch.allclose(g[:, :k], r, **F32_TOL)
-            for g, r in zip(got, ref32))
+    ok = raised == ["f32", "wide_f32", "wide_f32", "wide"] and all(
+        torch.allclose(g[:, :k], r, **F32_TOL) for g, r in zip(got, ref32))
     say(f"kernel unaligned Y (row stride {yu.stride(0)} bytes): raised "
         f"ValueError on {raised} (the f32 route at kq = "
-        f"{df.packed_width(k, 'f32')}, both wide routes at K = {K_WIDE}); "
-        f"at K = 130 it launched {took} and matches the plain version "
-        f"{'ok' if ok else 'FAIL'}")
+        f"{df.packed_width(k, 'f32')} and K = 130, both wide routes at "
+        f"K = {K_WIDE}); dense_simt.cu at K = 130 reads it and matches the "
+        f"plain version {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the f32 route's width rule or its Y check failed")
 
@@ -2467,16 +2477,22 @@ def phase_hybrid_cpu_reference(root):
 # the wide routes: packed rows past 256 values (K > 256, K > 254 with bias)
 # ---------------------------------------------------------------------------
 
-def wide_issued(n, m, kaug, kernel):
-    """(kq, windows, FLOPs as issued) of a wide dense launch: both roles
-    form S over the whole row once per column window (4 N M kq per
-    window) and contract once (4 N M kq), six bf16 products each on the
-    f32 route."""
+def plan_text(n, m, kaug, kernel):
+    """(plan, text): what a wide dense launch issues and stages, from its
+    plan (dense_fused.wide_plan): its windows, S formations, issued FLOPs
+    beside the function's 6 N M K and the two-role 8 N M kq, and the
+    bytes its TMA loads bring into shared memory."""
     from hgaprec_tpu_torch.ops import dense_fused as df
-    kq = df.packed_width(kaug, kernel)
-    nwin = df.windows(kq, kernel)
-    pieces = SPLIT_PRODUCTS if kernel == "wide_f32" else 1
-    return kq, nwin, 4 * n * m * kq * (nwin + 1) * pieces
+    plan = df.wide_plan(n, m, kaug, kernel)
+    pieces = SPLIT_PRODUCTS if kernel.endswith("f32") else 1
+    once = 8 * n * m * plan["kq"] * pieces
+    return plan, (
+        f"{kernel}: kq = {plan['kq']}, {plan['windows']} window(s), S formed "
+        f"{plan['s_forms']}x a (stationary, moving) pair, "
+        f"{plan['issued'] / 1e12:.2f} TFLOP issued "
+        f"({plan['issued'] / once:.2f}x "
+        f"8 N M kq{' x 6 bf16 products' if pieces > 1 else ''}), "
+        f"{plan['staged'] / 1e12:.3f} TB staged into shared memory")
 
 
 def check_wide_dense(df, lin, y, bias, bf16, reps):
@@ -2501,30 +2517,36 @@ def check_wide_dense(df, lin, y, bias, bf16, reps):
     err_like = compare(got, like, bf16)[0]
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     del got, again, like
-    kq, nwin, issued = wide_issued(n, m, kaug, kernel)
+    plan, text = plan_text(n, m, kaug, kernel)
     bound_ms, bound_by = (dense_bound(n, m, kaug) if bf16 else
                           dense_bound_f32(n, m, kaug))
-    fig = dict(kq=kq, windows=nwin, max_abs_err=err_like, bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=None)
+    fig = dict(kq=plan["kq"], windows=plan["windows"], max_abs_err=err_like,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     timing = ""
     if reps:
+        def plain():
+            return df.fused_dense_sweep_reference(*lin[:2], y, *lin[2:],
+                                                  bf16=bf16)
         fig["ms"] = median_ms(call, reps)
-        fig["plain_ms"] = median_ms(lambda: df.fused_dense_sweep_reference(
-            *lin[:2], y, *lin[2:], bf16=bf16), reps)
+        fig["plain_ms"] = median_ms(plain, reps)
+        # back to back, as a training step launches them: the host's
+        # work (packing, the pieces, the plain version's loop) runs ahead
+        fig["ms_batch5"] = median_ms(call, reps, batch=5)
+        fig["plain_ms_batch5"] = median_ms(plain, reps, batch=5)
         timing = (f"; kernel {fig['ms']:.4f} ms, plain {fig['plain_ms']:.4f} "
-                  f"ms (median of {reps}); "
+                  f"ms (median of {reps}, one call a window), "
+                  f"{fig['ms_batch5']:.4f} and "
+                  f"{fig['plain_ms_batch5']:.4f} ms a call five back to "
+                  f"back; "
                   f"{6 * n * m * kaug / fig['ms'] / 1e9:.1f} TFLOP/s of "
-                  f"6 N M K, {issued / fig['ms'] / 1e9:.1f} issued as "
-                  f"4 N M kq (windows + 1)"
-                  f"{' x 6 bf16 products' if not bf16 else ''}; bound "
-                  f"{bound_ms:.4f} ms ({bound_by}), kernel at "
+                  f"6 N M K, {plan['issued'] / fig['ms'] / 1e9:.1f} issued; "
+                  f"bound {bound_ms:.4f} ms ({bound_by}), kernel at "
                   f"{fig['ms'] / bound_ms:.2f}x it")
-    good = ok and same and counted == 2 and kernel in ("wide", "wide_f32")
-    say(f"wide dense {n}x{m}x{k} bias={bias} {kernel} (kq = {kq}, {nwin} "
-        f"windows): max_abs_err vs f32 plain {err:.3e} (vs plain in the "
-        f"same mode {err_like:.3e}), two launches bitwise "
-        f"{'equal' if same else 'DIFFERENT'}, counted {counted} "
-        f"{'ok' if good else 'FAIL'}{timing}")
+    good = ok and same and counted == 2 and kernel.startswith("wide")
+    say(f"wide dense {n}x{m}x{k} bias={bias} ({text}): max_abs_err vs f32 "
+        f"plain {err:.3e} (vs plain in the same mode {err_like:.3e}), two "
+        f"launches bitwise {'equal' if same else 'DIFFERENT'}, counted "
+        f"{counted} {'ok' if good else 'FAIL'}{timing}")
     if not good:
         raise SystemExit(f"the wide dense route {kernel} disagrees with its "
                          f"plain version or itself at {n}x{m}x{k}")
@@ -2536,7 +2558,14 @@ def phase_wide_kernels(df, gen):
     inputs, at each K of WIDE_KS, in both precisions: the dense kernel
     (F32_TOL, BF16_REL), both tail routes and the CSR sweep's two passes
     on an ML-1M-sized power-law stream (f32 TAIL_F32_TOL, bf16 BF16_REL),
-    two launches bitwise everywhere. Returns the figures at K_WIDE."""
+    two launches bitwise everywhere; the f32 route's resident widths
+    below 257 values (F32_RES_KS) the same. At K_WIDE the f32 route must
+    be faster than its plain version, both timed five calls back to back
+    as a training step launches them (median of 20 windows each; one
+    call a window, the host's packing and the plain version's Python
+    loop count too, and the two differ by less than run-to-run spread
+    at this size). Returns the figures at K_WIDE and the streamed
+    kernels' at their first K."""
     from hgaprec_tpu_torch.data.device import DeviceData, sorted_coo
     from hgaprec_tpu_torch.ops.tail import build_tail_stream
     u, i, y, _ = power_law_coo(N_ML, M_ML, 1_000_000, SEED, cover=True)
@@ -2547,10 +2576,13 @@ def phase_wide_kernels(df, gen):
     for k, bias in WIDE_KS:
         lin, yd, _ = random_inputs(gen, N_ML, M_ML, k, 6144, bias, 0.045)
         for bf16 in (False, True):
-            fig = check_wide_dense(df, lin, yd, bias, bf16,
-                                   10 if k == K_WIDE else 0)
-            if k == K_WIDE:
-                out["wide" if bf16 else "wide_f32"] = fig
+            # timed: both routes at K_WIDE, each streamed kernel at the
+            # first K that takes it
+            kernel = df.dense_kernel(k + 2 * bias, bf16)
+            reps = 20 if k == K_WIDE else 5 if kernel not in out else 0
+            fig = check_wide_dense(df, lin, yd, bias, bf16, reps)
+            if reps:
+                out[kernel] = fig
         del lin, yd
         tail = check_tail(f"ml-1m, wide K={k}", N_ML, M_ML, k, stream, gen,
                           bias, 3 if k == K_WIDE else 1)
@@ -2559,6 +2591,21 @@ def phase_wide_kernels(df, gen):
                             3 if k == K_WIDE else 1)
         if k == K_WIDE:
             out["tail"], out["segment"] = tail, seg
+    for k, bias in F32_RES_KS:
+        lin, yd, _ = random_inputs(gen, N_ML, M_ML, k, 6144, bias, 0.045)
+        check_wide_dense(df, lin, yd, bias, False, 0)
+        del lin, yd
+    f32 = out["wide_f32"]
+    ok = f32["ms_batch5"] < f32["plain_ms_batch5"]
+    say(f"wide ml-1m K={K_WIDE} f32 route, five calls back to back: "
+        f"{f32['ms_batch5']:.4f} ms a call against its plain version's "
+        f"{f32['plain_ms_batch5']:.4f} ms "
+        f"({f32['plain_ms_batch5'] / f32['ms_batch5']:.2f}x; one call a "
+        f"window {f32['ms']:.4f} against {f32['plain_ms']:.4f}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the f32 wide route is not faster than its plain "
+                         "version at ML-1M shape")
     del stream, data
     torch.cuda.empty_cache()
     return out
@@ -2566,11 +2613,14 @@ def phase_wide_kernels(df, gen):
 
 def phase_wide_netflix(df, gen):
     """Both wide dense routes at Netflix shape and K_WIDE against the
-    plain version, each timed beside its bound (15.5 ms bf16, 93.1 f32 on
-    the H100's rates); the f32 route's distance to f64 sums on a slice of
-    the users beside the plain version's; and at K = 200, where the f32
-    route takes dense_simt.cu, the wide kernel's f32 windows timed beside
-    it on the same inputs (the route there is unchanged)."""
+    plain version, each timed beside its bound (15.5 ms bf16, 93.2 f32 on
+    the H100's rates), the streamed kernel (the design before the
+    resident one) on the same inputs, and the plan's issued FLOPs and
+    staged bytes of both; the f32 route must beat its plain version. Its
+    distance to f64 sums on a slice of the users beside the streamed
+    kernel's and the plain version's, at most F64_WIDE_MAX. Then, on the
+    same Y, the f32 route at K = 200 and K = 254 with bias (256 packed
+    values) beside dense_simt.cu, which it must beat."""
     rows = -(-N_NF // 512) * 512
     t0 = time.perf_counter()
     lin, y, nnz = random_inputs(gen, N_NF, M_NF, K_WIDE, rows, False, 0.01)
@@ -2581,64 +2631,104 @@ def phase_wide_netflix(df, gen):
     out = {}
     for bf16 in (True, False):
         kernel = df.dense_kernel(K_WIDE, bf16)
+        stream = "wide_stream" + ("" if bf16 else "_f32")
 
         def call():
             return df.fused_dense_sweep(*lin, y, bf16=bf16)
+
+        def streamed():
+            return df._unpack(*df.launch_dense(*lin, y, kernel=stream),
+                              K_WIDE, False)
         got = call()
         torch.cuda.synchronize()
         err, ok = compare(got, ref, bf16)
         del got
+        got = streamed()
+        torch.cuda.synchronize()
+        err_s, ok_s = compare(got, ref, bf16)
+        del got
         ms = median_ms(call, 3)
+        stream_ms = median_ms(streamed, 3)
         plain_ms = median_ms(
             lambda: df.fused_dense_sweep_reference(*lin, y, bf16=bf16), 3)
         bound_ms, bound_by = (dense_bound(N_NF, M_NF, K_WIDE) if bf16 else
                               dense_bound_f32(N_NF, M_NF, K_WIDE))
-        kq, nwin, issued = wide_issued(N_NF, M_NF, K_WIDE, kernel)
-        say(f"wide netflix {N_NF}x{M_NF}x{K_WIDE} {kernel} (kq = {kq}, "
-            f"{nwin} windows): vs f32 plain max_abs_err {err:.3e} "
-            f"{'ok' if ok else 'FAIL'}; kernel {ms:.2f} ms, plain "
-            f"{plain_ms:.2f} ms (median of 3); "
+        plan, text = plan_text(N_NF, M_NF, K_WIDE, kernel)
+        plan_s, text_s = plan_text(N_NF, M_NF, K_WIDE, stream)
+        faster = bf16 or ms < plain_ms
+        say(f"wide netflix {N_NF}x{M_NF}x{K_WIDE} ({text}): vs f32 plain "
+            f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}; kernel "
+            f"{ms:.2f} ms, plain {plain_ms:.2f} ms (median of 3)"
+            f"{'' if faster else ' NOT FASTER: FAIL'}; "
             f"{6 * N_NF * M_NF * K_WIDE / ms / 1e9:.1f} TFLOP/s of 6 N M K, "
-            f"{issued / ms / 1e9:.1f} issued; bound {bound_ms:.2f} ms "
-            f"({bound_by}), kernel at {ms / bound_ms:.2f}x it")
-        if not ok:
+            f"{plan['issued'] / ms / 1e9:.1f} issued; bound {bound_ms:.2f} ms "
+            f"({bound_by}), kernel at {ms / bound_ms:.2f}x it; the streamed "
+            f"kernel on the same inputs ({text_s}) {stream_ms:.2f} ms "
+            f"(max_abs_err {err_s:.3e}), {stream_ms / ms:.2f}x the "
+            f"resident one's time, staging "
+            f"{plan['staged'] / plan_s['staged']:.3f} of its bytes")
+        if not (ok and ok_s and faster):
             raise SystemExit(f"the wide {kernel} route disagrees with plain "
-                             f"at Netflix shape")
+                             f"at Netflix shape or is not faster than it")
         out[kernel] = dict(ms_netflix=ms, plain_ms_netflix=plain_ms,
                            bound_ms_netflix=bound_ms,
-                           issued_tflop_netflix=issued / 1e12)
+                           issued_tflop_netflix=plan["issued"] / 1e12,
+                           staged_tb_netflix=plan["staged"] / 1e12,
+                           streamed_ms_netflix=stream_ms,
+                           streamed_issued_tflop_netflix=plan_s["issued"]
+                           / 1e12,
+                           streamed_staged_tb_netflix=plan_s["staged"] / 1e12)
     del ref
     sl = [lin[0][:65536].contiguous(), lin[1]]
     ys = y[:65536]
     rel = {"wide_f32": f64_rel_err(df.fused_dense_sweep(*sl, ys), sl, ys),
+           "wide_stream_f32": f64_rel_err(df._unpack(*df.launch_dense(
+               *sl, ys, kernel="wide_stream_f32"), K_WIDE, False), sl, ys),
            "plain": f64_rel_err(df.fused_dense_sweep_reference(*sl, ys), sl,
                                 ys)}
+    ok = rel["wide_f32"] <= F64_WIDE_MAX
     say(f"wide netflix f32 route relative to f64 sums on the first 65,536 "
-        f"users: wide kernel {rel['wide_f32']:.3e}, plain "
-        f"{rel['plain']:.3e}")
+        f"users: resident kernel {rel['wide_f32']:.3e} (at most "
+        f"{F64_WIDE_MAX:.3e}), streamed kernel {rel['wide_stream_f32']:.3e}, "
+        f"plain {rel['plain']:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the f32 wide route moved further from f64 sums")
     out["wide_f32"]["f64_rel_err_netflix_slice"] = rel
     del lin, sl
-    lin = random_lin(gen, N_NF, M_NF, 200, False)[:2]
-    ref = df.fused_dense_sweep_reference(*lin, y)
-    got_simt = simt_sweep(df, lin, y)
-    got_win = df._unpack(*df.launch_dense(*lin, y, kernel="wide_f32"), 200,
-                         False)
-    torch.cuda.synchronize()
-    err_simt, ok_simt = compare(got_simt, ref, False)
-    err_win, ok_win = compare(got_win, ref, False)
-    del got_simt, got_win, ref
-    simt_ms = median_ms(lambda: simt_sweep(df, lin, y), 3)
-    win_ms = median_ms(lambda: df.launch_dense(*lin, y, kernel="wide_f32"),
+    out["f32_res"] = {}
+    for k, bias in ((200, False), (254, True)):
+        lin = random_lin(gen, N_NF, M_NF, k, bias)[:4 if bias else 2]
+        kaug = k + 2 * bias
+        kernel = df.f32_kernel(kaug)
+        ref = df.fused_dense_sweep_reference(*lin[:2], y, *lin[2:])
+        got = df.fused_dense_sweep(*lin[:2], y, *lin[2:])
+        torch.cuda.synchronize()
+        err, ok = compare(got, ref, False)
+        del got
+        got = simt_sweep(df, lin, y)
+        torch.cuda.synchronize()
+        err_simt, ok_simt = compare(got, ref, False)
+        del got, ref
+        ms = median_ms(lambda: df.fused_dense_sweep(*lin[:2], y, *lin[2:]),
                        3)
-    say(f"netflix K=200 at highest (the route: {df.f32_kernel(200)}): "
-        f"dense_simt.cu {simt_ms:.2f} ms (max_abs_err {err_simt:.3e}), the "
-        f"wide kernel's f32 windows on the same inputs {win_ms:.2f} ms "
-        f"(max_abs_err {err_win:.3e}) "
-        f"{'ok' if ok_simt and ok_win else 'FAIL'}")
-    if not (ok_simt and ok_win):
-        raise SystemExit("a K = 200 f32 kernel disagrees with plain")
-    out["k200"] = dict(simt_ms_netflix=simt_ms, wide_f32_ms_netflix=win_ms)
-    del lin, y
+        simt_ms = median_ms(lambda: simt_sweep(df, lin, y), 3)
+        bound_ms = dense_bound_f32(N_NF, M_NF, kaug)[0]
+        plan, text = plan_text(N_NF, M_NF, kaug, kernel)
+        good = ok and ok_simt and kernel == "wide_f32" and ms < simt_ms
+        say(f"netflix K={k} bias={bias} at highest: the route takes "
+            f"{kernel} ({text}) {ms:.2f} ms (max_abs_err {err:.3e}), "
+            f"dense_simt.cu on the same inputs {simt_ms:.2f} ms (max_abs_err "
+            f"{err_simt:.3e}), {simt_ms / ms:.2f}x; bound {bound_ms:.2f} ms "
+            f"(operations), the route at {ms / bound_ms:.2f}x it "
+            f"{'ok' if good else 'FAIL'}")
+        if not good:
+            raise SystemExit(f"the f32 route at K = {k} disagrees with plain "
+                             f"or does not beat dense_simt.cu")
+        out["f32_res"][f"k{kaug}"] = dict(
+            ms_netflix=ms, simt_ms_netflix=simt_ms,
+            bound_ms_netflix=bound_ms, kq=plan["kq"])
+        del lin
+    del y
     torch.cuda.empty_cache()
     return out
 
@@ -2672,6 +2762,9 @@ WIDE_RUNS = (
                      "-head-gib", "0.003", "-precision", "default"]),
     ("hybrid_highest", ["-hier", "-k", str(K_WIDE), "-sweep", "hybrid",
                         "-head-gib", "0.003"]),
+    # past the resident kernel's widths: the streamed wide kernels
+    ("stream_highest", ["-hier", "-k", "400"]),
+    ("stream_bf16", ["-hier", "-k", "400", "-precision", "default"]),
 )
 
 
@@ -2747,7 +2840,9 @@ def phase_wide_paths(df, tf, datdir, root, cpu_runs):
                 worst_elbo < CPU_REL
             elbo = f", training ELBO {worst_elbo:.3e}"
         want = {"highest": "wide_f32", "bf16": "wide", "bias": "wide_f32",
-                "hybrid_bf16": "wide", "hybrid_highest": "wide_f32"}
+                "hybrid_bf16": "wide", "hybrid_highest": "wide_f32",
+                "stream_highest": "wide_stream_f32",
+                "stream_bf16": "wide_stream"}
         took = launches[name]
         ok = ok and (took.get(want[name], 0) > 0 if name in want else
                      took["segment"] > 0) and \
@@ -2846,15 +2941,17 @@ def main():
             if spills:
                 raise SystemExit(f"csrc/{src} spills: {spills}")
         # ptxas serializes wgmma where a fragment may be touched in flight
-        # (csrc/dense_wgmma.cu, hazard 5): the bf16 route's main width and
+        # (csrc/dense_wgmma.cu, hazard 5): the bf16 route's main width,
         # every width of the f32 route's split kernel (all <= 128), every
-        # stage of the probe included, must build without it
+        # stage of the probe included, and both wide kernels must build
+        # without it
         serial = [x.strip() for x in log.splitlines()
                   if "Potential Performance Loss" in x and
                   ("dense_wgmma_kernelILi112E" in x or
-                   "dense_split_kernel" in x or "dense_wide_kernel" in x)]
+                   "dense_split_kernel" in x or "dense_wide_kernel" in x or
+                   "dense_res_kernel" in x)]
         if serial:
-            raise SystemExit(f"wgmma serialized at kq <= 128 or in the "
+            raise SystemExit(f"wgmma serialized at kq <= 128 or in a "
                              f"wide kernel: {serial}")
     hgmma = df.hgmma_counts()
     main_kq = df.packed_width(K, "wgmma")
@@ -2862,8 +2959,10 @@ def main():
                    for counts in hgmma.values()) and \
         all(main_kq in hgmma[k] for k in ("wgmma", "f32")) and \
         sorted(hgmma["f32"]) == [64, 112, 128] and \
+        all(sorted(hgmma[k]) == list(df.RES_WIDTHS[k])
+            for k in ("wide", "wide_f32")) and \
         all(sorted(hgmma[k]) == [df.KERNELS[k].window]
-            for k in ("wide", "wide_f32"))
+            for k in ("wide_stream", "wide_stream_f32"))
     say(f"warpgroup tensor-core instructions (HGMMA) in the SASS of "
         f"csrc/dense_wgmma.cu, by kernel and packed width kq: {hgmma} (the "
         f"main path runs kq = {main_kq}) {'ok' if hgmma_ok else 'FAIL'}")
@@ -3082,26 +3181,22 @@ def main():
             if k not in ("launches", "ms_iter", "peak")},
          "ms_per_iter_echonest_segment": seg["ms_iter"],
          "peak_gb_echonest_segment": seg["peak"]},
-        {"name": "fused_dense_sweep_wide", "route": "cuda",
-         "source": "hgaprec_tpu_torch/csrc/dense_wgmma.cu",
-         "kernel": "dense_wide_kernel<1, 256>",
-         "replaces": "hgaprec_tpu/ops/dense_pallas.py:50",
-         "launches": sum(w.get("wide", 0)
-                         for w in wide["launches"].values()),
-         "launches_by_path": {f"ml1m_cli_{r}": w.get("wide", 0)
-                              for r, w in wide["launches"].items()},
-         **wide["wide"], **wide["netflix"]["wide"], "hgmma": hgmma["wide"]},
-        {"name": "fused_dense_sweep_wide_f32", "route": "cuda",
-         "source": "hgaprec_tpu_torch/csrc/dense_wgmma.cu",
-         "kernel": "dense_wide_kernel<3, 128>",
-         "replaces": "hgaprec_tpu/ops/dense_pallas.py:50",
-         "launches": sum(w.get("wide_f32", 0)
-                         for w in wide["launches"].values()),
-         "launches_by_path": {f"ml1m_cli_{r}": w.get("wide_f32", 0)
-                              for r, w in wide["launches"].items()},
-         **wide["wide_f32"], **wide["netflix"]["wide_f32"],
-         "k200_netflix": wide["netflix"]["k200"],
-         "hgmma": hgmma["wide_f32"]},
+        *[{"name": f"fused_dense_sweep_{key}", "route": "cuda",
+           "source": "hgaprec_tpu_torch/csrc/dense_wgmma.cu",
+           "kernel": instance,
+           "replaces": "hgaprec_tpu/ops/dense_pallas.py:50",
+           "launches": sum(w.get(key, 0) for w in wide["launches"].values()),
+           "launches_by_path": {f"ml1m_cli_{r}": w.get(key, 0)
+                                for r, w in wide["launches"].items()},
+           **wide[key], **wide["netflix"].get(key, {}),
+           **({"f32_netflix_by_kaug": wide["netflix"]["f32_res"]}
+              if key == "wide_f32" else {}),
+           "hgmma": hgmma[key]}
+          for key, instance in (
+              ("wide", "dense_res_kernel<1, 5 or 6, 64>"),
+              ("wide_f32", "dense_res_kernel<3, 3 to 5, 32>"),
+              ("wide_stream", "dense_wide_kernel<1, 256>"),
+              ("wide_stream_f32", "dense_wide_kernel<3, 128>"))],
         {"name": "fused_half_sweep_wide", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/tail_bf16.cu",
          "replaces": "hgaprec_tpu/ops/pallas_tail.py:101",

@@ -6,8 +6,9 @@ the users sharded over a torch.distributed group (`parallel/`). Module
 paths follow `hgaprec_tpu/`, so each module's counterpart is found at the
 same place.
 Plain tensor code is PyTorch; the dense CAVI sweep runs hand-written CUDA
-kernels (bf16 and f32 up to 128 packed values on the tensor cores,
-`csrc/dense_wgmma.cu`; wider f32 rows `csrc/dense_simt.cu`; bound in
+kernels on the tensor cores, all in `csrc/dense_wgmma.cu` (bf16 up to 256
+packed values and f32 up to 128; wider rows the resident wide kernel, f32
+up to 320 values and bf16 up to 384, then the streamed one; bound in
 `ops/dense_fused.py`). The package imports torch and numpy only, never
 jax.
 """

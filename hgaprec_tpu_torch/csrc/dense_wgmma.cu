@@ -1,16 +1,21 @@
 // Fused dense CAVI sweep for Hopper (sm_90a) on the tensor cores: wgmma
 // products on TMA-fed tiles, bound to Python with ctypes
-// (ops/dense_fused.py). Two kernels replace the TPU kernel
+// (ops/dense_fused.py). Four kernels replace the TPU kernel
 // hgaprec_tpu/ops/dense_pallas.py::_kernel, whose three products all run on
 // the TPU's matrix unit (dense_pallas.py:72, 86-87):
-//   * dense_wgmma_kernel, its bf16 mode ("default" precision);
+//   * dense_wgmma_kernel, its bf16 mode ("default" precision) up to 256
+//     packed values;
 //   * dense_split_kernel, its f32 mode ("highest", the default precision
 //     of ModelConfig and the CLI) for packed rows up to 128 values (K <= 128,
 //     K <= 126 with bias): f32-accurate products from three bf16 pieces, on
-//     the same machinery (see "The f32 route" below). csrc/dense_simt.cu
-//     takes f32 rows of 129-256 values;
-//   * dense_wide_kernel, both modes past 256 packed values (see "wide rows"
-//     at the end of the file).
+//     the same machinery (see "The f32 route" below);
+//   * dense_res_kernel, the wide rows whose stationary tile fits in shared
+//     memory: f32 rows of 129-320 packed values, bf16 rows of 257-384 (see
+//     "the resident design" at the end of the file);
+//   * dense_wide_kernel, both modes past those widths (see "wide rows").
+// csrc/dense_simt.cu computes the f32 mode up to 256 values on the FP32
+// pipes; no route takes it, and chip_smoke.py times the f32 routes
+// against it.
 //
 // The bf16 route. For a uint8 count matrix
 // Y [N, M] (row stride ldy) and packed factor rows a = [A | ba | 1] bf16
@@ -1499,16 +1504,18 @@ extern "C" int hpf_dense_split_probe_f32(const void* a, const void* b,
   }
 }
 
-// ---- wide rows: both routes past 256 packed values ------------------------
+// ---- wide rows: the streamed design, both routes past the resident one ----
 //
-// dense_wide_kernel takes packed rows wider than 256 values (K > 256,
-// K > 254 with bias), which neither kernel above can hold: a wgmma makes
-// at most 256 output columns, the bf16 kernel's accumulator already takes
-// 128 registers a thread at kq = 256, and the split kernel's resident
-// stationary pieces (96 KB at kq = 128) would pass the 227 KB a block may
-// use at kq = 320. It replaces the TPU kernel dense_pallas.py::_kernel at
-// those widths, which the JAX package takes at any width (K padded to
-// 128-lane multiples). One template serves both routes: kP = 1 piece a
+// dense_wide_kernel takes the packed rows wider than dense_res_kernel
+// (below) holds: f32 rows past 320 values, bf16 rows past 384. Neither
+// narrow kernel can hold them: a wgmma makes at most 256 output columns,
+// the bf16 kernel's accumulator already takes 128 registers a thread at
+// kq = 256, and the split kernel's resident stationary pieces (96 KB at
+// kq = 128) would pass the 227 KB a block may use at kq = 320. It
+// replaces the TPU kernel dense_pallas.py::_kernel at those widths, which
+// the JAX package takes at any width (K padded to 128-lane multiples).
+// At Netflix shape and K = 300 it would stage 4.9 (f32) and 3.4 (bf16)
+// times the resident kernel's bytes (chip_smoke.py prints both plans). One template serves both routes: kP = 1 piece a
 // factor (bf16, W = bf16(Y * rcp.approx(max(S, 1e-30))) as
 // dense_wgmma_kernel forms it) or kP = 3 pieces (f32, W = Y / max(S,
 // 1e-30) with the IEEE divide's fast path and six split products, as
@@ -1898,4 +1905,772 @@ extern "C" int hpf_dense_wide_f32(const void* a, const void* b,
   return launch_wide<kPieces, kWideWnF32>(
       a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq, ldy, split_a,
       split_b, static_cast<cudaStream_t>(stream));
+}
+
+// ---- wide rows: the resident design ----------------------------------------
+//
+// dense_res_kernel takes kernel #1's wide routes up to the widths whose
+// stationary tile fits in shared memory whole: bf16 rows of 257-384 packed
+// values (kq = 320, 384) and f32 rows of 129-320 (kq = 192, 256, 320);
+// dense_wide_kernel above, the streamed design, takes wider rows. It
+// replaces the TPU kernel dense_pallas.py::_kernel at those widths.
+//
+// What bounds the streamed design is the bytes it stages from L2 into
+// shared memory: per 64-row moving tile it restages the stationary
+// k-blocks (240 KB of the 416 KB an f32 tile moves at kq = 320), and per
+// column window it restages the moving tile and forms S again. This design
+// stages each operand once and forms S once:
+//   * A CTA holds 64 stationary rows X, every k-block of every piece,
+//     resident in shared memory (loaded once), and sweeps its chunk of
+//     moving tiles Z of kTm rows (64 bf16, 32 f32: an f32 tile's pieces
+//     take 6 bytes a value, and X takes 120 KB at kq = 320). Each k-block
+//     of a tile (all its pieces in one TMA box) lands in a slot of a ring
+//     of k-block slots and serves both S (K-major) and the contraction
+//     (MN-major), as in the narrow kernels; its Y tile lands in a ring of
+//     its own.
+//   * S is formed once per tile, split in half by k-steps between the two
+//     consumer warpgroups, and the output columns are split in half the
+//     other way: warpgroup 0 forms S's partial over the upper half of the
+//     k-steps and owns the lower half of the columns, warpgroup 1 the
+//     reverse (ResHalf), so both issue the same products and hold kq / 4
+//     f32 sums a thread. Where kq / 2 is not a multiple of 64 (kq = 192,
+//     320) the middle k-block is shared: its S k-steps split 2 + 2, its
+//     columns 32 + 32 (an m64n32 contraction whose MN-major descriptor
+//     starts 64 bytes into the swizzled rows). The two partials meet in
+//     shared memory (one f32 tile each, two named barriers a tile); each
+//     warpgroup adds the other's (the same sum in both: IEEE addition
+//     commutes), forms W for the whole tile in registers and contracts it
+//     (wgmma RS) into its own columns, one 64- or 32-column chunk (one
+//     slot, read MN-major) at a time.
+//   * Products in flight: on the f32 route each k-block's S products (at
+//     most 24) go to one of two accumulator sets, and k-block j + 1 is
+//     issued before j retires and is promoted into the f32 partial; on the
+//     bf16 route a warpgroup's S products (at most 12) are one group, and
+//     its contraction chunks alternate two accumulator sets (chunk i + 1
+//     issued before chunk i retires). The f32 contraction retires each
+//     chunk before the next (measured faster on the card than two sets at
+//     254 registers). Issuing tile t + 1's S before tile t's W, where the
+//     ring holds two tiles, measured no faster either (PERF.md, section
+//     6), and is not used: the two warpgroups meet at the exchange every
+//     tile. Every product retires before a barrier, a release of
+//     a slot or the tile loop's back edge, and a phase's slots are waited
+//     on before its first product (hazard 5 above).
+//   * Promotion. No accumulator sums more than 24 products: an f32
+//     k-block's S (6 pairs x 4 k-steps), a bf16 warpgroup's S (at most 12
+//     k-steps), a contraction chunk (6 pairs x 2 k-steps f32, 4 bf16),
+//     each added into f32 sums once retired; on the f32 route the
+//     contraction's additions are compensated (Kahan), so that a sum over
+//     thousands of 32-row tiles carries the error of a few additions.
+//   * Ring. Each warp releases a slot once its products on it have retired
+//     (its S-only k-blocks after S, its contraction k-blocks after the
+//     contraction; a Y tile after W); the release that empties a slot
+//     loads the item kSlots ahead into it (SplitLoader's claim). The CTA
+//     is the two consumer warpgroups (256 threads, up to 255 registers a
+//     thread).
+//   * Issued work: 8 N M kq products (x 6 bf16 on the f32 route), S once
+//     per tile and role; bytes staged per sweep: each role's X once a CTA
+//     and, per (64-row stationary tile, moving tile), the moving tile's
+//     pieces and its Y tile (dense_fused.wide_plan; chip_smoke.py prints
+//     both beside the streamed design's).
+
+#include <type_traits>
+#include <utility>
+
+namespace {
+
+// m64n32k16 SS: the f32 route's S over 32 moving rows
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, "
+      "p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+constexpr int kXr = 64;     // stationary rows per CTA
+constexpr int kResY = 2;    // depth of the Y ring
+
+// Shared-memory plan of the resident kernel, kP pieces (1 bf16, 3 f32),
+// kKb k-blocks of 64 values, kTm moving rows a tile: X (kKb k-blocks, each
+// [kP][64 rows][128 B]), the two S partials (f32, [2][kTm / 2][128
+// threads]), kResY Y tiles, then the ring of k-block slots ([kP][kTm
+// rows][128 B] each; as many as fit, at most three tiles' worth), then
+// the mbarriers and the claims. Every TMA destination sits on a 1024-byte
+// boundary.
+template <int kP, int kKb, int kTm>
+struct ResPlan {
+  static constexpr int kKq = 64 * kKb;
+  static constexpr int kE = kTm / 2;                 // S elements a thread
+  static constexpr int kXBlock = kP * kXr * 128;     // X k-block, all pieces
+  static constexpr int kPiece = kTm * 128;           // one piece of a slot
+  static constexpr int kSlot = kP * kPiece;
+  static constexpr int kYBytes = kXr * kTm;          // uint8
+  static constexpr int kXchOff = kKb * kXBlock;
+  static constexpr int kYOff = kXchOff + 2 * kE * 128 * 4;
+  static constexpr int kSlotOff = kYOff + kResY * kYBytes;
+  static constexpr int kBarBytes = 512;
+  static constexpr int kFit = (kMaxSmem - 1024 - kSlotOff - kBarBytes) / kSlot;
+  static constexpr int kSlots = kFit < 3 * kKb ? kFit : 3 * kKb;
+  static constexpr int kBarOff = kSlotOff + kSlots * kSlot;
+  // full[kSlots], empty[kSlots], yfull[kResY], yempty[kResY], x; claims
+  static constexpr int kXBar = 8 * (2 * kSlots + 2 * kResY);
+  static constexpr int kClaimOff = kXBar + 8;
+  static constexpr int kSmem = 1024 + kBarOff + kBarBytes;
+  static_assert(kSlots >= kKb, "a tile's k-blocks must fit in the ring");
+  static_assert(kClaimOff + 4 * (kSlots + kResY) <= kBarBytes, "barriers");
+  static_assert(kSlotOff % 1024 == 0 && kSlot % 1024 == 0, "alignment");
+  static_assert(kSmem <= kMaxSmem, "the plan must fit");
+};
+
+// The resident kernel's rings: item it (k-block it % kKb of tile
+// it / kKb) in slot it % kSlots, tile t's Y in stage t % kResY; loaded by
+// TMA from inside the consumer warpgroups.
+template <int kP, int kKb, int kTm>
+struct ResRing {
+  using P = ResPlan<kP, kKb, kTm>;
+  uint32_t slots, ys, bars;
+  const CUtensorMap *mz, *myu, *myi;
+  bool item;
+  int x0, z_begin, ntiles;
+  int* claims;   // per slot, then per Y stage: the item last loaded into it
+  __device__ __forceinline__ uint32_t slot(int it) const {
+    return slots + (it % P::kSlots) * P::kSlot;
+  }
+  __device__ __forceinline__ uint32_t full(int it) const {
+    return bars + 8 * (it % P::kSlots);
+  }
+  __device__ __forceinline__ uint32_t empty(int it) const {
+    return bars + 8 * (P::kSlots + it % P::kSlots);
+  }
+  __device__ __forceinline__ uint32_t yslot(int t) const {
+    return ys + (t % kResY) * P::kYBytes;
+  }
+  __device__ __forceinline__ uint32_t yfull(int t) const {
+    return bars + 8 * (2 * P::kSlots + t % kResY);
+  }
+  __device__ __forceinline__ uint32_t yempty(int t) const {
+    return bars + 8 * (2 * P::kSlots + kResY + t % kResY);
+  }
+  __device__ __forceinline__ void load(int it) const {
+    const int t = it / kKb, j = it - t * kKb;
+    mbar_expect_tx(full(it), P::kSlot);
+    tma_load_3d(slot(it), mz, 64 * j, z_begin + t * kTm, 0, full(it));
+  }
+  __device__ __forceinline__ void load_y(int t) const {
+    const int z0 = z_begin + t * kTm;
+    mbar_expect_tx(yfull(t), P::kYBytes);
+    if (item)   // Y tile [z = users][x = items]
+      tma_load(yslot(t), myi, x0, z0, yfull(t));
+    else        // Y tile [x = users][z = items]
+      tma_load(yslot(t), myu, z0, x0, yfull(t));
+  }
+  // items [it0, it0 + kN) have landed
+  template <int kN>
+  __device__ __forceinline__ void wait(int it0) const {
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+      mbar_wait(full(it0 + j), ((it0 + j) / P::kSlots) & 1);
+  }
+  __device__ __forceinline__ void wait_y(int t) const {
+    mbar_wait(yfull(t), (t / kResY) & 1);
+  }
+  // this warp is done with item it: lane 0 arrives on the slot's empty
+  // barrier (eight arrivals a phase, one per warp); the arrival that
+  // empties it claims the slot and loads item it + kSlots into it
+  __device__ __forceinline__ void release(int it) const {
+    if (threadIdx.x % 32 != 0) return;
+    const uint32_t e = empty(it);
+    mbar_arrive(e);
+    const int s = it % P::kSlots;
+    if (it + P::kSlots < ntiles * kKb &&
+        mbar_test(e, (it / P::kSlots) & 1) &&
+        atomicCAS(claims + s, it, it + P::kSlots) == it)
+      load(it + P::kSlots);
+  }
+  __device__ __forceinline__ void release_y(int t) const {
+    if (threadIdx.x % 32 != 0) return;
+    const uint32_t e = yempty(t);
+    mbar_arrive(e);
+    const int s = P::kSlots + t % kResY;
+    if (t + kResY < ntiles && mbar_test(e, (t / kResY) & 1) &&
+        atomicCAS(claims + s, t, t + kResY) == t)
+      load_y(t + kResY);
+  }
+};
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// f(std::integral_constant<int, i>{}) for i = 0 .. kN - 1, in order: a
+// loop whose index is a constant expression in each step
+template <class F, int... kI>
+__device__ __forceinline__ void unroll_seq(F&& f,
+                                           std::integer_sequence<int, kI...>) {
+  (f(std::integral_constant<int, kI>{}), ...);
+}
+template <int kN, class F>
+__device__ __forceinline__ void unroll(F&& f) {
+  unroll_seq(f, std::make_integer_sequence<int, kN>{});
+}
+
+// m64n32k16 RS: a half chunk (32 output columns) of the contraction
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, "
+      "%18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// What one warpgroup of the resident kernel does with a tile: S's partial
+// over k-steps [kK0, kK1) (16 values each) and the output columns of half
+// chunks [kH0, kH1) (32 columns each). Warpgroup 0 takes the upper half of
+// the k-steps and the lower half of the columns, warpgroup 1 the reverse;
+// the k-block that a half splits (kq = 192, 320) is shared.
+template <int kKb, int kK0, int kK1, int kH0, int kH1>
+struct ResHalf {
+  static constexpr int kSA = kK0 / 4, kSB = (kK1 - 1) / 4;   // S k-blocks
+  static constexpr int kCA = kH0 / 2, kCB = (kH1 - 1) / 2;   // C k-blocks
+  static constexpr int kSN = kSB - kSA + 1, kCN = kCB - kCA + 1;
+  static constexpr int kHalves = kH1 - kH0, kSteps = kK1 - kK0;
+  static constexpr int kHFirst = kH0;
+  // k-steps of S k-block kSA + i in the range
+  __host__ __device__ static constexpr int s_lo(int i) {
+    return 4 * (kSA + i) > kK0 ? 4 * (kSA + i) : kK0;
+  }
+  __host__ __device__ static constexpr int s_hi(int i) {
+    return 4 * (kSA + i) + 4 < kK1 ? 4 * (kSA + i) + 4 : kK1;
+  }
+  // half chunks of C k-block kCA + i in the range
+  __host__ __device__ static constexpr int c_lo(int i) {
+    return 2 * (kCA + i) > kH0 ? 2 * (kCA + i) : kH0;
+  }
+  __host__ __device__ static constexpr int c_hi(int i) {
+    return 2 * (kCA + i) + 2 < kH1 ? 2 * (kCA + i) + 2 : kH1;
+  }
+  // whether S k-block j is also one of the warpgroup's C k-blocks
+  __host__ __device__ static constexpr bool in_c(int j) {
+    return j >= kCA && j <= kCB;
+  }
+};
+
+// The bf16 route's S partial of the tile whose first item is it0 into s:
+// every k-step of the warpgroup's range, one group from zero (at most 24
+// products). Committed, not waited on.
+template <int kKb, class H>
+__device__ __forceinline__ void res_s_bf16(float (&s)[32], uint64_t dx,
+                                           const ResRing<1, kKb, 64>& ring,
+                                           int it0) {
+  using P = ResPlan<1, kKb, 64>;
+  static_assert(H::kSteps <= 24, "one accumulator sums <= 24 products");
+  fence_regs(s);
+  wgmma_fence();
+  unroll<H::kSN>([&](auto ic) {
+    constexpr int i = decltype(ic)::value, j = H::kSA + i;
+    const uint64_t dz = desc_sw128(ring.slot(it0 + j), 1, 64);
+#pragma unroll
+    for (int ks = H::s_lo(i); ks < H::s_hi(i); ++ks)
+      wgmma_ss<64>(s, dx + ((j * P::kXBlock + (ks % 4) * 32) >> 4),
+                   dz + (((ks % 4) * 32) >> 4), ks > H::s_lo(0));
+  });
+  wgmma_commit();
+}
+
+// The f32 route's S group kI (k-block kSA + kI, six pairs of its k-steps
+// in the range, at most 24 products) of the tile whose first item is it0
+// into a, from zero. Committed, not waited on.
+template <int kKb, class H, int kI>
+__device__ __forceinline__ void res_s_f32(float (&a)[16], uint64_t dx,
+                                          const ResRing<3, kKb, 32>& ring,
+                                          int it0) {
+  using P = ResPlan<3, kKb, 32>;
+  constexpr int j = H::kSA + kI;
+  const uint64_t dz = desc_sw128(ring.slot(it0 + j), 1, 64);
+  fence_regs(a);
+  wgmma_fence();
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p)
+#pragma unroll
+    for (int ks = H::s_lo(kI); ks < H::s_hi(kI); ++ks)
+      wgmma_ss<32>(a,
+                   dx + ((j * P::kXBlock + pair_x(p) * kXr * 128 +
+                          (ks % 4) * 32) >> 4),
+                   dz + ((pair_z(p) * P::kPiece + (ks % 4) * 32) >> 4),
+                   p > 0 || ks > H::s_lo(kI));
+  wgmma_commit();
+}
+
+// This warpgroup's partial of S = X Z^T over its k-steps of the tile whose
+// first item is it0, into s (retired and promoted). On the f32 route one
+// group a k-block in two sets: k-block i + 1 is issued before k-block i
+// retires and is promoted.
+template <int kP, int kKb, int kTm, class H>
+__device__ __forceinline__ void res_s(float (&s)[kTm / 2], uint32_t xs,
+                                      const ResRing<kP, kKb, kTm>& ring,
+                                      int it0) {
+  uint64_t dx = desc_sw128(xs, 1, 64);
+  // an opaque move per call, so that ptxas does not hoist every X
+  // descriptor out of the tile loop into uniform registers
+  asm volatile("mov.b64 %0, %0;" : "+l"(dx));
+  if constexpr (kP == 1) {
+    res_s_bf16<kKb, H>(s, dx, ring, it0);
+    wgmma_wait<0>();
+    fence_regs(s);
+  } else {
+    float a[2][16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) s[e] = 0.f;
+    unroll<H::kSN>([&](auto ic) {
+      constexpr int i = decltype(ic)::value;
+      res_s_f32<kKb, H, i>(a[i % 2], dx, ring, it0);
+      if constexpr (i > 0) {
+        wgmma_wait<1>();
+        fence_regs(a[(i - 1) % 2]);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) s[e] += a[(i - 1) % 2][e];
+      }
+    });
+    wgmma_wait<0>();
+    fence_regs(a[(H::kSN - 1) % 2]);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) s[e] += a[(H::kSN - 1) % 2][e];
+  }
+}
+
+// W for the whole tile from S and the Y tile at ys, as wgmma A fragments
+// (its pieces on the f32 route). Element (j, h, e) of S sits at stationary
+// row x + 8 h, moving row z = 8 j + 2 q + e. The user role's Y tile is
+// [x][z], kTm bytes a row (64: the 64-byte swizzle, chunk c of row r at
+// c ^ ((r / 2) % 4); 32: unswizzled), the item role's [z][x], 64 bytes a
+// row with the 64-byte swizzle (chunk c of row z at c ^ ((z / 2) % 4) =
+// c ^ q).
+template <int kP, int kTm>
+__device__ __forceinline__ void res_w(uint32_t (&wf)[kP][kTm / 16][4],
+                                      const float (&s)[kTm / 2], uint32_t ys,
+                                      bool item, uint32_t x, uint32_t q) {
+  const uint32_t key = kTm == 64 ? ((x >> 1) & 3) << 4 : 0;
+#pragma unroll
+  for (int j = 0; j < kTm / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float y0, y1;
+      if (!item) {
+        const uint32_t v = lds_u16(ys + (x + 8 * h) * kTm + 2 * q +
+                                   8 * (j % 2) + ((16 * (j / 2)) ^ key));
+        y0 = widen_u8(v, 0x7440);
+        y1 = widen_u8(v, 0x7441);
+      } else {
+        const uint32_t col = (x + 8 * h) ^ (q << 4);
+        y0 = widen_u8(lds_u8(ys + (8 * j + 2 * q) * kXr + col), 0x7440);
+        y1 = widen_u8(lds_u8(ys + (8 * j + 2 * q + 1) * kXr + col), 0x7440);
+      }
+      const float s0 = s[4 * j + 2 * h], s1 = s[4 * j + 2 * h + 1];
+      const int f = (j % 2) * 2 + h;
+      if constexpr (kP == 1) {
+        wf[0][j / 2][f] = pack_bf16x2(y0 * rcp_approx(fmaxf(s0, 1e-30f)),
+                                      y1 * rcp_approx(fmaxf(s1, 1e-30f)));
+      } else {
+        split3(w_of(y0, fmaxf(s0, 1e-30f)), w_of(y1, fmaxf(s1, 1e-30f)),
+               wf[0][j / 2][f], wf[1][j / 2][f], wf[2][j / 2][f]);
+      }
+    }
+  }
+}
+
+// Chunk i of the warpgroup's contraction (C k-block j = kCA + i; its half
+// chunks [c_lo(i), c_hi(i))) into acc from zero: A = W's fragments, B =
+// Z's slot j read MN-major from the chunk's first column (a half chunk
+// starts 64 bytes into the 128-byte rows). Committed, not waited on.
+template <int kP, int kKb, int kTm, class H, int kI, int kN>
+__device__ __forceinline__ void res_chunk(float (&acc)[kN / 2],
+                                          const uint32_t (&wf)[kP][kTm / 16][4],
+                                          const ResRing<kP, kKb, kTm>& ring,
+                                          int it0) {
+  using P = ResPlan<kP, kKb, kTm>;
+  constexpr int j = H::kCA + kI;
+  const uint64_t dz =
+      desc_sw128(ring.slot(it0 + j) + 64 * (H::c_lo(kI) - 2 * j),
+                 P::kPiece / 16, 64);
+#pragma unroll
+  for (int e = 0; e < kN / 2; ++e) acc[e] = 0.f;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int p = 0; p < wide_pairs<kP>(); ++p)
+#pragma unroll
+    for (int kk = 0; kk < kTm / 16; ++kk)
+      wgmma_rs<kN>(acc, wf[wide_x<kP>(p)][kk],
+                   dz + ((wide_z<kP>(p) * P::kPiece + kk * 2048) >> 4));
+  wgmma_commit();
+}
+
+// The bf16 contraction: chunk i + 1 issued before chunk i retires and is
+// added into its sums (two accumulator sets); the chunks' slots are
+// released once all have retired.
+template <int kKb, class H>
+__device__ __forceinline__ void res_c_bf16(float (&sums)[H::kHalves][16],
+                                           const uint32_t (&wf)[1][4][4],
+                                           const ResRing<1, kKb, 64>& ring,
+                                           int it0) {
+  float acc[2][32];
+  float acch[16];   // a half chunk's
+  auto promote = [&](auto ic) {
+    constexpr int i = decltype(ic)::value;
+    constexpr int h0 = H::c_lo(i) - H::kHFirst;
+    constexpr int nh = H::c_hi(i) - H::c_lo(i);
+    if constexpr (nh == 2) {
+      fence_regs(acc[i % 2]);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        sums[h0][e] += acc[i % 2][e];
+        sums[h0 + 1][e] += acc[i % 2][16 + e];
+      }
+    } else {
+      fence_regs(acch);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) sums[h0][e] += acch[e];
+    }
+  };
+  unroll<H::kCN>([&](auto ic) {
+    constexpr int i = decltype(ic)::value;
+    if constexpr (H::c_hi(i) - H::c_lo(i) == 2)
+      res_chunk<1, kKb, 64, H, i, 64>(acc[i % 2], wf, ring, it0);
+    else
+      res_chunk<1, kKb, 64, H, i, 32>(acch, wf, ring, it0);
+    if constexpr (i > 0) {
+      wgmma_wait<1>();
+      promote(std::integral_constant<int, i - 1>{});
+    }
+  });
+  wgmma_wait<0>();
+  promote(std::integral_constant<int, H::kCN - 1>{});
+  unroll<H::kCN>([&](auto ic) {
+    ring.release(it0 + H::kCA + decltype(ic)::value);
+  });
+}
+
+// sums += v[kO .. kO + 15], compensated (Kahan): comp carries the
+// rounding error of the last addition, as bf16 pairs, into the next
+template <int kO, int kN>
+__device__ __forceinline__ void kahan16(float (&sums)[16], uint32_t (&comp)[8],
+                                        const float (&v)[kN]) {
+#pragma unroll
+  for (int e = 0; e < 16; e += 2) {
+    const uint32_t c = comp[e / 2];
+    const float y0 = v[kO + e] + __uint_as_float(c << 16);
+    const float y1 = v[kO + e + 1] + __uint_as_float(c & 0xFFFF0000u);
+    const float t0 = sums[e] + y0, t1 = sums[e + 1] + y1;
+    comp[e / 2] = pack_bf16x2(y0 - (t0 - sums[e]), y1 - (t1 - sums[e + 1]));
+    sums[e] = t0;
+    sums[e + 1] = t1;
+  }
+}
+
+// The f32 contraction: the chunks one at a time, last first, each retired
+// and its slot released before the next is issued (issuing chunk i + 1
+// before chunk i retires, on a second accumulator set, measured slower on
+// the card: PERF.md, section 6). Each chunk's products (six pairs x 2
+// k-steps) start from zero and are added into the f32 sums by compensated
+// (Kahan) summation, the compensation kept as bf16 pairs: a sum over
+// thousands of tiles then carries the rounding error of a few additions,
+// not of thousands.
+template <int kKb, class H>
+__device__ __forceinline__ void res_c_f32(float (&sums)[H::kHalves][16],
+                                          uint32_t (&comp)[H::kHalves][8],
+                                          const uint32_t (&wf)[3][2][4],
+                                          const ResRing<3, kKb, 32>& ring,
+                                          int it0) {
+  float acc[32];    // a chunk's
+  float acch[16];   // a half chunk's
+  unroll<H::kCN>([&](auto nc) {
+    constexpr int i = H::kCN - 1 - decltype(nc)::value;
+    constexpr int h0 = H::c_lo(i) - H::kHFirst;
+    if constexpr (H::c_hi(i) - H::c_lo(i) == 2) {
+      res_chunk<3, kKb, 32, H, i, 64>(acc, wf, ring, it0);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      ring.release(it0 + H::kCA + i);
+      kahan16<0>(sums[h0], comp[h0], acc);
+      kahan16<16>(sums[h0 + 1], comp[h0 + 1], acc);
+    } else {
+      res_chunk<3, kKb, 32, H, i, 32>(acch, wf, ring, it0);
+      wgmma_wait<0>();
+      fence_regs(acch);
+      ring.release(it0 + H::kCA + i);
+      kahan16<0>(sums[h0], comp[h0], acch);
+    }
+  });
+}
+
+// One warpgroup's sweep (H: its k-steps and half chunks). xch: the S
+// partials, f32 [2 warpgroups][kTm / 2][128 threads].
+template <int kP, int kKb, int kTm, class H>
+__device__ __forceinline__ void res_sweep(const ResRing<kP, kKb, kTm>& ring,
+                                          uint32_t xs, uint32_t xch, int g,
+                                          uint32_t r0, uint32_t q,
+                                          const Role& role, int nx) {
+  using P = ResPlan<kP, kKb, kTm>;
+  constexpr int kE = P::kE, kNh = H::kHalves;
+  // element e of warpgroup w's partial for thread i (of 128) sits at
+  // xch + 4 (128 (w kE + e) + i): a warp touches 32 consecutive words
+  const uint32_t mine = xch + 4 * (g * kE * 128 + threadIdx.x % 128);
+  const uint32_t theirs = xch + 4 * ((1 - g) * kE * 128 + threadIdx.x % 128);
+  float sums[kNh][16];                    // per half chunk of 32 columns
+  uint32_t comp[kP == 1 ? 1 : kNh][8];    // f32: the sums' compensation
+  float s[kE];
+  uint32_t wf[kP][kTm / 16][4];
+#pragma unroll
+  for (int h = 0; h < kNh; ++h)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) sums[h][e] = 0.f;
+#pragma unroll
+  for (int h = 0; h < (kP == 1 ? 1 : kNh); ++h)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) comp[h][e] = 0u;
+#pragma unroll
+  for (int e = 0; e < kE; ++e) s[e] = 0.f;
+
+  for (int t = 0; t < ring.ntiles; ++t) {
+    const int it0 = t * kKb;
+    ring.template wait<H::kSN>(it0 + H::kSA);
+    res_s<kP, kKb, kTm, H>(s, xs, ring, it0);
+    unroll<H::kSN>([&](auto ic) {   // the S k-blocks C does not read
+      constexpr int j = H::kSA + decltype(ic)::value;
+      if constexpr (!H::in_c(j)) ring.release(it0 + j);
+    });
+    // the partials meet: barrier 1, the other warpgroup has read the last
+    // tile's; barrier 2, both are written
+    named_sync(1);
+#pragma unroll
+    for (int e = 0; e < kE; ++e) sts_f32(mine + 512 * e, s[e]);
+    named_sync(2);
+#pragma unroll
+    for (int e = 0; e < kE; ++e) s[e] += lds_f32(theirs + 512 * e);
+    ring.wait_y(t);
+    res_w<kP, kTm>(wf, s, ring.yslot(t), ring.item, r0, q);
+    __syncwarp();
+    ring.release_y(t);
+#pragma unroll
+    for (int p = 0; p < kP; ++p) fence_frags(wf[p]);
+    ring.template wait<H::kCN>(it0 + H::kCA);
+    if constexpr (kP == 1)
+      res_c_bf16<kKb, H>(sums, wf, ring, it0);
+    else
+      res_c_f32<kKb, H>(sums, comp, wf, ring, it0);
+  }
+
+  // half chunk h: columns 32 (kH0 + h) + 8 j + 2 q + e, element (j, hh, e)
+  // at register 4 j + 2 hh + e, row r0 + 8 hh
+#pragma unroll
+  for (int h = 0; h < kNh; ++h)
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const int row = role.x0 + r0 + 8 * ((i / 2) % 2);
+      const int col = 32 * (H::kHFirst + h) + 8 * (i / 4) + 2 * q;
+      if (row < nx)
+        *reinterpret_cast<float2*>(role.out + (long long)row * P::kKq + col) =
+            make_float2(sums[h][i], sums[h][i + 1]);
+    }
+}
+
+// Grid: the role blocks of csrc/dense_roles.cuh over 64-row stationary
+// tiles. The factor tables are [kP, rows, kq] bf16 (the f32 route's
+// pieces, or the bf16 rows), each through two 3-D tensor maps: boxes of
+// 64 rows (x, the stationary tile) and of kTm rows (z, a moving tile).
+template <int kP, int kKb, int kTm>
+__global__ void __launch_bounds__(kThreadsSplit, 1)
+dense_res_kernel(const __grid_constant__ CUtensorMap map_ax,
+                 const __grid_constant__ CUtensorMap map_bx,
+                 const __grid_constant__ CUtensorMap map_az,
+                 const __grid_constant__ CUtensorMap map_bz,
+                 const __grid_constant__ CUtensorMap map_yu,
+                 const __grid_constant__ CUtensorMap map_yi,
+                 float* __restrict__ acc_a, float* __restrict__ acc_b,
+                 float* __restrict__ part_a, float* __restrict__ part_b,
+                 int n, int m, int split_a, int split_b) {
+  using P = ResPlan<kP, kKb, kTm>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t xs = smem_u32(base);
+  const uint32_t bars = xs + P::kBarOff;
+  const uint32_t xbar = bars + P::kXBar;
+  int* claims = reinterpret_cast<int*>(base + P::kBarOff + P::kClaimOff);
+  const uint32_t xch = xs + P::kXchOff;
+
+  const Role role = role_of<kXr, kTm>(n, m, P::kKq, split_a, split_b, acc_a,
+                                      acc_b, part_a, part_b);
+  const int ntiles = (role.z_end - role.z_begin + kTm - 1) / kTm;
+  const ResRing<kP, kKb, kTm> ring{
+      xs + P::kSlotOff, xs + P::kYOff, bars, role.item ? &map_az : &map_bz,
+      &map_yu, &map_yi, role.item, role.x0, role.z_begin, ntiles, claims};
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < P::kSlots; ++s) {
+      mbar_init(bars + 8 * s, 1);                       // full
+      mbar_init(bars + 8 * (P::kSlots + s), 8);         // empty: 8 warps
+      claims[s] = s;
+    }
+    for (int s = 0; s < kResY; ++s) {
+      mbar_init(ring.yfull(s), 1);
+      mbar_init(ring.yempty(s), 8);
+      claims[P::kSlots + s] = s;
+    }
+    mbar_init(xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const CUtensorMap* mx = role.item ? &map_bx : &map_ax;
+    mbar_expect_tx(xbar, kKb * P::kXBlock);
+    for (int j = 0; j < kKb; ++j)
+      tma_load_3d(xs + j * P::kXBlock, mx, 64 * j, role.x0, 0, xbar);
+    for (int it = 0; it < P::kSlots && it < ntiles * kKb; ++it) ring.load(it);
+    for (int t = 0; t < kResY && t < ntiles; ++t) ring.load_y(t);
+  }
+
+  const int g = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int lane = tid % 32;
+  const uint32_t r0 = 16 * ((tid % 128) / 32) + lane / 4, q = lane % 4;
+  const int nx = role.item ? m : n;
+  mbar_wait(xbar, 0);
+  // kq / 16 k-steps of S and kq / 32 half chunks of output columns
+  if (g == 0)
+    res_sweep<kP, kKb, kTm, ResHalf<kKb, 2 * kKb, 4 * kKb, 0, kKb>>(
+        ring, xs, xch, 0, r0, q, role, nx);
+  else
+    res_sweep<kP, kKb, kTm, ResHalf<kKb, 0, 2 * kKb, kKb, 2 * kKb>>(
+        ring, xs, xch, 1, r0, q, role, nx);
+}
+
+// [pieces, rows, cols] bf16, row-major, loaded in boxes of 64 columns x
+// box_rows rows x every piece with the 128-byte swizzle; out-of-range
+// elements load as zero
+bool encode_res(CUtensorMap* map, const void* ptr, uint64_t cols,
+                uint64_t rows, uint32_t pieces, uint32_t box_rows) {
+  const cuuint64_t dims[3] = {cols, rows, pieces};
+  const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};
+  const cuuint32_t box[3] = {64, box_rows, pieces};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                   const_cast<void*>(ptr), dims, strides, box, unit,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kP, int kKb, int kTm>
+int launch_res(const void* a, const void* b, const void* y, void* acc_a,
+               void* acc_b, void* part_a, void* part_b, int n, int m,
+               long long ldy, int split_a, int split_b, cudaStream_t stream) {
+  using P = ResPlan<kP, kKb, kTm>;
+  if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+  const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUtensorMap mxa, mxb, mza, mzb, myu, myi;
+  if (!encode_res(&mxa, a, P::kKq, n, kP, kXr) ||
+      !encode_res(&mxb, b, P::kKq, m, kP, kXr) ||
+      !encode_res(&mza, a, P::kKq, n, kP, kTm) ||
+      !encode_res(&mzb, b, P::kKq, m, kP, kTm) ||
+      !encode_2d(&myu, u8, y, m, n, ldy, kTm, kXr,
+                 kTm == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode_2d(&myi, u8, y, m, n, ldy, kXr, kTm,
+                 CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = dense_res_kernel<kP, kKb, kTm>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_a = (n + kXr - 1) / kXr, tiles_b = (m + kXr - 1) / kXr;
+  kernel<<<tiles_a * split_a + tiles_b * split_b, kThreadsSplit, P::kSmem,
+           stream>>>(mxa, mxb, mza, mzb, myu, myi, static_cast<float*>(acc_a),
+                     static_cast<float*>(acc_b), static_cast<float*>(part_a),
+                     static_cast<float*>(part_b), n, m, split_a, split_b);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return reduce_partials(acc_a, acc_b, part_a, part_b, n, m, P::kKq, split_a,
+                         split_b, stream);
+}
+
+}  // namespace
+
+// The bf16 route's resident wide kernel: a, b bf16 [n, kq], [m, kq] with kq
+// in {320, 384}, rows zero-padded past the factors; y, outputs, splits
+// (of 64-row stationary tiles) and scratch as hpf_dense_wgmma_bf16.
+// Returns the cudaError_t of the launches.
+extern "C" int hpf_dense_res_bf16(const void* a, const void* b, const void* y,
+                                  void* acc_a, void* acc_b, void* part_a,
+                                  void* part_b, int n, int m, int kq,
+                                  long long ldy, int split_a, int split_b,
+                                  void* stream) {
+  if (bad_args(a, b, y, part_a, part_b, n, m, ldy, split_a, split_b))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (kq) {
+    case 320:
+      return launch_res<1, 5, 64>(a, b, y, acc_a, acc_b, part_a, part_b, n,
+                                  m, ldy, split_a, split_b, st);
+    case 384:
+      return launch_res<1, 6, 64>(a, b, y, acc_a, acc_b, part_a, part_b, n,
+                                  m, ldy, split_a, split_b, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The f32 route's resident wide kernel: a, b the three bf16 pieces of the
+// packed f32 rows, [3, n, kq] and [3, m, kq] with kq in {192, 256, 320};
+// the rest as hpf_dense_res_bf16.
+extern "C" int hpf_dense_res_f32(const void* a, const void* b, const void* y,
+                                 void* acc_a, void* acc_b, void* part_a,
+                                 void* part_b, int n, int m, int kq,
+                                 long long ldy, int split_a, int split_b,
+                                 void* stream) {
+  if (bad_args(a, b, y, part_a, part_b, n, m, ldy, split_a, split_b))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (kq) {
+    case 192:
+      return launch_res<kPieces, 3, 32>(a, b, y, acc_a, acc_b, part_a,
+                                        part_b, n, m, ldy, split_a, split_b,
+                                        st);
+    case 256:
+      return launch_res<kPieces, 4, 32>(a, b, y, acc_a, acc_b, part_a,
+                                        part_b, n, m, ldy, split_a, split_b,
+                                        st);
+    case 320:
+      return launch_res<kPieces, 5, 32>(a, b, y, acc_a, acc_b, part_a,
+                                        part_b, n, m, ldy, split_a, split_b,
+                                        st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -20,21 +20,30 @@ the packed width kq (K, plus 2 with bias, zero-padded):
     `dense_split_kernel` of `csrc/dense_wgmma.cu`, f32-accurate products
     from three bf16 pieces of each factor on the same wgmma pipeline
     (`split_pieces` writes the piece tables);
-  * f32 from kq = 129 to 256: `csrc/dense_simt.cu` (register-tiled FP32
-    FMAs fed by a cp.async ring), which takes any Y row stride;
-  * both precisions past 256 packed values (K > 256, K > 254 with bias):
-    `dense_wide_kernel` of `csrc/dense_wgmma.cu` ("wide" bf16, "wide_f32"
-    f32 from the three pieces), rows padded to whole k-blocks of 64
-    values and cut into column windows of 256 (bf16) or 128 (f32), S
-    formed per window over the whole row with both k-blocks streamed by
-    TMA. No width cap: one instantiation per route takes every width.
+  * the wide routes, rows padded to whole k-blocks of 64 values:
+    `dense_res_kernel` of `csrc/dense_wgmma.cu` ("wide": bf16 rows of
+    257-384 packed values, kq = 320 or 384; "wide_f32": f32 rows of
+    129-320, kq = 192, 256 or 320, from the three pieces) keeps a CTA's
+    64 stationary rows resident in shared memory, stages each moving
+    tile once into a ring of k-block slots and forms S once per tile,
+    split in half by k-steps between its two warpgroups, which split the
+    output columns in half the other way; past those widths
+    `dense_wide_kernel`
+    ("wide_stream", "wide_stream_f32"), the streamed design: column
+    windows of 256 (bf16) or 128 (f32), S formed per window with both
+    operands' k-blocks streamed by TMA, any width.
+  * `csrc/dense_simt.cu` (register-tiled FP32 FMAs fed by a cp.async
+    ring, any Y row stride) computes the f32 function up to kq = 256 and
+    no route takes it: it is the yardstick `chip_smoke.py` times the f32
+    routes against.
 
-The choice is by width between two hand-written kernels, not a fallback:
-a launch that fails raises. A sweep costs 8 N M kq FLOPs (four products
-of 2 N M kq: both of the kernels' two deterministic roles recompute S),
-six bf16 products each on the f32 route, against two uint8 reads of Y,
-so it is compute-bound on the H100. The two-role design trades the fourth
-product for sums without atomics and no item-count limit. The two wgmma
+The choice is by width between hand-written kernels, not a fallback: a
+launch that fails raises. A sweep costs 8 N M kq FLOPs (four products of
+2 N M kq: both of the narrow kernels' two deterministic roles recompute
+S; the resident wide kernel forms S once a role as well), six bf16
+products each on the f32 routes, against two uint8 reads of Y, so it is
+compute-bound on the H100. The two-role design trades the fourth product
+for sums without atomics and no item-count limit. The two narrow wgmma
 kernels are also built once per stage of the stage probe
 (`ops/dense_probe.py`), whose prod stage is the production kernel itself.
 
@@ -47,6 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import re
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -56,6 +66,9 @@ from hgaprec_tpu_torch.ops import build
 
 KP_MAX = 256           # widest packed row of the narrow kernels
 SPLIT_KQ_MAX = 128     # widest packed row of the f32 route's wgmma kernel
+# the packed widths of the resident wide kernel's instantiations; wider
+# rows take the streamed wide kernel
+RES_WIDTHS = {"wide": (320, 384), "wide_f32": (192, 256, 320)}
 
 
 class _Kernel(NamedTuple):
@@ -65,7 +78,8 @@ class _Kernel(NamedTuple):
     tile: int          # stationary rows per CTA, the unit splits_for plans in
     per_sm: int        # CTAs resident on one SM
     min_chunk: int     # fewest tiles of moving rows one CTA sweeps when split
-    window: int = 0    # output columns per CTA (the wide kernels), else all
+    window: int = 0    # output columns per CTA (the streamed wide kernels)
+    moving: int = 64   # moving rows per tile (the wide kernels)
 
 
 KERNELS = {
@@ -77,13 +91,20 @@ KERNELS = {
     # its stages are built at kq = 112 only
     "f32": _Kernel("hpf_dense_split_f32", "hpf_dense_split_probe_f32", 112,
                    128, 1, 8),
-    # f32 above kq = 128: csrc/dense_simt.cu (one 256-thread CTA per SM); no
-    # stages
+    # f32 up to kq = 256: csrc/dense_simt.cu (one 256-thread CTA per SM),
+    # the f32 routes' yardstick; no stages
     "simt": _Kernel("hpf_dense_simt_f32", None, 0, 128, 1, 8),
-    # past kq = 256: dense_wide_kernel (one 256-thread CTA per SM and
-    # column window), bf16 and f32 (the pieces); no stages
-    "wide": _Kernel("hpf_dense_wide_bf16", None, 0, 128, 1, 8, 256),
-    "wide_f32": _Kernel("hpf_dense_wide_f32", None, 0, 128, 1, 8, 128),
+    # the resident wide kernel, dense_res_kernel (one 256-thread CTA per
+    # SM, 64 stationary rows): bf16 at kq = 320, 384 (64 moving rows a
+    # tile), f32 at kq = 192, 256, 320 (the pieces, 32 moving rows); no
+    # stages
+    "wide": _Kernel("hpf_dense_res_bf16", None, 0, 64, 1, 8, 0, 64),
+    "wide_f32": _Kernel("hpf_dense_res_f32", None, 0, 64, 1, 8, 0, 32),
+    # past those widths the streamed wide kernel, dense_wide_kernel (one
+    # 256-thread CTA per SM and column window), bf16 and f32 (the pieces)
+    "wide_stream": _Kernel("hpf_dense_wide_bf16", None, 0, 128, 1, 8, 256),
+    "wide_stream_f32": _Kernel("hpf_dense_wide_f32", None, 0, 128, 1, 8,
+                               128),
 }
 _CLAMP = 1e-30
 # (a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq, ldy, split_a, split_b
@@ -154,15 +175,17 @@ def packed_width(kaug: int, kernel: str) -> int:
     128-byte-swizzled k-blocks of 64 values (TMA zero-fills the rest of a
     last partial block): bf16 ("wgmma") is built for kq = 64, 112, 128 and
     256, f32 ("f32") for 64, 112 and 128 (K = 100 takes 112, with or
-    without bias), and the wide kernels ("wide", "wide_f32") take any
-    whole number of k-blocks. "simt" copies rows in 16-byte chunks
-    (multiples of 4 values; the kernel loops over this true width) up to
-    256. A narrow kernel refuses a wider row with a ValueError that names
-    the wide kernel its route takes there."""
-    if kernel in ("wide", "wide_f32"):
+    without bias), the resident wide kernel for RES_WIDTHS ("wide" 320
+    and 384, "wide_f32" 192, 256 and 320), and the streamed wide kernels
+    ("wide_stream", "wide_stream_f32") take any whole number of k-blocks.
+    "simt" copies rows in 16-byte chunks (multiples of 4 values; the
+    kernel loops over this true width) up to 256. A kernel refuses a
+    wider row with a ValueError that names the kernel its route takes
+    there."""
+    if kernel in ("wide_stream", "wide_stream_f32"):
         return -(-kaug // 64) * 64
     widths = {"wgmma": (64, 112, 128, KP_MAX),
-              "f32": (64, 112, SPLIT_KQ_MAX)}.get(kernel)
+              "f32": (64, 112, SPLIT_KQ_MAX), **RES_WIDTHS}.get(kernel)
     if widths is None:
         kq = -(-kaug // 4) * 4
         widest = KP_MAX
@@ -170,39 +193,81 @@ def packed_width(kaug: int, kernel: str) -> int:
         kq = next((w for w in widths if kaug <= w), kaug)
         widest = widths[-1]
     if kq > widest:
+        bf16 = kernel in ("wgmma", "wide")
         raise ValueError(f"packed factor width {kq} > {widest} for the "
                          f"{kernel} kernel (its route takes the "
-                         f"{dense_kernel(kaug, kernel == 'wgmma')} kernel "
-                         f"there)")
+                         f"{dense_kernel(kaug, bf16)} kernel there)")
     return kq
 
 
 def dense_kernel(kaug: int, bf16: bool) -> str:
     """The kernel (a key of KERNELS) a sweep takes for `kaug` values:
-    bf16 "wgmma" up to 256 packed values, f32 `f32_kernel`'s, and past
-    256 the wide kernel of the precision ("wide", "wide_f32")."""
-    if kaug > KP_MAX:
-        return "wide" if bf16 else "wide_f32"
-    return "wgmma" if bf16 else ("f32" if kaug <= SPLIT_KQ_MAX else "simt")
+    bf16 "wgmma" up to 256 packed values, the resident wide kernel
+    ("wide") up to 384 and the streamed one ("wide_stream") past it; f32
+    `f32_kernel`'s."""
+    if not bf16:
+        return f32_kernel(kaug)
+    if kaug <= KP_MAX:
+        return "wgmma"
+    return "wide" if kaug <= RES_WIDTHS["wide"][-1] else "wide_stream"
 
 
 def f32_kernel(kaug: int) -> str:
     """The f32 route's kernel (a key of KERNELS) for `kaug` values: the
-    split-product wgmma kernel ("f32") up to kq = 128, dense_simt.cu
-    ("simt") up to 256, the wide kernel's f32 route ("wide_f32") above."""
-    return dense_kernel(kaug, False)
+    split-product wgmma kernel ("f32") up to kq = 128, the resident wide
+    kernel's f32 route ("wide_f32") up to 320, the streamed one
+    ("wide_stream_f32") above. dense_simt.cu ("simt") is on no route."""
+    if kaug <= SPLIT_KQ_MAX:
+        return "f32"
+    if kaug <= RES_WIDTHS["wide_f32"][-1]:
+        return "wide_f32"
+    return "wide_stream_f32"
 
 
 def windows(kq: int, kernel: str) -> int:
     """Column windows of a launch of `kernel` on rows of kq values: one
-    for the narrow kernels (dense_simt.cu's own windows are launches of
-    its own), ceil(kq / window) for the wide ones."""
+    for the narrow and the resident wide kernels (dense_simt.cu's own
+    windows are launches of its own), ceil(kq / window) for the streamed
+    ones."""
     w = KERNELS[kernel].window
     return -(-kq // w) if w else 1
 
 
+def wide_plan(n: int, m: int, kaug: int, kernel: str) -> Dict[str, float]:
+    """What a launch of a wide kernel ("wide", "wide_f32", "wide_stream",
+    "wide_stream_f32") on an N x M sweep of `kaug` values issues and
+    stages, from its plan: kq; windows; S formations per (stationary,
+    moving) pair; `issued`, the FLOPs of its tensor-core products (both
+    roles; x 6 bf16 products on the f32 routes); `staged`, the bytes its
+    TMA loads bring into shared memory (every CTA's stationary rows and
+    every moving tile and Y tile it sweeps: the streamed kernel restages
+    the stationary k-blocks per moving tile and the moving tile per
+    window, the resident one stages each once)."""
+    spec = KERNELS[kernel]
+    kq = packed_width(kaug, kernel)
+    nwin = windows(kq, kernel)
+    pieces = 3 if kernel.endswith("f32") else 1
+    x, z = spec.tile, spec.moving
+    staged = 0
+    for nx, nz in ((n, m), (m, n)):          # user role, item role
+        tiles_x, tiles_z = -(-nx // x), -(-nz // z)
+        pairs = tiles_x * tiles_z
+        if nwin == 1:
+            staged += (tiles_x * pieces * x * kq * 2
+                       + pairs * (pieces * z * kq * 2 + x * z))
+        else:
+            s_items = (kq // 64) * pieces * (x + z) * 128
+            c_items = sum(pieces * min(spec.window, kq - w * spec.window)
+                          * z * 2 + x * z for w in range(nwin))
+            staged += pairs * (nwin * s_items + c_items)
+    forms = 1 if nwin == 1 else nwin
+    issued = 4 * n * m * kq * (forms + 1) * (6 if pieces == 3 else 1)
+    return dict(kq=kq, windows=nwin, s_forms=forms, issued=issued,
+                staged=staged)
+
+
 def check_tma_layout(dense_y: torch.Tensor) -> None:
-    """The wgmma kernels (bf16, and f32 up to kq = 128) load Y with TMA,
+    """The wgmma kernels (every route's kernel) load Y with TMA,
     which needs a row stride and a base that are multiples of 16 bytes
     (the Trainer's layouts are: data/device.py, dense_count_matrix).
     Raises ValueError otherwise; there is no byte-load fallback."""
@@ -222,15 +287,64 @@ def splits_for(n: int, m: int, sms: int, kernel: str,
     moving loop is cut into chunks of at least `min_chunk` tiles, aiming
     at about four CTAs per resident slot. At Netflix shape the chunks are
     thousands of tiles long and the item role splits in two; at the
-    EchoNest head (4096 items) the item role splits in nine. The wide
-    kernels run `nwin` column windows of each, which count toward the
-    four."""
+    EchoNest head (4096 items) the item role splits in nine. The streamed
+    wide kernels run `nwin` column windows of each, which count toward
+    the four. The resident wide kernel, whose CTAs are few and long at
+    small shapes, takes the split that `_resident_splits` finds
+    fills the card's last wave best."""
     spec = KERNELS[kernel]
     tiles_a, tiles_b = -(-n // spec.tile), -(-m // spec.tile)
     slots = spec.per_sm * sms
     chunk = max(spec.min_chunk,
                 -(-2 * tiles_a * tiles_b * nwin // (4 * slots)))
-    return -(-tiles_b // chunk), -(-tiles_a // chunk)
+    split = (-(-tiles_b // chunk), -(-tiles_a // chunk))
+    if kernel in RES_WIDTHS and \
+            tiles_a * split[0] + tiles_b * split[1] <= 16 * slots:
+        return _resident_splits(n, m, slots, spec.tile, spec.moving,
+                                spec.min_chunk * spec.tile)
+    return split
+
+
+def _makespan(costs, slots: int) -> float:
+    """When the last of CTAs of these costs ends, each started in order
+    on the first of `slots` resident slots to come free (how the card
+    hands out blocks when one fits per SM)."""
+    free = [0.0] * slots
+    for c in costs:
+        heapq.heapreplace(free, free[0] + c)
+    return max(free)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_splits(n: int, m: int, slots: int, tile: int, moving: int,
+                     min_rows: int) -> Tuple[int, int]:
+    """(split_a, split_b) for the resident wide kernel: of the splits that
+    give both roles' chunks one length (in moving tiles of `moving` rows,
+    at least `min_rows` rows, as csrc/dense_roles.cuh cuts them), the one
+    whose CTAs end soonest in order on `slots` slots (item role first),
+    each costing its moving tiles plus two for its stationary tile's load;
+    fewer CTAs on a tie."""
+    tiles_a, tiles_b = -(-n // tile), -(-m // tile)
+    za, zb = -(-n // moving), -(-m // moving)
+
+    def costs(tiles_x, z, split):
+        ln = -(-z // split)
+        return [2 + max(0, min(z, (s + 1) * ln) - s * ln)
+                for _ in range(tiles_x) for s in range(split)]
+    best = None
+    for split_a in range(1, zb + 1):
+        ln = -(-zb // split_a)
+        if split_a > 1 and ln * moving < min_rows:
+            break
+        split_b = -(-za // max(ln, -(-min_rows // moving)))
+        ctas = tiles_a * split_a + tiles_b * split_b
+        if split_a > 1 and ctas > 16 * slots:
+            break
+        key = (_makespan(costs(tiles_b, za, split_b) +
+                         costs(tiles_a, zb, split_a), slots), ctas)
+        if best is None or key < best[0]:
+            best = (key, (split_a, split_b))
+    return best[1]
 
 
 def _check(a_lin, b_lin, dense_y, ba_lin, bb_lin):
@@ -272,10 +386,9 @@ def fused_dense_sweep(a_lin: torch.Tensor, b_lin: torch.Tensor,
     a_lin f32 [N, K], b_lin f32 [M, K], dense_y u8 [>= N, >= M] (rows may
     be padded, rows may be wider than M), ba_lin/bb_lin optional f32 [N],
     [M]. bf16=True reads A and B as bf16 and rounds W to bf16 before the
-    contraction products, accumulating in f32. On a CUDA tensor the wgmma
-    kernels (bf16, and f32 up to 128 packed values) need Y's row stride
-    and base at multiples of 16 bytes (`check_tma_layout`). Returns 2 or 4
-    f32 tensors.
+    contraction products, accumulating in f32. On a CUDA tensor every
+    route's kernel needs Y's row stride and base at multiples of 16 bytes
+    (`check_tma_layout`). Returns 2 or 4 f32 tensors.
     """
     _check(a_lin, b_lin, dense_y, ba_lin, bb_lin)
     if dense_y.device.type == "cpu":
@@ -315,9 +428,9 @@ def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
     if kernel != "simt":
         check_tma_layout(dense_y)
     a, b = _pack(a_lin, b_lin, ba_lin, bb_lin, kq,
-                 torch.bfloat16 if kernel in ("wgmma", "wide")
+                 torch.bfloat16 if kernel in ("wgmma", "wide", "wide_stream")
                  else torch.float32)
-    if kernel in ("f32", "wide_f32"):
+    if kernel in ("f32", "wide_f32", "wide_stream_f32"):
         a, b = split_pieces(a), split_pieces(b)
     acc_a = torch.empty((n, kq), dtype=torch.float32, device=a.device)
     acc_b = torch.empty((m, kq), dtype=torch.float32, device=a.device)
@@ -350,30 +463,34 @@ fused_dense_sweep.launches = 0
 fused_dense_sweep.launches_by_kernel = {kernel: 0 for kernel in KERNELS}
 
 
-# each wgmma kernel's production instantiations in the machine code, by
-# packed width (the wide kernels: by window width)
-_PRODUCTION = {"wgmma": r"dense_wgmma_kernelILi(\d+)ELi0EE",
-               "f32": r"dense_split_kernelILi(\d+)ELi0EE",
-               "wide": r"dense_wide_kernelILi1ELi(\d+)EE",
-               "wide_f32": r"dense_wide_kernelILi3ELi(\d+)EE"}
+# each wgmma kernel's production instantiations in the machine code: the
+# pattern and what its number times gives the packed width (the resident
+# wide kernel's k-blocks x 64; the streamed ones': the window width)
+_PRODUCTION = {"wgmma": (r"dense_wgmma_kernelILi(\d+)ELi0EE", 1),
+               "f32": (r"dense_split_kernelILi(\d+)ELi0EE", 1),
+               "wide": (r"dense_res_kernelILi1ELi(\d+)ELi64EE", 64),
+               "wide_f32": (r"dense_res_kernelILi3ELi(\d+)ELi32EE", 64),
+               "wide_stream": (r"dense_wide_kernelILi1ELi(\d+)EE", 1),
+               "wide_stream_f32": (r"dense_wide_kernelILi3ELi(\d+)EE", 1)}
 
 
 def hgmma_counts() -> Dict[str, Dict[int, int]]:
     """{kernel: {kq: count}}: warpgroup tensor-core instructions (HGMMA)
     in the machine code of each wgmma kernel ("wgmma" bf16, "f32" split,
-    "wide" and "wide_f32"), by production instantiation (packed width kq,
-    window width for the wide kernels; the stage probe's other stages are
-    not counted): a width whose count is zero had its products folded
-    away."""
+    the resident "wide" and "wide_f32", the streamed "wide_stream" and
+    "wide_stream_f32"), by production instantiation (packed width kq,
+    window width for the streamed kernels; the stage probe's other
+    stages are not counted): a width whose count is zero had its products
+    folded away."""
     counts: Dict[str, Dict[int, int]] = {k: {} for k in _PRODUCTION}
     cur = None
     for line in build.sass().splitlines():
         if "Function :" in line:
             cur = None
-            for kernel, pattern in _PRODUCTION.items():
+            for kernel, (pattern, unit) in _PRODUCTION.items():
                 hit = re.search(pattern, line)
                 if hit:
-                    cur, kq = counts[kernel], int(hit.group(1))
+                    cur, kq = counts[kernel], int(hit.group(1)) * unit
                     cur[kq] = 0
         elif cur is not None and "HGMMA" in line:
             cur[kq] += 1

@@ -73,13 +73,15 @@ def test_plain_matches_jax(rng, case):
             np.testing.assert_allclose(g.numpy(), np.asarray(r), **F32)
 
 
-@pytest.mark.parametrize("k,bias", [(300, False), (255, True)])
+@pytest.mark.parametrize("k,bias", [(300, False), (255, True), (200, False),
+                                    (130, True)])
 def test_plain_matches_jax_wide(rng, k, bias):
-    """Past 256 packed values (K = 300; K = 255 with bias, 257 values) the
-    JAX fused kernel pads the rows to kp = 384 and runs in the
-    interpreter; the port's fused_dense_sweep on the CPU (the plain
-    version the wide kernels are held to) agrees at the f32 bound, bias
-    sums included."""
+    """The widths of the wide routes: past 256 packed values (K = 300;
+    K = 255 with bias, 257 values) the JAX fused kernel pads the rows to
+    kp = 384, at K = 200 and K = 130 with bias (the f32 route's resident
+    wide kernel at kq = 256 and 192) to 256, and runs in the interpreter;
+    the port's fused_dense_sweep on the CPU (the plain version the wide
+    kernels are held to) agrees at the f32 bound, bias sums included."""
     elogs, y = _inputs(rng, 40, 30, k, 16, bias, 0, 0)
     j_lin = [jnp.exp(jnp.asarray(e)) for e in elogs]
     t_lin = [torch.exp(torch.from_numpy(e)) for e in elogs]
@@ -140,8 +142,16 @@ def test_build_command_targets_sm90a_from_csrc(monkeypatch):
     (480189, 17770, "f32", (1, 2)),      # f32: 128-row tiles, as wgmma
     (6040, 3681, "f32", (4, 6)),
     (962399, 4096, "f32", (1, 9)),
-    (480189, 17770, "simt", (1, 2)),     # f32 past kq = 128: the same plan
+    (480189, 17770, "simt", (1, 2)),     # dense_simt.cu: the same plan
     (6040, 3681, "simt", (4, 6)),
+    # the resident wide kernel: 64-row stationary tiles, splits that end
+    # the last wave soonest (ML-1M: 786 CTAs, 6.0 a slot, against 575 and
+    # 4.4 of the four-per-slot rule), long loops at Netflix shape
+    (6040, 3681, "wide_f32", (4, 7)),
+    (6040, 3681, "wide", (4, 7)),
+    (480189, 17770, "wide_f32", (1, 1)),
+    (480189, 17770, "wide", (1, 1)),
+    (962399, 4096, "wide_f32", (1, 5)),
 ])
 def test_kernel_splits_fill_the_card(n, m, kernel, want):
     """The moving-loop chunks the wrapper asks for on a 132-SM H100."""
@@ -171,8 +181,11 @@ def test_kernel_splits_fill_the_card(n, m, kernel, want):
     (200, "simt", 200),
     (257, "wide", 320),      # K = 255 with bias: whole k-blocks of 64
     (302, "wide_f32", 320),  # K = 300 with bias
-    (1000, "wide", 1024),
-    (64, "wide_f32", 64),    # the wide kernels take any width
+    (321, "wide", 384),      # the resident kernel's widths: 320, 384 bf16
+    (130, "wide_f32", 192),  # 192, 256, 320 f32
+    (200, "wide_f32", 256),
+    (1000, "wide_stream", 1024),
+    (64, "wide_stream_f32", 64),    # the streamed kernels take any width
 ])
 def test_packed_width_per_kernel(kaug, kernel, want):
     assert df.packed_width(kaug, kernel) == want
@@ -182,51 +195,100 @@ def test_packed_width_per_kernel(kaug, kernel, want):
 def test_packed_width_rejects_wide_rows(kernel):
     """A narrow kernel refuses 257 packed values (K = 255 with bias), naming
     the wide kernel its route takes there; the route takes that kernel,
-    on rows of five k-blocks (320 values) in column windows."""
+    on rows of five k-blocks (320 values) in one window (the resident
+    kernel), where the streamed kernel would run two (bf16) or three
+    (f32). The resident kernel refuses rows past its widths the same
+    way, naming the streamed kernel."""
     bf16 = kernel == "wgmma"
     wide = "wide" if bf16 else "wide_f32"
     with pytest.raises(ValueError, match=wide):
         df.packed_width(257, kernel)
     assert df.dense_kernel(257, bf16) == wide
     assert df.packed_width(257, wide) == 320
-    assert df.windows(320, wide) == (2 if bf16 else 3)
+    assert df.windows(320, wide) == 1
+    assert df.windows(320, wide.replace("wide", "wide_stream")) == \
+        (2 if bf16 else 3)
+    with pytest.raises(ValueError, match="wide_stream"):
+        df.packed_width(385 if bf16 else 321, wide)
 
 
 @pytest.mark.parametrize("kaug,want", [(13, "f32"), (102, "f32"),
-                                       (128, "f32"), (129, "simt"),
-                                       (202, "simt"), (256, "simt"),
-                                       (257, "wide_f32"), (302, "wide_f32")])
+                                       (128, "f32"), (129, "wide_f32"),
+                                       (202, "wide_f32"), (256, "wide_f32"),
+                                       (257, "wide_f32"), (302, "wide_f32"),
+                                       (320, "wide_f32"),
+                                       (321, "wide_stream_f32")])
 def test_f32_route_takes_the_kernel_of_its_width(kaug, want):
     """Up to 128 packed values the f32 route runs the split-product wgmma
-    kernel, up to 256 dense_simt.cu, above that the wide kernel's f32
-    route; the split kernel and dense_simt.cu refuse wider rows."""
+    kernel, up to 320 the resident wide kernel's f32 route (rows padded
+    to 192, 256 or 320), above that the streamed one; the split kernel
+    and the resident kernel refuse wider rows, and dense_simt.cu, on no
+    route now, still takes up to 256."""
     assert df.f32_kernel(kaug) == want
-    if want == "simt":
+    if want != "f32":
         with pytest.raises(ValueError, match="128"):
             df.packed_width(kaug, "f32")
     if want == "wide_f32":
-        with pytest.raises(ValueError, match="wide_f32"):
-            df.packed_width(kaug, "simt")
+        assert df.packed_width(kaug, "wide_f32") in (192, 256, 320)
+    if want == "wide_stream_f32":
+        with pytest.raises(ValueError, match="wide_stream_f32"):
+            df.packed_width(kaug, "wide_f32")
+    if kaug <= 256:
+        assert df.packed_width(kaug, "simt") == -(-kaug // 4) * 4
 
 
 @pytest.mark.parametrize("kaug", [257, 320, 1024])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_wide_routing(kaug, bf16):
-    """Past 256 packed values both precisions take the wide kernel: rows
-    padded to whole k-blocks of 64, windows of 256 columns (bf16) or 128
-    (f32), and the windows count toward the CTAs that fill the card (at
-    ML-1M shape, 132 SMs)."""
+    """Past 256 packed values both precisions take a wide kernel, rows
+    padded to whole k-blocks of 64: up to 320 (f32) or 384 (bf16) the
+    resident one, one window, 64-row stationary tiles, past that the
+    streamed one, windows of 256 columns (bf16) or 128 (f32) that count
+    toward the CTAs that fill the card (at ML-1M shape, 132 SMs)."""
     kernel = df.dense_kernel(kaug, bf16)
-    assert kernel == ("wide" if bf16 else "wide_f32")
+    resident = kaug <= 320
+    assert kernel == ("wide" if resident else "wide_stream") + \
+        ("" if bf16 else "_f32")
     kq = df.packed_width(kaug, kernel)
     assert kq % 64 == 0 and kaug <= kq < kaug + 64
-    window = 256 if bf16 else 128
+    window = 0 if resident else (256 if bf16 else 128)
     assert df.KERNELS[kernel].window == window
     nwin = df.windows(kq, kernel)
-    assert nwin == -(-kq // window)
+    assert nwin == (1 if resident else -(-kq // window))
+    tile = df.KERNELS[kernel].tile
+    assert tile == (64 if resident else 128)
     split_a, split_b = df.splits_for(6040, 3681, 132, kernel, nwin)
-    ctas = nwin * (48 * split_a + 29 * split_b)
+    ctas = nwin * (-(-6040 // tile) * split_a + -(-3681 // tile) * split_b)
     assert 2 * 132 <= ctas <= 8 * 132
+
+
+@pytest.mark.parametrize("kaug,bf16", [(300, False), (300, True),
+                                       (200, False)])
+def test_wide_plan_stages_each_operand_once(kaug, bf16):
+    """At Netflix shape the resident wide kernel forms S once per tile
+    (8 N M kq products, x 6 bf16 on the f32 route) and stages into shared
+    memory at most a third of the bytes the streamed kernel would (which
+    restages the stationary k-blocks per moving tile and the moving tile
+    per window): the figures chip_smoke.py prints beside its times."""
+    n, m = 480189, 17770
+    kernel = df.dense_kernel(kaug, bf16)
+    res = df.wide_plan(n, m, kaug, kernel)
+    stream = df.wide_plan(n, m, kaug, kernel.replace("wide", "wide_stream"))
+    pieces = 1 if bf16 else 6
+    assert res["kq"] == stream["kq"] == -(-kaug // 64) * 64
+    assert (res["windows"], res["s_forms"]) == (1, 1)
+    assert res["issued"] == 8 * n * m * res["kq"] * pieces
+    assert stream["issued"] == \
+        4 * n * m * stream["kq"] * (stream["windows"] + 1) * pieces
+    assert 3 * res["staged"] <= stream["staged"]
+    # per role: X once a CTA, then each (stationary, moving) pair's moving
+    # tile (all pieces) and Y tile
+    x, z = df.KERNELS[kernel].tile, df.KERNELS[kernel].moving
+    p = 1 if bf16 else 3
+    assert res["staged"] == sum(
+        -(-nx // x) * p * x * res["kq"] * 2 +
+        -(-nx // x) * -(-nz // z) * (p * z * res["kq"] * 2 + x * z)
+        for nx, nz in ((n, m), (m, n)))
 
 
 def test_tma_layout_check():
@@ -251,10 +313,12 @@ def test_wgmma_route_checks_y_before_building(monkeypatch):
                         kernel="wgmma")
 
 
-@pytest.mark.parametrize("k,bias", [(3, False), (100, True), (126, False)])
+@pytest.mark.parametrize("k,bias", [(3, False), (100, True), (126, False),
+                                    (200, False)])
 def test_f32_route_checks_y_before_building(monkeypatch, k, bias):
-    """The f32 route up to kq = 128 loads Y by TMA too: an unaligned Y
-    raises ValueError before any build; dense_simt.cu, past kq = 128,
+    """Every kernel of the f32 route loads Y by TMA: an unaligned Y raises
+    ValueError before any build (up to kq = 128 the split kernel, at
+    K = 200 the resident wide kernel); dense_simt.cu, the yardstick,
     takes any stride."""
     def no_build():
         raise AssertionError("an unaligned Y reached the kernel build")
@@ -265,7 +329,7 @@ def test_f32_route_checks_y_before_building(monkeypatch, k, bias):
     extra = dict(ba_lin=torch.rand(6), bb_lin=torch.rand(5)) if bias else {}
     with pytest.raises(ValueError, match="TMA"):
         df.launch_dense(a, b, torch.zeros(6, 5, dtype=torch.uint8),
-                        kernel="f32", **extra)
+                        kernel=df.f32_kernel(k + 2 * bias), **extra)
     with pytest.raises(AssertionError, match="reached the kernel build"):
         df.launch_dense(torch.rand(6, 130), torch.rand(5, 130),
                         torch.zeros(6, 5, dtype=torch.uint8), kernel="simt")
@@ -273,11 +337,13 @@ def test_f32_route_checks_y_before_building(monkeypatch, k, bias):
 
 def test_f32_route_runs_the_simt_kernel():
     """`fused_dense_sweep(bf16=False)` launches the split-product wgmma
-    kernel of csrc/dense_wgmma.cu up to kq = 128 and the register-tiled
-    kernel of csrc/dense_simt.cu above it, bf16 the wgmma kernel of
-    csrc/dense_wgmma.cu; the wgmma kernels' source also holds their stage
-    probe's entries, dense_simt.cu none; the mma.sync design
-    (csrc/dense_fused.cu) is gone."""
+    kernel of csrc/dense_wgmma.cu up to kq = 128 and its resident wide
+    kernel above it; the register-tiled kernel of csrc/dense_simt.cu
+    stays built as the f32 routes' yardstick, on no route. bf16 runs the
+    wgmma kernel of csrc/dense_wgmma.cu; the wgmma kernels' source also
+    holds their stage probe's entries, dense_simt.cu none; the mma.sync
+    design (csrc/dense_fused.cu) is gone."""
+    assert {df.f32_kernel(k) for k in range(1, 321)} == {"f32", "wide_f32"}
     for kernel, src in (("f32", "dense_wgmma.cu"), ("wgmma", "dense_wgmma.cu"),
                         ("simt", "dense_simt.cu")):
         with open(f"{build.CSRC_DIR}/{src}") as f:
@@ -286,10 +352,12 @@ def test_f32_route_runs_the_simt_kernel():
             if entry is not None:
                 assert f'extern "C" int {entry}(' in text
     assert df.KERNELS["simt"].probe is None
-    assert set(df.KERNELS) == {"wgmma", "f32", "simt", "wide", "wide_f32"}
+    assert set(df.KERNELS) == {"wgmma", "f32", "simt", "wide", "wide_f32",
+                               "wide_stream", "wide_stream_f32"}
     with open(f"{build.CSRC_DIR}/dense_wgmma.cu") as f:
         text = f.read()
-    for kernel in ("wide", "wide_f32"):      # the wide kernels, no stages
+    for kernel in ("wide", "wide_f32", "wide_stream", "wide_stream_f32"):
+        # the wide kernels, no stages
         assert df.KERNELS[kernel].probe is None
         assert f'extern "C" int {df.KERNELS[kernel].entry}(' in text
     assert build.CSRC_DIR + "/dense_fused.cu" not in build.sources()
@@ -316,12 +384,13 @@ def test_probe_stages_are_instantiations_of_the_production_kernels():
         assert f"{const} = {value}" in roles
     with open(f"{build.CSRC_DIR}/dense_wgmma.cu") as f:
         text = f.read()
-    # both wgmma kernels, each with its stages, and the wide kernel, which
-    # has none
-    assert text.count("__global__ void") == 3
+    # both wgmma kernels, each with its stages, and the two wide kernels,
+    # which have none
+    assert text.count("__global__ void") == 4
     assert text.count("int kStage = kProd>\n__global__ void "
                       "__launch_bounds__") == 2
     assert "auto kernel = dense_wide_kernel<kP, kWn>;" in text
+    assert "auto kernel = dense_res_kernel<kP, kKb, kTm>;" in text
     for kernel in ("dense_wgmma_kernel", "dense_split_kernel"):
         assert f"auto kernel = {kernel}<" in text
     # dense_simt.cu is built only as the production kernel
@@ -393,11 +462,22 @@ def test_hgmma_counts_per_instantiation(monkeypatch):
         "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
         "Function : _Z17dense_wide_kernelILi3ELi128EEv14CUtensorMap_st",
         "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
-        "  HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR6], R24 ;"])
+        "  HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR6], R24 ;",
+        "Function : _Z16dense_res_kernelILi1ELi5ELi64EEv14CUtensorMap_st",
+        "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "Function : _Z16dense_res_kernelILi3ELi4ELi32EEv14CUtensorMap_st",
+        "  HGMMA.64x32x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "  HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR6], R24 ;",
+        "  HGMMA.64x32x16.F32.BF16 R24, R8, gdesc[UR6], R24 ;",
+        "Function : _Z16dense_res_kernelILi3ELi5ELi32EEv14CUtensorMap_st",
+        "  FFMA R1, R2, R3, R4 ;"])
     monkeypatch.setattr(build, "sass", lambda: sass)
     assert df.hgmma_counts() == {"wgmma": {112: 2, 128: 0},
                                  "f32": {112: 3, 64: 0},
-                                 "wide": {256: 1}, "wide_f32": {128: 2}}
+                                 "wide": {320: 1},
+                                 "wide_f32": {256: 3, 320: 0},
+                                 "wide_stream": {256: 1},
+                                 "wide_stream_f32": {128: 2}}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contig", "ystride",
@@ -484,17 +564,16 @@ def test_wgmma_kernel_matches_plain_and_repeats(n, m, k, bias):
 @pytest.mark.parametrize("aligned", [False, True])
 def test_f32_kernel_matches_plain_and_repeats(n, m, k, bias, aligned):
     """The f32 route on ragged shapes: up to kq = 128 the split-product
-    wgmma kernel, which takes an aligned Y only (an unaligned one raises
-    ValueError); K = 200 the kernel of csrc/dense_simt.cu, on an aligned
-    Y (cp.async) and an unaligned one (byte loads), its rows wider than
-    128 values contracted in two column windows. Within rtol=2e-4,
-    atol=1e-5 of the plain version, and two launches bitwise equal."""
+    wgmma kernel, K = 200 the resident wide kernel (kq = 256), both on an
+    aligned Y only (an unaligned one raises ValueError). Within
+    rtol=2e-4, atol=1e-5 of the plain version, and two launches bitwise
+    equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     lin, y = _card_inputs(n, m, k, bias, aligned=aligned, seed=n + k)
     kernel = df.f32_kernel(k + 2 * bias)
-    if kernel == "f32" and not aligned:
+    if not aligned:
         with pytest.raises(ValueError, match="TMA"):
             df.fused_dense_sweep(*lin[:2], y, *lin[2:])
         return
@@ -511,23 +590,35 @@ def test_f32_kernel_matches_plain_and_repeats(n, m, k, bias, aligned):
         torch.testing.assert_close(gg, r, **F32)
 
 
+WIDE_CARD = [  # (n, m, k, bias, bf16): the wide kernel each route takes
+    (1000, 777, 300, False, False), (1000, 777, 300, False, True),
+    (333, 129, 255, True, False), (333, 129, 255, True, True),
+    (517, 300, 640, False, False), (517, 300, 640, False, True),
+    (64, 1, 1000, True, False), (64, 1, 1000, True, True),
+    (1000, 777, 130, False, False),      # f32 resident, kq = 192
+    (517, 300, 200, False, False),       # kq = 256
+    (333, 129, 254, True, False),        # 256 packed values
+    (300, 200, 330, False, True),        # bf16 resident, kq = 384
+    (300, 200, 330, False, False),       # f32 past 320: the streamed one
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m,k,bias", [(1000, 777, 300, False),
-                                        (333, 129, 255, True),
-                                        (517, 300, 640, False),
-                                        (64, 1, 1000, True)])
-@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,m,k,bias,bf16", WIDE_CARD)
 def test_wide_kernel_matches_plain_and_repeats(n, m, k, bias, bf16):
-    """Past 256 packed values both routes take dense_wide_kernel: on ragged
-    shapes within rtol=2e-4, atol=1e-5 (f32) or bf16 relative 2e-2 (clamp
-    1e-3) of the plain version, two launches bitwise equal, each counted
-    under its wide kernel."""
+    """The wide kernels (resident up to 320 f32 / 384 bf16 packed values,
+    streamed past them): on ragged shapes within rtol=2e-4, atol=1e-5
+    (f32) or bf16 relative 2e-2 (clamp 1e-3) of the plain version, two
+    launches bitwise equal, each counted under its kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     lin, y = _card_inputs(n, m, k, bias, aligned=True, seed=n + k)
     kernel = df.dense_kernel(k + 2 * bias, bf16)
-    assert kernel == ("wide" if bf16 else "wide_f32")
+    kaug = k + 2 * bias
+    wide = "wide" if bf16 else "wide_f32"
+    assert kernel == (wide if kaug <= (384 if bf16 else 320)
+                      else wide.replace("wide", "wide_stream"))
     by_kernel = df.fused_dense_sweep.launches_by_kernel[kernel]
     got = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
     again = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
