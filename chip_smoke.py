@@ -10,8 +10,9 @@ kernel also at K = 130, 200 and 254 with bias; both dense routes at
 Netflix shape and K = 300 beside their bounds, the streamed wide kernel
 and the plan's issued FLOPs and staged bytes of both wide kernels, the
 f32 route at K = 200 and 254 with bias beside dense_simt.cu; the
-EchoNest tail and CSR sweep at K = 300; and the ML-1M command line at
-K = 300, K = 255 with bias and K = 400 on the card against the CPU),
+EchoNest tail and CSR sweep at K = 300; the ML-1M command line at
+K = 300, K = 255 with bias and K = 400 on the card against the CPU; and
+the fused multi-step against the loop at ML-1M K = 300 "highest"),
 with `--segment` only
 the build and the segment path's kernel
 phases (the CSR sweep on every layout and at EchoNest shape), with
@@ -64,8 +65,21 @@ work, the f32 stages again on the trained EchoNest head. The build holds the
 narrow production instantiations of the split kernel, the bf16 tail
 kernel and the CSR sweep's passes to the machine code recorded before
 the wide routes joined their sources, and the wide routes' phase
-follows the EchoNest phases. Prints one line per phase, a JSON line with
-each kernel's
+follows the EchoNest phases. Every Trainer and command-line run on the
+card trains by the fused multi-step (models/step.py::GraphMultiStep): one
+eager step, one captured CUDA graph of the step, replays for every other
+step; the script fails if a Trainer made more than one eager step per
+capture, or if the traced command line's steps after the first were not
+replays. At ML-1M K=100 in bf16 and at "highest", on the EchoNest hybrid
+in both precisions, at EchoNest segment-chunked and at ML-1M K = 300
+"highest" (`phase_graph`) it holds replayed steps against loop steps from
+one state (bitwise, and on the hybrid within the tolerances of
+`compare`), runs a loop step with host synchronisation made an error, and
+prints ms/iter of the loop and of replay beside the device time of the
+step's kernels and the peak memory of each; the ML-1M run at "highest"
+is trained again with the loop, and its validation trajectory and ELBO
+must equal the replayed run's. Prints one line per phase, a JSON line of
+the fused multi-step's figures, a JSON line with each kernel's
 launches, error and times, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, with no result line,
 when there is no GPU or any phase fails.
@@ -811,13 +825,13 @@ def phase_probe(df, gen, lin, y):
 
 
 def train(datdir, outdir, precision, max_iterations, rfreq, device,
-          logl=False):
+          logl=False, k=K):
     from hgaprec_tpu_torch.config import ModelConfig, RunConfig
     from hgaprec_tpu_torch.data.ratings import load_dataset
     from hgaprec_tpu_torch.models.engine import Trainer
     store, validation, test = load_dataset(datdir, N_ML, M_ML, False, 1)
     tr = Trainer(store, validation, test,
-                 ModelConfig(n=store.n, m=store.m, k=K, variant="hpf",
+                 ModelConfig(n=store.n, m=store.m, k=k, variant="hpf",
                              matmul_precision=precision),
                  RunConfig(datdir=datdir, outdir=outdir, rfreq=rfreq,
                            max_iterations=max_iterations, logl=logl),
@@ -829,14 +843,6 @@ def validation_ll(outdir):
     with open(os.path.join(outdir, "validation.txt")) as f:
         return [(int(r.split("\t")[0]), float(r.split("\t")[2]))
                 for r in f if r.strip()]
-
-
-def steady_ms_per_iter(mcfg, state, data, windows=5, steps=100):
-    """(median, min, max) ms per CAVI step over `windows` runs of `steps`
-    back-to-back steps, each ended by a synchronize."""
-    from hgaprec_tpu_torch.models.step import make_multi_step
-    multi = make_multi_step(mcfg)
-    return window_ms(lambda n: multi(state, data, n), windows, steps)
 
 
 def window_ms(multi, windows=5, steps=100):
@@ -854,6 +860,129 @@ def window_ms(multi, windows=5, steps=100):
     return statistics.median(times), min(times), max(times)
 
 
+def clone_state(st):
+    """A copy of a ModelState on its own device."""
+    from hgaprec_tpu_torch.models.state import Gam, ModelState
+
+    def copy(v):
+        if isinstance(v, Gam):
+            return Gam(v.shape.clone(), v.rate.clone(), v.e.clone(),
+                       v.elog.clone())
+        return None if v is None else v.clone()
+    return ModelState(**{f.name: copy(getattr(st, f.name))
+                         for f in dataclasses.fields(st)})
+
+
+def check_replayed(tr, iterations, where):
+    """A CUDA Trainer run's steps (models/step.py::GraphMultiStep): one
+    eager step per capture, every other step replayed, `iterations` in
+    all. Returns (eager steps, captures, replays)."""
+    ms = tr.multi_step
+    counts = (ms.eager_steps, ms.captures, ms.replays)
+    if not (ms.captures >= 1 and ms.eager_steps == ms.captures and
+            ms.eager_steps + ms.replays == iterations):
+        raise SystemExit(f"{where}: the Trainer made (eager steps, "
+                         f"captures, replays) {counts} for {iterations} "
+                         f"iterations, not one eager step per capture and "
+                         f"replays of every other step")
+    return counts
+
+
+def phase_graph(name, mcfg, state, data, windows=5, steps=100, reps=20,
+                check_steps=3, exact=True):
+    """The fused multi-step (models/step.py::GraphMultiStep, the JAX
+    package's cavi_multi_step) at one configuration, against the loop it
+    replaces, on `state` and `data`:
+
+      * `check_steps` replayed steps against as many loop steps from the
+        same state: bitwise (`exact`), or on the hybrid, whose head adds
+        with index_add_'s float atomics, within `compare`'s tolerances;
+        the first loop step under torch.cuda's sync debug mode "error",
+        so a host synchronisation inside the step raises;
+      * ms/iter of each (window_ms: `windows` windows of `steps`);
+      * the device time of the kernels of one step of each
+        (device_ms_by_kernel over `reps` steps), so the host's share of
+        the step shows;
+      * the peak memory of each over its windows: allocated, and reserved
+        (the graph's private pool beside the allocator's cache).
+
+    Returns the figures."""
+    from hgaprec_tpu_torch.models.step import make_multi_step, tensor_leaves
+    loop = make_multi_step(mcfg, graph=False)
+    replay = make_multi_step(mcfg)
+    a, b = clone_state(state), clone_state(state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loop(a, data, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    loop(a, data, check_steps - 1)
+    replay(b, data, check_steps)
+    torch.cuda.synchronize()
+    counts = (replay.eager_steps, replay.captures, replay.replays)
+    got = [t for _, t in tensor_leaves(b)]
+    want = [t for _, t in tensor_leaves(a)]
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    bf16 = mcfg.matmul_precision == "default"
+    err, close = compare(got, want, bf16)
+    ok = (bitwise if exact else close) and \
+        counts == (1, 1, check_steps - 1)
+    del a, b, got, want
+    replay.reset()
+    fig = dict(bitwise=bitwise, max_abs_err=err, counts=counts)
+    by_kernel = {}
+    for label, runner in (("loop", loop), ("replay", replay)):
+        # each from an empty cache: the loop's temporaries come back into
+        # the cache, the replay's into the graph's pool (its warm-up
+        # step's are released by the capture)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms, lo, hi = window_ms(lambda n: runner(state, data, n), windows,
+                               steps)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        reserved = torch.cuda.max_memory_reserved() / 1e9
+        by_kernel[label] = device_ms_by_kernel(
+            lambda: runner(state, data, 1), reps)
+        fig[label] = dict(ms=ms, ms_lo=lo, ms_hi=hi,
+                          kernel_ms=sum(by_kernel[label].values()),
+                          kernels=len(by_kernel[label]), peak_gb=peak,
+                          reserved_gb=reserved)
+    replay.reset()
+    # the kernels whose device time changed most between loop and replay
+    moved = sorted(((name, by_kernel["loop"].get(name, 0.0), ms)
+                    for name, ms in by_kernel["replay"].items()),
+                   key=lambda x: -abs(x[2] - x[1]))[:3]
+    fig["moved_kernels"] = moved
+    lp, rp = fig["loop"], fig["replay"]
+    say(f"fused multi-step {name}: {check_steps} replayed steps against "
+        f"{check_steps} loop steps from one state: "
+        f"{'bitwise equal' if bitwise else 'not bitwise equal'}, max abs "
+        f"error {err:.3e} ("
+        f"{'bitwise asked' if exact else 'bf16 relative 2e-2' if bf16 else 'rtol 2e-4, atol 1e-5'}"
+        f"); (eager steps, captures, replays) {counts}; no host "
+        f"synchronisation in a loop step; ms/iter loop {lp['ms']:.3f} "
+        f"(range {lp['ms_lo']:.3f}-{lp['ms_hi']:.3f}), replay "
+        f"{rp['ms']:.3f} (range {rp['ms_lo']:.3f}-{rp['ms_hi']:.3f}), "
+        f"{lp['ms'] / rp['ms']:.2f}x (median of {windows} windows of "
+        f"{steps}); device time of the step's kernels (torch.profiler, "
+        f"{reps} steps): loop {lp['kernel_ms']:.3f} ms over "
+        f"{lp['kernels']} kernels, replay {rp['kernel_ms']:.3f} ms over "
+        f"{rp['kernels']} kernels, host share of the replayed step "
+        f"{max(0.0, 1 - rp['kernel_ms'] / rp['ms']):.1%}; peak memory "
+        f"allocated loop {lp['peak_gb']:.3f} GB, replay "
+        f"{rp['peak_gb']:.3f} GB, reserved loop {lp['reserved_gb']:.3f} GB,"
+        f" replay {rp['reserved_gb']:.3f} GB; kernels that moved most "
+        f"(loop ms, replay ms): "
+        f"{[(n[:50], round(a, 4), round(b, 4)) for n, a, b in moved]} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the fused multi-step at {name} disagrees with "
+                         f"the loop, or did not replay")
+    return fig
+
+
 def phase_main(df, datdir, root):
     outdir = os.path.join(root, "gpu_default")
     tr = train(datdir, outdir, "default", 30, 10, "cuda")
@@ -863,6 +992,7 @@ def phase_main(df, datdir, root):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = df.fused_dense_sweep.launches
+    replayed = check_replayed(tr, 31, "main path")
     tr.close()
     if launches == 0:
         raise SystemExit("the main path never launched the CUDA kernel")
@@ -883,28 +1013,40 @@ def phase_main(df, datdir, root):
     with open(os.path.join(outdir, "precision.txt")) as f:
         p10 = float(f.read().split("\n")[-2].split("\t")[1])
     # steady-state step time on the trained state, outside the reports:
-    # host clock around 100 steps ending in synchronize, five windows
-    ms_iter, ms_lo, ms_hi = steady_ms_per_iter(tr.mcfg, tr.state, tr.data)
+    # host clock around 100 steps ending in synchronize, five windows,
+    # replayed and in the loop
+    graph = phase_graph("ML-1M HPF K=100 bf16", tr.mcfg, tr.state, tr.data)
+    ms_iter, ms_lo, ms_hi = (graph["replay"][k]
+                             for k in ("ms", "ms_lo", "ms_hi"))
     say(f"main path: Trainer HPF K={K} {tr.store.n}x{tr.store.m} "
         f"nnz={tr.store.nratings:,} precision=default, 31 iterations in "
-        f"{wall:.2f} s wall (reports included); kernel launches {launches}; "
+        f"{wall:.2f} s wall (reports included; eager steps, captures, "
+        f"replays {replayed}); kernel launches {launches}; "
         f"validation ll by report {[(i, round(v, 6)) for i, v in ll]}; "
         f"final precision@10 {p10:.5f}; contract files "
         f"present; steady state {ms_iter:.3f} ms/iter = "
-        f"{1e3 / ms_iter:.1f} iters/s (median of 5 windows of 100; range "
-        f"{ms_lo:.3f}-{ms_hi:.3f})")
-    return launches
+        f"{1e3 / ms_iter:.1f} iters/s replayed (median of 5 windows of 100; "
+        f"range {ms_lo:.3f}-{ms_hi:.3f})")
+    return launches, graph
 
 
 def phase_cpu_reference(df, datdir, root):
     """Same config at "highest" (the default precision: the f32 dense
     route) on the card and on the CPU (the CPU run is the reference here,
     not a fallback), validation ll and the training ELBO (logl.txt) held
-    to each other; the card's steady-state step time at "highest"."""
+    to each other; the card's run again with the loop in place of the
+    replayed step, its validation trajectory and ELBO equal to the
+    replayed run's; the fused multi-step against the loop at "highest"
+    (phase_graph). Returns (kernel #1's launches in the replayed run, its
+    steady ms/iter, the phase_graph figures)."""
+    from hgaprec_tpu_torch.models.step import make_multi_step
     lls, elbo = {}, {}
-    for device in ("cuda", "cpu"):
+    for device in ("cuda", "cuda_loop", "cpu"):
         outdir = os.path.join(root, f"{device}_highest")
-        tr = train(datdir, outdir, "highest", 10, 5, device, logl=True)
+        tr = train(datdir, outdir, "highest", 10, 5,
+                   "cpu" if device == "cpu" else "cuda", logl=True)
+        if device == "cuda_loop":
+            tr.multi_step = make_multi_step(tr.mcfg, graph=False)
         df.fused_dense_sweep.launches = 0
         split_before = df.fused_dense_sweep.launches_by_kernel["f32"]
         t0 = time.perf_counter()
@@ -914,8 +1056,11 @@ def phase_cpu_reference(df, datdir, root):
             launches = df.fused_dense_sweep.launches
             split = df.fused_dense_sweep.launches_by_kernel["f32"] - \
                 split_before
-            ms_iter, ms_lo, ms_hi = steady_ms_per_iter(tr.mcfg, tr.state,
-                                                       tr.data)
+            replayed = check_replayed(tr, 11, "the run at highest")
+            graph = phase_graph("ML-1M HPF K=100 highest", tr.mcfg,
+                                tr.state, tr.data)
+            ms_iter, ms_lo, ms_hi = (graph["replay"][k]
+                                     for k in ("ms", "ms_lo", "ms_hi"))
         tr.close()
         lls[device] = validation_ll(outdir)
         elbo[device] = logl_rows(outdir)
@@ -926,21 +1071,26 @@ def phase_cpu_reference(df, datdir, root):
     worst = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(g, c))
     worst_elbo = max(abs(a - b) / abs(b) for a, b in zip(elbo["cuda"],
                                                         elbo["cpu"]))
+    same = lls["cuda_loop"] == g and elbo["cuda_loop"] == elbo["cuda"]
     ok = [a[0] for a in g] == [b[0] for b in c] and worst < CPU_REL and \
         launches > 0 and split == launches and \
         len(elbo["cuda"]) == len(elbo["cpu"]) == len(g) and \
-        worst_elbo < CPU_REL
+        worst_elbo < CPU_REL and same
     say(f"card vs CPU reference: worst relative gap {worst:.3e} over "
         f"{len(g)} reports, training ELBO {worst_elbo:.3e} (bound "
         f"{CPU_REL}); f32 dense kernel launches {launches}, "
-        f"{split} of them the split kernel {'ok' if ok else 'FAIL'}; card "
+        f"{split} of them the split kernel; the replayed run (eager "
+        f"steps, captures, replays {replayed}) and the loop's: validation "
+        f"trajectory and ELBO {'equal' if same else 'DIFFERENT'} "
+        f"{'ok' if ok else 'FAIL'}; card "
         f"steady state at highest "
-        f"{ms_iter:.3f} ms/iter = {1e3 / ms_iter:.1f} iters/s (median of 5 "
-        f"windows of 100; range {ms_lo:.3f}-{ms_hi:.3f})")
+        f"{ms_iter:.3f} ms/iter = {1e3 / ms_iter:.1f} iters/s replayed "
+        f"(median of 5 windows of 100; range {ms_lo:.3f}-{ms_hi:.3f})")
     if not ok:
-        raise SystemExit("card and CPU runs disagree, or the card run at "
-                         "highest never launched the f32 kernel")
-    return launches, ms_iter
+        raise SystemExit("card and CPU runs disagree, the card run at "
+                         "highest never launched the f32 kernel, or the "
+                         "replayed run's trajectory is not the loop's")
+    return launches, ms_iter, graph
 
 
 # ---------------------------------------------------------------------------
@@ -957,7 +1107,8 @@ def trace_summary(trace_dir):
     """Device busy share and kernels by name from the one
     `*.pt.trace.json` that torch.profiler's TensorBoard handler wrote:
     the window runs from the first to the last event of the trace; busy
-    is the union of kernel, copy and fill intervals on the card."""
+    is the union of kernel, copy and fill intervals on the card; the
+    host's cudaGraphLaunch calls count the replayed steps."""
     files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
     if len(files) != 1:
         raise SystemExit(f"-trace wrote {files} into {trace_dir}")
@@ -986,7 +1137,10 @@ def trace_summary(trace_dir):
                 copy_ms=sum(e["dur"] for e in device
                             if e["cat"] != "kernel") / 1e3,
                 top5=[(name, ms, n) for name, (ms, n) in top],
-                names=set(by_name))
+                names=set(by_name),
+                launches={name: n for name, (_, n) in by_name.items()},
+                graph_launches=sum(e["name"].startswith("cudaGraphLaunch")
+                                   for e in events))
 
 
 def cli_in_process(args):
@@ -1054,16 +1208,21 @@ def phase_cli(df, datdir, root, cpu_ref):
     launches_f32 = df.fused_dense_sweep.launches
     trace = trace_summary(trace_dir)
     named = [n for n in trace["names"] if "dense_split_kernel" in n]
+    seen = sum(trace["launches"][n] for n in named)
     say(f"cli in-process with -trace: {secs['train_traced']:.1f} s wall; "
-        f"f32 dense kernel launches {launches_f32}; trace "
+        f"f32 dense kernel launches {launches_f32}, {seen} of them seen by "
+        f"name in the trace; graph replays (cudaGraphLaunch) "
+        f"{trace['graph_launches']}; trace "
         f"{trace['file']}: window {trace['window_ms']:.1f} ms, device busy "
         f"{trace['busy_ms']:.1f} ms ({100 * trace['busy_share']:.2f}%), "
         f"kernels {trace['kernel_ms']:.1f} ms, copies and fills "
         f"{trace['copy_ms']:.1f} ms; five longest kernels "
         f"{[(n[:60], round(ms, 3), k) for n, ms, k in trace['top5']]}")
-    if launches_f32 == 0 or not named:
+    if launches_f32 == 0 or not named or \
+            trace["graph_launches"] != launches_f32 - 1:
         raise SystemExit("the CLI at highest never launched the f32 dense "
-                         "kernel, or the trace does not name it")
+                         "kernel, the trace does not name it, or the "
+                         "steps after the first were not replayed")
 
     # 3. segment training with the ELBO, kernel #4 counted
     seg_out = os.path.join(root, "cli_segment")
@@ -1278,7 +1437,7 @@ def phase_sharded_run(df, datdir, root):
     import torch.distributed as dist
     from hgaprec_tpu_torch.config import set_matmul_precision
     from hgaprec_tpu_torch.models.state import state_to_numpy
-    from hgaprec_tpu_torch.models.step import cavi_step
+    from hgaprec_tpu_torch.models.step import cavi_step, make_multi_step
     from hgaprec_tpu_torch.parallel import distributed
     from hgaprec_tpu_torch.parallel.sharded import build_sharded_run
     distributed.initialize_from_env(
@@ -1292,7 +1451,9 @@ def phase_sharded_run(df, datdir, root):
             for _ in range(5):
                 tr.step(tr.state, tr.data)
             want = state_to_numpy(tr.state)
-            single_ms = steady_ms_per_iter(tr.mcfg, tr.state, tr.data)[0]
+            # the single-device loop: the sharded step is a loop too
+            loop = make_multi_step(tr.mcfg, graph=False)
+            single_ms = window_ms(lambda n: loop(tr.state, tr.data, n))[0]
             store, mcfg = tr.store, tr.mcfg
             tr.close()
             del tr
@@ -1332,7 +1493,8 @@ def phase_sharded_run(df, datdir, root):
                 f"{err:.3e} ({worst}; rtol 1e-4, atol 1e-7) ok; steady "
                 f"{ms:.3f} ms/iter (median of 5 windows of 100; range "
                 f"{ms_lo:.3f}-{ms_hi:.3f}) against "
-                f"{single_ms:.3f} single-device and {local_ms:.3f} for the "
+                f"{single_ms:.3f} single-device (loop) and {local_ms:.3f} "
+                f"for the "
                 f"shard stepped with no group; the step's two all-reduces "
                 f"{ar_ms:.4f} ms (CUDA events) beside {dev_ms:.3f} device "
                 f"ms per step (torch.profiler); "
@@ -1893,6 +2055,7 @@ def phase_echonest_segment(df, tf, hybrid, root, smi):
     launches = (sf.fused_segment_sweep.launches,
                 df.fused_dense_sweep.launches, tf.fused_half_sweep.launches)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    replayed = check_replayed(tr, 6, "the EchoNest segment run")
     tr.close()
     if launches[0] == 0 or launches[1:] != (0, 0):
         raise SystemExit(f"the segment path's launches (segment, dense, "
@@ -1902,8 +2065,10 @@ def phase_echonest_segment(df, tf, hybrid, root, smi):
             not all(np.isfinite(v) for _, v in ll) or \
             not all(np.isfinite(v) for v in logl):
         raise SystemExit(f"echonest segment ll {ll}, logl {logl}")
-    ms_iter, ms_lo, ms_hi = steady_ms_per_iter(tr.mcfg, tr.state, data,
-                                               windows=5, steps=10)
+    graph = phase_graph("EchoNest HPF K=100 segment-chunked", tr.mcfg,
+                        tr.state, data, windows=5, steps=10, reps=3)
+    ms_iter, ms_lo, ms_hi = (graph["replay"][k]
+                             for k in ("ms", "ms_lo", "ms_hi"))
     # the kernel alone on the trained state, as one step calls it
     st = tr.state
     lin = [torch.exp(st.theta.elog), torch.exp(st.beta.elog), None, None]
@@ -1920,12 +2085,14 @@ def phase_echonest_segment(df, tf, hybrid, root, smi):
     say(f"echonest segment main path: Trainer HPF K={K} {store.n:,}x"
         f"{store.m:,} nnz={store.nratings:,} sweep=segment-chunked -> "
         f"{mode}; 6 iterations in {wall:.1f} s wall (reports, ELBO and "
-        f"saves included); launches: segment kernel {launches[0]}, dense "
+        f"saves included; eager steps, captures, replays {replayed}); "
+        f"launches: segment kernel {launches[0]}, dense "
         f"{launches[1]}, tail {launches[2]}; validation ll by report "
         f"{[(i, round(v, 6)) for i, v in ll]}; logl.txt {logl}; peak card "
         f"memory {peak:.2f} GB")
     say(f"echonest segment steady state {ms_iter:.2f} ms/iter = "
-        f"{1e3 / ms_iter:.2f} iters/s (median of 5 windows of 10; range "
+        f"{1e3 / ms_iter:.2f} iters/s replayed (median of 5 windows of 10; "
+        f"range "
         f"{ms_lo:.2f}-{ms_hi:.2f}): segment kernel {kernel['ms']:.2f} ms "
         f"(both passes; plain {kernel['plain_ms']:.1f} ms), rest "
         f"{ms_iter - kernel['ms']:.2f} ms; {kernel['gbps']:.1f} GB/s of the "
@@ -1945,7 +2112,8 @@ def phase_echonest_segment(df, tf, hybrid, root, smi):
     if not ok:
         raise SystemExit("the segment and hybrid sweeps disagree")
     del seg, hyb
-    return dict(launches=launches[0], peak=peak, ms_iter=ms_iter, **kernel)
+    return dict(launches=launches[0], peak=peak, ms_iter=ms_iter,
+                graph=graph, **kernel)
 
 
 def segment_passes(data, lin, smi):
@@ -2322,6 +2490,8 @@ def phase_echonest(df, tf, tr, gen, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = (df.fused_dense_sweep.launches, tf.fused_half_sweep.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    replayed = check_replayed(tr, 11, "the EchoNest hybrid run")
     tr.close()
     for nm, f in streamed.items():
         setattr(ranking, nm, f)
@@ -2342,8 +2512,11 @@ def phase_echonest(df, tf, tr, gen, smi):
             "item_ranks" not in topk_calls:
         raise SystemExit(f"echonest contract: missing {missing}, precision "
                          f"rows {len(prec)}, streamed calls {topk_calls}")
-    ms_iter, ms_lo, ms_hi = steady_ms_per_iter(tr.mcfg, tr.state, tr.data,
-                                               windows=5, steps=10)
+    graph = {"bf16": phase_graph("EchoNest HPF K=100 hybrid bf16", tr.mcfg,
+                                 tr.state, tr.data, windows=5, steps=10,
+                                 reps=3, exact=False)}
+    ms_iter, ms_lo, ms_hi = (graph["bf16"]["replay"][k]
+                             for k in ("ms", "ms_lo", "ms_hi"))
     # the kernels alone on the trained state, as one step calls them
     st = tr.state
     a_lin, b_lin = torch.exp(st.theta.elog), torch.exp(st.beta.elog)
@@ -2358,17 +2531,18 @@ def phase_echonest(df, tf, tr, gen, smi):
                             s.y_by_item, m)), 10)
     say(f"echonest main path: Trainer HPF K={K} {n:,}x{m:,} "
         f"nnz={tr.store.nratings:,} precision=default sweep=auto -> "
-        f"{mode}; 11 iterations in {wall:.1f} s wall (reports included); "
+        f"{mode}; 11 iterations in {wall:.1f} s wall (reports included; "
+        f"eager steps, captures, replays {replayed}); "
         f"launches: head kernel {launches[0]}, tail kernel {launches[1]}; "
         f"validation ll by report {[(i, round(v, 6)) for i, v in ll]}; "
         f"precision@10 by report {[float(r[1]) for r in prec]} through "
         f"{sorted(set(topk_calls))}; contract files present; host s per "
         f"report {[round(x, 2) for x in report_s]} (last: save + ranking "
-        f"for test_users.tsv); peak card memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        f"for test_users.tsv); peak card memory {peak:.2f} GB")
     rest_ms = ms_iter - head_ms - tail_ms
     say(f"echonest steady state {ms_iter:.2f} ms/iter = "
-        f"{1e3 / ms_iter:.2f} iters/s (median of 5 windows of 10; range "
+        f"{1e3 / ms_iter:.2f} iters/s replayed (median of 5 windows of 10; "
+        f"range "
         f"{ms_lo:.2f}-{ms_hi:.2f}): head kernel {head_ms:.2f} ms "
         f"({100 * head_ms / ms_iter:.0f}%), bf16 tail kernel "
         f"{tail_ms:.2f} ms ({100 * tail_ms / ms_iter:.0f}%, both halves), "
@@ -2378,12 +2552,14 @@ def phase_echonest(df, tf, tr, gen, smi):
     hcfg = dataclasses.replace(tr.mcfg, matmul_precision="highest")
     before = (df.fused_dense_sweep.launches, tf.fused_half_sweep.launches,
               df.fused_dense_sweep.launches_by_kernel["f32"])
-    torch.cuda.reset_peak_memory_stats()
-    hi_iter, hi_lo, hi_hi = steady_ms_per_iter(hcfg, st, data, windows=3,
-                                               steps=5)
+    graph["highest"] = phase_graph("EchoNest HPF K=100 hybrid highest",
+                                   hcfg, st, data, windows=3, steps=5,
+                                   reps=3, exact=False)
+    hi_iter, hi_lo, hi_hi = (graph["highest"]["replay"][k]
+                             for k in ("ms", "ms_lo", "ms_hi"))
     split_launches = (df.fused_dense_sweep.launches_by_kernel["f32"] -
                       before[2])
-    hi_peak = torch.cuda.max_memory_allocated() / 1e9
+    hi_peak = graph["highest"]["replay"]["peak_gb"]
     hi_launches = (df.fused_dense_sweep.launches - before[0],
                    tf.fused_half_sweep.launches - before[1])
     head_f32_ms = median_ms(lambda: df.fused_dense_sweep(
@@ -2392,7 +2568,8 @@ def phase_echonest(df, tf, tr, gen, smi):
     tail_f32_ms = median_ms(lambda: tf.tail_halves(a32, b32, s), 5)
     glue_ms = hi_iter - head_f32_ms - tail_f32_ms
     say(f"echonest steady state at highest (f32) {hi_iter:.2f} ms/iter = "
-        f"{1e3 / hi_iter:.2f} iters/s (median of 3 windows of 5; range "
+        f"{1e3 / hi_iter:.2f} iters/s replayed (median of 3 windows of 5; "
+        f"range "
         f"{hi_lo:.2f}-{hi_hi:.2f}; launches: f32 head kernel "
         f"{hi_launches[0]}, f32 tail kernel {hi_launches[1]}; peak card "
         f"memory {hi_peak:.2f} GB): head kernel {head_f32_ms:.2f} ms "
@@ -2426,7 +2603,7 @@ def phase_echonest(df, tf, tr, gen, smi):
                 tail_launches_highest=hi_launches[1],
                 peak_gb_highest=hi_peak,
                 head_f32_ms_trained=head_f32_ms, tail_ms_trained=tail_ms,
-                tail_f32_ms_trained=tail_f32_ms)
+                tail_f32_ms_trained=tail_f32_ms, graph=graph)
 
 
 def phase_hybrid_cpu_reference(root):
@@ -2876,6 +3053,14 @@ def phase_wide(df, tf, gen, smi, root, tr):
     fig["echonest_tail"], fig["echonest_segment"] = \
         phase_wide_echonest(tr, gen)
     fig["launches"] = phase_wide_paths(df, tf, datdir, root, cpu_runs)
+    # the f32 wide route's step, host-bound at one launch a window: the
+    # fused multi-step against the loop on the initial state
+    tr = train(datdir, os.path.join(root, "wide_graph"), "highest", 2, 1,
+               "cuda", k=K_WIDE)
+    fig["graph"] = phase_graph(f"ML-1M HPF K={K_WIDE} highest", tr.mcfg,
+                               tr.state, tr.data)
+    tr.close()
+    del tr
     fig["seconds"] = time.perf_counter() - t0
     say(f"wide phase passed in {fig['seconds']:.1f} s on {smi}")
     return fig
@@ -3051,9 +3236,9 @@ def main():
                                M_ML, k=8, a=0.3, ap=1.8, b=0.3, scale=0.7)
         say(f"dataset: {N_ML}x{M_ML}, {nnz:,} nonzeros written in "
             f"{time.perf_counter() - t0:.1f} s")
-        launches = phase_main(df, datdir, root)
-        launches_ml1m_highest, ms_iter_ml1m_highest = phase_cpu_reference(
-            df, datdir, root)
+        launches, graph_bf16 = phase_main(df, datdir, root)
+        launches_ml1m_highest, ms_iter_ml1m_highest, graph_highest = \
+            phase_cpu_reference(df, datdir, root)
         cli_f32, cli_seg = phase_cli(
             df, datdir, root, os.path.join(root, "cpu_highest"))
         sh_cli, sh_cli_s = phase_sharded_cli(df, datdir, root,
@@ -3088,6 +3273,14 @@ def main():
     head_ms, head_plain_ms, head_bound_ms = en["head"]["wgmma"]
     head32 = en["head"]["f32"]
     probe_en = en["probe_f32"]
+
+    # the fused multi-step against the loop, by configuration
+    say(json.dumps({"fused_multi_step": {
+        "ml1m_k100_bf16": graph_bf16, "ml1m_k100_highest": graph_highest,
+        "echonest_hybrid_bf16": en["graph"]["bf16"],
+        "echonest_hybrid_highest": en["graph"]["highest"],
+        "echonest_segment_chunked": seg["graph"],
+        f"ml1m_k{K_WIDE}_highest": wide["graph"]}}))
 
     def per_rank(run, kernel):      # [rank 0, rank 1] launches, phase C
         return [ranks[kernel] for ranks in gloo[run]]
@@ -3178,7 +3371,7 @@ def main():
                               "gloo2_segment_per_rank":
                                   per_rank("segment", 2)},
          **{k: v for k, v in seg.items()
-            if k not in ("launches", "ms_iter", "peak")},
+            if k not in ("launches", "ms_iter", "peak", "graph")},
          "ms_per_iter_echonest_segment": seg["ms_iter"],
          "peak_gb_echonest_segment": seg["peak"]},
         *[{"name": f"fused_dense_sweep_{key}", "route": "cuda",

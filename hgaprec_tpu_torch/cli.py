@@ -316,6 +316,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return rc
     finally:
         if dist.is_initialized():
+            # the Trainer let go of the group when it closed, so this
+            # destroys the backend and joins its threads here: a gloo
+            # thread still running at interpreter exit aborts the rank
+            # ("terminate called without an active exception")
             dist.destroy_process_group()
         if rendezvous is not None:
             shutil.rmtree(rendezvous, ignore_errors=True)
@@ -383,27 +387,59 @@ def _spawn_workers(argv: List[str], ndev: int) -> int:
     with torchrun's WORLD_SIZE, RANK and LOCAL_RANK, joined through a
     file in a private temporary directory (distributed.INIT_METHOD_ENV):
     no port is chosen, so none can be taken by another process between
-    its choice and rank 0's bind. Rank 0 prints (the others' stdout is
-    dropped); SIGTERM is forwarded to every rank; when a rank fails the
-    others are stopped (they would wait in their next collective).
-    Returns rank 0's exit code, or 1 if only another rank failed."""
+    its choice and rank 0's bind. Rank 0 prints; every other rank's
+    stdout and stderr go to `rank{r}.log` in that directory, and the log
+    of a rank that did not exit 0 is printed before the directory goes
+    (`_report_ranks`). SIGTERM is forwarded to every rank; when a rank
+    fails the others are stopped (they would wait in their next
+    collective). Returns rank 0's exit code, or 1 if only another rank
+    failed."""
     from hgaprec_tpu_torch.parallel import distributed
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     path = os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH"))
                            if p)
     rendezvous = tempfile.mkdtemp(prefix="hgaprec_pg_")
     init = "file://" + os.path.join(rendezvous, "pg")
+    logs = [None] + [os.path.join(rendezvous, f"rank{r}.log")
+                     for r in range(1, ndev)]
     sys.stdout.flush()
+    procs = []
     try:
-        return _wait_workers([subprocess.Popen(
-            [sys.executable, "-m", "hgaprec_tpu_torch.cli", *argv],
-            env=dict(os.environ, WORLD_SIZE=str(ndev), RANK=str(r),
-                     LOCAL_RANK=str(r), PYTHONPATH=path,
-                     **{distributed.INIT_METHOD_ENV: init}),
-            stdout=None if r == 0 else subprocess.DEVNULL)
-            for r in range(ndev)])
+        for r in range(ndev):
+            log = None if logs[r] is None else open(logs[r], "w")
+            try:
+                procs.append(subprocess.Popen(
+                    _rank_command(argv),
+                    env=dict(os.environ, WORLD_SIZE=str(ndev), RANK=str(r),
+                             LOCAL_RANK=str(r), PYTHONPATH=path,
+                             **{distributed.INIT_METHOD_ENV: init}),
+                    stdout=log, stderr=log))
+            finally:
+                if log is not None:
+                    log.close()
+        rc = _wait_workers(procs)
+        _report_ranks(procs, logs)
+        return rc
     finally:
         shutil.rmtree(rendezvous, ignore_errors=True)
+
+
+def _rank_command(argv: List[str]) -> List[str]:
+    """The command line one rank runs."""
+    return [sys.executable, "-m", "hgaprec_tpu_torch.cli", *argv]
+
+
+def _report_ranks(procs, logs) -> None:
+    """Print the kept output of every rank that did not exit 0 (rank 0's
+    went to this process's own streams)."""
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode == 0 or log is None:
+            continue
+        with open(log, errors="replace") as f:
+            text = f.read()
+        print(f"+ rank {r} of {len(procs)} exited with code {p.returncode};"
+              f" its output:\n{text.rstrip()}\n+ end of rank {r}'s output",
+              flush=True)
 
 
 def _wait_workers(procs) -> int:

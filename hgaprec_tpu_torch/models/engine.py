@@ -141,6 +141,7 @@ class Trainer:
         self._nh = 0
         self._stop_requested = False
         self._sigterm = False
+        self._prev_sigterm = None
         self._on_stop_done = False
         self._rng = np.random.default_rng(
             (rcfg.seed or 0) + 1000003)  # eval sampling stream
@@ -162,10 +163,24 @@ class Trainer:
             self._files[name] = open(os.path.join(self.outdir, name), "w")
 
     def close(self):
+        """Finish the run's files and let go of what the run held: the
+        captured step's graph and memory pool, the process group (its
+        backend's threads end with the last reference, which must go
+        before the caller's destroy_process_group, so that none of them
+        lives on into interpreter exit) and the SIGTERM handler, which
+        would keep this Trainer alive."""
         self._join_save()
+        self.multi_step.reset()
         for f in self._files.values():
             f.close()
         self._files = {}
+        self.sharded = None
+        self.eval_group = None
+        if self._prev_sigterm is not None:
+            # (None: a handler not installed from Python, taken as default)
+            signal.signal(signal.SIGTERM, self._prev_sigterm[0] or
+                          signal.SIG_DFL)
+            self._prev_sigterm = None
 
     def log(self, msg: str):
         f = self._files.get("infer.log")
@@ -196,7 +211,8 @@ class Trainer:
         return int(time.time() - self.start_time)
 
     def install_sigterm(self):
-        signal.signal(signal.SIGTERM, self._on_sigterm)
+        self._prev_sigterm = (signal.signal(signal.SIGTERM,
+                                            self._on_sigterm),)
 
     def _on_sigterm(self, signum, frame):
         # a sharded run's ranks stop together, at a report boundary
@@ -291,6 +307,7 @@ class Trainer:
         directory, which the primary wrote) with its iteration, else the
         model TSVs there into the current state (engine.py:271-280)."""
         self._join_save()   # don't read files an in-flight save is writing
+        self.multi_step.reset()     # the new state's buffers: a new graph
         indir = indir or self.shared_outdir
         npz = os.path.join(indir, "model.npz")
         if os.path.exists(npz):
@@ -485,14 +502,13 @@ class Trainer:
             if cap is not None and self.iteration > cap:
                 break
             # every iteration up to the next report boundary back to back,
-            # with no host round trip in between
+            # with no host round trip in between: on one card replayed
+            # from one captured step (models/step.py::GraphMultiStep)
             n_steps, bound = self.next_chunk(cap)
             if self.sharded is not None:
                 self.sharded.multi_step(n_steps)
-            elif n_steps > 1:
-                self.state = self.multi_step(self.state, self.data, n_steps)
             else:
-                self.state = self.step(self.state, self.data)
+                self.state = self.multi_step(self.state, self.data, n_steps)
             self.iteration = bound
             if self.iteration % self.rcfg.rfreq == 0:
                 self._sync()

@@ -29,6 +29,8 @@ they add nothing to those sums (the JAX step's `axis_name` and
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -38,6 +40,7 @@ from hgaprec_tpu_torch import config as C
 from hgaprec_tpu_torch.config import ModelConfig
 from hgaprec_tpu_torch.data.device import DeviceData
 from hgaprec_tpu_torch.models.state import Gam, ModelState
+from hgaprec_tpu_torch.ops import dense_fused, segment_fused, tail_fused
 from hgaprec_tpu_torch.ops.gamma import expectations
 from hgaprec_tpu_torch.ops.sweep import sweep
 
@@ -203,14 +206,171 @@ def make_step(cfg: ModelConfig):
     return step
 
 
-def make_multi_step(cfg: ModelConfig):
-    """Return `multi_step(state, data, n_steps) -> state`: `n_steps` CAVI
-    iterations back to back, with no host synchronisation in between.
-    (The JAX package fuses them into one dispatch; replaying a captured
-    CUDA graph is the counterpart, a later step.)"""
-    def multi_step(state: ModelState, data: DeviceData,
-                   n_steps: int) -> ModelState:
+def cavi_multi_step(state: ModelState, data: DeviceData, cfg: ModelConfig,
+                    n_steps: int, group=None,
+                    row_mask: Optional[torch.Tensor] = None) -> ModelState:
+    """`n_steps` CAVI iterations back to back, with no host
+    synchronisation in between: the loop that the CPU and a sharded run
+    take (the JAX package's `cavi_multi_step`, one `lax.fori_loop`
+    dispatch, hgaprec_tpu/models/step.py:225-238; `GraphMultiStep`
+    replays it on one card)."""
+    for _ in range(n_steps):
+        cavi_step(state, data, cfg, group, row_mask)
+    return state
+
+
+class CudaGraph:
+    """One CUDA graph on `device`: `capture(fn)` records fn's launches on
+    a side stream and runs none of them; `replay()` runs what was
+    recorded."""
+
+    def __init__(self, device):
+        self.device = device
+        self.graph = torch.cuda.CUDAGraph()
+
+    def capture(self, fn) -> None:
+        with torch.cuda.device(self.device), torch.cuda.graph(self.graph):
+            fn()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+# the kernel wrappers on the step's path: each counts its launches in
+# `launches` (and fused_dense_sweep by kernel in `launches_by_kernel`)
+_COUNTED = (dense_fused.fused_dense_sweep, tail_fused.fused_half_sweep,
+            segment_fused.fused_segment_sweep)
+
+
+def _launch_counts():
+    return [(w.launches, dict(getattr(w, "launches_by_kernel", {})))
+            for w in _COUNTED]
+
+
+def _launches_since(before):
+    """The launches counted since `before` (a `_launch_counts()`)."""
+    return [(n1 - n0, {k: v - b0.get(k, 0) for k, v in b1.items()})
+            for (n0, b0), (n1, b1) in zip(before, _launch_counts())]
+
+
+def _add_launches(counts, times: int) -> None:
+    for w, (n, by_kernel) in zip(_COUNTED, counts):
+        w.launches += n * times
+        for kernel, k in by_kernel.items():
+            w.launches_by_kernel[kernel] += k * times
+
+
+def tensor_leaves(tree, prefix=""):
+    """(name, tensor) of every tensor in a tree of dataclasses, such as a
+    ModelState or a DeviceData (whose lazily built slab caches are
+    derived from these)."""
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        if isinstance(v, torch.Tensor):
+            yield prefix + f.name, v
+        elif dataclasses.is_dataclass(v):
+            yield from tensor_leaves(v, f"{prefix}{f.name}.")
+
+
+def _storage_key(state: ModelState, data: DeviceData) -> tuple:
+    """What a captured step is valid for: the address, shape, strides and
+    type of every state and data tensor."""
+    return tuple((name, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype,
+                  t.device)
+                 for tree in (state, data)
+                 for name, t in tensor_leaves(tree))
+
+
+class GraphMultiStep:
+    """`multi_step(state, data, n_steps) -> state` on one card: the
+    counterpart of the JAX package's `cavi_multi_step`, whose single
+    dispatch for the `rfreq` iterations between two reports removes the
+    per-step host round trip that dominates small and medium problems.
+    Here one `cavi_step` is captured once as a CUDA graph and replayed.
+
+      * The first call makes one real step eagerly (the warm-up, an
+        iteration like any other: it builds the kernels' lazily made slab
+        streams, loads the kernel library and types its entries), then
+        captures one step, which runs nothing; every later step is a
+        replay, so a run makes as many iterations as the loop.
+      * The graph is valid for the tensors it captured: it is keyed on
+        the config and on the storage of every state and data tensor, and
+        captured anew when any of them changes (a state read from a
+        checkpoint, new data). The step writes into the state's own
+        buffers, so a replay's result is the state the caller holds. The
+        captured state and data are kept alive with the graph, so their
+        memory cannot be handed to other tensors while it may replay.
+      * The graph's private memory pool holds one step's temporaries
+        beside the allocator's cache for as long as the graph lives;
+        `reset()` frees it.
+      * The kernel wrappers count their launches when Python calls them,
+        which a replay does not: each replay adds the launches that the
+        capture recorded, and the capture itself adds none.
+      * A CPU state takes the loop (`cavi_multi_step`), and so does every
+        state with `graph=False`, which only comparisons with the loop
+        ask for. On the card a failed capture or replay raises; nothing
+        falls back to the loop.
+
+    `eager_steps`, `captures` and `replays` count what the runner did.
+    `new_graph` makes the capture object (`CudaGraph`; the tests inject a
+    fake)."""
+
+    def __init__(self, cfg: ModelConfig, graph: bool = True,
+                 new_graph=CudaGraph):
+        self.cfg = cfg
+        self.graph_on_card = graph
+        self.new_graph = new_graph
+        self.eager_steps = self.captures = self.replays = 0
+        self.reset()
+
+    def reset(self) -> None:
+        """Drop the captured graph, its memory pool and what it holds."""
+        self.graph = None
+        self._key = None
+        self._held = None
+        self._per_replay = None
+
+    def replays_on(self, state: ModelState) -> bool:
+        """Whether steps on `state` are replayed: on a CUDA card, unless
+        the runner was made for the loop."""
+        return self.graph_on_card and state.theta.e.device.type == "cuda"
+
+    def __call__(self, state: ModelState, data: DeviceData,
+                 n_steps: int) -> ModelState:
+        if n_steps <= 0:
+            return state
+        if not self.replays_on(state):
+            return cavi_multi_step(state, data, self.cfg, n_steps)
+        key = (self.cfg, _storage_key(state, data))
+        if self.graph is None or key != self._key:
+            self.reset()
+            cavi_step(state, data, self.cfg)        # the warm-up step
+            self.eager_steps += 1
+            n_steps -= 1
+            self._capture(state, data)
+            self._key = key
         for _ in range(n_steps):
-            cavi_step(state, data, cfg)
+            self.graph.replay()
+        self.replays += n_steps
+        _add_launches(self._per_replay, n_steps)
         return state
-    return multi_step
+
+    def _capture(self, state: ModelState, data: DeviceData) -> None:
+        before = _launch_counts()
+        graph = self.new_graph(state.theta.e.device)
+        graph.capture(functools.partial(cavi_step, state, data, self.cfg))
+        self._per_replay = _launches_since(before)
+        _add_launches(self._per_replay, -1)     # the capture ran nothing
+        self.captures += 1
+        self.graph = graph
+        self._held = (state, data)
+
+
+def make_multi_step(cfg: ModelConfig, graph: bool = True
+                    ) -> GraphMultiStep:
+    """Return `multi_step(state, data, n_steps) -> state`: `n_steps` CAVI
+    iterations back to back, replayed from one captured step on a card
+    and the loop on the CPU. `graph=False` takes the loop everywhere; it
+    is there for comparisons with the loop, and no option of the program
+    sets it."""
+    return GraphMultiStep(cfg, graph)

@@ -42,7 +42,7 @@ from hgaprec_tpu_torch.data.ratings import RatingsStore
 from hgaprec_tpu_torch.models.state import (ARRAY_FIELDS, GAM_FIELDS, Gam,
                                             ModelState, init_arrays,
                                             state_from_numpy)
-from hgaprec_tpu_torch.models.step import cavi_step
+from hgaprec_tpu_torch.models.step import cavi_multi_step, cavi_step
 
 _PARTS = ("shape", "rate", "e", "elog")
 
@@ -98,10 +98,11 @@ class ShardedRun:
                          self.row_mask)
 
     def multi_step(self, n_steps: int) -> ModelState:
-        """n_steps sharded iterations back to back, no host sync between."""
-        for _ in range(n_steps):
-            self.step()
-        return self.state
+        """n_steps sharded iterations back to back, no host sync between:
+        the loop (gloo's collectives cannot be captured in a CUDA graph;
+        NCCL's all-reduces are not captured yet)."""
+        return cavi_multi_step(self.state, self.data, self.cfg, n_steps,
+                               self.group, self.row_mask)
 
     def unsharded_state(self, leaves: str = "full") -> ModelState:
         """The global state on this rank's device, padding rows stripped,

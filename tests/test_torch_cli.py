@@ -661,6 +661,34 @@ def test_cli_spawned_ranks_take_no_port(dataset, tmp_path, monkeypatch):
         taken.close()
 
 
+def test_cli_failing_rank_output_reaches_the_caller(tmp_path, monkeypatch,
+                                                   capsys):
+    """A spawned rank's stdout and stderr are kept in its log in the
+    rendezvous directory: when the rank fails, its exit code and its
+    messages reach the caller's output, and the spawner exits 1 and
+    leaves no directory behind."""
+    import tempfile
+    tmp = tmp_path / "tmp"
+    tmp.mkdir()
+    monkeypatch.setenv("TMPDIR", str(tmp))
+    monkeypatch.setattr(tempfile, "tempdir", None)
+    script = ("import os, sys\n"
+              "r = int(os.environ['RANK'])\n"
+              "print(f'rank {r} of {os.environ[\"WORLD_SIZE\"]} trains')\n"
+              "if r == 2:\n"
+              "    print('gloo: Connection closed by peer', file=sys.stderr)\n"
+              "    sys.exit(3)\n")
+    monkeypatch.setattr(tcli, "_rank_command",
+                        lambda argv: [sys.executable, "-c", script])
+    assert tcli._spawn_workers(["-cpu"], 3) == 1
+    out = capsys.readouterr().out
+    assert "+ rank 2 of 3 exited with code 3; its output:" in out
+    assert "rank 2 of 3 trains" in out
+    assert "gloo: Connection closed by peer" in out
+    assert "+ end of rank 2's output" in out
+    assert not list(tmp.glob("hgaprec_pg_*"))
+
+
 @pytest.mark.parametrize("flags", [[], ["-sweep", "hybrid"], ["-logl"]],
                          ids=["dense", "hybrid", "dense-logl"])
 def test_cli_sharded_devices(dataset, tmp_path, capsys, flags):
@@ -753,6 +781,35 @@ def test_cli_devices_clamped_to_one(dataset, tmp_path, capsys, monkeypatch):
     np.testing.assert_allclose(_ll(tmp_path / "w1"), _ll(tmp_path / "one"),
                                rtol=1e-4)
     assert (tmp_path / "w1" / "model.npz").exists()
+
+
+def test_cli_sharded_teardown_releases_the_group(dataset, tmp_path,
+                                                 monkeypatch):
+    """A sharded CLI run lets go of its process group before it destroys
+    it, so destroy_process_group joins the backend's threads: a gloo
+    thread that lives on into interpreter exit aborts its rank
+    ("terminate called without an active exception"). Here over a world
+    of one in this process: once main returns, nothing holds the group
+    and the SIGTERM handler is the one before the run."""
+    import weakref
+    import torch.distributed as dist
+    from hgaprec_tpu_torch.parallel import distributed as tdist
+    monkeypatch.setattr(os, "cpu_count", lambda: 1)
+    groups = []
+    real = tdist.initialize_from_env
+
+    def spy(*args, **kw):
+        joined = real(*args, **kw)
+        groups.append(weakref.ref(dist.group.WORLD))
+        return joined
+    monkeypatch.setattr(tdist, "initialize_from_env", spy)
+    before = signal.getsignal(signal.SIGTERM)
+    assert tcli.main(["-dir", str(dataset), *BASE, "-rfreq", "3",
+                      "-max-iterations", "3", "-hier", "-cpu", "-devices",
+                      "2", "-outdir", str(tmp_path / "w1")]) == 0
+    assert len(groups) == 1 and groups[0]() is None
+    assert not dist.is_initialized()
+    assert signal.getsignal(signal.SIGTERM) is before
 
 
 def test_cli_sharded_resume_starts_from_the_model(dataset, tmp_path,
