@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--segment | --tail | --cli | --sharded | --wide]
+    python3 chip_smoke.py [--segment | --tail | --cli | --sharded | --wide
+                           | --wide-sparse]
 
 With `--wide` it runs only the build and the wide routes' phase (every
 wide route against its plain version at ML-1M shape at K = 255 with
-bias, 300, 330, 640 and 1000 in both precisions, the f32 route's resident
-kernel also at K = 130, 200 and 254 with bias; both dense routes at
+bias, 300, 330, 640 and 1000 in both precisions, the tail's and the CSR
+sweep's also at K = 1100 and 2048 (column windows), the f32 route's
+resident kernel also at K = 130, 200 and 254 with bias; both dense routes at
 Netflix shape and K = 300 beside their bounds, the streamed wide kernel
 and the plan's issued FLOPs and staged bytes of both wide kernels, the
 f32 route at K = 200 and 254 with bias beside dense_simt.cu; the
 EchoNest tail and CSR sweep at K = 300; the ML-1M command line at
-K = 300, K = 255 with bias and K = 400 on the card against the CPU; and
-the fused multi-step against the loop at ML-1M K = 300 "highest"),
+K = 300, K = 255 with bias, K = 400 and K = 1100 (segment-chunked) on the
+card against the CPU; and the fused multi-step against the loop at ML-1M
+K = 300 "highest"), with `--wide-sparse` only the build and the sparse
+wide routes timed at EchoNest K = 300 (each route, half and pass, by
+device kernel, the slab budgets) and at ML-1M K = 300, 640 and 1000,
 with `--segment` only
 the build and the segment path's kernel
 phases (the CSR sweep on every layout and at EchoNest shape), with
@@ -202,6 +207,9 @@ NARROW_PATTERN = (r"dense_split_kernelILi\d+ELi0EE|"
 K_WIDE = 300
 WIDE_KS = ((255, True), (300, False), (330, False), (640, False),
            (1000, False))
+# the sparse kernels' widths past 1024 values (two column windows, the
+# weights found first), held to plain at ML-1M shape
+SPARSE_WIDE_KS = (1100, 2048)
 # the f32 route's resident widths below 257 values (kq = 192 and 256),
 # where dense_simt.cu was the route before
 F32_RES_KS = ((130, False), (200, False), (254, True))
@@ -1809,14 +1817,17 @@ def half_timers(tf, a_t, b_t, stream):
     return user, lambda: sf.item_pass(a_t, b_t, slabs, out_b, sc, tail=True)
 
 
-def check_tail(name, n, m, k, stream, gen, bias, reps, by_kernel=False):
+def check_tail(name, n, m, k, stream, gen, bias, reps, by_kernel=False,
+               half_batch=1):
     """Kernel against plain on one stream, both routes (bf16 through
     csrc/tail_bf16.cu, f32 through the two passes of csrc/segment_sweep.cu)
     and rows no nonzero touches zero in both. Returns the bf16
     route's numbers (the main path's) and, under keys ending in _f32, the
     f32 route's, each beside its bound that counts every gathered row, and
-    each half timed alone; with by_kernel, each half and both by device
-    kernel (torch.profiler)."""
+    each half timed alone (`half_batch` calls back to back a window);
+    with by_kernel, each half and both by device kernel (torch.profiler).
+    """
+    from hgaprec_tpu_torch.ops import segment_fused as sf
     from hgaprec_tpu_torch.ops import tail as tl
     from hgaprec_tpu_torch.ops import tail_fused as tf
     lin = random_lin(gen, n, m, k, bias)
@@ -1853,13 +1864,18 @@ def check_tail(name, n, m, k, stream, gen, bias, reps, by_kernel=False):
         plain_ms = median_ms(
             lambda: tl.halves_reference(a_t, b_t, stream), reps)
         user_fn, item_fn = half_timers(tf, a_t, b_t, stream)
-        user_ms, item_ms = median_ms(user_fn, reps), median_ms(item_fn, reps)
+        user_ms, item_ms = (median_ms(fn, reps, half_batch)
+                            for fn in (user_fn, item_fn))
         kq = a_t.shape[1]
+        # the user-sorted half's (lanes, chunks, windows) on this card
+        shape = sf.pass_plan(
+            kq, bf16, ranges=tf.scratch_rows(stream.nnz, bf16) // 2,
+            sms=torch.cuda.get_device_properties(0).multi_processor_count)
         nbytes = 2 * stream.nnz * (kq * a_t.element_size() + 12)
         gathered_ms = nbytes / HBM_BPS * 1e3
         say(f"tail kernel [{name}] {n}x{m}x{k} nnz={stream.nnz:,} "
-            f"bias={bias} bf16={bf16} ({tf.plan(bf16, kq)[1]} lanes per "
-            f"range): max_abs_err vs f32 plain {err:.3e} (vs plain in the "
+            f"bias={bias} bf16={bf16} (shape {tuple(shape)[:3]} a range): "
+            f"max_abs_err vs f32 plain {err:.3e} (vs plain in the "
             f"same mode {err_like:.3e}{f64}), two launches bitwise "
             f"{'equal' if same_bits else 'DIFFERENT'}, untouched rows "
             f"{'zero' if zero else 'NONZERO'} "
@@ -1870,8 +1886,8 @@ def check_tail(name, n, m, k, stream, gen, bias, reps, by_kernel=False):
             f"{nbytes / ms / 1e6:.1f} GB/s of 2 x nnz x (kq x "
             f"{a_t.element_size()} + 12) B, whose bound is "
             f"{gathered_ms:.4f} ms ({100 * gathered_ms / ms:.0f}% of it); "
-            f"alone: user-sorted half {user_ms:.4f} ms, item-sorted half "
-            f"{item_ms:.4f} ms")
+            f"alone ({half_batch} back to back): user-sorted half "
+            f"{user_ms:.4f} ms, item-sorted half {item_ms:.4f} ms")
         if not (ok and same_bits and zero):
             raise SystemExit(f"tail kernel disagrees with its plain version "
                              f"[{name}] bias={bias} bf16={bf16}")
@@ -1930,12 +1946,13 @@ def segment_layouts(rng):
     return tail_layouts(rng) + [("power-law items", 20000, 3000, u, i, y)]
 
 
-def check_segment(name, data, lin, reps, slab_bytes=None):
+def check_segment(name, data, lin, reps, slab_bytes=None, batch=1):
     """The CSR sweep kernel (both passes) against its plain version on one
     layout and factors `lin` (a_lin, b_lin, ba_lin | None, bb_lin | None),
     its item pass cut into user slabs of `slab_bytes` (the wrapper's
     budget by default): tolerance, two launches bitwise equal, untouched
-    rows zero."""
+    rows zero. Timed over `reps` windows of `batch` calls back to back
+    (with batch > 1 also one call a window)."""
     from hgaprec_tpu_torch.ops import segment as sg
     from hgaprec_tpu_torch.ops import segment_fused as sf
     from hgaprec_tpu_torch.ops.tail import tail_tables
@@ -1956,7 +1973,9 @@ def check_segment(name, data, lin, reps, slab_bytes=None):
     zero = all(g[z].abs().max().item() == 0 if z.any() else True
                for g, z in zip(got, untouched))
     ms = median_ms(lambda: sf.fused_segment_sweep(a_t, b_t, data,
-                                                  slab_bytes), reps)
+                                                  slab_bytes), reps, batch)
+    ms_call = ms if batch == 1 else median_ms(
+        lambda: sf.fused_segment_sweep(a_t, b_t, data, slab_bytes), reps)
     plain_ms = median_ms(lambda: sg.segment_sweep_reference(a_t, b_t, data),
                          min(reps, 2) if name == "echonest" else reps)
     p, kq = data.nnz_padded, a_t.shape[1]
@@ -1971,7 +1990,8 @@ def check_segment(name, data, lin, reps, slab_bytes=None):
         f"{'equal' if same_bits else 'DIFFERENT'}, untouched rows "
         f"{'zero' if zero else 'NONZERO'} "
         f"{'ok' if ok and same_bits and zero else 'FAIL'}; longest item row "
-        f"over {ranges} ranges; both passes kernel {ms:.4f} ms, plain "
+        f"over {ranges} ranges; both passes kernel {ms:.4f} ms ({batch} "
+        f"back to back; {ms_call:.4f} one call a window), plain "
         f"{plain_ms:.4f} ms; {nbytes / ms / 1e6:.1f} GB/s of "
         f"2 x P x (kq x 4 + 12) + 8 P B")
     if not (ok and same_bits and zero):
@@ -1986,7 +2006,8 @@ def check_segment(name, data, lin, reps, slab_bytes=None):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None, gbps=nbytes / ms / 1e6,
                 bound_ms_gathered=nbytes / HBM_BPS * 1e3, slabs=slabs.slabs,
-                slab_pairs=slabs.pairs)
+                slab_pairs=slabs.pairs, ms_per_call=ms_call,
+                pair_buffer_bytes=4 * kq * slabs.pairs)
 
 
 def phase_segment_layouts(gen):
@@ -2116,12 +2137,13 @@ def phase_echonest_segment(df, tf, hybrid, root, smi):
                 graph=graph, **kernel)
 
 
-def segment_passes(data, lin, smi):
+def segment_passes(data, lin, smi, batch=1,
+                   budgets=(1 << 40, 12 << 20, 48 << 20)):
     """Each pass of the CSR sweep kernel timed alone on `data` (CUDA
-    events, median of 5) beside its bounds (every input once; one gathered
-    row, ids and weight per nonzero), the slab stream's build, the item
-    pass at other slab budgets, and the kernels by name (torch.profiler).
-    """
+    events, median of 5 windows of `batch` calls) beside its bounds (every
+    input once; one gathered row, ids and weight per nonzero), the slab
+    stream's build, the item pass at other slab budgets (`budgets`), and
+    the kernels by name (torch.profiler)."""
     from hgaprec_tpu_torch.ops import segment_fused as sf
     from hgaprec_tpu_torch.ops.tail import tail_tables
     a_t, b_t = tail_tables(*lin, bf16=False)
@@ -2138,8 +2160,9 @@ def segment_passes(data, lin, smi):
     sc = sf.Scratch.make(p, kq, a_t.device)
     out_a, out_b = torch.zeros_like(a_t), torch.zeros_like(b_t)
     user_ms = median_ms(lambda: sf.user_pass(
-        a_t, b_t, data.u_ids, data.i_ids, data.y, out_a, sc), 5)
-    item_ms = median_ms(lambda: sf.item_pass(a_t, b_t, slabs, out_b, sc), 5)
+        a_t, b_t, data.u_ids, data.i_ids, data.y, out_a, sc), 5, batch)
+    item_ms = median_ms(lambda: sf.item_pass(a_t, b_t, slabs, out_b, sc), 5,
+                        batch)
     row, ids = 4 * kq, 12 * p
     passes = {}
     for name, ms, table, out in (("user", user_ms, b_t, out_a),
@@ -2157,9 +2180,10 @@ def segment_passes(data, lin, smi):
         f"again); built in {build_s:.3f} s on the card, "
         f"{build_bytes / 1e9:.3f} GB")
     trade = {}
-    for budget in (1 << 40, 12 << 20, 48 << 20):
+    for budget in budgets:
         st = sf.data_slabs(data, n, m, kq, budget)
-        ms = median_ms(lambda: sf.item_pass(a_t, b_t, st, out_b, sc), 5)
+        ms = median_ms(lambda: sf.item_pass(a_t, b_t, st, out_b, sc), 5,
+                       batch)
         trade[str(budget)] = dict(slabs=st.slabs, pairs=st.pairs, ms=ms)
         data.slab_cache.pop((n, m, kq, budget, 0))
         say(f"echonest item pass at a slab budget of {budget:,} B: "
@@ -2245,12 +2269,9 @@ def timed(obj, name, sink):
     return real
 
 
-def echonest_trainer(root):
-    """The EchoNest store, maps and Trainer (its layout built by the
-    Trainer, as a user's run builds it)."""
-    from hgaprec_tpu_torch.config import ModelConfig, RunConfig
+def echonest_store():
+    """The EchoNest store and its validation and test maps."""
     from hgaprec_tpu_torch.data.ratings import RatingsStore
-    from hgaprec_tpu_torch.models import engine
     t0 = time.perf_counter()
     u, i, y, keys = power_law_coo(N_EN, M_EN, EN_DRAWS, EN_SEED)
     t_gen = time.perf_counter() - t0
@@ -2269,6 +2290,35 @@ def echonest_trainer(root):
         f"{t_store:.1f} s to ingest and sort")
     if abs(store.nratings / EN_NNZ - 1) > 1e-3:
         raise SystemExit("the EchoNest generator drifted from the harness")
+    return store, validation, test
+
+
+def echonest_layout():
+    """The EchoNest store's device layout as the hybrid Trainer builds it
+    (the COO of every nonzero, the head block, the tail stream), without
+    the Trainer: (data, n, m)."""
+    from hgaprec_tpu_torch.config import ModelConfig
+    from hgaprec_tpu_torch.data.device import build_device_data
+    store = echonest_store()[0]
+    cfg = ModelConfig(n=store.n, m=store.m, k=K)
+    t0 = time.perf_counter()
+    data = build_device_data(store, "cuda",
+                             hybrid_head_items=cfg.hybrid_head_items,
+                             dense_limit_bytes=cfg.dense_limit_bytes,
+                             head_limit_bytes=cfg.head_limit_bytes)
+    torch.cuda.synchronize()
+    say(f"echonest layout built in {time.perf_counter() - t0:.1f} s host: "
+        f"head of {data.head_items.shape[0]} items, tail of "
+        f"{data.tail.nnz:,} nonzeros")
+    return data, store.n, store.m
+
+
+def echonest_trainer(root):
+    """The EchoNest store, maps and Trainer (its layout built by the
+    Trainer, as a user's run builds it)."""
+    from hgaprec_tpu_torch.config import ModelConfig, RunConfig
+    from hgaprec_tpu_torch.models import engine
+    store, validation, test = echonest_store()
     datdir = os.path.join(root, "echonest")
     os.makedirs(datdir, exist_ok=True)
     users = sorted({store.seq2user[un] for un, _ in test})[:1000]
@@ -2331,17 +2381,18 @@ def phase_echonest_tail(data, n, m, gen, smi):
     return tail
 
 
-def tail_slab_trade(data, n, m, gen, smi):
-    """The f32 route's slab stream of the EchoNest tail: its build on the
-    card (seconds, bytes, pairs) and the item half alone at slab budgets of
-    one slab, 12, 24 and 48 MB, each with every item in slab order (fill
-    0) and with the sparse items first (fills 2, 4 and 8), each time checking
-    that the item rows outside the tail (the head's) read zero."""
+def tail_slab_trade(data, n, m, gen, smi, k=K):
+    """The f32 route's slab stream of the EchoNest tail at factor width k:
+    its build on the card (seconds, bytes, pairs) and the item half alone
+    at slab budgets of one slab, 12, 24 and 48 MB, each with every item in
+    slab order (fill 0) and with the sparse items first (fills 2, 4 and
+    8), each time checking that the item rows outside the tail (the
+    head's) read zero."""
     from hgaprec_tpu_torch.ops import segment_fused as sf
     from hgaprec_tpu_torch.ops import tail as tl
     from hgaprec_tpu_torch.ops import tail_fused as tf
     s = data.tail
-    a_t, b_t = tl.tail_tables(*random_lin(gen, n, m, K, False), bf16=False)
+    a_t, b_t = tl.tail_tables(*random_lin(gen, n, m, k, False), bf16=False)
     kq = a_t.shape[1]
     s.slab_cache.clear()
     torch.cuda.synchronize()
@@ -2735,7 +2786,8 @@ def phase_wide_kernels(df, gen):
     inputs, at each K of WIDE_KS, in both precisions: the dense kernel
     (F32_TOL, BF16_REL), both tail routes and the CSR sweep's two passes
     on an ML-1M-sized power-law stream (f32 TAIL_F32_TOL, bf16 BF16_REL),
-    two launches bitwise everywhere; the f32 route's resident widths
+    the sparse ones also at SPARSE_WIDE_KS, two launches bitwise
+    everywhere; the f32 route's resident widths
     below 257 values (F32_RES_KS) the same. At K_WIDE the f32 route must
     be faster than its plain version, both timed five calls back to back
     as a training step launches them (median of 20 windows each; one
@@ -2768,6 +2820,10 @@ def phase_wide_kernels(df, gen):
                             3 if k == K_WIDE else 1)
         if k == K_WIDE:
             out["tail"], out["segment"] = tail, seg
+    for k in SPARSE_WIDE_KS:
+        check_tail(f"ml-1m, wide K={k}", N_ML, M_ML, k, stream, gen, False, 1)
+        check_segment(f"ml-1m, wide K={k}", data,
+                      random_lin(gen, N_ML, M_ML, k, False), 1)
     for k, bias in F32_RES_KS:
         lin, yd, _ = random_inputs(gen, N_ML, M_ML, k, 6144, bias, 0.045)
         check_wide_dense(df, lin, yd, bias, False, 0)
@@ -2913,15 +2969,57 @@ def phase_wide_netflix(df, gen):
 def phase_wide_echonest(tr, gen):
     """The EchoNest tail stream and segment store (the hybrid Trainer's
     layout; no other Trainer is built) at K_WIDE: both tail routes and
-    the CSR sweep's two passes, each timed beside its bound and held to
-    its plain version."""
+    the CSR sweep's two passes, each timed beside its bound (the median
+    of 5 windows of 5 calls back to back, each half alone the same) and
+    held to its plain version."""
     data, n, m = tr.data, tr.store.n, tr.store.m
     tail = check_tail("echonest tail, wide", n, m, K_WIDE, data.tail, gen,
-                      False, 3)
+                      False, 5, half_batch=5)
     seg = check_segment("echonest", data, random_lin(gen, n, m, K_WIDE,
-                                                     False), 2)
+                                                     False), 5, batch=5)
     torch.cuda.empty_cache()
     return tail, seg
+
+
+def phase_wide_sparse(gen, smi, data, n, m):
+    """The sparse kernels' wide routes timed (`--wide-sparse`): at
+    EchoNest shape (the hybrid layout `data`: its tail stream and its COO
+    of every nonzero) and K_WIDE, both tail routes and the CSR sweep, each
+    the median of 5 windows of 5 calls back to back, each half or pass
+    alone the same, by device kernel (torch.profiler), the (slab, item)
+    pairs and the pair buffer's bytes, and the item pass at other slab
+    budgets; then the same routes at ML-1M shape on a power-law stream at
+    K = 300, 640 and 1000. Every route is held to its plain version.
+    Returns the figures."""
+    from hgaprec_tpu_torch.data.device import DeviceData, sorted_coo
+    from hgaprec_tpu_torch.ops.tail import build_tail_stream
+    t0 = time.perf_counter()
+    lin = random_lin(gen, n, m, K_WIDE, False)
+    out = {"echonest": dict(
+        tail=check_tail("echonest tail, wide", n, m, K_WIDE, data.tail, gen,
+                        False, 5, by_kernel=True, half_batch=5),
+        segment=check_segment("echonest", data, lin, 5, batch=5))}
+    out["echonest"]["segment"].update(segment_passes(
+        data, lin, smi, batch=5, budgets=(1 << 40, 12 << 20, 48 << 20,
+                                          96 << 20)))
+    out["echonest"]["tail"].update(tail_slab_trade(data, n, m, gen, smi,
+                                                   k=K_WIDE))
+    del lin
+    torch.cuda.empty_cache()
+    u, i, y, _ = power_law_coo(N_ML, M_ML, 1_000_000, SEED, cover=True)
+    stream = build_tail_stream(u, i, y, "cuda")
+    ml = DeviceData(**sorted_coo(u, i, y, N_ML, M_ML, "cuda", 1000),
+                    dense_y=None)
+    for k in (300, 640, 1000):
+        out[f"ml1m_k{k}"] = dict(
+            tail=check_tail(f"ml-1m, wide K={k}", N_ML, M_ML, k, stream, gen,
+                            False, 5, half_batch=5),
+            segment=check_segment(f"ml-1m, wide K={k}", ml,
+                                  random_lin(gen, N_ML, M_ML, k, False), 5,
+                                  batch=5))
+    out["seconds"] = time.perf_counter() - t0
+    say(f"wide sparse phase took {out['seconds']:.1f} s on {smi}")
+    return out
 
 
 # the user's wide paths at ML-1M (cli flags past the common ones); each is
@@ -2942,6 +3040,8 @@ WIDE_RUNS = (
     # past the resident kernel's widths: the streamed wide kernels
     ("stream_highest", ["-hier", "-k", "400"]),
     ("stream_bf16", ["-hier", "-k", "400", "-precision", "default"]),
+    # past 1024 values: the CSR passes in two column windows
+    ("segment_1100", ["-hier", "-k", "1100", "-sweep", "segment-chunked"]),
 )
 
 
@@ -3072,9 +3172,10 @@ def main():
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if sys.argv[1:] not in ([], ["--segment"], ["--tail"], ["--cli"],
-                            ["--sharded"], ["--wide"]):
+                            ["--sharded"], ["--wide"], ["--wide-sparse"]):
         print("usage: chip_smoke.py [--segment | --tail | --cli | "
-              "--sharded | --wide]", file=sys.stderr)
+              "--sharded | --wide | --wide-sparse]",
+              file=sys.stderr)
         return 2
     only = sys.argv[1][2:] if sys.argv[1:] else None
     if not torch.cuda.is_available():
@@ -3205,6 +3306,13 @@ def main():
             phase_cli(df, datdir, root, os.path.join(root, "cpu_highest"))
         say(f"cli phases passed in {time.perf_counter() - t_start:.1f} s "
             f"(no result line: --cli runs only the command line's path)")
+        return 0
+    if only == "wide-sparse":
+        data, n, m = echonest_layout()
+        fig = phase_wide_sparse(gen, smi, data, n, m)
+        say(json.dumps({"wide_sparse": fig}))
+        say("wide-sparse phase passed (no result line: --wide-sparse runs "
+            "only the sparse kernels' wide routes)")
         return 0
     if only == "wide":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
@@ -3391,16 +3499,22 @@ def main():
               ("wide_stream", "dense_wide_kernel<1, 256>"),
               ("wide_stream_f32", "dense_wide_kernel<3, 128>"))],
         {"name": "fused_half_sweep_wide", "route": "cuda",
-         "source": "hgaprec_tpu_torch/csrc/tail_bf16.cu",
+         "source": "hgaprec_tpu_torch/csrc/row_sweep.cuh",
+         "kernel": "wide_pass_kernel (entry in csrc/tail_bf16.cu)",
          "replaces": "hgaprec_tpu/ops/pallas_tail.py:101",
          "launches": wide["launches"]["hybrid_bf16"]["tail"],
-         "source_f32": "hgaprec_tpu_torch/csrc/segment_sweep.cu",
+         "source_f32": "hgaprec_tpu_torch/csrc/row_sweep.cuh",
          "launches_f32": wide["launches"]["hybrid_highest"]["tail"],
          **wide["tail"], "echonest": wide["echonest_tail"]},
         {"name": "fused_segment_sweep_wide", "route": "cuda",
-         "source": "hgaprec_tpu_torch/csrc/segment_sweep.cu",
+         "source": "hgaprec_tpu_torch/csrc/row_sweep.cuh",
+         "kernel": "wide_pass_kernel, row_weights_kernel (entries in "
+                   "csrc/segment_sweep.cu)",
          "replaces": "docs/design/pallas_csr_sweep.py:80",
-         "launches": wide["launches"]["segment_logl"]["segment"],
+         "launches": sum(wide["launches"][r]["segment"]
+                         for r in ("segment_logl", "segment_1100")),
+         "launches_by_path": {f"ml1m_cli_{r}": wide["launches"][r]["segment"]
+                              for r in ("segment_logl", "segment_1100")},
          **wide["segment"], "echonest": wide["echonest_segment"],
          "wide_phase_s": wide["seconds"]}]}))
     say(smi)

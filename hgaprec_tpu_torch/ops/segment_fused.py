@@ -32,6 +32,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import NamedTuple, Optional
+
 import torch
 
 from hgaprec_tpu_torch.data.device import DeviceData
@@ -40,11 +42,16 @@ from hgaprec_tpu_torch.ops.segment import segment_sweep_reference
 from hgaprec_tpu_torch.ops.tail import tail_tables
 
 RANGE = 128            # nonzeros per range (a multiple of 32)
-# widest table row the kernel takes: a lane of a 32-lane group holds up to
-# eight 16-byte chunks of a row in registers (two up to 256 floats); the
-# plain version takes any width
-KQ_MAX = 1024
 SLAB_BYTES = 24 << 20  # a slab's A rows and weights: half the H100's L2
+# values of a row a lane of a wide pass holds (eight 16-byte chunks of f32,
+# four of bf16): wider rows are cut into column windows
+WIDE_CAP = 32
+# the widest row one window takes (csrc/row_sweep.cuh's kOneWindowMax): a
+# wider row's dot sweep finds its weights first, into scratch of nnz floats
+ONE_WINDOW_MAX = 32 * WIDE_CAP
+# groups of 16 lanes an SM holds (csrc/row_sweep.cuh's kFillGroupsPerSm): a
+# dot pass over fewer ranges than the card holds such groups takes 32 lanes
+FILL_GROUPS_PER_SM = 32
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
@@ -163,13 +170,48 @@ def data_slabs(data: DeviceData, n: int, m: int, kq: int,
                        slab_bytes)
 
 
-def check_width(kq: int) -> None:
-    """The kernels' width limit (this wrapper's and the tail's): a
-    ValueError past KQ_MAX packed values."""
-    if kq > KQ_MAX:
-        raise ValueError(f"table width {kq} > {KQ_MAX} packed values: the "
-                         f"kernels hold a row's chunks in a lane's "
-                         f"registers")
+class Plan(NamedTuple):
+    """A pass's shape on the card: groups of `lanes` lanes, `chunks`
+    16-byte chunks a lane, cover one column window of a row; a row has
+    `windows` of them, each a group of its own; with `weights` the pass's
+    weights are found over the whole row by a kernel of their own first."""
+    lanes: int
+    chunks: int
+    windows: int = 1
+    weights: bool = False
+
+
+def pass_plan(kq: int, bf16: bool = False, dot: bool = True,
+              ranges: Optional[int] = None, sms: int = 0) -> Plan:
+    """The shape the kernels give a pass over rows of kq values (a whole
+    number of 16-byte chunks), as `csrc/segment_sweep.cu::pass_by_width`,
+    `csrc/tail_bf16.cu` and `csrc/row_sweep.cuh::wide_plan` pick it. Up
+    to 256 values, f32 rows two chunks a lane of 4, 8, 16 or 32 lanes and
+    bf16 rows one chunk a lane of 8, 16 or 32 (the fewest that cover the
+    row). Past 256, the fewest column windows that keep a lane within
+    WIDE_CAP values, then in each the group of 16 or 32 lanes whose
+    ceil(chunks / lanes) chunks a lane leave the fewest idle (16 only where
+    it leaves fewer), so less than one chunk a lane is idle. `dot`: the
+    pass finds its weights (the user pass, the tail), which then come
+    first where a row takes more than one window. Given the stream's
+    `ranges` and the card's `sms`, a dot pass whose ranges do not fill
+    the card's 16-lane groups takes 32 lanes (`row_sweep.cuh::fill_plan`):
+    a range's own time then decides, and it is shorter at 32 lanes."""
+    per = 8 if bf16 else 4
+    if kq <= 256:
+        lanes = next(g for g in (4, 8, 16, 32) if 2 * per * g >= kq) \
+            if not bf16 else next(g for g in (8, 16, 32) if per * g >= kq)
+        return Plan(lanes, 1 if bf16 else 2)
+    chunks, cap = kq // per, WIDE_CAP // per
+    windows = -(-chunks // (32 * cap))
+    each = -(-chunks // windows)
+    c16, c32 = -(-each // 16), -(-each // 32)
+    lanes, k = (16, c16) if c16 <= cap and 16 * c16 < 32 * c32 else \
+        (32, c32)
+    if lanes == 16 and windows == 1 and dot and ranges is not None and \
+            ranges < sms * FILL_GROUPS_PER_SM:
+        lanes, k = 32, c32
+    return Plan(lanes, k, windows, dot and kq > ONE_WINDOW_MAX)
 
 
 def _check(a_tab, b_tab, data: DeviceData, slab_bytes: int):
@@ -275,7 +317,6 @@ def fused_segment_sweep(a_tab: torch.Tensor, b_tab: torch.Tensor,
     _check(a_tab, b_tab, data, slab_bytes)
     if a_tab.device.type == "cpu":
         return segment_sweep_reference(a_tab, b_tab, data)
-    check_width(a_tab.shape[1])
     if a_tab.device.type != "cuda":
         raise ValueError(f"no kernel for device {a_tab.device}")
     (n, kq), m = a_tab.shape, b_tab.shape[0]

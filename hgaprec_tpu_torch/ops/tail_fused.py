@@ -10,10 +10,10 @@ other-side ids o, counts y and bias-augmented tables P, O (ops/tail.py):
 Two routes replace the TPU kernel `hgaprec_tpu/ops/pallas_tail.py::
 _kernel`, both bounded by the random row gathers:
   * bf16 ("default"), `csrc/tail_bf16.cu`: a lane group of 8, 16 or 32
-    lanes (one 16-byte chunk of a row per lane, up to four past 256
-    values; `plan`) owns each range of RANGE nonzeros, and keeps several
-    O rows, and the P row of each run that starts among them, in flight
-    in a cp.async ring in shared memory.
+    lanes (one 16-byte chunk of a row per lane; past 256 values the wide
+    passes' group shapes, `plan`) owns each range of RANGE nonzeros, and
+    keeps several O rows, and the P row of each run that starts among
+    them, in flight in a cp.async ring in shared memory.
     Each half is one launch of `fused_half_sweep`.
   * f32 ("highest"), the CSR sweep's two passes (`csrc/segment_sweep.cu`,
     ops/segment_fused.py): the user-sorted half is the user pass, which
@@ -45,10 +45,6 @@ from hgaprec_tpu_torch.ops.tail import (TailStream, half_sweep_reference,
                                         run_tail_sweep)
 
 RANGE = 256            # nonzeros per range of the bf16 kernel (x 32)
-# widest table row the kernels take: a lane of the widest group holds four
-# 16-byte chunks of bf16 (eight of f32, ops/segment_fused.py) in registers;
-# the plain versions take any width
-KQ_MAX = sf.KQ_MAX
 # The f32 route's slab stream (ops/segment_fused.py::slab_stream): user
 # slabs of SLAB_BYTES of A rows and weights, and an item of the tail keeps
 # slab order only where its entries outnumber SLAB_FILL times its extra
@@ -60,21 +56,12 @@ SLAB_BYTES = 48 << 20
 SLAB_FILL = 4
 
 
-def plan(bf16: bool, kq: int) -> Tuple[str, int, int]:
-    """(C entry, lanes per range, 16-byte chunks per lane) of one half for
-    rows of kq values. The bf16 kernel's lane group holds one 16-byte
-    chunk (8 values) per lane: 8 lanes up to kq = 64, 16 up to 128, 32 up
-    to 256, and past that 32 lanes of ceil(kq / 256) chunks
-    (`csrc/tail_bf16.cu` picks the same). The f32 route's user pass holds
-    two 16-byte chunks (8 floats) per lane: 4 lanes up to kq = 32, 8 up to
-    64, 16 up to 128, 32 up to 256, and past that 32 lanes of
-    2 ceil(kq / 256) chunks (`csrc/segment_sweep.cu::pass_by_width`)."""
-    wide = -(-kq // 256)
-    if bf16:
-        return ("hpf_tail_half_sweep_bf16",
-                8 if kq <= 64 else 16 if kq <= 128 else 32, wide)
-    return ("hpf_segment_user_pass_f32", 4 if kq <= 32 else 8 if kq <= 64
-            else 16 if kq <= 128 else 32, 2 * wide)
+def plan(bf16: bool, kq: int) -> Tuple[str, sf.Plan]:
+    """(C entry, shape) of one half for rows of kq values: the bf16
+    kernel's, or in f32 the CSR sweep's user pass
+    (`ops/segment_fused.py::pass_plan`)."""
+    return ("hpf_tail_half_sweep_bf16" if bf16 else
+            "hpf_segment_user_pass_f32", sf.pass_plan(kq, bf16))
 
 
 def scratch_rows(nnz: int, bf16: bool) -> int:
@@ -137,7 +124,6 @@ def fused_half_sweep(p_tab: torch.Tensor, o_tab: torch.Tensor,
     _check(p_tab, o_tab, p_ids, o_ids, y, rows)
     if p_tab.device.type == "cpu":
         return half_sweep_reference(p_tab, o_tab, p_ids, o_ids, y, rows)
-    sf.check_width(p_tab.shape[1])
     if p_tab.device.type != "cuda":
         raise ValueError(f"no kernel for device {p_tab.device}")
     kq = p_tab.shape[1]
@@ -151,15 +137,18 @@ def fused_half_sweep(p_tab: torch.Tensor, o_tab: torch.Tensor,
     if nnz == 0:
         return out
     slots = scratch_rows(nnz, bf16)
+    name, shape = plan(bf16, kq)
     brow = torch.empty(slots, dtype=torch.int32, device=dev)
-    bacc = torch.empty((slots, kq), dtype=torch.float32, device=dev)
+    # past one window the bf16 kernel keeps the weights in rows of bacc
+    # after the slots (the same rule as csrc/tail_bf16.cu's entry)
+    extra = -(-nnz // kq) if bf16 and kq > sf.ONE_WINDOW_MAX else 0
+    bacc = torch.empty((slots + extra, kq), dtype=torch.float32, device=dev)
     if not bf16:            # the user pass, its weights thrown away
         sf.user_pass(p_tab, o_tab, p_ids, o_ids, y, out, sf.Scratch(
             torch.empty(nnz, dtype=torch.float32, device=dev), brow, bacc),
             tail=True)
         fused_half_sweep.launches += 1
         return out
-    name, lanes, chunks = plan(bf16, kq)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _entry(name)(p_ids.data_ptr(), o_ids.data_ptr(), y.data_ptr(),
@@ -168,8 +157,8 @@ def fused_half_sweep(p_tab: torch.Tensor, o_tab: torch.Tensor,
                            nnz, kq, RANGE, stream)
     if err != 0:
         raise RuntimeError(f"tail half-sweep launch failed: cudaError {err} "
-                           f"({name}, {lanes} lanes of {chunks} chunks per "
-                           f"range; nnz={nnz}, rows={rows}, kq={kq})")
+                           f"({name}, {shape}; nnz={nnz}, rows={rows}, "
+                           f"kq={kq})")
     fused_half_sweep.launches += 1
     return out
 
@@ -205,7 +194,6 @@ def tail_halves(a_t: torch.Tensor, b_t: torch.Tensor, stream: TailStream,
                 fused_half_sweep(b_t, a_t, stream.i_by_item,
                                  stream.u_by_item, stream.y_by_item, m))
     _check(a_t, b_t, stream.u, stream.i, stream.y, n)
-    sf.check_width(kq)
     if a_t.device.type != "cuda":
         raise ValueError(f"no kernel for device {a_t.device}")
     sc = sf.Scratch.make(stream.nnz, kq, a_t.device)

@@ -90,13 +90,15 @@ def test_segment_sweeps_match_jax_and_naive(rng, fn, bias):
         np.testing.assert_allclose(g.numpy(), r, **F32)
 
 
-@pytest.mark.parametrize("k,bias", [(300, False), (255, True)])
+@pytest.mark.parametrize("k,bias", [(300, False), (255, True),
+                                    (1100, False)])
 @pytest.mark.parametrize("fn", sorted(SWEEPS))
 def test_segment_sweeps_match_jax_wide(rng, fn, bias, k):
-    """Past 256 packed values (K = 300; K = 255 with bias, 257 values):
-    the port's segment sweeps and the CSR kernel's plain version (the
-    function the wide passes are held to on the card) against the JAX
-    segment sweep and the naive loop, at the f32 bound."""
+    """Past 256 packed values (K = 300; K = 255 with bias, 257 values; K =
+    1100, two column windows on the card): the port's segment sweeps and
+    the CSR kernel's plain version (the function the wide passes are held
+    to on the card) against the JAX segment sweep and the naive loop, at
+    the f32 bound."""
     store, jdata, tdata, elogs = _both(rng, bias, k=k)
     ref = naive_sweep(*[None if e is None else e.astype(np.float64)
                         for e in elogs], store.coo_u, store.coo_i,
@@ -110,6 +112,38 @@ def test_segment_sweeps_match_jax_wide(rng, fn, bias, k):
             continue
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32)
         np.testing.assert_allclose(g.numpy(), r, **F32)
+
+
+@pytest.mark.parametrize("kq", [8, 32, 64, 104, 128, 256, 260, 304, 336,
+                                640, 1004, 1024, 1028, 1104, 2048, 4100])
+@pytest.mark.parametrize("item", [False, True])
+def test_pass_plan_covers_the_row(kq, item):
+    """The CSR passes' shapes (`csrc/segment_sweep.cu::pass_by_width` and
+    `csrc/row_sweep.cuh::wide_plan`): up to 256 floats two chunks a lane of
+    the fewest lanes; past them groups of 16 or 32 lanes, at most eight
+    chunks a lane, in as many column windows as that takes, covering the
+    row with less than one idle chunk a lane; the user pass (it finds the
+    weights from a dot) finds them first where a row takes two windows or
+    more, the item pass (it reads them) never."""
+    plan = sf.pass_plan(kq, dot=not item)
+    chunks = kq // 4
+    lanes = plan.lanes * plan.windows
+    assert 4 * plan.chunks * lanes >= kq
+    if kq <= 256:
+        assert (plan.chunks, plan.windows) == (2, 1)
+        assert plan.lanes == 4 or 8 * plan.lanes // 2 < kq
+    else:
+        assert plan.lanes in (16, 32) and plan.chunks <= sf.WIDE_CAP // 4
+        assert lanes * plan.chunks - chunks < lanes
+        # the fewest windows: one fewer would need more than 8 chunks a lane
+        assert plan.windows == 1 or 32 * 8 * (plan.windows - 1) < chunks
+    assert plan.weights == (not item and plan.windows > 1)
+    # bf16 rows (the tail's route) are planned the same way in 8-value
+    # chunks, at most four a lane
+    if kq % 8 == 0:
+        bf = sf.pass_plan(kq, bf16=True)
+        assert 8 * bf.chunks * bf.lanes * bf.windows >= kq
+        assert kq <= 256 or bf.chunks <= sf.WIDE_CAP // 8
 
 
 @pytest.mark.parametrize("kq", [104, 320, 1024])
@@ -431,18 +465,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "width":
         a_tab, b_tab = a_tab[:, :6].contiguous(), b_tab[:, :6].contiguous()
     elif bad == "too_wide":     # past eight 16-byte chunks a lane of 32
-        # the plain version (a CPU tensor) takes the row; a tensor bound
-        # for the kernel is refused, naming the limit
-        a_tab = torch.rand(3, sf.KQ_MAX + 4)
-        b_tab = torch.rand(4, sf.KQ_MAX + 4)
+        # the plain version (a CPU tensor) takes the row, and a tensor
+        # bound for a kernel passes every check of the wrapper: a meta
+        # tensor, which stands for one, is refused only for its device
+        # (the kernel takes the row in two column windows)
+        a_tab, b_tab = torch.rand(3, 1028), torch.rand(4, 1028)
         out_a, _ = sf.fused_segment_sweep(a_tab, b_tab, DeviceData(
             **fields, dense_y=None))
-        assert out_a.shape == (3, sf.KQ_MAX + 4)
+        assert out_a.shape == (3, 1028)
+        assert sf.pass_plan(1028).windows == 2
         a_tab, b_tab = a_tab.to("meta"), b_tab.to("meta")
         fields = {k: v.to("meta") for k, v in fields.items()}
-        with pytest.raises(ValueError, match=str(sf.KQ_MAX)):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
             sf.fused_segment_sweep(a_tab, b_tab, DeviceData(**fields,
                                                             dense_y=None))
+        return
     elif bad == "mixed":
         b_tab = torch.rand(4, 4)
     elif bad == "ids":
@@ -490,12 +527,14 @@ def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
                                           (100, 20000), (200, 30000),
                                           (255, sf.SLAB_BYTES),
                                           (300, 40000), (640, 80000),
-                                          (1000, 120000)])
+                                          (1000, 120000), (1100, 150000)])
 def test_kernel_matches_plain_on_card(bias, k, slab_bytes):
     """One slab, and several (the item pass adds each slab's rows onto
     the last), at widths of one group size each (kq 16, 100 or 104, 200
-    or 204), and past 256 floats at 32 lanes of 4, 6 and 8 chunks (kq
-    256 or 260, 300 or 304, 640 or 644, 1000 or 1004)."""
+    or 204), and past 256 floats in the wide passes' shapes (kq 256 or
+    260: 32 lanes of 2 / 16 of 5 chunks; 300 or 304: 16 of 5; 640 or 644:
+    32 of 5 and 6; 1000 or 1004: 32 of 8; 1100 or 1104: two windows of 32
+    lanes of 5 chunks, the user pass's weights found first)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     rng = np.random.default_rng(9)

@@ -14,6 +14,8 @@ tails at the same f32 bound. The CUDA kernels run only on the card
 (marked `cuda`).
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -115,10 +117,12 @@ def test_plain_matches_jax_f32(name, bias, impl):
     _assert_close(_port(tables, u, i, y), _jax(tables, tc, impl), **F32)
 
 
-@pytest.mark.parametrize("k,bias", [(300, False), (255, True)])
+@pytest.mark.parametrize("k,bias", [(300, False), (255, True),
+                                    (1100, False)])
 def test_plain_matches_jax_wide(k, bias):
-    """Past 256 packed values (K = 300; K = 255 with bias, 257 values) the
-    Pallas tail kernel pads the rows to kp = 384 and runs in the
+    """Past 256 packed values (K = 300; K = 255 with bias, 257 values; K =
+    1100, which the card's kernels cut into two column windows) the
+    Pallas tail kernel pads the rows to a multiple of 128 and runs in the
     interpreter; the port's tail on the CPU (the plain version both wide
     routes are held to) and the tail laid out as the CSR sweep's COO
     through its plain version (the f32 route's function) agree with it
@@ -309,31 +313,94 @@ def test_build_command_names_the_tail_source(monkeypatch):
     assert "row_fixup_kernel" in src and "launch_row_fixup" in src
 
 
-# lanes per group of the f32 route's user pass at each width below
-F32_LANES = {8: 4, 16: 4, 64: 8, 72: 16, 104: 16, 128: 16, 136: 32,
-             200: 32, 256: 32}
+# (lanes, chunks a lane, windows) of each route's half at each width: up
+# to 256 values the narrow kernels' groups; past 256 the wide passes' (K =
+# 255 with bias is 264 values, K = 300 is 304 in bf16 and f32, K = 330 is
+# 336); past 1024 two column windows, the weights found first
+SHAPES = {8: ((8, 1, 1), (4, 2, 1)), 16: ((8, 1, 1), (4, 2, 1)),
+          64: ((8, 1, 1), (8, 2, 1)), 72: ((16, 1, 1), (16, 2, 1)),
+          104: ((16, 1, 1), (16, 2, 1)), 128: ((16, 1, 1), (16, 2, 1)),
+          136: ((32, 1, 1), (32, 2, 1)), 200: ((32, 1, 1), (32, 2, 1)),
+          256: ((32, 1, 1), (32, 2, 1)), 264: ((16, 3, 1), (16, 5, 1)),
+          304: ((16, 3, 1), (16, 5, 1)), 320: ((16, 3, 1), (16, 5, 1)),
+          336: ((16, 3, 1), (32, 3, 1)), 640: ((32, 3, 1), (32, 5, 1)),
+          1000: ((32, 4, 1), (32, 8, 1)), 1024: ((32, 4, 1), (32, 8, 1)),
+          1104: ((32, 3, 2), (32, 5, 2)), 2048: ((32, 4, 2), (32, 8, 2))}
 
 
-@pytest.mark.parametrize("kq, lanes", [(8, 8), (16, 8), (64, 8), (72, 16),
-                                       (104, 16), (128, 16), (136, 32),
-                                       (200, 32), (256, 32), (264, 32),
-                                       (320, 32), (1024, 32)])
-def test_plan_picks_the_entry_and_group_by_width(kq, lanes):
+@pytest.mark.parametrize("kq", sorted(SHAPES))
+def test_plan_picks_the_entry_and_group_by_width(kq):
     """Up to 256 values one 16-byte chunk a lane (bf16) or two (f32) in
-    the fewest lanes; past 256 (K = 255 with bias is 264 bf16 values, K =
-    300 is 304 and 320) groups of 32 lanes of ceil(kq / 256) chunks
-    (bf16) or twice that (f32), up to 1024."""
-    chunks = max(1, -(-kq // 256))
-    assert tf.plan(True, kq) == ("hpf_tail_half_sweep_bf16", lanes, chunks)
-    # chunks of bf16 per lane cover the row, in the fewest lanes and chunks
-    assert 8 * lanes * chunks >= kq and (lanes == 8 or 4 * lanes < kq)
-    assert chunks == 1 or 8 * lanes * (chunks - 1) < kq
-    f32 = F32_LANES.get(kq, 32)
-    assert tf.plan(False, kq) == ("hpf_segment_user_pass_f32", f32,
-                                  2 * chunks)
-    # two 16-byte chunks of f32 per lane cover the row, in the fewest lanes
-    assert 4 * f32 * 2 * chunks >= kq and (f32 == 4 or 4 * f32 < kq)
-    assert tf.plan(False, kq)[0] in sf._ARGTYPES
+    the fewest lanes; past 256 the wide passes' shape: groups of 16 or 32
+    lanes of at most 32 values a lane each, as many column windows as
+    that takes, the shape that covers the row with the fewest idle chunk
+    slots, less than one a lane."""
+    for bf16, want in zip((True, False), SHAPES[kq]):
+        name, shape = tf.plan(bf16, kq)
+        assert name == ("hpf_tail_half_sweep_bf16" if bf16 else
+                        "hpf_segment_user_pass_f32")
+        assert name in sf._ARGTYPES or bf16
+        assert shape == sf.pass_plan(kq, bf16)
+        assert (shape.lanes, shape.chunks, shape.windows) == want
+        assert shape.weights == (shape.windows > 1)
+        per = 8 if bf16 else 4
+        lanes = shape.lanes * shape.windows    # lanes on one range
+        # the chunks cover the row, less than one chunk a lane idle
+        assert per * lanes * shape.chunks >= kq
+        assert lanes * shape.chunks - kq // per < lanes or kq <= 256
+        if kq <= 256:   # the narrow kernels: the fewest lanes
+            assert shape.lanes == (8 if bf16 else 4) or \
+                per * shape.chunks * shape.lanes // 2 < kq
+        else:           # a lane holds at most 32 values
+            assert per * shape.chunks <= sf.WIDE_CAP
+
+
+def test_weights_scratch_follows_the_kernels_rule():
+    """Past one window (32 lanes of WIDE_CAP values) a dot sweep keeps its
+    weights, and the bf16 wrapper sizes bacc for them: the bound is
+    row_sweep.cuh's kOneWindowMax, the bf16 entry keeps the weights by
+    that bound alone, and the plan starts a second window exactly there."""
+    with open(build.CSRC_DIR + "/row_sweep.cuh") as f:
+        bound = re.search(r"constexpr int kOneWindowMax = (\d+);", f.read())
+    assert bound and int(bound.group(1)) == sf.ONE_WINDOW_MAX
+    with open(build.CSRC_DIR + "/tail_bf16.cu") as f:
+        assert "float* w = kq > kOneWindowMax ?" in f.read()
+    for kq in range(264, 4104, 8):
+        for bf16 in (False, True):
+            shape = sf.pass_plan(kq, bf16)
+            assert shape.weights == (shape.windows > 1) == \
+                (kq > sf.ONE_WINDOW_MAX), (kq, bf16)
+
+
+def test_dot_pass_takes_32_lanes_where_the_ranges_do_not_fill_the_card():
+    """A dot pass (the tail, the CSR user pass) over fewer ranges than the
+    card holds 16-lane groups (row_sweep.cuh's kFillGroupsPerSm an SM)
+    takes 32 lanes covering the row: the bf16 tail at ML-1M K = 300 (1,442
+    ranges on 132 SMs); 16 lanes at EchoNest's 33,558. The item pass (no
+    dot) and the 32-lane widths keep the width's plan."""
+    with open(build.CSRC_DIR + "/row_sweep.cuh") as f:
+        fill = re.search(r"constexpr int kFillGroupsPerSm = (\d+);", f.read())
+    assert fill and int(fill.group(1)) == sf.FILL_GROUPS_PER_SM
+    sms = 132
+    full = sms * sf.FILL_GROUPS_PER_SM
+    assert sf.pass_plan(304, True, ranges=1442, sms=sms) == sf.Plan(32, 2)
+    assert sf.pass_plan(304, True, ranges=33558, sms=sms) == sf.Plan(16, 3)
+    assert sf.pass_plan(304, ranges=2884, sms=sms) == sf.Plan(32, 3)
+    assert sf.pass_plan(304, dot=False, ranges=2884, sms=sms) == \
+        sf.Plan(16, 5)
+    for kq in range(264, 4104, 8):
+        for bf16 in (False, True):
+            per = 8 if bf16 else 4
+            wide = sf.pass_plan(kq, bf16)
+            for ranges in (1, full - 1, full):
+                got = sf.pass_plan(kq, bf16, ranges=ranges, sms=sms)
+                if wide.lanes == 32 or ranges >= full:
+                    assert got == wide, (kq, bf16, ranges)
+                else:
+                    assert got.lanes == 32 and got.windows == 1
+                    # covers the row, less than one chunk a lane idle
+                    assert 0 <= 32 * got.chunks - kq // per < 32
+                    assert per * got.chunks <= sf.WIDE_CAP
 
 
 @pytest.mark.parametrize("nnz", [1, 31, 33, tf.RANGE - 1, tf.RANGE,
@@ -376,19 +443,23 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         p_tab = torch.rand(6, 12).bfloat16()
         o_tab = torch.rand(5, 12).bfloat16()
     elif bad == "bf16_wide":
-        # 264 values take 32 lanes of two 16-byte chunks; past four chunks
-        # for each of 32 lanes (1024 values) the kernels' registers end:
-        # the plain version (a CPU tensor) takes the row, a tensor bound
-        # for a kernel is refused
-        assert tf.plan(True, 264) == ("hpf_tail_half_sweep_bf16", 32, 2)
-        assert tf.plan(True, tf.KQ_MAX) == ("hpf_tail_half_sweep_bf16", 32,
-                                            4)
-        p_tab = torch.rand(6, tf.KQ_MAX + 8).bfloat16()
-        o_tab = torch.rand(5, tf.KQ_MAX + 8).bfloat16()
+        # 264 values take 16 lanes of three 16-byte chunks; past four
+        # chunks for each of 32 lanes (1024 values) the row is cut into
+        # column windows: the plain version (a CPU tensor) takes the row,
+        # and a tensor bound for a kernel passes every check of the
+        # wrapper (a meta tensor, which stands for one, is refused only
+        # for its device)
+        assert tf.plan(True, 264)[1][:3] == (16, 3, 1)
+        assert tf.plan(True, 1032)[1][:3] == (32, 3, 2)
+        p_tab = torch.rand(6, 1032).bfloat16()
+        o_tab = torch.rand(5, 1032).bfloat16()
         assert tf.fused_half_sweep(p_tab, o_tab, p, o, y, rows).shape == \
-            (rows, tf.KQ_MAX + 8)
+            (rows, 1032)
         p_tab, o_tab, p, o, y = (t.to("meta") for t in (p_tab, o_tab, p, o,
                                                          y))
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            tf.fused_half_sweep(p_tab, o_tab, p, o, y, rows)
+        return
     else:
         y = torch.ones(4, device="meta")
     with pytest.raises(ValueError):
@@ -411,15 +482,19 @@ def test_half_sweep_reference_is_the_per_nonzero_loop():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [13, 300, 1100])
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("bf16", [False, True])
-def test_kernel_matches_plain_on_card(bias, bf16):
+def test_kernel_matches_plain_on_card(bias, bf16, k):
+    """Both routes on rows far longer than a range, at a narrow width and
+    in the wide passes' shapes (K = 300: one window; K = 1100: two, the
+    weights found first)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     rng = np.random.default_rng(9)
     n, m, u, i, y = _layout("long_rows", rng)
     tables = [None if x is None else torch.from_numpy(x).cuda()
-              for x in _tables(rng, n, m, 13, bias)]
+              for x in _tables(rng, n, m, k, bias)]
     stream = build_tail_stream(u, i, y, "cuda")
     before = tf.fused_half_sweep.launches
     got = tf.tail_sweep(*tables, stream, bf16=bf16)
@@ -467,7 +542,8 @@ def _partition_layouts(rng):
 @pytest.mark.parametrize("k", [13, 100, 200, 255, 300, 1000])
 def test_bf16_kernel_partition_on_card(k, bias):
     """The bf16 route (csrc/tail_bf16.cu) at 8-, 16- and 32-lane groups,
-    and past 256 values at 32 lanes of 2 to 4 chunks: two launches bitwise
+    and past 256 values in the wide passes' shapes (16 lanes of 3 chunks,
+    32 of 4): two launches bitwise
     equal and the plain bf16 version's result at the f32 bound. The last
     layout's counts reach 299, past the divide's fast range, so both of
     its paths run."""
@@ -495,8 +571,8 @@ def test_bf16_kernel_partition_on_card(k, bias):
 def test_f32_route_partition_on_card(k, bias):
     """The f32 route (the CSR sweep's user pass, then its item pass over
     the tail's slab stream) at 4-, 16- and 32-lane groups, and past 256
-    values at 32 lanes of 4 to 8 chunks, on the
-    partition layouts with every other item absent from the tail (as the
+    values in the wide passes' shapes (16 lanes of 5 chunks, 32 of 8), on
+    the partition layouts with every other item absent from the tail (as the
     head's items are), its item half in one slab, in a few and in one per
     user (most items then lead in item order): two launches bitwise
     equal, the plain f32 version's result at the f32 bound, and the absent
