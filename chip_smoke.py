@@ -8,14 +8,21 @@ With `--wide` it runs only the build and the wide routes' phase (every
 wide route against its plain version at ML-1M shape at K = 255 with
 bias, 300, 330, 640 and 1000 in both precisions, the tail's and the CSR
 sweep's also at K = 1100 and 2048 (column windows), the f32 route's
-resident kernel also at K = 130, 200 and 254 with bias; both dense routes at
-Netflix shape and K = 300 beside their bounds, the streamed wide kernel
-and the plan's issued FLOPs and staged bytes of both wide kernels, the
-f32 route at K = 200 and 254 with bias beside dense_simt.cu; the
-EchoNest tail and CSR sweep at K = 300; the ML-1M command line at
-K = 300, K = 255 with bias, K = 400 and K = 1100 (segment-chunked) on the
-card against the CPU; and the fused multi-step against the loop at ML-1M
-K = 300 "highest"), with `--wide-sparse` only the build and the sparse
+resident kernel also at K = 130, 200 and 254 with bias, the dense routes
+also at K = 2600 and 3100 (the streamed kernel past the cluster kernel's
+widths); both dense routes at Netflix shape and K = 300 beside their
+bounds, the streamed wide kernel, the cluster kernel on two CTAs (f32)
+and the plan's issued FLOPs and staged bytes of the wide kernels, the
+f32 route at K = 200 and 254 with bias beside dense_simt.cu, the cluster
+kernel at Netflix K = 400 (f32, which must beat its plain version and
+stay within F64_WIDE_MAX of f64 sums) and 640 (bf16) beside its plain
+version, the streamed kernel and its bound; the EchoNest tail and CSR
+sweep at K = 300; the ML-1M command line at K = 300, K = 255 with bias,
+K = 400 (the cluster kernel), K = 3100 (the streamed kernel, on a
+1500 x 1000 catalog) and K = 1100 (segment-chunked) on the card against
+the CPU;
+and the fused multi-step against the loop at ML-1M K = 300 "highest"),
+with `--wide-sparse` only the build and the sparse
 wide routes timed at EchoNest K = 300 (each route, half and pass, by
 device kernel, the slab budgets) and at ML-1M K = 300, 640 and 1000,
 with `--segment` only
@@ -203,10 +210,19 @@ NARROW_PATTERN = (r"dense_split_kernelILi\d+ELi0EE|"
                   r"ILi\d+ELi\d+ELb[01]EEEE|item_reduce_kernelILi[12]EE")
 # the wide routes (packed rows past 256 values): the factor width of their
 # timings and paths, and each (K, bias) they are held to plain at (K = 330:
-# the bf16 resident kernel at kq = 384, the f32 route's streamed kernel)
+# the bf16 resident kernel at kq = 384, the f32 route's cluster kernel on
+# two CTAs, timed as K_WIDE is; K = 640 and 1000 the cluster kernel)
 K_WIDE = 300
 WIDE_KS = ((255, True), (300, False), (330, False), (640, False),
            (1000, False))
+K_CLUSTER = 330
+# past the cluster kernel's widths (2560 f32, 3072 bf16 packed values) the
+# streamed wide kernel; at K = 2600 the bf16 route's cluster kernel runs
+# seven CTAs a cluster
+STREAM_KS = (2600, 3100)
+# the cluster kernel at Netflix shape, each route at the width it is timed
+# at: K = 400 f32 (two CTAs of four k-blocks), K = 640 bf16 (two of five)
+NF_CLUSTER_KS = ((400, False), (640, True))
 # the sparse kernels' widths past 1024 values (two column windows, the
 # weights found first), held to plain at ML-1M shape
 SPARSE_WIDE_KS = (1100, 2048)
@@ -489,7 +505,7 @@ def check_unaligned_y(df, lin, y, ref32):
     yu = y.contiguous()                # rows of M bytes
     raised = []
     for width, bf16 in ((k, False), (130, False), (K_WIDE, False),
-                        (K_WIDE, True)):
+                        (K_WIDE, True), (400, False), (640, True)):
         try:
             df.fused_dense_sweep(*[torch.nn.functional.pad(x, (0, width - k))
                                    for x in lin[:2]], yu, bf16=bf16)
@@ -498,12 +514,14 @@ def check_unaligned_y(df, lin, y, ref32):
     wide = [torch.nn.functional.pad(x, (0, 130 - k)) for x in lin[:2]]
     got = simt_sweep(df, wide, yu)
     torch.cuda.synchronize()
-    ok = raised == ["f32", "wide_f32", "wide_f32", "wide"] and all(
+    ok = raised == ["f32", "wide_f32", "wide_f32", "wide", "cluster_f32",
+                    "cluster"] and all(
         torch.allclose(g[:, :k], r, **F32_TOL) for g, r in zip(got, ref32))
     say(f"kernel unaligned Y (row stride {yu.stride(0)} bytes): raised "
         f"ValueError on {raised} (the f32 route at kq = "
         f"{df.packed_width(k, 'f32')} and K = 130, both wide routes at "
-        f"K = {K_WIDE}); dense_simt.cu at K = 130 reads it and matches the "
+        f"K = {K_WIDE}, the cluster kernel at K = 400 f32 and 640 bf16); "
+        f"dense_simt.cu at K = 130 reads it and matches the "
         f"plain version {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the f32 route's width rule or its Y check failed")
@@ -2770,7 +2788,8 @@ def check_wide_dense(df, lin, y, bias, bf16, reps):
                   f"6 N M K, {plan['issued'] / fig['ms'] / 1e9:.1f} issued; "
                   f"bound {bound_ms:.4f} ms ({bound_by}), kernel at "
                   f"{fig['ms'] / bound_ms:.2f}x it")
-    good = ok and same and counted == 2 and kernel.startswith("wide")
+    good = ok and same and counted == 2 and \
+        kernel.startswith(("wide", "cluster"))
     say(f"wide dense {n}x{m}x{k} bias={bias} ({text}): max_abs_err vs f32 "
         f"plain {err:.3e} (vs plain in the same mode {err_like:.3e}), two "
         f"launches bitwise {'equal' if same else 'DIFFERENT'}, counted "
@@ -2788,13 +2807,16 @@ def phase_wide_kernels(df, gen):
     on an ML-1M-sized power-law stream (f32 TAIL_F32_TOL, bf16 BF16_REL),
     the sparse ones also at SPARSE_WIDE_KS, two launches bitwise
     everywhere; the f32 route's resident widths
-    below 257 values (F32_RES_KS) the same. At K_WIDE the f32 route must
-    be faster than its plain version, both timed five calls back to back
-    as a training step launches them (median of 20 windows each; one
-    call a window, the host's packing and the plain version's Python
-    loop count too, and the two differ by less than run-to-run spread
-    at this size). Returns the figures at K_WIDE and the streamed
-    kernels' at their first K."""
+    below 257 values (F32_RES_KS) the same, and the dense routes at
+    STREAM_KS (the streamed kernel past the cluster kernel's widths). At
+    K_WIDE the f32 route must be faster than its plain version, both
+    timed five calls back to back as a training step launches them
+    (median of 20 windows each; one call a window, the host's packing and
+    the plain version's Python loop count too, and the two differ by less
+    than run-to-run spread at this size); the f32 route's cluster kernel
+    is timed the same at K_CLUSTER, beside its plain version (a target,
+    not a gate). Returns the figures at K_WIDE, the cluster kernels' and
+    the streamed kernels' at their first K."""
     from hgaprec_tpu_torch.data.device import DeviceData, sorted_coo
     from hgaprec_tpu_torch.ops.tail import build_tail_stream
     u, i, y, _ = power_law_coo(N_ML, M_ML, 1_000_000, SEED, cover=True)
@@ -2805,10 +2827,12 @@ def phase_wide_kernels(df, gen):
     for k, bias in WIDE_KS:
         lin, yd, _ = random_inputs(gen, N_ML, M_ML, k, 6144, bias, 0.045)
         for bf16 in (False, True):
-            # timed: both routes at K_WIDE, each streamed kernel at the
-            # first K that takes it
+            # timed: both routes at K_WIDE and the f32 route at
+            # K_CLUSTER, each other wide kernel at the first K that takes
+            # it
             kernel = df.dense_kernel(k + 2 * bias, bf16)
-            reps = 20 if k == K_WIDE else 5 if kernel not in out else 0
+            reps = 20 if k == K_WIDE or (k == K_CLUSTER and not bf16) \
+                else 5 if kernel not in out else 0
             fig = check_wide_dense(df, lin, yd, bias, bf16, reps)
             if reps:
                 out[kernel] = fig
@@ -2828,6 +2852,24 @@ def phase_wide_kernels(df, gen):
         lin, yd, _ = random_inputs(gen, N_ML, M_ML, k, 6144, bias, 0.045)
         check_wide_dense(df, lin, yd, bias, False, 0)
         del lin, yd
+    for k in STREAM_KS:
+        lin, yd, _ = random_inputs(gen, N_ML, M_ML, k, 6144, False, 0.045)
+        for bf16 in (False, True):
+            kernel = df.dense_kernel(k, bf16)
+            fig = check_wide_dense(df, lin, yd, False, bf16,
+                                   5 if kernel not in out else 0)
+            out.setdefault(kernel, fig)
+        del lin, yd
+    cl = out["cluster_f32"]
+    met = ["met" if cl[k] < cl["plain_" + k] else "missed"
+           for k in ("ms", "ms_batch5")]
+    say(f"wide ml-1m K={K_CLUSTER} f32 route (the cluster kernel, "
+        f"{df.cluster_size(cl['kq'], 'cluster_f32')} CTAs a cluster): "
+        f"{cl['ms']:.4f} ms against its plain version's {cl['plain_ms']:.4f} "
+        f"ms one call a window, {cl['ms_batch5']:.4f} against "
+        f"{cl['plain_ms_batch5']:.4f} ms a call five back to back; faster "
+        f"than plain (the target): {met[0]} one call a window, {met[1]} "
+        f"five back to back")
     f32 = out["wide_f32"]
     ok = f32["ms_batch5"] < f32["plain_ms_batch5"]
     say(f"wide ml-1m K={K_WIDE} f32 route, five calls back to back: "
@@ -2849,11 +2891,14 @@ def phase_wide_netflix(df, gen):
     plain version, each timed beside its bound (15.5 ms bf16, 93.2 f32 on
     the H100's rates), the streamed kernel (the design before the
     resident one) on the same inputs, and the plan's issued FLOPs and
-    staged bytes of both; the f32 route must beat its plain version. Its
-    distance to f64 sums on a slice of the users beside the streamed
-    kernel's and the plain version's, at most F64_WIDE_MAX. Then, on the
-    same Y, the f32 route at K = 200 and K = 254 with bias (256 packed
-    values) beside dense_simt.cu, which it must beat."""
+    staged bytes of both; the f32 route must beat its plain version. The
+    f32 route's cluster kernel on two CTAs (kq = 384) is timed there too,
+    beside the resident one. Its distance to f64 sums on a slice of the
+    users beside the streamed kernel's and the plain version's, at most
+    F64_WIDE_MAX. Then, on the same Y, the f32 route at K = 200 and
+    K = 254 with bias (256 packed values) beside dense_simt.cu, which it
+    must beat, and the cluster kernel at NF_CLUSTER_KS
+    (phase_cluster_netflix)."""
     rows = -(-N_NF // 512) * 512
     t0 = time.perf_counter()
     lin, y, nnz = random_inputs(gen, N_NF, M_NF, K_WIDE, rows, False, 0.01)
@@ -2884,6 +2929,25 @@ def phase_wide_netflix(df, gen):
         stream_ms = median_ms(streamed, 3)
         plain_ms = median_ms(
             lambda: df.fused_dense_sweep_reference(*lin, y, bf16=bf16), 3)
+        if not bf16:
+            # the cluster kernel on two CTAs of three k-blocks (rows padded
+            # to 384 values), which the route does not take at this width
+            def clustered():
+                return df._unpack(*df.launch_dense(*lin, y,
+                                                   kernel="cluster_f32"),
+                                  K_WIDE, False)
+            got = clustered()
+            torch.cuda.synchronize()
+            err_c, ok_c = compare(got, ref, bf16)
+            del got
+            cluster_ms = median_ms(clustered, 3)
+            ok_s = ok_s and ok_c
+            say(f"wide netflix K={K_WIDE} f32: the cluster kernel on two CTAs "
+                f"(kq = {df.packed_width(K_WIDE, 'cluster_f32')}, not routed) "
+                f"{cluster_ms:.2f} ms (max_abs_err {err_c:.3e}) beside the "
+                f"resident kernel's {ms:.2f} ms: "
+                f"{'faster' if cluster_ms < ms else 'slower'}, "
+                f"{cluster_ms / ms:.2f}x its time")
         bound_ms, bound_by = (dense_bound(N_NF, M_NF, K_WIDE) if bf16 else
                               dense_bound_f32(N_NF, M_NF, K_WIDE))
         plan, text = plan_text(N_NF, M_NF, K_WIDE, kernel)
@@ -2903,6 +2967,9 @@ def phase_wide_netflix(df, gen):
         if not (ok and ok_s and faster):
             raise SystemExit(f"the wide {kernel} route disagrees with plain "
                              f"at Netflix shape or is not faster than it")
+        if not bf16:
+            out["cluster_f32_k300"] = dict(ms_netflix=cluster_ms,
+                                           resident_ms_netflix=ms)
         out[kernel] = dict(ms_netflix=ms, plain_ms_netflix=plain_ms,
                            bound_ms_netflix=bound_ms,
                            issued_tflop_netflix=plan["issued"] / 1e12,
@@ -2961,7 +3028,97 @@ def phase_wide_netflix(df, gen):
             ms_netflix=ms, simt_ms_netflix=simt_ms,
             bound_ms_netflix=bound_ms, kq=plan["kq"])
         del lin
+    out.update(phase_cluster_netflix(df, gen, y))
     del y
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cluster_netflix(df, gen, y):
+    """The cluster kernel at Netflix shape on the Y `y`, at each (K, bf16)
+    of NF_CLUSTER_KS: against the plain version (F32_TOL, BF16_REL), two
+    launches bitwise, timed (median of 3) beside the plain version, the
+    streamed kernel on the same inputs and the bound, with each plan's
+    issued FLOPs and staged bytes; the f32 route must beat its plain
+    version and stay within F64_WIDE_MAX of f64 sums on the first 65,536
+    users. Returns the figures by kernel."""
+    out = {}
+    for k, bf16 in NF_CLUSTER_KS:
+        lin = random_lin(gen, N_NF, M_NF, k, False)[:2]
+        kernel = df.dense_kernel(k, bf16)
+        stream = "wide_stream" + ("" if bf16 else "_f32")
+
+        def call():
+            return df.fused_dense_sweep(*lin, y, bf16=bf16)
+
+        def streamed():
+            return df._unpack(*df.launch_dense(*lin, y, kernel=stream), k,
+                              False)
+        ref = df.fused_dense_sweep_reference(*lin, y)
+        got = call()
+        again = call()
+        torch.cuda.synchronize()
+        err, ok = compare(got, ref, bf16)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del got, again
+        got = streamed()
+        torch.cuda.synchronize()
+        err_s, ok_s = compare(got, ref, bf16)
+        del got, ref
+        ms = median_ms(call, 3)
+        stream_ms = median_ms(streamed, 3)
+        plain_ms = median_ms(
+            lambda: df.fused_dense_sweep_reference(*lin, y, bf16=bf16), 3)
+        bound_ms, bound_by = (dense_bound(N_NF, M_NF, k) if bf16 else
+                              dense_bound_f32(N_NF, M_NF, k))
+        plan, text = plan_text(N_NF, M_NF, k, kernel)
+        plan_s, text_s = plan_text(N_NF, M_NF, k, stream)
+        faster = bf16 or ms < plain_ms
+        say(f"cluster netflix {N_NF}x{M_NF}x{k} {'bf16' if bf16 else 'f32'} "
+            f"({text}, {plan['cluster']} CTAs a cluster): vs f32 plain "
+            f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}, two launches "
+            f"bitwise {'equal' if same else 'DIFFERENT'}; kernel {ms:.2f} ms, "
+            f"plain {plain_ms:.2f} ms (median of 3)"
+            f"{'' if faster else ' NOT FASTER: FAIL'}; "
+            f"{6 * N_NF * M_NF * k / ms / 1e9:.1f} TFLOP/s of 6 N M K, "
+            f"{plan['issued'] / ms / 1e9:.1f} issued; bound {bound_ms:.2f} ms "
+            f"({bound_by}), kernel at {ms / bound_ms:.2f}x it; the streamed "
+            f"kernel on the same inputs ({text_s}) {stream_ms:.2f} ms "
+            f"(max_abs_err {err_s:.3e}), {stream_ms / ms:.2f}x the cluster "
+            f"kernel's time, staging {plan['staged'] / plan_s['staged']:.3f} "
+            f"of its bytes")
+        if not (ok and ok_s and same and faster):
+            raise SystemExit(f"the cluster kernel ({kernel}) disagrees with "
+                             f"plain or itself at Netflix shape K = {k}, or "
+                             f"is not faster than plain")
+        fig = dict(ms_netflix=ms, plain_ms_netflix=plain_ms,
+                   bound_ms_netflix=bound_ms, k_netflix=k,
+                   kq_netflix=plan["kq"], cluster_netflix=plan["cluster"],
+                   issued_tflop_netflix=plan["issued"] / 1e12,
+                   staged_tb_netflix=plan["staged"] / 1e12,
+                   streamed_ms_netflix=stream_ms,
+                   streamed_issued_tflop_netflix=plan_s["issued"] / 1e12,
+                   streamed_staged_tb_netflix=plan_s["staged"] / 1e12)
+        if not bf16:
+            sl, ys = [lin[0][:65536].contiguous(), lin[1]], y[:65536]
+            rel = {kernel: f64_rel_err(df.fused_dense_sweep(*sl, ys), sl, ys),
+                   stream: f64_rel_err(df._unpack(*df.launch_dense(
+                       *sl, ys, kernel=stream), k, False), sl, ys),
+                   "plain": f64_rel_err(df.fused_dense_sweep_reference(
+                       *sl, ys), sl, ys)}
+            ok = rel[kernel] <= F64_WIDE_MAX
+            say(f"cluster netflix K={k} f32 route relative to f64 sums on the "
+                f"first 65,536 users: cluster kernel {rel[kernel]:.3e} (at "
+                f"most {F64_WIDE_MAX:.3e}), streamed kernel "
+                f"{rel[stream]:.3e}, plain {rel['plain']:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("the f32 cluster kernel moved further from "
+                                 "f64 sums")
+            fig["f64_rel_err_netflix_slice"] = rel
+            del sl
+        out[kernel] = fig
+        del lin
     torch.cuda.empty_cache()
     return out
 
@@ -3037,15 +3194,38 @@ WIDE_RUNS = (
                      "-head-gib", "0.003", "-precision", "default"]),
     ("hybrid_highest", ["-hier", "-k", str(K_WIDE), "-sweep", "hybrid",
                         "-head-gib", "0.003"]),
-    # past the resident kernel's widths: the streamed wide kernels
-    ("stream_highest", ["-hier", "-k", "400"]),
-    ("stream_bf16", ["-hier", "-k", "400", "-precision", "default"]),
+    # past the resident kernel's widths: the cluster kernels
+    ("cluster_highest", ["-hier", "-k", "400"]),
+    ("cluster_bf16", ["-hier", "-k", "400", "-precision", "default"]),
+    # past the cluster kernel's widths: the streamed wide kernels, on the
+    # small dataset (WIDE_SMALL), so that the CPU runs stay short
+    ("stream_highest", ["-hier", "-k", "3100"]),
+    ("stream_bf16", ["-hier", "-k", "3100", "-precision", "default"]),
     # past 1024 values: the CSR passes in two column windows
     ("segment_1100", ["-hier", "-k", "1100", "-sweep", "segment-chunked"]),
 )
+# the catalog of the WIDE_RUNS that name it (users, items, seed offset):
+# 3100 factors of an ML-1M user cost the CPU run minutes
+WIDE_SMALL = (1500, 1000, 1)
+WIDE_SMALL_RUNS = ("stream_highest", "stream_bf16")
+# the runs whose CPU reference takes longest (30-42 s at two iterations,
+# while the card's phase waits for them), cut to one iteration: two
+# reports
+WIDE_SHALLOW_RUNS = ("segment_logl", "hybrid_bf16", "hybrid_highest",
+                     "segment_1100")
 
 
-def start_wide_cpu_runs(datdir, root):
+def wide_run_flags(name, args, datdir, small_dir):
+    """The command line of the wide path `name` (`-dir`, the shape and
+    the iterations, then its own flags), on its dataset."""
+    depth = ["-max-iterations", "1"] if name in WIDE_SHALLOW_RUNS else []
+    if name in WIDE_SMALL_RUNS:
+        shape = ["-n", str(WIDE_SMALL[0]), "-m", str(WIDE_SMALL[1])]
+        return ["-dir", small_dir, *shape, *WIDE_BASE[4:], *depth, *args]
+    return ["-dir", datdir, *WIDE_BASE, *depth, *args]
+
+
+def start_wide_cpu_runs(datdir, small_dir, root):
     """The WIDE_RUNS on the CPU, one command-line subprocess after the
     other in a thread, so that they run while the card works. Returns the
     thread; its `secs` holds each run's wall seconds, its `failed` the
@@ -3057,9 +3237,10 @@ def start_wide_cpu_runs(datdir, root):
         for name, args in WIDE_RUNS:
             t0 = time.perf_counter()
             proc = subprocess.run(
-                [sys.executable, "-m", "hgaprec_tpu_torch.cli", "-dir",
-                 datdir, *WIDE_BASE, *args, "-cpu", "-outdir",
-                 os.path.join(root, f"wide_{name}_cpu")], cwd=here,
+                [sys.executable, "-m", "hgaprec_tpu_torch.cli",
+                 *wide_run_flags(name, args, datdir, small_dir), "-cpu",
+                 "-outdir", os.path.join(root, f"wide_{name}_cpu")],
+                cwd=here,
                 capture_output=True, text=True, timeout=900,
                 env=dict(os.environ, PYTHONPATH=here))
             thread.secs[name] = time.perf_counter() - t0
@@ -3072,14 +3253,17 @@ def start_wide_cpu_runs(datdir, root):
     return thread
 
 
-def phase_wide_paths(df, tf, datdir, root, cpu_runs):
+def phase_wide_paths(df, tf, datdir, small_dir, root, cpu_runs):
     """The wide routes on the user's path: the ML-1M command line at
     K_WIDE in both precisions, with -sweep segment-chunked -logl, HPF
-    -bias at K = 255 (257 packed values) and a hybrid in both precisions,
-    each on the card (in-process, every kernel's count set to 0 just
-    before it and read just after) against its CPU run (`cpu_runs`,
-    start_wide_cpu_runs), validation ll (and the ELBO) within CPU_REL.
-    Returns {run: launches by kernel}."""
+    -bias at K = 255 (257 packed values), a hybrid in both precisions,
+    K = 400 (the cluster kernel) in both precisions, K = 3100 (the
+    streamed one) in both on the small catalog WIDE_SMALL and K = 1100
+    segment-chunked, each on the card (in-process,
+    every kernel's count set to 0 just before it and read just after)
+    against its CPU run (`cpu_runs`, start_wide_cpu_runs), validation ll
+    (and the ELBO) within CPU_REL at each report. Returns {run: launches
+    by kernel}."""
     from hgaprec_tpu_torch.ops import segment_fused as sf
     launches, secs = {}, {}
     for name, args in WIDE_RUNS:
@@ -3089,7 +3273,8 @@ def phase_wide_paths(df, tf, datdir, root, cpu_runs):
         tf.fused_half_sweep.launches = 0
         sf.fused_segment_sweep.launches = 0
         t0 = time.perf_counter()
-        cli_in_process(["-dir", datdir, *WIDE_BASE, *args, "-outdir", out])
+        cli_in_process([*wide_run_flags(name, args, datdir, small_dir),
+                        "-outdir", out])
         secs[name] = time.perf_counter() - t0
         launches[name] = dict(
             {k: v for k, v in df.fused_dense_sweep.launches_by_kernel.items()
@@ -3107,8 +3292,9 @@ def phase_wide_paths(df, tf, datdir, root, cpu_runs):
                 for d in ("cuda", "cpu")}
         g, c = validation_ll(outs["cuda"]), validation_ll(outs["cpu"])
         worst = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(g, c))
-        ok = [a[0] for a in g] == [b[0] for b in c] and len(g) >= 3 and \
-            worst < CPU_REL
+        reports = 2 if name in WIDE_SHALLOW_RUNS else 3
+        ok = [a[0] for a in g] == [b[0] for b in c] and \
+            len(g) >= reports and worst < CPU_REL
         elbo = ""
         if "-logl" in args:
             eg, ec = logl_rows(outs["cuda"]), logl_rows(outs["cpu"])
@@ -3118,6 +3304,7 @@ def phase_wide_paths(df, tf, datdir, root, cpu_runs):
             elbo = f", training ELBO {worst_elbo:.3e}"
         want = {"highest": "wide_f32", "bf16": "wide", "bias": "wide_f32",
                 "hybrid_bf16": "wide", "hybrid_highest": "wide_f32",
+                "cluster_highest": "cluster_f32", "cluster_bf16": "cluster",
                 "stream_highest": "wide_stream_f32",
                 "stream_bf16": "wide_stream"}
         took = launches[name]
@@ -3125,7 +3312,8 @@ def phase_wide_paths(df, tf, datdir, root, cpu_runs):
                      took["segment"] > 0) and \
             (took["tail"] > 0) == name.startswith("hybrid")
         say(f"wide path {name}: python -m hgaprec_tpu_torch.cli "
-            f"{' '.join(args)} -rfreq 1 -max-iterations 2, card "
+            f"{' '.join(args)} -rfreq 1 -max-iterations "
+            f"{1 if name in WIDE_SHALLOW_RUNS else 2}, card "
             f"{secs[name]:.1f} s, CPU {cpu_runs.secs[name]:.1f} s; "
             f"launches {took}; validation ll "
             f"{[(i, round(v, 6)) for i, v in g]}, worst relative gap to the "
@@ -3147,12 +3335,17 @@ def phase_wide(df, tf, gen, smi, root, tr):
     datdir = os.path.join(root, "wide_data")
     write_pf_dataset(datdir, np.random.default_rng(SEED), N_ML, M_ML, k=8,
                      a=0.3, ap=1.8, b=0.3, scale=0.7)
-    cpu_runs = start_wide_cpu_runs(datdir, root)
+    small_dir = os.path.join(root, "wide_small")
+    write_pf_dataset(small_dir, np.random.default_rng(SEED + WIDE_SMALL[2]),
+                     WIDE_SMALL[0], WIDE_SMALL[1], k=8, a=0.3, ap=1.8, b=0.3,
+                     scale=0.7)
+    cpu_runs = start_wide_cpu_runs(datdir, small_dir, root)
     fig = phase_wide_kernels(df, gen)
     fig["netflix"] = phase_wide_netflix(df, gen)
     fig["echonest_tail"], fig["echonest_segment"] = \
         phase_wide_echonest(tr, gen)
-    fig["launches"] = phase_wide_paths(df, tf, datdir, root, cpu_runs)
+    fig["launches"] = phase_wide_paths(df, tf, datdir, small_dir, root,
+                                       cpu_runs)
     # the f32 wide route's step, host-bound at one launch a window: the
     # fused multi-step against the loop on the initial state
     tr = train(datdir, os.path.join(root, "wide_graph"), "highest", 2, 1,
@@ -3229,13 +3422,13 @@ def main():
         # ptxas serializes wgmma where a fragment may be touched in flight
         # (csrc/dense_wgmma.cu, hazard 5): the bf16 route's main width,
         # every width of the f32 route's split kernel (all <= 128), every
-        # stage of the probe included, and both wide kernels must build
-        # without it
+        # stage of the probe included, and the three wide kernels must
+        # build without it
         serial = [x.strip() for x in log.splitlines()
                   if "Potential Performance Loss" in x and
                   ("dense_wgmma_kernelILi112E" in x or
                    "dense_split_kernel" in x or "dense_wide_kernel" in x or
-                   "dense_res_kernel" in x)]
+                   "dense_res_kernel" in x or "dense_cluster_kernel" in x)]
         if serial:
             raise SystemExit(f"wgmma serialized at kq <= 128 or in a "
                              f"wide kernel: {serial}")
@@ -3247,6 +3440,9 @@ def main():
         sorted(hgmma["f32"]) == [64, 112, 128] and \
         all(sorted(hgmma[k]) == list(df.RES_WIDTHS[k])
             for k in ("wide", "wide_f32")) and \
+        all(sorted(hgmma[k]) == [64 * kb for kb in range(
+            df.CLUSTER_SHARES[k][0], df.CLUSTER_SHARES[k][1] + 1)]
+            for k in ("cluster", "cluster_f32")) and \
         all(sorted(hgmma[k]) == [df.KERNELS[k].window]
             for k in ("wide_stream", "wide_stream_f32"))
     say(f"warpgroup tensor-core instructions (HGMMA) in the SASS of "
@@ -3492,10 +3688,14 @@ def main():
            **wide[key], **wide["netflix"].get(key, {}),
            **({"f32_netflix_by_kaug": wide["netflix"]["f32_res"]}
               if key == "wide_f32" else {}),
+           **({"netflix_k300_two_ctas": wide["netflix"]["cluster_f32_k300"]}
+              if key == "cluster_f32" else {}),
            "hgmma": hgmma[key]}
           for key, instance in (
               ("wide", "dense_res_kernel<1, 5 or 6, 64>"),
               ("wide_f32", "dense_res_kernel<3, 3 to 5, 32>"),
+              ("cluster", "dense_cluster_kernel<1, 4 to 6, 64>"),
+              ("cluster_f32", "dense_cluster_kernel<3, 3 to 5, 32>"),
               ("wide_stream", "dense_wide_kernel<1, 256>"),
               ("wide_stream_f32", "dense_wide_kernel<3, 128>"))],
         {"name": "fused_half_sweep_wide", "route": "cuda",

@@ -11,7 +11,10 @@
 //     the same machinery (see "The f32 route" below);
 //   * dense_res_kernel, the wide rows whose stationary tile fits in shared
 //     memory: f32 rows of 129-320 packed values, bf16 rows of 257-384 (see
-//     "the resident design" at the end of the file);
+//     "the resident design");
+//   * dense_cluster_kernel, the same design on a thread-block cluster that
+//     splits the row between its CTAs: f32 rows of 321-2560, bf16 rows of
+//     385-3072 (see "the cluster design" at the end of the file);
 //   * dense_wide_kernel, both modes past those widths (see "wide rows").
 // csrc/dense_simt.cu computes the f32 mode up to 256 values on the FP32
 // pipes; no route takes it, and chip_smoke.py times the f32 routes
@@ -1504,10 +1507,10 @@ extern "C" int hpf_dense_split_probe_f32(const void* a, const void* b,
   }
 }
 
-// ---- wide rows: the streamed design, both routes past the resident one ----
+// ---- wide rows: the streamed design, both routes past the cluster one ----
 //
-// dense_wide_kernel takes the packed rows wider than dense_res_kernel
-// (below) holds: f32 rows past 320 values, bf16 rows past 384. Neither
+// dense_wide_kernel takes the packed rows wider than dense_cluster_kernel
+// (below) holds: f32 rows past 2560 values, bf16 rows past 3072. Neither
 // narrow kernel can hold them: a wgmma makes at most 256 output columns,
 // the bf16 kernel's accumulator already takes 128 registers a thread at
 // kq = 256, and the split kernel's resident stationary pieces (96 KB at
@@ -1912,8 +1915,9 @@ extern "C" int hpf_dense_wide_f32(const void* a, const void* b,
 // dense_res_kernel takes kernel #1's wide routes up to the widths whose
 // stationary tile fits in shared memory whole: bf16 rows of 257-384 packed
 // values (kq = 320, 384) and f32 rows of 129-320 (kq = 192, 256, 320);
-// dense_wide_kernel above, the streamed design, takes wider rows. It
-// replaces the TPU kernel dense_pallas.py::_kernel at those widths.
+// dense_cluster_kernel below and the streamed dense_wide_kernel above
+// take wider rows. It replaces the TPU kernel dense_pallas.py::_kernel at
+// those widths.
 //
 // What bounds the streamed design is the bytes it stages from L2 into
 // shared memory: per 64-row moving tile it restages the stationary
@@ -1942,21 +1946,26 @@ extern "C" int hpf_dense_wide_f32(const void* a, const void* b,
 //     commutes), forms W for the whole tile in registers and contracts it
 //     (wgmma RS) into its own columns, one 64- or 32-column chunk (one
 //     slot, read MN-major) at a time.
-//   * Products in flight: on the f32 route each k-block's S products (at
-//     most 24) go to one of two accumulator sets, and k-block j + 1 is
-//     issued before j retires and is promoted into the f32 partial; on the
+//   * Products in flight: on the f32 route S's products come in groups of
+//     two k-steps (12 products, an RS wgmma each, A = X's pieces loaded
+//     by ldmatrix once per k-step and used by every pair of the piece: an
+//     SS m64n32 product reads 3 KB of shared memory per 16 tensor clocks),
+//     each group to one of two accumulator and fragment sets, group g + 1
+//     issued before g retires and is promoted into the f32 partial; on the
 //     bf16 route a warpgroup's S products (at most 12) are one group, and
 //     its contraction chunks alternate two accumulator sets (chunk i + 1
-//     issued before chunk i retires). The f32 contraction retires each
-//     chunk before the next (measured faster on the card than two sets at
-//     254 registers). Issuing tile t + 1's S before tile t's W, where the
-//     ring holds two tiles, measured no faster either (PERF.md, section
-//     6), and is not used: the two warpgroups meet at the exchange every
-//     tile. Every product retires before a barrier, a release of
+//     issued before chunk i retires). The f32 contraction does the same
+//     where the warpgroup's columns are whole chunks, and retires each
+//     chunk before the next where one is a half chunk (two sets measured
+//     slower there, at 254 registers). Issuing tile t + 1's S before tile
+//     t's W, where the ring holds two tiles, measured no faster here
+//     (PERF.md, section 6), and is not used: the two warpgroups meet at
+//     the exchange every tile (the cluster kernel does, to meet the other
+//     CTAs late). Every product retires before a barrier, a release of
 //     a slot or the tile loop's back edge, and a phase's slots are waited
 //     on before its first product (hazard 5 above).
-//   * Promotion. No accumulator sums more than 24 products: an f32
-//     k-block's S (6 pairs x 4 k-steps), a bf16 warpgroup's S (at most 12
+//   * Promotion. No accumulator sums more than 24 products: an f32 group
+//     of S (6 pairs x 2 k-steps), a bf16 warpgroup's S (at most 12
 //     k-steps), a contraction chunk (6 pairs x 2 k-steps f32, 4 bf16),
 //     each added into f32 sums once retired; on the f32 route the
 //     contraction's additions are compensated (Kahan), so that a sum over
@@ -2020,12 +2029,14 @@ struct ResPlan {
   static constexpr int kFit = (kMaxSmem - 1024 - kSlotOff - kBarBytes) / kSlot;
   static constexpr int kSlots = kFit < 3 * kKb ? kFit : 3 * kKb;
   static constexpr int kBarOff = kSlotOff + kSlots * kSlot;
-  // full[kSlots], empty[kSlots], yfull[kResY], yempty[kResY], x; claims
+  // full[kSlots], empty[kSlots], yfull[kResY], yempty[kResY], x; claims;
+  // last, the cluster kernel's two handoff barriers
   static constexpr int kXBar = 8 * (2 * kSlots + 2 * kResY);
   static constexpr int kClaimOff = kXBar + 8;
+  static constexpr int kHandOff = kBarBytes - 16;
   static constexpr int kSmem = 1024 + kBarOff + kBarBytes;
   static_assert(kSlots >= kKb, "a tile's k-blocks must fit in the ring");
-  static_assert(kClaimOff + 4 * (kSlots + kResY) <= kBarBytes, "barriers");
+  static_assert(kClaimOff + 4 * (kSlots + kResY) <= kHandOff, "barriers");
   static_assert(kSlotOff % 1024 == 0 && kSlot % 1024 == 0, "alignment");
   static_assert(kSmem <= kMaxSmem, "the plan must fit");
 };
@@ -2041,6 +2052,8 @@ struct ResRing {
   bool item;
   int x0, z_begin, ntiles;
   int* claims;   // per slot, then per Y stage: the item last loaded into it
+  int col0;      // the first column of the CTA's k-blocks (the cluster
+                 // kernel's share; 0 in the resident kernel)
   __device__ __forceinline__ uint32_t slot(int it) const {
     return slots + (it % P::kSlots) * P::kSlot;
   }
@@ -2062,7 +2075,7 @@ struct ResRing {
   __device__ __forceinline__ void load(int it) const {
     const int t = it / kKb, j = it - t * kKb;
     mbar_expect_tx(full(it), P::kSlot);
-    tma_load_3d(slot(it), mz, 64 * j, z_begin + t * kTm, 0, full(it));
+    tma_load_3d(slot(it), mz, col0 + 64 * j, z_begin + t * kTm, 0, full(it));
   }
   __device__ __forceinline__ void load_y(int t) const {
     const int z0 = z_begin + t * kTm;
@@ -2161,7 +2174,7 @@ struct ResHalf {
   static constexpr int kCA = kH0 / 2, kCB = (kH1 - 1) / 2;   // C k-blocks
   static constexpr int kSN = kSB - kSA + 1, kCN = kCB - kCA + 1;
   static constexpr int kHalves = kH1 - kH0, kSteps = kK1 - kK0;
-  static constexpr int kHFirst = kH0;
+  static constexpr int kHFirst = kH0, kKFirst = kK0;
   // k-steps of S k-block kSA + i in the range
   __host__ __device__ static constexpr int s_lo(int i) {
     return 4 * (kSA + i) > kK0 ? 4 * (kSA + i) : kK0;
@@ -2204,27 +2217,69 @@ __device__ __forceinline__ void res_s_bf16(float (&s)[32], uint64_t dx,
   wgmma_commit();
 }
 
-// The f32 route's S group kI (k-block kSA + kI, six pairs of its k-steps
-// in the range, at most 24 products) of the tile whose first item is it0
-// into a, from zero. Committed, not waited on.
-template <int kKb, class H, int kI>
-__device__ __forceinline__ void res_s_f32(float (&a)[16], uint64_t dx,
+// m64n32k16 RS with B K-major: the f32 route's S products, X's fragment in
+// registers (D (+)= A B, scale_d = 0 overwrites D)
+__device__ __forceinline__ void wgmma_rs_k32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, "
+      "%18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// this warp's 16 x 16 bf16 block of a wgmma A operand (rows 16 w ..
+// 16 w + 15 of the warpgroup's 64): four 8 x 8 matrices, lane l giving the
+// address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// The f32 route's S group kG: k-steps kKFirst + 2 kG and the next (two of
+// the warpgroup's range) of the tile whose first item is it0, into a from
+// zero, six pairs each, pair by pair smallest first (12 products). A =
+// the X pieces' fragments, loaded into xf first (ldmatrix from the
+// 128-byte-swizzled resident k-blocks: row r's 16-byte chunk c at
+// 128 r + 16 (c ^ r % 8)), each used by every pair of its piece; B = the
+// Z pieces K-major. Committed, not waited on.
+template <int kKb, class H, int kG>
+__device__ __forceinline__ void res_s_f32(float (&a)[16],
+                                          uint32_t (&xf)[3][2][4],
+                                          uint32_t xrow, uint32_t chunk,
                                           const ResRing<3, kKb, 32>& ring,
                                           int it0) {
   using P = ResPlan<3, kKb, 32>;
-  constexpr int j = H::kSA + kI;
-  const uint64_t dz = desc_sw128(ring.slot(it0 + j), 1, 64);
+  constexpr int k0 = H::kKFirst + 2 * kG;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int px = 0; px < kPieces; ++px)
+      ldsm_x4(xf[px][kk], xrow + ((k0 + kk) / 4) * P::kXBlock +
+                              px * kXr * 128 +
+                              (((2 * ((k0 + kk) % 4)) * 16) ^ chunk));
   fence_regs(a);
   wgmma_fence();
 #pragma unroll
   for (int p = 0; p < kPairs; ++p)
 #pragma unroll
-    for (int ks = H::s_lo(kI); ks < H::s_hi(kI); ++ks)
-      wgmma_ss<32>(a,
-                   dx + ((j * P::kXBlock + pair_x(p) * kXr * 128 +
-                          (ks % 4) * 32) >> 4),
+    for (int kk = 0; kk < 2; ++kk) {
+      const int ks = k0 + kk;
+      const uint64_t dz = desc_sw128(ring.slot(it0 + ks / 4), 1, 64);
+      wgmma_rs_k32(a, xf[pair_x(p)][kk],
                    dz + ((pair_z(p) * P::kPiece + (ks % 4) * 32) >> 4),
-                   p > 0 || ks > H::s_lo(kI));
+                   p > 0 || kk > 0);
+    }
   wgmma_commit();
 }
 
@@ -2236,32 +2291,44 @@ template <int kP, int kKb, int kTm, class H>
 __device__ __forceinline__ void res_s(float (&s)[kTm / 2], uint32_t xs,
                                       const ResRing<kP, kKb, kTm>& ring,
                                       int it0) {
-  uint64_t dx = desc_sw128(xs, 1, 64);
-  // an opaque move per call, so that ptxas does not hoist every X
-  // descriptor out of the tile loop into uniform registers
-  asm volatile("mov.b64 %0, %0;" : "+l"(dx));
   if constexpr (kP == 1) {
+    uint64_t dx = desc_sw128(xs, 1, 64);
+    // an opaque move per call, so that ptxas does not hoist every X
+    // descriptor out of the tile loop into uniform registers
+    asm volatile("mov.b64 %0, %0;" : "+l"(dx));
     res_s_bf16<kKb, H>(s, dx, ring, it0);
     wgmma_wait<0>();
     fence_regs(s);
   } else {
+    // groups of two k-steps in two sets (accumulators and X fragments):
+    // group g + 1 is issued before group g retires and is promoted
+    static_assert(kTm == 32 && H::kSteps % 2 == 0, "two k-steps a group");
+    constexpr int kG = H::kSteps / 2;
+    const uint32_t lane = threadIdx.x % 32;
+    // this lane's ldmatrix row (of the 64) and the 16-byte chunk bits
+    // that the row's swizzle and the lane's matrix put on its address
+    const uint32_t row =
+        16 * ((threadIdx.x % 128) / 32) + 8 * ((lane / 8) % 2) + lane % 8;
+    const uint32_t chunk = ((lane / 16) * 16) ^ ((lane % 8) * 16);
     float a[2][16];
+    uint32_t xf[2][3][2][4];
 #pragma unroll
     for (int e = 0; e < 16; ++e) s[e] = 0.f;
-    unroll<H::kSN>([&](auto ic) {
-      constexpr int i = decltype(ic)::value;
-      res_s_f32<kKb, H, i>(a[i % 2], dx, ring, it0);
-      if constexpr (i > 0) {
+    unroll<kG>([&](auto gc) {
+      constexpr int g = decltype(gc)::value;
+      res_s_f32<kKb, H, g>(a[g % 2], xf[g % 2], xs + row * 128, chunk, ring,
+                           it0);
+      if constexpr (g > 0) {
         wgmma_wait<1>();
-        fence_regs(a[(i - 1) % 2]);
+        fence_regs(a[(g - 1) % 2]);
 #pragma unroll
-        for (int e = 0; e < 16; ++e) s[e] += a[(i - 1) % 2][e];
+        for (int e = 0; e < 16; ++e) s[e] += a[(g - 1) % 2][e];
       }
     });
     wgmma_wait<0>();
-    fence_regs(a[(H::kSN - 1) % 2]);
+    fence_regs(a[(kG - 1) % 2]);
 #pragma unroll
-    for (int e = 0; e < 16; ++e) s[e] += a[(H::kSN - 1) % 2][e];
+    for (int e = 0; e < 16; ++e) s[e] += a[(kG - 1) % 2][e];
   }
 }
 
@@ -2333,13 +2400,13 @@ __device__ __forceinline__ void res_chunk(float (&acc)[kN / 2],
 }
 
 // The bf16 contraction: chunk i + 1 issued before chunk i retires and is
-// added into its sums (two accumulator sets); the chunks' slots are
-// released once all have retired.
-template <int kKb, class H>
+// added into its sums (two accumulator sets); once all have retired,
+// `retired()`, then the chunks' slots are released.
+template <int kKb, class H, class F>
 __device__ __forceinline__ void res_c_bf16(float (&sums)[H::kHalves][16],
                                            const uint32_t (&wf)[1][4][4],
                                            const ResRing<1, kKb, 64>& ring,
-                                           int it0) {
+                                           int it0, const F& retired) {
   float acc[2][32];
   float acch[16];   // a half chunk's
   auto promote = [&](auto ic) {
@@ -2372,6 +2439,7 @@ __device__ __forceinline__ void res_c_bf16(float (&sums)[H::kHalves][16],
   });
   wgmma_wait<0>();
   promote(std::integral_constant<int, H::kCN - 1>{});
+  retired();
   unroll<H::kCN>([&](auto ic) {
     ring.release(it0 + H::kCA + decltype(ic)::value);
   });
@@ -2394,40 +2462,134 @@ __device__ __forceinline__ void kahan16(float (&sums)[16], uint32_t (&comp)[8],
   }
 }
 
-// The f32 contraction: the chunks one at a time, last first, each retired
-// and its slot released before the next is issued (issuing chunk i + 1
-// before chunk i retires, on a second accumulator set, measured slower on
-// the card: PERF.md, section 6). Each chunk's products (six pairs x 2
-// k-steps) start from zero and are added into the f32 sums by compensated
-// (Kahan) summation, the compensation kept as bf16 pairs: a sum over
-// thousands of tiles then carries the rounding error of a few additions,
-// not of thousands.
-template <int kKb, class H>
+// The f32 contraction, the chunks last first. Each chunk's products (six
+// pairs x 2 k-steps) start from zero and are added into the f32 sums by
+// compensated (Kahan) summation, the compensation kept as bf16 pairs: a
+// sum over thousands of tiles then carries the rounding error of a few
+// additions, not of thousands. A warpgroup whose columns are whole chunks
+// issues chunk i - 1 (on a second accumulator set) before chunk i retires
+// and is added in; one with a half chunk (kq / 2 not a multiple of 64)
+// retires each chunk before it issues the next (two sets with a half
+// chunk's measured slower on the card, at 254 registers: PERF.md,
+// section 6). A chunk's slot is released once it has retired, and
+// `retired()` runs after the last chunk is added in.
+template <int kKb, class H, class F>
 __device__ __forceinline__ void res_c_f32(float (&sums)[H::kHalves][16],
                                           uint32_t (&comp)[H::kHalves][8],
                                           const uint32_t (&wf)[3][2][4],
                                           const ResRing<3, kKb, 32>& ring,
-                                          int it0) {
+                                          int it0, const F& retired) {
+  // chunk i, retired, into the sums (a: a chunk's 32 or a half chunk's 16)
+  auto add = [&](auto ic, const auto& a) {
+    constexpr int i = decltype(ic)::value;
+    constexpr int h0 = H::c_lo(i) - H::kHFirst;
+    ring.release(it0 + H::kCA + i);
+    kahan16<0>(sums[h0], comp[h0], a);
+    if constexpr (std::extent<std::remove_reference_t<decltype(a)>>::value ==
+                  32)
+      kahan16<16>(sums[h0 + 1], comp[h0 + 1], a);
+    if constexpr (i == 0) retired();
+  };
+  if constexpr (H::kHalves % 2 == 0 && H::kCN > 1) {
+    float acc[2][32];
+    unroll<H::kCN>([&](auto nc) {
+      constexpr int n = decltype(nc)::value, i = H::kCN - 1 - n;
+      res_chunk<3, kKb, 32, H, i, 64>(acc[n % 2], wf, ring, it0);
+      if constexpr (n > 0) {
+        wgmma_wait<1>();
+        fence_regs(acc[(n - 1) % 2]);
+        add(std::integral_constant<int, i + 1>{}, acc[(n - 1) % 2]);
+      }
+    });
+    wgmma_wait<0>();
+    fence_regs(acc[(H::kCN - 1) % 2]);
+    add(std::integral_constant<int, 0>{}, acc[(H::kCN - 1) % 2]);
+    return;
+  }
   float acc[32];    // a chunk's
   float acch[16];   // a half chunk's
   unroll<H::kCN>([&](auto nc) {
     constexpr int i = H::kCN - 1 - decltype(nc)::value;
-    constexpr int h0 = H::c_lo(i) - H::kHFirst;
     if constexpr (H::c_hi(i) - H::c_lo(i) == 2) {
       res_chunk<3, kKb, 32, H, i, 64>(acc, wf, ring, it0);
       wgmma_wait<0>();
       fence_regs(acc);
-      ring.release(it0 + H::kCA + i);
-      kahan16<0>(sums[h0], comp[h0], acc);
-      kahan16<16>(sums[h0 + 1], comp[h0 + 1], acc);
+      add(std::integral_constant<int, i>{}, acc);
     } else {
       res_chunk<3, kKb, 32, H, i, 32>(acch, wf, ring, it0);
       wgmma_wait<0>();
       fence_regs(acch);
-      ring.release(it0 + H::kCA + i);
-      kahan16<0>(sums[h0], comp[h0], acch);
+      add(std::integral_constant<int, i>{}, acch);
     }
   });
+}
+
+// The S partial of tile t over the warpgroup's k-steps into s (retired),
+// and the tile's S k-blocks its contraction does not read released.
+template <int kP, int kKb, int kTm, class H>
+__device__ __forceinline__ void res_s_tile(float (&s)[kTm / 2], uint32_t xs,
+                                           const ResRing<kP, kKb, kTm>& ring,
+                                           int t) {
+  const int it0 = t * kKb;
+  ring.template wait<H::kSN>(it0 + H::kSA);
+  res_s<kP, kKb, kTm, H>(s, xs, ring, it0);
+  unroll<H::kSN>([&](auto ic) {   // the S k-blocks C does not read
+    constexpr int j = H::kSA + decltype(ic)::value;
+    if constexpr (!H::in_c(j)) ring.release(it0 + j);
+  });
+}
+
+struct NoOp {
+  __device__ __forceinline__ void operator()() const {}
+};
+
+// Tile t after S: W from the S totals s and the Y tile, then the
+// contraction into the warpgroup's columns (sums, and comp on the f32
+// route); the Y tile and the contraction's k-blocks are released.
+// `retired()` runs once the contraction's products have retired: on the
+// bf16 route before its slots are released (a release fence just after
+// the loads that a release starts waits for them), on the f32 route at
+// the end (its ring, one tile ahead, wants the next loads started first;
+// PERF.md, section 6).
+template <int kP, int kKb, int kTm, class H, class F = NoOp>
+__device__ __forceinline__ void res_wc_tile(
+    float (&sums)[H::kHalves][16],
+    uint32_t (&comp)[kP == 1 ? 1 : H::kHalves][8], const float (&s)[kTm / 2],
+    const ResRing<kP, kKb, kTm>& ring, int t, uint32_t r0, uint32_t q,
+    const F& retired = F()) {
+  const int it0 = t * kKb;
+  uint32_t wf[kP][kTm / 16][4];
+  ring.wait_y(t);
+  res_w<kP, kTm>(wf, s, ring.yslot(t), ring.item, r0, q);
+  __syncwarp();
+  ring.release_y(t);
+#pragma unroll
+  for (int p = 0; p < kP; ++p) fence_frags(wf[p]);
+  ring.template wait<H::kCN>(it0 + H::kCA);
+  if constexpr (kP == 1)
+    res_c_bf16<kKb, H>(sums, wf, ring, it0, retired);
+  else
+    res_c_f32<kKb, H>(sums, comp, wf, ring, it0, retired);
+}
+
+// The warpgroup's sums into `out` (rows of ldo values; the CTA's columns
+// start at col0): half chunk h is columns 32 (kH0 + h) + 8 j + 2 q + e,
+// element (j, hh, e) at register 4 j + 2 hh + e, row r0 + 8 hh.
+template <class H>
+__device__ __forceinline__ void res_store(const float (&sums)[H::kHalves][16],
+                                          const Role& role, int nx,
+                                          uint32_t r0, uint32_t q, int col0,
+                                          int ldo) {
+#pragma unroll
+  for (int h = 0; h < H::kHalves; ++h)
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const int row = role.x0 + r0 + 8 * ((i / 2) % 2);
+      const int col = col0 + 32 * (H::kHFirst + h) + 8 * (i / 4) + 2 * q;
+      if (row < nx)
+        *reinterpret_cast<float2*>(role.out + (long long)row * ldo + col) =
+            make_float2(sums[h][i], sums[h][i + 1]);
+    }
 }
 
 // One warpgroup's sweep (H: its k-steps and half chunks). xch: the S
@@ -2446,7 +2608,6 @@ __device__ __forceinline__ void res_sweep(const ResRing<kP, kKb, kTm>& ring,
   float sums[kNh][16];                    // per half chunk of 32 columns
   uint32_t comp[kP == 1 ? 1 : kNh][8];    // f32: the sums' compensation
   float s[kE];
-  uint32_t wf[kP][kTm / 16][4];
 #pragma unroll
   for (int h = 0; h < kNh; ++h)
 #pragma unroll
@@ -2459,13 +2620,7 @@ __device__ __forceinline__ void res_sweep(const ResRing<kP, kKb, kTm>& ring,
   for (int e = 0; e < kE; ++e) s[e] = 0.f;
 
   for (int t = 0; t < ring.ntiles; ++t) {
-    const int it0 = t * kKb;
-    ring.template wait<H::kSN>(it0 + H::kSA);
-    res_s<kP, kKb, kTm, H>(s, xs, ring, it0);
-    unroll<H::kSN>([&](auto ic) {   // the S k-blocks C does not read
-      constexpr int j = H::kSA + decltype(ic)::value;
-      if constexpr (!H::in_c(j)) ring.release(it0 + j);
-    });
+    res_s_tile<kP, kKb, kTm, H>(s, xs, ring, t);
     // the partials meet: barrier 1, the other warpgroup has read the last
     // tile's; barrier 2, both are written
     named_sync(1);
@@ -2474,31 +2629,50 @@ __device__ __forceinline__ void res_sweep(const ResRing<kP, kKb, kTm>& ring,
     named_sync(2);
 #pragma unroll
     for (int e = 0; e < kE; ++e) s[e] += lds_f32(theirs + 512 * e);
-    ring.wait_y(t);
-    res_w<kP, kTm>(wf, s, ring.yslot(t), ring.item, r0, q);
-    __syncwarp();
-    ring.release_y(t);
-#pragma unroll
-    for (int p = 0; p < kP; ++p) fence_frags(wf[p]);
-    ring.template wait<H::kCN>(it0 + H::kCA);
-    if constexpr (kP == 1)
-      res_c_bf16<kKb, H>(sums, wf, ring, it0);
-    else
-      res_c_f32<kKb, H>(sums, comp, wf, ring, it0);
+    res_wc_tile<kP, kKb, kTm, H>(sums, comp, s, ring, t, r0, q);
   }
+  res_store<H>(sums, role, nx, r0, q, 0, P::kKq);
+}
 
-  // half chunk h: columns 32 (kH0 + h) + 8 j + 2 q + e, element (j, hh, e)
-  // at register 4 j + 2 hh + e, row r0 + 8 hh
-#pragma unroll
-  for (int h = 0; h < kNh; ++h)
-#pragma unroll
-    for (int i = 0; i < 16; i += 2) {
-      const int row = role.x0 + r0 + 8 * ((i / 2) % 2);
-      const int col = 32 * (H::kHFirst + h) + 8 * (i / 4) + 2 * q;
-      if (row < nx)
-        *reinterpret_cast<float2*>(role.out + (long long)row * P::kKq + col) =
-            make_float2(sums[h][i], sums[h][i + 1]);
+// The resident and the cluster kernels' start: thread 0 initialises the
+// rings' barriers, then (after the CTA's barrier) loads the CTA's kKb
+// stationary k-blocks from column col0 (mx: boxes of 64 rows) and the
+// first moving k-blocks (mz: boxes of kTm rows) and Y tiles. Returns the
+// ring.
+template <int kP, int kKb, int kTm>
+__device__ __forceinline__ ResRing<kP, kKb, kTm> res_start(
+    uint32_t xs, uint32_t bars, uint32_t xbar, int* claims, const Role& role,
+    const CUtensorMap* mx, const CUtensorMap* mz, const CUtensorMap* myu,
+    const CUtensorMap* myi, int col0) {
+  using P = ResPlan<kP, kKb, kTm>;
+  const int ntiles = (role.z_end - role.z_begin + kTm - 1) / kTm;
+  const ResRing<kP, kKb, kTm> ring{
+      xs + P::kSlotOff, xs + P::kYOff, bars, mz, myu, myi, role.item,
+      role.x0, role.z_begin, ntiles, claims, col0};
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < P::kSlots; ++s) {
+      mbar_init(bars + 8 * s, 1);                       // full
+      mbar_init(bars + 8 * (P::kSlots + s), 8);         // empty: 8 warps
+      claims[s] = s;
     }
+    for (int s = 0; s < kResY; ++s) {
+      mbar_init(ring.yfull(s), 1);
+      mbar_init(ring.yempty(s), 8);
+      claims[P::kSlots + s] = s;
+    }
+    mbar_init(xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(xbar, kKb * P::kXBlock);
+    for (int j = 0; j < kKb; ++j)
+      tma_load_3d(xs + j * P::kXBlock, mx, col0 + 64 * j, role.x0, 0, xbar);
+    for (int it = 0; it < P::kSlots && it < ntiles * kKb; ++it) ring.load(it);
+    for (int t = 0; t < kResY && t < ntiles; ++t) ring.load_y(t);
+  }
+  return ring;
 }
 
 // Grid: the role blocks of csrc/dense_roles.cuh over 64-row stationary
@@ -2528,35 +2702,10 @@ dense_res_kernel(const __grid_constant__ CUtensorMap map_ax,
 
   const Role role = role_of<kXr, kTm>(n, m, P::kKq, split_a, split_b, acc_a,
                                       acc_b, part_a, part_b);
-  const int ntiles = (role.z_end - role.z_begin + kTm - 1) / kTm;
-  const ResRing<kP, kKb, kTm> ring{
-      xs + P::kSlotOff, xs + P::kYOff, bars, role.item ? &map_az : &map_bz,
-      &map_yu, &map_yi, role.item, role.x0, role.z_begin, ntiles, claims};
+  const ResRing<kP, kKb, kTm> ring = res_start<kP, kKb, kTm>(
+      xs, bars, xbar, claims, role, role.item ? &map_bx : &map_ax,
+      role.item ? &map_az : &map_bz, &map_yu, &map_yi, 0);
   const int tid = threadIdx.x;
-  if (tid == 0) {
-    for (int s = 0; s < P::kSlots; ++s) {
-      mbar_init(bars + 8 * s, 1);                       // full
-      mbar_init(bars + 8 * (P::kSlots + s), 8);         // empty: 8 warps
-      claims[s] = s;
-    }
-    for (int s = 0; s < kResY; ++s) {
-      mbar_init(ring.yfull(s), 1);
-      mbar_init(ring.yempty(s), 8);
-      claims[P::kSlots + s] = s;
-    }
-    mbar_init(xbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (tid == 0) {
-    const CUtensorMap* mx = role.item ? &map_bx : &map_ax;
-    mbar_expect_tx(xbar, kKb * P::kXBlock);
-    for (int j = 0; j < kKb; ++j)
-      tma_load_3d(xs + j * P::kXBlock, mx, 64 * j, role.x0, 0, xbar);
-    for (int it = 0; it < P::kSlots && it < ntiles * kKb; ++it) ring.load(it);
-    for (int t = 0; t < kResY && t < ntiles; ++t) ring.load_y(t);
-  }
-
   const int g = __shfl_sync(0xffffffffu, tid / 128, 0);
   const int lane = tid % 32;
   const uint32_t r0 = 16 * ((tid % 128) / 32) + lane / 4, q = lane % 4;
@@ -2670,6 +2819,477 @@ extern "C" int hpf_dense_res_f32(const void* a, const void* b, const void* y,
       return launch_res<kPieces, 5, 32>(a, b, y, acc_a, acc_b, part_a,
                                         part_b, n, m, ldy, split_a, split_b,
                                         st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---- wide rows: the cluster design -----------------------------------------
+//
+// dense_cluster_kernel takes kernel #1's wide routes past the resident
+// kernel's widths, up to the widest a cluster of 8 CTAs holds: f32 rows
+// of 321-2560 packed values, bf16 rows of 385-3072 (dense_wide_kernel, the
+// streamed design, keeps the wider rows). It replaces the TPU kernel
+// dense_pallas.py::_kernel at those widths.
+//
+// What stops dense_res_kernel past 320 f32 / 384 bf16 values is one CTA's
+// room: its 64 resident stationary rows take 6 bytes a value on the f32
+// route (120 KB at kq = 320 of the 227 KB a block may use), and on the
+// bf16 route each warpgroup holds kq / 4 f32 sums a thread. A thread-block
+// cluster of c CTAs, which read each other's shared memory, splits the
+// row between them:
+//   * Layout. The c CTAs of a cluster share one role block of
+//     csrc/dense_roles.cuh (role_at of the cluster's index: one 64-row
+//     stationary tile and one chunk of moving tiles, the two deterministic
+//     roles, reduce_splits for split > 1). The packed row is c shares of
+//     kKb k-blocks, c = max(2, ceil(kq / 320)) on the f32 route and
+//     max(2, ceil(kq / 384)) on the bf16 route (the wrapper pads kq to
+//     c kKb 64 values). CTA r, the cluster's rank r, runs dense_res_kernel
+//     on share r: it holds the share's stationary k-blocks resident (at
+//     most 120 KB of pieces f32), stages only the share's k-blocks of each
+//     moving tile (32 rows f32, 64 bf16) into its ring, read K-major for S
+//     and MN-major for the contraction, and its two warpgroups split the
+//     share's S k-steps and output columns as ResHalf does.
+//   * S. The CTAs' partials of S meet through distributed shared memory
+//     (ClusterXch): in each CTA warpgroup 1 stores its partial and hands
+//     it over through an mbarrier (it does not wait), warpgroup 0 adds it
+//     to its own and stores the CTA's partial in one of two buffers; the
+//     cluster meets at a barrier (barrier.cluster.arrive / wait.acquire),
+//     and every warpgroup reads the c partials (its own CTA's locally, the
+//     others' by mapa and ld.shared::cluster, a float4 a load; on the f32
+//     route with two CTAs the other's is fetched before the combine) and
+//     adds them in the same order, CTA 0 to c - 1: all 2c warpgroups hold
+//     the same bits of S and form the same W. A split arrive / wait keeps
+//     the meeting off the path: a warpgroup arrives once its CTA's partial
+//     of tile t + 1 is stored and it has read and used tile t's (after
+//     the tile's contraction, bf16 before it releases the contraction's
+//     slots: warpgroup 0's arrival releases its stores, and its fence
+//     waits for the stores and loads just issued; warpgroup 1 stores
+//     nothing the other CTAs read, and arrives relaxed), and waits on
+//     that phase only after it has formed the partial of tile t + 2, by
+//     when the other CTAs are there. Forming tile t + 1's S before tile
+//     t's W needs the ring to hold two tiles' k-blocks and the registers
+//     one more phase: an f32 share of five k-blocks (120 KB resident)
+//     leaves room for 7, a bf16 share of six spilled, and there the tile's
+//     S, the meeting and W follow each other. Clusters of more CTAs on
+//     smaller shares, and one-warpgroup CTAs two an SM, measured slower
+//     (PERF.md, section 6).
+//   * Y and the contraction. Each CTA loads the tile's Y (2 KB f32, 4 KB
+//     bf16) by TMA itself, beside its share of the moving tile (kKb times
+//     12 KB f32, 8 KB bf16), and contracts W into its share's output
+//     columns only: no column is summed across CTAs, there are no atomics,
+//     and two launches give the same bits.
+//   * Promotion and precision as dense_res_kernel: no wgmma accumulator
+//     sums more than 24 products; on the f32 route the contraction's sums
+//     are compensated.
+//   * Issued work 8 N M kq products (x 6 bf16 on the f32 route), S once per
+//     tile; staged: each factor once (a stationary tile's k-blocks once
+//     across its cluster, each moving tile's share once per CTA), Y c times
+//     (dense_fused.wide_plan).
+
+namespace {
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_ctas() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared-memory address `addr` of this CTA as the same offset in the
+// shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ uint32_t at_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void sts_v4(uint32_t addr, const float* v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+               : "memory");
+}
+
+__device__ __forceinline__ void lds_v4(uint32_t addr, float* v) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ld_cluster_v4(uint32_t addr, float* v) {
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// Where a cluster's S partials meet: in each CTA two buffers (tile t in
+// buffer t % 2, the resident kernel's exchange area) of its partial, f32
+// [kE / 4][128 threads][4]: elements 4 i .. 4 i + 3 of thread j at
+// 16 (128 i + j), so that each access is a float4 and a warp's are
+// consecutive.
+template <int kE>
+struct ClusterXch {
+  uint32_t mine;   // this thread's first float4 in buffer 0
+  uint32_t hand;   // the handoff barriers, one a buffer
+  int g, c, rank;
+  __device__ __forceinline__ ClusterXch(uint32_t xch, uint32_t bars, int wg,
+                                        int ctas, int cta)
+      : mine(xch + 16 * (threadIdx.x % 128)), hand(bars), g(wg), c(ctas),
+        rank(cta) {}
+  __device__ __forceinline__ uint32_t at(int t) const {
+    return mine + (t % 2) * kE * 512;
+  }
+  // the CTA's partial of tile t into its buffer: warpgroup 1 stores its
+  // own and hands it over (each warp arrives on the buffer's handoff
+  // barrier, and does not wait), warpgroup 0 waits for it, adds it to its
+  // own and stores the sum in its place
+  __device__ __forceinline__ void combine(float (&s)[kE], int t) const {
+    const uint32_t a = at(t), bar = hand + 8 * (t % 2);
+    if (g == 1) {
+#pragma unroll
+      for (int i = 0; i < kE / 4; ++i) sts_v4(a + 2048 * i, s + 4 * i);
+      __syncwarp();
+      if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+    } else {
+      mbar_wait(bar, (t / 2) & 1);
+#pragma unroll
+      for (int i = 0; i < kE / 4; ++i) {
+        float v[4];
+        lds_v4(a + 2048 * i, v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[4 * i + e] += v[e];
+        sts_v4(a + 2048 * i, s + 4 * i);
+      }
+    }
+  }
+  // the other CTA's partial of tile t into pf, for a cluster of two: its
+  // loads are in flight while the caller does other work
+  __device__ __forceinline__ void fetch(float (&pf)[kE], int t) const {
+    const uint32_t a = at_rank(at(t), 1 - rank);
+#pragma unroll
+    for (int i = 0; i < kE / 4; ++i) ld_cluster_v4(a + 2048 * i, pf + 4 * i);
+  }
+  // S of tile t in a cluster of two, the other CTA's partial fetched into
+  // pf: the sum of two (IEEE addition commutes: the same in both CTAs)
+  __device__ __forceinline__ void total(float (&s)[kE], int t,
+                                        const float (&pf)[kE]) const {
+#pragma unroll
+    for (int i = 0; i < kE / 4; ++i) {
+      float v[4];
+      lds_v4(at(t) + 2048 * i, v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[4 * i + e] = v[e] + pf[4 * i + e];
+    }
+  }
+  // S of tile t: the c CTAs' partials added in the order CTA 0 .. c - 1,
+  // the same in every CTA (its own read from its own shared memory)
+  __device__ __forceinline__ void total(float (&s)[kE], int t) const {
+    for (int r = 0; r < c; ++r) {
+      const uint32_t a = r == rank ? at(t) : at_rank(at(t), r);
+#pragma unroll
+      for (int i = 0; i < kE / 4; ++i) {
+        float v[4];
+        if (r == rank)
+          lds_v4(a + 2048 * i, v);
+        else
+          ld_cluster_v4(a + 2048 * i, v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * i + e] = r == 0 ? v[e] : s[4 * i + e] + v[e];
+      }
+    }
+  }
+  // this thread has stored what the other CTAs read (warpgroup 0: the
+  // CTA's partial; release) or only read (warpgroup 1: the values are in
+  // its registers; relaxed)
+  __device__ __forceinline__ void arrive() const {
+    if (g == 0)
+      cluster_arrive();
+    else
+      cluster_arrive_relaxed();
+  }
+};
+
+// One warpgroup's sweep in a cluster (H: its k-steps and half chunks of
+// the CTA's share). The cluster meets at a barrier once a tile; each
+// phase A(t) ends when every thread of the cluster has arrived after its
+// CTA's partial of tile t is stored and the partials of tile t - 1 are
+// read (each buffer is then free two tiles later). kAhead: tile t + 1's S
+// partial is formed and stored before tile t's totals are read, so that
+// the wait on A(t) finds the other CTAs there already; it needs the ring
+// to hold two tiles' k-blocks (tile t's contraction has not released
+// them), else the tile's S, the meeting and W follow each other.
+template <int kP, int kKb, int kTm, class H, bool kAhead>
+__device__ __forceinline__ void cluster_sweep(
+    const ResRing<kP, kKb, kTm>& ring, uint32_t xs,
+    const ClusterXch<kTm / 2>& xch, uint32_t r0, uint32_t q,
+    const Role& role, int nx, int col0, int ldo) {
+  constexpr int kE = kTm / 2, kNh = H::kHalves;
+  static_assert(!kAhead || ResPlan<kP, kKb, kTm>::kSlots >= 2 * kKb,
+                "two tiles' k-blocks in the ring");
+  float sums[kNh][16];
+  uint32_t comp[kP == 1 ? 1 : kNh][8];
+  float s[kE];
+#pragma unroll
+  for (int h = 0; h < kNh; ++h)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) sums[h][e] = 0.f;
+#pragma unroll
+  for (int h = 0; h < (kP == 1 ? 1 : kNh); ++h)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) comp[h][e] = 0u;
+#pragma unroll
+  for (int e = 0; e < kE; ++e) s[e] = 0.f;
+
+  const int n = ring.ntiles;
+  if constexpr (kAhead) {
+    if (n > 0) {
+      res_s_tile<kP, kKb, kTm, H>(s, xs, ring, 0);
+      xch.combine(s, 0);
+      xch.arrive();                           // A(0)
+    }
+    for (int t = 0; t < n; ++t) {
+      const bool next = t + 1 < n;
+      if (next) res_s_tile<kP, kKb, kTm, H>(s, xs, ring, t + 1);
+      cluster_wait();                         // A(t)
+      // f32, two CTAs: the other CTA's partial of tile t is fetched before
+      // the combine (its registers are what bf16 has not to spare)
+      constexpr bool kFetch = kP == 3;
+      float pf[kE];
+      if (kFetch && xch.c == 2) xch.fetch(pf, t);
+      if (next) xch.combine(s, t + 1);
+      if (kFetch && xch.c == 2)
+        xch.total(s, t, pf);
+      else
+        xch.total(s, t);
+      // A(t + 1), once W and the contraction have run: by then the stores
+      // that warpgroup 0's release orders are long done, and its fence
+      // costs little
+      res_wc_tile<kP, kKb, kTm, H>(sums, comp, s, ring, t, r0, q,
+                                   [&] { xch.arrive(); });
+    }
+    if (n > 0) cluster_wait();    // no CTA leaves while its buffers are read
+  } else {
+    for (int t = 0; t < n; ++t) {
+      res_s_tile<kP, kKb, kTm, H>(s, xs, ring, t);
+      xch.combine(s, t);
+      xch.arrive();                           // A(t)
+      cluster_wait();
+      xch.total(s, t);
+      res_wc_tile<kP, kKb, kTm, H>(sums, comp, s, ring, t, r0, q);
+    }
+    if (n > 0) {                  // no CTA leaves while its buffers are read
+      cluster_arrive_relaxed();
+      cluster_wait();
+    }
+  }
+  res_store<H>(sums, role, nx, r0, q, col0, ldo);
+}
+
+// Grid: c CTAs (one cluster) per role block of csrc/dense_roles.cuh over
+// 64-row stationary tiles; tensor maps as dense_res_kernel's, over the
+// whole packed row of c kKb k-blocks.
+template <int kP, int kKb, int kTm>
+__global__ void __launch_bounds__(kThreadsSplit, 1)
+dense_cluster_kernel(const __grid_constant__ CUtensorMap map_ax,
+                     const __grid_constant__ CUtensorMap map_bx,
+                     const __grid_constant__ CUtensorMap map_az,
+                     const __grid_constant__ CUtensorMap map_bz,
+                     const __grid_constant__ CUtensorMap map_yu,
+                     const __grid_constant__ CUtensorMap map_yi,
+                     float* __restrict__ acc_a, float* __restrict__ acc_b,
+                     float* __restrict__ part_a, float* __restrict__ part_b,
+                     int n, int m, int split_a, int split_b) {
+  using P = ResPlan<kP, kKb, kTm>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t xs = smem_u32(base);
+  const uint32_t bars = xs + P::kBarOff;
+  const uint32_t xbar = bars + P::kXBar;
+  int* claims = reinterpret_cast<int*>(base + P::kBarOff + P::kClaimOff);
+  const uint32_t xch = xs + P::kXchOff;
+
+  const int c = cluster_ctas(), rank = cluster_rank();
+  const int kq = c * P::kKq, col0 = rank * P::kKq;
+  const Role role = role_at<kXr, kTm>(cluster_index(), n, m, kq, split_a,
+                                      split_b, acc_a, acc_b, part_a, part_b);
+  const uint32_t hand = bars + P::kHandOff;
+  if (threadIdx.x == 0)       // before res_start's fence and barrier
+    for (int b = 0; b < 2; ++b) mbar_init(hand + 8 * b, 4);   // 4 warps
+  const ResRing<kP, kKb, kTm> ring = res_start<kP, kKb, kTm>(
+      xs, bars, xbar, claims, role, role.item ? &map_bx : &map_ax,
+      role.item ? &map_az : &map_bz, &map_yu, &map_yi, col0);
+  const int tid = threadIdx.x;
+  const int g = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int lane = tid % 32;
+  const uint32_t r0 = 16 * ((tid % 128) / 32) + lane / 4, q = lane % 4;
+  const int nx = role.item ? m : n;
+  const ClusterXch<P::kE> x(xch, hand, g, c, rank);
+  mbar_wait(xbar, 0);
+  // ahead where the ring holds two tiles and the registers one more
+  // phase (the bf16 share of six k-blocks, 96 sums a thread, spilled)
+  constexpr bool kAhead = P::kSlots >= 2 * kKb && !(kP == 1 && kKb == 6);
+  if (g == 0)
+    cluster_sweep<kP, kKb, kTm, ResHalf<kKb, 2 * kKb, 4 * kKb, 0, kKb>,
+                  kAhead>(ring, xs, x, r0, q, role, nx, col0, kq);
+  else
+    cluster_sweep<kP, kKb, kTm, ResHalf<kKb, 0, 2 * kKb, kKb, 2 * kKb>,
+                  kAhead>(ring, xs, x, r0, q, role, nx, col0, kq);
+}
+
+template <int kP, int kKb, int kTm>
+int launch_cluster(const void* a, const void* b, const void* y, void* acc_a,
+                   void* acc_b, void* part_a, void* part_b, int n, int m,
+                   int c, long long ldy, int split_a, int split_b,
+                   cudaStream_t stream) {
+  using P = ResPlan<kP, kKb, kTm>;
+  if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+  const int kq = c * P::kKq;
+  const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUtensorMap mxa, mxb, mza, mzb, myu, myi;
+  if (!encode_res(&mxa, a, kq, n, kP, kXr) ||
+      !encode_res(&mxb, b, kq, m, kP, kXr) ||
+      !encode_res(&mza, a, kq, n, kP, kTm) ||
+      !encode_res(&mzb, b, kq, m, kP, kTm) ||
+      !encode_2d(&myu, u8, y, m, n, ldy, kTm, kXr,
+                 kTm == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode_2d(&myi, u8, y, m, n, ldy, kXr, kTm,
+                 CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = dense_cluster_kernel<kP, kKb, kTm>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_a = (n + kXr - 1) / kXr, tiles_b = (m + kXr - 1) / kXr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((tiles_a * split_a + tiles_b * split_b) * c);
+  cfg.blockDim = dim3(kThreadsSplit);
+  cfg.dynamicSmemBytes = P::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = c;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, mxa, mxb, mza, mzb, myu, myi,
+                           static_cast<float*>(acc_a),
+                           static_cast<float*>(acc_b),
+                           static_cast<float*>(part_a),
+                           static_cast<float*>(part_b), n, m, split_a,
+                           split_b);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return reduce_partials(acc_a, acc_b, part_a, part_b, n, m, kq, split_a,
+                         split_b, stream);
+}
+
+// The cluster of a packed width: c = max(2, ceil(kq / (64 max_kb))) CTAs of
+// kq / (64 c) k-blocks each; false where kq is not c whole shares or needs
+// more than 8 CTAs (the portable most). ops/dense_fused.py::cluster_shape
+// pads a width to such a row.
+bool cluster_shape(int kq, int max_kb, int* c, int* kb) {
+  if (kq <= 0 || kq % 64 != 0) return false;
+  const int blocks = kq / 64;
+  *c = (blocks + max_kb - 1) / max_kb;
+  if (*c < 2) *c = 2;
+  *kb = blocks / *c;
+  return *c <= 8 && *c * *kb == blocks;
+}
+
+}  // namespace
+
+// The bf16 route's cluster kernel: a, b bf16 [n, kq], [m, kq], rows
+// zero-padded past the factors, kq = c kb 64 values for a cluster of
+// c = max(2, ceil(kq / 384)) <= 8 CTAs of kb in {4, 5, 6} k-blocks each
+// (512-3072 values; ops/dense_fused.py pads to such a width); y, outputs,
+// splits (of 64-row stationary tiles) and scratch as hpf_dense_wgmma_bf16.
+// Returns the cudaError_t of the launches.
+extern "C" int hpf_dense_cluster_bf16(const void* a, const void* b,
+                                      const void* y, void* acc_a,
+                                      void* acc_b, void* part_a,
+                                      void* part_b, int n, int m, int kq,
+                                      long long ldy, int split_a,
+                                      int split_b, void* stream) {
+  int c, kb;
+  if (!cluster_shape(kq, 6, &c, &kb) ||
+      bad_args(a, b, y, part_a, part_b, n, m, ldy, split_a, split_b))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (kb) {
+    case 4:
+      return launch_cluster<1, 4, 64>(a, b, y, acc_a, acc_b, part_a, part_b,
+                                      n, m, c, ldy, split_a, split_b, st);
+    case 5:
+      return launch_cluster<1, 5, 64>(a, b, y, acc_a, acc_b, part_a, part_b,
+                                      n, m, c, ldy, split_a, split_b, st);
+    case 6:
+      return launch_cluster<1, 6, 64>(a, b, y, acc_a, acc_b, part_a, part_b,
+                                      n, m, c, ldy, split_a, split_b, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The f32 route's cluster kernel: a, b the three bf16 pieces of the packed
+// f32 rows, [3, n, kq] and [3, m, kq], kq = c kb 64 values for a cluster of
+// c = max(2, ceil(kq / 320)) <= 8 CTAs of kb in {3, 4, 5} k-blocks each
+// (384-2560 values); the rest as hpf_dense_cluster_bf16.
+extern "C" int hpf_dense_cluster_f32(const void* a, const void* b,
+                                     const void* y, void* acc_a,
+                                     void* acc_b, void* part_a,
+                                     void* part_b, int n, int m, int kq,
+                                     long long ldy, int split_a,
+                                     int split_b, void* stream) {
+  int c, kb;
+  if (!cluster_shape(kq, 5, &c, &kb) ||
+      bad_args(a, b, y, part_a, part_b, n, m, ldy, split_a, split_b))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (kb) {
+    case 3:
+      return launch_cluster<kPieces, 3, 32>(a, b, y, acc_a, acc_b, part_a,
+                                            part_b, n, m, c, ldy, split_a,
+                                            split_b, st);
+    case 4:
+      return launch_cluster<kPieces, 4, 32>(a, b, y, acc_a, acc_b, part_a,
+                                            part_b, n, m, c, ldy, split_a,
+                                            split_b, st);
+    case 5:
+      return launch_cluster<kPieces, 5, 32>(a, b, y, acc_a, acc_b, part_a,
+                                            part_b, n, m, c, ldy, split_a,
+                                            split_b, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

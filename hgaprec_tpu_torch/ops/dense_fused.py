@@ -28,6 +28,11 @@ the packed width kq (K, plus 2 with bias, zero-padded):
     tile once into a ring of k-block slots and forms S once per tile,
     split in half by k-steps between its two warpgroups, which split the
     output columns in half the other way; past those widths
+    `dense_cluster_kernel` ("cluster": bf16 rows of 385-3072 packed
+    values, "cluster_f32": f32 rows of 321-2560), the same design on a
+    thread-block cluster of c CTAs, each holding 1/c of the row's
+    k-blocks and owning their output columns, the S partials summed
+    through distributed shared memory; past those widths
     `dense_wide_kernel`
     ("wide_stream", "wide_stream_f32"), the streamed design: column
     windows of 256 (bf16) or 128 (f32), S formed per window with both
@@ -40,10 +45,10 @@ the packed width kq (K, plus 2 with bias, zero-padded):
 The choice is by width between hand-written kernels, not a fallback: a
 launch that fails raises. A sweep costs 8 N M kq FLOPs (four products of
 2 N M kq: both of the narrow kernels' two deterministic roles recompute
-S; the resident wide kernel forms S once a role as well), six bf16
-products each on the f32 routes, against two uint8 reads of Y, so it is
-compute-bound on the H100. The two-role design trades the fourth product
-for sums without atomics and no item-count limit. The two narrow wgmma
+S; the resident and cluster wide kernels form S once a role as well),
+six bf16 products each on the f32 routes, against two uint8 reads of Y,
+so it is compute-bound on the H100. The two-role design trades the
+fourth product for sums without atomics and no item-count limit. The two narrow wgmma
 kernels are also built once per stage of the stage probe
 (`ops/dense_probe.py`), whose prod stage is the production kernel itself.
 
@@ -69,6 +74,13 @@ SPLIT_KQ_MAX = 128     # widest packed row of the f32 route's wgmma kernel
 # the packed widths of the resident wide kernel's instantiations; wider
 # rows take the streamed wide kernel
 RES_WIDTHS = {"wide": (320, 384), "wide_f32": (192, 256, 320)}
+# the cluster kernel's shares: the fewest and the most k-blocks of 64
+# values one CTA of a cluster holds (its instantiations), and the most
+# CTAs a cluster has; wider rows take the streamed wide kernel
+CLUSTER_SHARES = {"cluster": (4, 6), "cluster_f32": (3, 5)}
+CLUSTER_MAX = 8
+_BF16_KERNELS = ("wgmma", "wide", "cluster", "wide_stream")
+_PIECE_KERNELS = ("f32", "wide_f32", "cluster_f32", "wide_stream_f32")
 
 
 class _Kernel(NamedTuple):
@@ -100,6 +112,12 @@ KERNELS = {
     # stages
     "wide": _Kernel("hpf_dense_res_bf16", None, 0, 64, 1, 8, 0, 64),
     "wide_f32": _Kernel("hpf_dense_res_f32", None, 0, 64, 1, 8, 0, 32),
+    # past them the cluster kernel, dense_cluster_kernel (clusters of c
+    # 256-thread CTAs, one CTA per SM, on 64 stationary rows): bf16 (64
+    # moving rows a tile) and f32 (the pieces, 32); no stages
+    "cluster": _Kernel("hpf_dense_cluster_bf16", None, 0, 64, 1, 8, 0, 64),
+    "cluster_f32": _Kernel("hpf_dense_cluster_f32", None, 0, 64, 1, 8, 0,
+                           32),
     # past those widths the streamed wide kernel, dense_wide_kernel (one
     # 256-thread CTA per SM and column window), bf16 and f32 (the pieces)
     "wide_stream": _Kernel("hpf_dense_wide_bf16", None, 0, 128, 1, 8, 256),
@@ -176,14 +194,18 @@ def packed_width(kaug: int, kernel: str) -> int:
     last partial block): bf16 ("wgmma") is built for kq = 64, 112, 128 and
     256, f32 ("f32") for 64, 112 and 128 (K = 100 takes 112, with or
     without bias), the resident wide kernel for RES_WIDTHS ("wide" 320
-    and 384, "wide_f32" 192, 256 and 320), and the streamed wide kernels
-    ("wide_stream", "wide_stream_f32") take any whole number of k-blocks.
-    "simt" copies rows in 16-byte chunks (multiples of 4 values; the
-    kernel loops over this true width) up to 256. A kernel refuses a
-    wider row with a ValueError that names the kernel its route takes
-    there."""
+    and 384, "wide_f32" 192, 256 and 320), the cluster kernel
+    (`cluster_shape`) c equal shares of whole k-blocks, and the streamed
+    wide kernels ("wide_stream", "wide_stream_f32") any whole number of
+    k-blocks. "simt" copies rows in 16-byte chunks (multiples of 4
+    values; the kernel loops over this true width) up to 256. A kernel
+    refuses a wider row with a ValueError that names the kernel its route
+    takes there."""
     if kernel in ("wide_stream", "wide_stream_f32"):
         return -(-kaug // 64) * 64
+    if kernel in CLUSTER_SHARES:
+        c, kb = cluster_shape(kaug, kernel)
+        return 64 * c * kb
     widths = {"wgmma": (64, 112, 128, KP_MAX),
               "f32": (64, 112, SPLIT_KQ_MAX), **RES_WIDTHS}.get(kernel)
     if widths is None:
@@ -193,35 +215,70 @@ def packed_width(kaug: int, kernel: str) -> int:
         kq = next((w for w in widths if kaug <= w), kaug)
         widest = widths[-1]
     if kq > widest:
-        bf16 = kernel in ("wgmma", "wide")
-        raise ValueError(f"packed factor width {kq} > {widest} for the "
-                         f"{kernel} kernel (its route takes the "
-                         f"{dense_kernel(kaug, bf16)} kernel there)")
+        _too_wide(kq, widest, kaug, kernel)
     return kq
+
+
+def _too_wide(kq: int, widest: int, kaug: int, kernel: str):
+    """Refuse a row of kq values wider than `kernel`'s widest, naming the
+    kernel its route takes."""
+    raise ValueError(f"packed factor width {kq} > {widest} for the "
+                     f"{kernel} kernel (its route takes the "
+                     f"{dense_kernel(kaug, kernel in _BF16_KERNELS)} "
+                     f"kernel there)")
+
+
+def cluster_shape(kaug: int, kernel: str) -> Tuple[int, int]:
+    """(c, kb): the cluster of the cluster kernel ("cluster",
+    "cluster_f32") for `kaug` values: c = max(2, ceil(kq0 / (64 most)))
+    CTAs (kq0: kaug padded to whole k-blocks of 64 values, `most` the
+    widest share of CLUSTER_SHARES: 320 f32, 384 bf16 values) of
+    kb = ceil(kq0 / (64 c)) k-blocks each, at least its fewest; the
+    packed width is 64 c kb (csrc/dense_wgmma.cu, cluster_shape, takes
+    the cluster back from it). Raises ValueError past CLUSTER_MAX CTAs."""
+    fewest, most = CLUSTER_SHARES[kernel]
+    blocks = -(-kaug // 64)
+    c = max(2, -(-blocks // most))
+    if c > CLUSTER_MAX:
+        _too_wide(64 * blocks, 64 * most * CLUSTER_MAX, kaug, kernel)
+    return c, max(fewest, -(-blocks // c))
+
+
+def cluster_size(kq: int, kernel: str) -> int:
+    """CTAs a cluster of `kernel` has at packed width kq: c of
+    `cluster_shape` for the cluster kernel, 1 for the others."""
+    return cluster_shape(kq, kernel)[0] if kernel in CLUSTER_SHARES else 1
 
 
 def dense_kernel(kaug: int, bf16: bool) -> str:
     """The kernel (a key of KERNELS) a sweep takes for `kaug` values:
     bf16 "wgmma" up to 256 packed values, the resident wide kernel
-    ("wide") up to 384 and the streamed one ("wide_stream") past it; f32
-    `f32_kernel`'s."""
+    ("wide") up to 384, the cluster kernel ("cluster") up to 3072 and the
+    streamed one ("wide_stream") past it; f32 `f32_kernel`'s."""
     if not bf16:
         return f32_kernel(kaug)
     if kaug <= KP_MAX:
         return "wgmma"
-    return "wide" if kaug <= RES_WIDTHS["wide"][-1] else "wide_stream"
+    return _wide_kernel(kaug, "wide", "cluster", "wide_stream")
 
 
 def f32_kernel(kaug: int) -> str:
     """The f32 route's kernel (a key of KERNELS) for `kaug` values: the
     split-product wgmma kernel ("f32") up to kq = 128, the resident wide
-    kernel's f32 route ("wide_f32") up to 320, the streamed one
-    ("wide_stream_f32") above. dense_simt.cu ("simt") is on no route."""
+    kernel's f32 route ("wide_f32") up to 320, the cluster kernel's
+    ("cluster_f32") up to 2560, the streamed one ("wide_stream_f32")
+    above. dense_simt.cu ("simt") is on no route."""
     if kaug <= SPLIT_KQ_MAX:
         return "f32"
-    if kaug <= RES_WIDTHS["wide_f32"][-1]:
-        return "wide_f32"
-    return "wide_stream_f32"
+    return _wide_kernel(kaug, "wide_f32", "cluster_f32", "wide_stream_f32")
+
+
+def _wide_kernel(kaug: int, res: str, cluster: str, stream: str) -> str:
+    if kaug <= RES_WIDTHS[res][-1]:
+        return res
+    if kaug <= 64 * CLUSTER_SHARES[cluster][1] * CLUSTER_MAX:
+        return cluster
+    return stream
 
 
 def windows(kq: int, kernel: str) -> int:
@@ -234,18 +291,21 @@ def windows(kq: int, kernel: str) -> int:
 
 
 def wide_plan(n: int, m: int, kaug: int, kernel: str) -> Dict[str, float]:
-    """What a launch of a wide kernel ("wide", "wide_f32", "wide_stream",
-    "wide_stream_f32") on an N x M sweep of `kaug` values issues and
-    stages, from its plan: kq; windows; S formations per (stationary,
-    moving) pair; `issued`, the FLOPs of its tensor-core products (both
-    roles; x 6 bf16 products on the f32 routes); `staged`, the bytes its
-    TMA loads bring into shared memory (every CTA's stationary rows and
-    every moving tile and Y tile it sweeps: the streamed kernel restages
-    the stationary k-blocks per moving tile and the moving tile per
-    window, the resident one stages each once)."""
+    """What a launch of a wide kernel ("wide", "wide_f32", "cluster",
+    "cluster_f32", "wide_stream", "wide_stream_f32") on an N x M sweep of
+    `kaug` values issues and stages, from its plan: kq; CTAs a cluster;
+    windows; S formations per (stationary, moving) pair; `issued`, the
+    FLOPs of its tensor-core products (both roles; x 6 bf16 products on
+    the f32 routes); `staged`, the bytes its TMA loads bring into shared
+    memory (every CTA's stationary rows and every moving tile and Y tile
+    it sweeps: the streamed kernel restages the stationary k-blocks per
+    moving tile and the moving tile per window, the resident one stages
+    each once, the cluster kernel each factor once and Y once per CTA of
+    a cluster)."""
     spec = KERNELS[kernel]
     kq = packed_width(kaug, kernel)
     nwin = windows(kq, kernel)
+    c = cluster_size(kq, kernel)
     pieces = 3 if kernel.endswith("f32") else 1
     x, z = spec.tile, spec.moving
     staged = 0
@@ -254,7 +314,7 @@ def wide_plan(n: int, m: int, kaug: int, kernel: str) -> Dict[str, float]:
         pairs = tiles_x * tiles_z
         if nwin == 1:
             staged += (tiles_x * pieces * x * kq * 2
-                       + pairs * (pieces * z * kq * 2 + x * z))
+                       + pairs * (pieces * z * kq * 2 + c * x * z))
         else:
             s_items = (kq // 64) * pieces * (x + z) * 128
             c_items = sum(pieces * min(spec.window, kq - w * spec.window)
@@ -262,8 +322,8 @@ def wide_plan(n: int, m: int, kaug: int, kernel: str) -> Dict[str, float]:
             staged += pairs * (nwin * s_items + c_items)
     forms = 1 if nwin == 1 else nwin
     issued = 4 * n * m * kq * (forms + 1) * (6 if pieces == 3 else 1)
-    return dict(kq=kq, windows=nwin, s_forms=forms, issued=issued,
-                staged=staged)
+    return dict(kq=kq, cluster=c, windows=nwin, s_forms=forms,
+                issued=issued, staged=staged)
 
 
 def check_tma_layout(dense_y: torch.Tensor) -> None:
@@ -279,7 +339,7 @@ def check_tma_layout(dense_y: torch.Tensor) -> None:
 
 
 def splits_for(n: int, m: int, sms: int, kernel: str,
-               nwin: int = 1) -> Tuple[int, int]:
+               nwin: int = 1, kq: int = 0) -> Tuple[int, int]:
     """(split_a, split_b): chunks per user-role and item-role CTA loop.
 
     One CTA per stationary tile leaves most of the card idle when N and M
@@ -289,16 +349,19 @@ def splits_for(n: int, m: int, sms: int, kernel: str,
     thousands of tiles long and the item role splits in two; at the
     EchoNest head (4096 items) the item role splits in nine. The streamed
     wide kernels run `nwin` column windows of each, which count toward
-    the four. The resident wide kernel, whose CTAs are few and long at
-    small shapes, takes the split that `_resident_splits` finds
-    fills the card's last wave best."""
+    the four. The cluster kernel at packed width `kq` runs c CTAs per
+    role block (cluster_size), so the card holds sms // c clusters at
+    once: its splits fill that many slots with whole clusters. The
+    resident and cluster wide kernels, whose CTAs are few and long at
+    small shapes, take the split that `_resident_splits` finds fills the
+    card's last wave best."""
     spec = KERNELS[kernel]
     tiles_a, tiles_b = -(-n // spec.tile), -(-m // spec.tile)
-    slots = spec.per_sm * sms
+    slots = spec.per_sm * sms // cluster_size(kq, kernel)
     chunk = max(spec.min_chunk,
                 -(-2 * tiles_a * tiles_b * nwin // (4 * slots)))
     split = (-(-tiles_b // chunk), -(-tiles_a // chunk))
-    if kernel in RES_WIDTHS and \
+    if (kernel in RES_WIDTHS or kernel in CLUSTER_SHARES) and \
             tiles_a * split[0] + tiles_b * split[1] <= 16 * slots:
         return _resident_splits(n, m, slots, spec.tile, spec.moving,
                                 spec.min_chunk * spec.tile)
@@ -428,9 +491,9 @@ def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
     if kernel != "simt":
         check_tma_layout(dense_y)
     a, b = _pack(a_lin, b_lin, ba_lin, bb_lin, kq,
-                 torch.bfloat16 if kernel in ("wgmma", "wide", "wide_stream")
+                 torch.bfloat16 if kernel in _BF16_KERNELS
                  else torch.float32)
-    if kernel in ("f32", "wide_f32", "wide_stream_f32"):
+    if kernel in _PIECE_KERNELS:
         a, b = split_pieces(a), split_pieces(b)
     acc_a = torch.empty((n, kq), dtype=torch.float32, device=a.device)
     acc_b = torch.empty((m, kq), dtype=torch.float32, device=a.device)
@@ -438,7 +501,7 @@ def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
         return acc_a.zero_(), acc_b.zero_()
     split_a, split_b = splits_for(
         n, m, torch.cuda.get_device_properties(a.device).multi_processor_count,
-        kernel, windows(kq, kernel))
+        kernel, windows(kq, kernel), kq)
     part_a = (torch.empty((split_a, n, kq), dtype=torch.float32,
                           device=a.device) if split_a > 1 else None)
     part_b = (torch.empty((split_b, m, kq), dtype=torch.float32,
@@ -465,11 +528,15 @@ fused_dense_sweep.launches_by_kernel = {kernel: 0 for kernel in KERNELS}
 
 # each wgmma kernel's production instantiations in the machine code: the
 # pattern and what its number times gives the packed width (the resident
-# wide kernel's k-blocks x 64; the streamed ones': the window width)
+# wide kernel's k-blocks x 64; the cluster kernel's: the width of one CTA's
+# share; the streamed ones': the window width)
 _PRODUCTION = {"wgmma": (r"dense_wgmma_kernelILi(\d+)ELi0EE", 1),
                "f32": (r"dense_split_kernelILi(\d+)ELi0EE", 1),
                "wide": (r"dense_res_kernelILi1ELi(\d+)ELi64EE", 64),
                "wide_f32": (r"dense_res_kernelILi3ELi(\d+)ELi32EE", 64),
+               "cluster": (r"dense_cluster_kernelILi1ELi(\d+)ELi64EE", 64),
+               "cluster_f32": (r"dense_cluster_kernelILi3ELi(\d+)ELi32EE",
+                               64),
                "wide_stream": (r"dense_wide_kernelILi1ELi(\d+)EE", 1),
                "wide_stream_f32": (r"dense_wide_kernelILi3ELi(\d+)EE", 1)}
 
@@ -477,11 +544,12 @@ _PRODUCTION = {"wgmma": (r"dense_wgmma_kernelILi(\d+)ELi0EE", 1),
 def hgmma_counts() -> Dict[str, Dict[int, int]]:
     """{kernel: {kq: count}}: warpgroup tensor-core instructions (HGMMA)
     in the machine code of each wgmma kernel ("wgmma" bf16, "f32" split,
-    the resident "wide" and "wide_f32", the streamed "wide_stream" and
-    "wide_stream_f32"), by production instantiation (packed width kq,
-    window width for the streamed kernels; the stage probe's other
-    stages are not counted): a width whose count is zero had its products
-    folded away."""
+    the resident "wide" and "wide_f32", the cluster kernel's "cluster"
+    and "cluster_f32", the streamed "wide_stream" and "wide_stream_f32"),
+    by production instantiation (packed width kq; a CTA's share for the
+    cluster kernel, the window width for the streamed ones; the stage
+    probe's other stages are not counted): a width whose count is zero
+    had its products folded away."""
     counts: Dict[str, Dict[int, int]] = {k: {} for k in _PRODUCTION}
     cur = None
     for line in build.sass().splitlines():

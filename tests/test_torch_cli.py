@@ -32,6 +32,8 @@ from hgaprec_tpu_torch.models.coldstart import fold_in_users as t_fold_in
 from hgaprec_tpu_torch.models.state import init_state as t_init_state
 from hgaprec_tpu_torch.models.state import state_from_numpy
 
+from _native_writers import load_both
+
 N, M, K = 50, 30, 3
 BASE = ["-n", str(N), "-m", str(M), "-k", str(K)]
 
@@ -388,9 +390,21 @@ BRIDGES = {
 }
 
 
+@pytest.fixture(scope="module")
+def native_writers():
+    """Both packages' native TSV writers loaded in this process
+    (tests/_native_writers.py): `-nmfload` and `-ctr` write factors
+    through them, and the JAX package's Python path writes other bytes.
+    Fails by name where one still cannot load."""
+    missing = load_both()
+    if missing:
+        pytest.fail(f"{' and '.join(missing)} cannot be loaded: the "
+                    f"bridge modes' byte comparison needs both")
+
+
 @pytest.mark.parametrize("case", list(BRIDGES))
 def test_cli_bridges_byte_equal(dataset, tmp_path, capsys, monkeypatch,
-                                case):
+                                native_writers, case):
     """Every file a bridge mode writes is byte-equal between the two
     CLIs, and so is what they print."""
     cwd = tmp_path / "cwd"

@@ -74,14 +74,16 @@ def test_plain_matches_jax(rng, case):
 
 
 @pytest.mark.parametrize("k,bias", [(300, False), (255, True), (200, False),
-                                    (130, True)])
+                                    (130, True), (400, False)])
 def test_plain_matches_jax_wide(rng, k, bias):
     """The widths of the wide routes: past 256 packed values (K = 300;
     K = 255 with bias, 257 values) the JAX fused kernel pads the rows to
     kp = 384, at K = 200 and K = 130 with bias (the f32 route's resident
-    wide kernel at kq = 256 and 192) to 256, and runs in the interpreter;
-    the port's fused_dense_sweep on the CPU (the plain version the wide
-    kernels are held to) agrees at the f32 bound, bias sums included."""
+    wide kernel at kq = 256 and 192) to 256, at K = 400 (the f32 route's
+    cluster kernel, kq = 512 on two CTAs) to 512, and runs in the
+    interpreter; the port's fused_dense_sweep on the CPU (the plain
+    version the wide kernels are held to) agrees at the f32 bound, bias
+    sums included."""
     elogs, y = _inputs(rng, 40, 30, k, 16, bias, 0, 0)
     j_lin = [jnp.exp(jnp.asarray(e)) for e in elogs]
     t_lin = [torch.exp(torch.from_numpy(e)) for e in elogs]
@@ -93,6 +95,24 @@ def test_plain_matches_jax_wide(rng, k, bias):
     assert t_raw[0].shape == (40, k)
     for got, ref in zip(t_raw, j_raw):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32)
+
+
+def test_plain_matches_jax_wide_bf16(rng):
+    """K = 640 in bf16 (the bf16 route's cluster kernel, kq = 640 on two
+    CTAs): the JAX fused kernel in bf16 mode in the interpreter and the
+    port's plain version, both rounding A, B and W to bf16, agree at the
+    bf16 bound (max |g - r| / max(|r|, 1e-3) < 2e-2)."""
+    elogs, y = _inputs(rng, 40, 30, 640, 16, False, 0, 0)
+    j_lin = [jnp.exp(jnp.asarray(e)) for e in elogs]
+    t_lin = [torch.exp(torch.from_numpy(e)) for e in elogs]
+    j_raw = j_fused(*j_lin, jnp.asarray(y), bf16=True, tile_u=8, tile_c=16,
+                    interpret=True)
+    t_raw = df.fused_dense_sweep(*t_lin, torch.from_numpy(y), bf16=True)
+    assert df.dense_kernel(640, True) == "cluster"
+    assert len(t_raw) == len(j_raw) == 2 and t_raw[0].shape == (40, 640)
+    for got, ref in zip(t_raw, j_raw):
+        ref = torch.from_numpy(np.asarray(ref))
+        assert ((got - ref).abs() / ref.abs().clamp_min(1e-3)).max() < 2e-2
 
 
 @pytest.mark.parametrize("bias", [False, True])
@@ -186,6 +206,20 @@ def test_kernel_splits_fill_the_card(n, m, kernel, want):
     (200, "wide_f32", 256),
     (1000, "wide_stream", 1024),
     (64, "wide_stream_f32", 64),    # the streamed kernels take any width
+    # the cluster kernel: c = max(2, ceil(kq / 320 f32, 384 bf16)) equal
+    # shares of whole k-blocks, 3-5 k-blocks a CTA f32, 4-6 bf16
+    (321, "cluster_f32", 384),      # two CTAs of three k-blocks
+    (300, "cluster_f32", 384),      # never narrower than two shares
+    (400, "cluster_f32", 512),      # K = 400: 448 padded to two of four
+    (640, "cluster_f32", 640),
+    (641, "cluster_f32", 768),      # three CTAs of four
+    (1000, "cluster_f32", 1024),    # four of four
+    (2560, "cluster_f32", 2560),    # eight of five
+    (385, "cluster", 512),          # two CTAs of four k-blocks
+    (640, "cluster", 640),          # K = 640: two of five
+    (704, "cluster", 768),          # two of six
+    (1000, "cluster", 1152),        # three of six
+    (3072, "cluster", 3072),        # eight of six
 ])
 def test_packed_width_per_kernel(kaug, kernel, want):
     assert df.packed_width(kaug, kernel) == want
@@ -198,7 +232,8 @@ def test_packed_width_rejects_wide_rows(kernel):
     on rows of five k-blocks (320 values) in one window (the resident
     kernel), where the streamed kernel would run two (bf16) or three
     (f32). The resident kernel refuses rows past its widths the same
-    way, naming the streamed kernel."""
+    way, naming the cluster kernel, and the cluster kernel rows past
+    eight CTAs, naming the streamed one."""
     bf16 = kernel == "wgmma"
     wide = "wide" if bf16 else "wide_f32"
     with pytest.raises(ValueError, match=wide):
@@ -208,8 +243,11 @@ def test_packed_width_rejects_wide_rows(kernel):
     assert df.windows(320, wide) == 1
     assert df.windows(320, wide.replace("wide", "wide_stream")) == \
         (2 if bf16 else 3)
-    with pytest.raises(ValueError, match="wide_stream"):
+    with pytest.raises(ValueError, match="cluster"):
         df.packed_width(385 if bf16 else 321, wide)
+    with pytest.raises(ValueError, match="wide_stream"):
+        df.packed_width(3073 if bf16 else 2561,
+                        wide.replace("wide", "cluster"))
 
 
 @pytest.mark.parametrize("kaug,want", [(13, "f32"), (102, "f32"),
@@ -217,49 +255,59 @@ def test_packed_width_rejects_wide_rows(kernel):
                                        (202, "wide_f32"), (256, "wide_f32"),
                                        (257, "wide_f32"), (302, "wide_f32"),
                                        (320, "wide_f32"),
-                                       (321, "wide_stream_f32")])
+                                       (321, "cluster_f32"),
+                                       (2560, "cluster_f32"),
+                                       (2561, "wide_stream_f32")])
 def test_f32_route_takes_the_kernel_of_its_width(kaug, want):
     """Up to 128 packed values the f32 route runs the split-product wgmma
     kernel, up to 320 the resident wide kernel's f32 route (rows padded
-    to 192, 256 or 320), above that the streamed one; the split kernel
-    and the resident kernel refuse wider rows, and dense_simt.cu, on no
-    route now, still takes up to 256."""
+    to 192, 256 or 320), up to 2560 the cluster kernel's, above that the
+    streamed one; the split kernel, the resident and the cluster kernel
+    refuse wider rows, and dense_simt.cu, on no route now, still takes up
+    to 256."""
     assert df.f32_kernel(kaug) == want
     if want != "f32":
         with pytest.raises(ValueError, match="128"):
             df.packed_width(kaug, "f32")
     if want == "wide_f32":
         assert df.packed_width(kaug, "wide_f32") in (192, 256, 320)
+    if want in ("cluster_f32", "wide_stream_f32"):
+        with pytest.raises(ValueError, match=want):
+            df.packed_width(kaug, "wide_f32")
     if want == "wide_stream_f32":
         with pytest.raises(ValueError, match="wide_stream_f32"):
-            df.packed_width(kaug, "wide_f32")
+            df.packed_width(kaug, "cluster_f32")
     if kaug <= 256:
         assert df.packed_width(kaug, "simt") == -(-kaug // 4) * 4
 
 
-@pytest.mark.parametrize("kaug", [257, 320, 1024])
+@pytest.mark.parametrize("kaug", [257, 320, 1024, 2560])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_wide_routing(kaug, bf16):
     """Past 256 packed values both precisions take a wide kernel, rows
     padded to whole k-blocks of 64: up to 320 (f32) or 384 (bf16) the
-    resident one, one window, 64-row stationary tiles, past that the
-    streamed one, windows of 256 columns (bf16) or 128 (f32) that count
-    toward the CTAs that fill the card (at ML-1M shape, 132 SMs)."""
+    resident one, one window, 64-row stationary tiles; past them, up to
+    2560 (f32) or 3072 (bf16), the cluster kernel, the same tiles in
+    clusters of c CTAs, rows padded to c equal shares; the CTAs fill the
+    card (at ML-1M shape, 132 SMs)."""
     kernel = df.dense_kernel(kaug, bf16)
     resident = kaug <= 320
-    assert kernel == ("wide" if resident else "wide_stream") + \
-        ("" if bf16 else "_f32")
+    cluster = not resident and kaug <= (3072 if bf16 else 2560)
+    assert kernel == ("wide" if resident else "cluster" if cluster else
+                      "wide_stream") + ("" if bf16 else "_f32")
     kq = df.packed_width(kaug, kernel)
-    assert kq % 64 == 0 and kaug <= kq < kaug + 64
-    window = 0 if resident else (256 if bf16 else 128)
+    c = df.cluster_size(kq, kernel)
+    assert kq % 64 == 0 and kaug <= kq < kaug + 64 * c
+    window = 0 if resident or cluster else (256 if bf16 else 128)
     assert df.KERNELS[kernel].window == window
     nwin = df.windows(kq, kernel)
-    assert nwin == (1 if resident else -(-kq // window))
+    assert nwin == (1 if window == 0 else -(-kq // window))
     tile = df.KERNELS[kernel].tile
-    assert tile == (64 if resident else 128)
-    split_a, split_b = df.splits_for(6040, 3681, 132, kernel, nwin)
-    ctas = nwin * (-(-6040 // tile) * split_a + -(-3681 // tile) * split_b)
-    assert 2 * 132 <= ctas <= 8 * 132
+    assert tile == (128 if window else 64)
+    split_a, split_b = df.splits_for(6040, 3681, 132, kernel, nwin, kq)
+    ctas = nwin * c * (-(-6040 // tile) * split_a +
+                       -(-3681 // tile) * split_b)
+    assert 2 * 132 <= ctas <= (16 if cluster else 8) * 132
 
 
 @pytest.mark.parametrize("kaug,bf16", [(300, False), (300, True),
@@ -289,6 +337,84 @@ def test_wide_plan_stages_each_operand_once(kaug, bf16):
         -(-nx // x) * p * x * res["kq"] * 2 +
         -(-nx // x) * -(-nz // z) * (p * z * res["kq"] * 2 + x * z)
         for nx, nz in ((n, m), (m, n)))
+
+
+@pytest.mark.parametrize("kaug,bf16,c,kb", [
+    (321, False, 2, 3), (448, False, 2, 4), (1024, False, 4, 4),
+    (2560, False, 8, 5), (385, True, 2, 4), (704, True, 2, 6),
+    (1088, True, 3, 6), (3072, True, 8, 6)])
+def test_cluster_routing(kaug, bf16, c, kb):
+    """Past the resident kernel's widths both routes take the cluster
+    kernel, up to eight CTAs of at most five (f32) or six (bf16)
+    k-blocks: c = max(2, ceil(kq / 320 or 384)) CTAs of equal shares,
+    the packed row zero-padded to c shares, by less than a k-block a
+    CTA; one past its widest row the route takes the streamed kernel."""
+    kernel = df.dense_kernel(kaug, bf16)
+    assert kernel == ("cluster" if bf16 else "cluster_f32")
+    kq = df.packed_width(kaug, kernel)
+    fewest, most = df.CLUSTER_SHARES[kernel]
+    assert df.cluster_shape(kaug, kernel) == (c, kb)
+    assert df.cluster_shape(kq, kernel) == (c, kb)
+    assert df.cluster_size(kq, kernel) == c and kq == 64 * c * kb
+    assert fewest <= kb <= most
+    assert kaug <= kq and kq // 64 - -(-kaug // 64) < c
+    wider = 3073 if bf16 else 2561
+    assert df.dense_kernel(wider, bf16) == \
+        ("wide_stream" if bf16 else "wide_stream_f32")
+
+
+@pytest.mark.parametrize("n,m", [(6040, 3681), (480189, 17770),
+                                 (962399, 4096), (40, 30)])
+@pytest.mark.parametrize("kaug,bf16", [(400, False), (1024, False),
+                                       (2560, False), (640, True),
+                                       (3072, True)])
+def test_cluster_splits_fill_the_card_in_whole_clusters(n, m, kaug, bf16):
+    """The cluster kernel's splits plan in clusters: 132 // c clusters of
+    c CTAs fit the card at once, and each role block is one cluster, so
+    the launch is c CTAs for every role block and fills at least two
+    waves of clusters where the chunks of eight moving tiles allow."""
+    kernel = df.dense_kernel(kaug, bf16)
+    kq = df.packed_width(kaug, kernel)
+    c = df.cluster_size(kq, kernel)
+    spec = df.KERNELS[kernel]
+    split_a, split_b = df.splits_for(n, m, 132, kernel, 1, kq)
+    tiles_a, tiles_b = -(-n // spec.tile), -(-m // spec.tile)
+    blocks = tiles_a * split_a + tiles_b * split_b
+    slots = 132 // c
+    assert blocks >= min(2 * slots, 2 * tiles_a * tiles_b //
+                         (spec.min_chunk * spec.tile // spec.moving))
+    # the resident kernel's rule on a card of 132 // c SMs
+    assert (split_a, split_b) == df.splits_for(
+        n, m, slots, "wide" if bf16 else "wide_f32")
+
+
+@pytest.mark.parametrize("kaug,bf16,c", [(400, False, 2), (640, True, 2),
+                                         (1000, False, 4), (2560, False, 8)])
+def test_cluster_plan_stages_each_operand_once(kaug, bf16, c):
+    """At Netflix shape the cluster kernel forms S once per tile (8 N M kq
+    products, x 6 bf16 on the f32 route) and stages each factor once, a
+    stationary tile's k-blocks split across its cluster and each moving
+    tile's share staged by its CTA, and the Y tile once per CTA; the
+    streamed kernel on the same rows restages the stationary k-blocks per
+    moving tile and the moving tile per window."""
+    n, m = 480189, 17770
+    kernel = df.dense_kernel(kaug, bf16)
+    plan = df.wide_plan(n, m, kaug, kernel)
+    stream = df.wide_plan(n, m, kaug,
+                          "wide_stream" if bf16 else "wide_stream_f32")
+    pieces = 1 if bf16 else 6
+    kq = df.packed_width(kaug, kernel)
+    assert (plan["kq"], plan["cluster"]) == (kq, c)
+    assert (plan["windows"], plan["s_forms"]) == (1, 1)
+    assert plan["issued"] == 8 * n * m * kq * pieces
+    x, z = df.KERNELS[kernel].tile, df.KERNELS[kernel].moving
+    p = 1 if bf16 else 3
+    assert plan["staged"] == sum(
+        -(-nx // x) * p * x * kq * 2 +
+        -(-nx // x) * -(-nz // z) * (p * z * kq * 2 + c * x * z)
+        for nx, nz in ((n, m), (m, n)))
+    assert plan["issued"] < stream["issued"]
+    assert 2 * plan["staged"] < stream["staged"]
 
 
 def test_tma_layout_check():
@@ -344,6 +470,7 @@ def test_f32_route_runs_the_simt_kernel():
     holds their stage probe's entries, dense_simt.cu none; the mma.sync
     design (csrc/dense_fused.cu) is gone."""
     assert {df.f32_kernel(k) for k in range(1, 321)} == {"f32", "wide_f32"}
+    assert {df.f32_kernel(k) for k in range(321, 2561)} == {"cluster_f32"}
     for kernel, src in (("f32", "dense_wgmma.cu"), ("wgmma", "dense_wgmma.cu"),
                         ("simt", "dense_simt.cu")):
         with open(f"{build.CSRC_DIR}/{src}") as f:
@@ -353,10 +480,12 @@ def test_f32_route_runs_the_simt_kernel():
                 assert f'extern "C" int {entry}(' in text
     assert df.KERNELS["simt"].probe is None
     assert set(df.KERNELS) == {"wgmma", "f32", "simt", "wide", "wide_f32",
-                               "wide_stream", "wide_stream_f32"}
+                               "cluster", "cluster_f32", "wide_stream",
+                               "wide_stream_f32"}
     with open(f"{build.CSRC_DIR}/dense_wgmma.cu") as f:
         text = f.read()
-    for kernel in ("wide", "wide_f32", "wide_stream", "wide_stream_f32"):
+    for kernel in ("wide", "wide_f32", "cluster", "cluster_f32",
+                   "wide_stream", "wide_stream_f32"):
         # the wide kernels, no stages
         assert df.KERNELS[kernel].probe is None
         assert f'extern "C" int {df.KERNELS[kernel].entry}(' in text
@@ -384,13 +513,14 @@ def test_probe_stages_are_instantiations_of_the_production_kernels():
         assert f"{const} = {value}" in roles
     with open(f"{build.CSRC_DIR}/dense_wgmma.cu") as f:
         text = f.read()
-    # both wgmma kernels, each with its stages, and the two wide kernels,
-    # which have none
-    assert text.count("__global__ void") == 4
+    # both wgmma kernels, each with its stages, and the three wide
+    # kernels, which have none
+    assert text.count("__global__ void") == 5
     assert text.count("int kStage = kProd>\n__global__ void "
                       "__launch_bounds__") == 2
     assert "auto kernel = dense_wide_kernel<kP, kWn>;" in text
     assert "auto kernel = dense_res_kernel<kP, kKb, kTm>;" in text
+    assert "auto kernel = dense_cluster_kernel<kP, kKb, kTm>;" in text
     for kernel in ("dense_wgmma_kernel", "dense_split_kernel"):
         assert f"auto kernel = {kernel}<" in text
     # dense_simt.cu is built only as the production kernel
@@ -470,12 +600,19 @@ def test_hgmma_counts_per_instantiation(monkeypatch):
         "  HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR6], R24 ;",
         "  HGMMA.64x32x16.F32.BF16 R24, R8, gdesc[UR6], R24 ;",
         "Function : _Z16dense_res_kernelILi3ELi5ELi32EEv14CUtensorMap_st",
-        "  FFMA R1, R2, R3, R4 ;"])
+        "  FFMA R1, R2, R3, R4 ;",
+        "Function : _Z20dense_cluster_kernelILi1ELi6ELi64EEv14CUtensorMap_s",
+        "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "Function : _Z20dense_cluster_kernelILi3ELi3ELi32EEv14CUtensorMap_s",
+        "  HGMMA.64x32x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "  HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR6], R24 ;"])
     monkeypatch.setattr(build, "sass", lambda: sass)
     assert df.hgmma_counts() == {"wgmma": {112: 2, 128: 0},
                                  "f32": {112: 3, 64: 0},
                                  "wide": {320: 1},
                                  "wide_f32": {256: 3, 320: 0},
+                                 "cluster": {384: 1},
+                                 "cluster_f32": {192: 2},
                                  "wide_stream": {256: 1},
                                  "wide_stream_f32": {128: 2}}
 
@@ -599,7 +736,9 @@ WIDE_CARD = [  # (n, m, k, bias, bf16): the wide kernel each route takes
     (517, 300, 200, False, False),       # kq = 256
     (333, 129, 254, True, False),        # 256 packed values
     (300, 200, 330, False, True),        # bf16 resident, kq = 384
-    (300, 200, 330, False, False),       # f32 past 320: the streamed one
+    (300, 200, 330, False, False),       # f32 past 320: the cluster kernel
+    (64, 1, 2600, False, False),         # past 2560 f32: the streamed one
+    (300, 200, 3100, False, True),       # past 3072 bf16
 ]
 
 
@@ -607,7 +746,8 @@ WIDE_CARD = [  # (n, m, k, bias, bf16): the wide kernel each route takes
 @pytest.mark.parametrize("n,m,k,bias,bf16", WIDE_CARD)
 def test_wide_kernel_matches_plain_and_repeats(n, m, k, bias, bf16):
     """The wide kernels (resident up to 320 f32 / 384 bf16 packed values,
-    streamed past them): on ragged shapes within rtol=2e-4, atol=1e-5
+    the cluster kernel up to 2560 / 3072, streamed past them): on ragged
+    shapes within rtol=2e-4, atol=1e-5
     (f32) or bf16 relative 2e-2 (clamp 1e-3) of the plain version, two
     launches bitwise equal, each counted under its kernel."""
     if not torch.cuda.is_available():
@@ -617,8 +757,41 @@ def test_wide_kernel_matches_plain_and_repeats(n, m, k, bias, bf16):
     kernel = df.dense_kernel(k + 2 * bias, bf16)
     kaug = k + 2 * bias
     wide = "wide" if bf16 else "wide_f32"
-    assert kernel == (wide if kaug <= (384 if bf16 else 320)
-                      else wide.replace("wide", "wide_stream"))
+    assert kernel == (wide if kaug <= (384 if bf16 else 320) else
+                      wide.replace("wide", "cluster")
+                      if kaug <= (3072 if bf16 else 2560) else
+                      wide.replace("wide", "wide_stream"))
+    by_kernel = df.fused_dense_sweep.launches_by_kernel[kernel]
+    got = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
+    again = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
+    torch.cuda.synchronize()
+    assert df.fused_dense_sweep.launches_by_kernel[kernel] == by_kernel + 2
+    ref = df.fused_dense_sweep_reference(*lin[:2], y, *lin[2:], bf16=bf16)
+    for gg, aa, r in zip(got, again, ref):
+        assert torch.equal(gg, aa)
+        if bf16:
+            assert ((gg - r).abs() / r.abs().clamp_min(1e-3)).max() < 2e-2
+        else:
+            torch.testing.assert_close(gg, r, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kaug,bf16", [(384, False), (448, False),
+                                       (448, True), (704, False),
+                                       (704, True), (2560, False),
+                                       (2560, True)])
+def test_cluster_kernel_matches_plain_and_repeats(kaug, bf16):
+    """The cluster kernel (csrc/dense_wgmma.cu, dense_cluster_kernel) at
+    two, three, seven and eight CTAs a cluster, on a ragged shape with
+    bias slots: within rtol=2e-4, atol=1e-5 (f32) or bf16 relative 2e-2
+    (clamp 1e-3) of the plain version, two launches bitwise equal, each
+    counted under its kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lin, y = _card_inputs(517, 300, kaug - 2, True, aligned=True, seed=kaug)
+    kernel = df.dense_kernel(kaug, bf16)
+    assert kernel == ("cluster" if bf16 else "cluster_f32")
     by_kernel = df.fused_dense_sweep.launches_by_kernel[kernel]
     got = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
     again = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
