@@ -9,18 +9,23 @@ wide route against its plain version at ML-1M shape at K = 255 with
 bias, 300, 330, 640 and 1000 in both precisions, the tail's and the CSR
 sweep's also at K = 1100 and 2048 (column windows), the f32 route's
 resident kernel also at K = 130, 200 and 254 with bias, the dense routes
-also at K = 2600 and 3100 (the streamed kernel past the cluster kernel's
-widths); both dense routes at Netflix shape and K = 300 beside their
-bounds, the streamed wide kernel, the cluster kernel on two CTAs (f32)
-and the plan's issued FLOPs and staged bytes of the wide kernels, the
-f32 route at K = 200 and 254 with bias beside dense_simt.cu, the cluster
-kernel at Netflix K = 400 (f32, which must beat its plain version and
-stay within F64_WIDE_MAX of f64 sums) and 640 (bf16) beside its plain
-version, the streamed kernel and its bound; the EchoNest tail and CSR
-sweep at K = 300; the ML-1M command line at K = 300, K = 255 with bias,
-K = 400 (the cluster kernel), K = 3100 (the streamed kernel, on a
-1500 x 1000 catalog) and K = 1100 (segment-chunked) on the card against
-the CPU;
+also at K = 2600 and 3100 (the unfused route past the cluster kernel's
+widths, timed beside the streamed kernel, which is on no route, and the
+plain version, which the f32 route must beat at K = 2600 within
+F64_WIDE_MAX of f64 sums) and, at K = 1000 and 2000, the cluster kernel
+beside the unfused route (their crossover); both dense routes at
+Netflix shape and K = 300 beside their bounds, the unfused route, the
+cluster kernel on two CTAs (f32) and the plan's issued FLOPs and staged
+bytes of the wide kernels, the f32 route at K = 200 and 254 with bias
+beside dense_simt.cu, the cluster kernel at Netflix K = 400 (f32, which
+must beat its plain version and stay within F64_WIDE_MAX of f64 sums)
+and 640 (bf16) beside its plain version, the unfused route and its
+bound, and the crossover at Netflix K = 1000; with `--wide` alone also
+the unfused route at Netflix K = 2600 (f32) and 3100 (bf16) beside its
+plain version and bound; the EchoNest tail and CSR sweep at
+K = 300; the ML-1M command line at K = 300, K = 255 with bias, K = 400
+(the cluster kernel), K = 3100 (the unfused route, on a 1500 x 1000
+catalog) and K = 1100 (segment-chunked) on the card against the CPU;
 and the fused multi-step against the loop at ML-1M K = 300 "highest"),
 with `--wide-sparse` only the build and the sparse
 wide routes timed at EchoNest K = 300 (each route, half and pass, by
@@ -211,15 +216,21 @@ NARROW_PATTERN = (r"dense_split_kernelILi\d+ELi0EE|"
 # the wide routes (packed rows past 256 values): the factor width of their
 # timings and paths, and each (K, bias) they are held to plain at (K = 330:
 # the bf16 resident kernel at kq = 384, the f32 route's cluster kernel on
-# two CTAs, timed as K_WIDE is; K = 640 and 1000 the cluster kernel)
+# two CTAs, timed as K_WIDE is; K = 640 the cluster kernel, K = 1000 the
+# unfused route)
 K_WIDE = 300
 WIDE_KS = ((255, True), (300, False), (330, False), (640, False),
            (1000, False))
 K_CLUSTER = 330
-# past the cluster kernel's widths (2560 f32, 3072 bf16 packed values) the
-# streamed wide kernel; at K = 2600 the bf16 route's cluster kernel runs
-# seven CTAs a cluster
+# past the cluster kernel's widest rows (2560 f32, 3072 bf16 packed
+# values): the unfused route, timed there beside the streamed kernel (on
+# no route), f32 at the first and bf16 at the second
 STREAM_KS = (2600, 3100)
+# the widths where the cluster kernel is timed beside the unfused route
+# (their crossover): ML-1M K = 1000 and 2000, Netflix K = 1000
+CROSS_KS, NF_CROSS_K = (1000, 2000), 1000
+# the unfused route at Netflix shape (`--wide`): K = 2600 f32, 3100 bf16
+NF_UNFUSED_KS = ((2600, False), (3100, True))
 # the cluster kernel at Netflix shape, each route at the width it is timed
 # at: K = 400 f32 (two CTAs of four k-blocks), K = 640 bf16 (two of five)
 NF_CLUSTER_KS = ((400, False), (640, True))
@@ -2789,7 +2800,7 @@ def check_wide_dense(df, lin, y, bias, bf16, reps):
                   f"bound {bound_ms:.4f} ms ({bound_by}), kernel at "
                   f"{fig['ms'] / bound_ms:.2f}x it")
     good = ok and same and counted == 2 and \
-        kernel.startswith(("wide", "cluster"))
+        kernel.startswith(("wide", "cluster", "unfused"))
     say(f"wide dense {n}x{m}x{k} bias={bias} ({text}): max_abs_err vs f32 "
         f"plain {err:.3e} (vs plain in the same mode {err_like:.3e}), two "
         f"launches bitwise {'equal' if same else 'DIFFERENT'}, counted "
@@ -2808,15 +2819,20 @@ def phase_wide_kernels(df, gen):
     the sparse ones also at SPARSE_WIDE_KS, two launches bitwise
     everywhere; the f32 route's resident widths
     below 257 values (F32_RES_KS) the same, and the dense routes at
-    STREAM_KS (the streamed kernel past the cluster kernel's widths). At
+    STREAM_KS (the unfused route past the cluster kernel's widths, timed
+    beside the streamed kernel: `unfused_beside`), where the f32 route
+    must beat its plain version one call a window and stay within
+    F64_WIDE_MAX of f64 sums; then the crossover of the cluster kernel and
+    the unfused route at CROSS_KS (`crossover`). At
     K_WIDE the f32 route must be faster than its plain version, both
     timed five calls back to back as a training step launches them
     (median of 20 windows each; one call a window, the host's packing and
     the plain version's Python loop count too, and the two differ by less
     than run-to-run spread at this size); the f32 route's cluster kernel
     is timed the same at K_CLUSTER, beside its plain version (a target,
-    not a gate). Returns the figures at K_WIDE, the cluster kernels' and
-    the streamed kernels' at their first K."""
+    not a gate). Returns the figures at K_WIDE, the cluster kernels' at
+    their first K, the unfused route's and the streamed kernel's at
+    STREAM_KS, and the crossover's."""
     from hgaprec_tpu_torch.data.device import DeviceData, sorted_coo
     from hgaprec_tpu_torch.ops.tail import build_tail_stream
     u, i, y, _ = power_law_coo(N_ML, M_ML, 1_000_000, SEED, cover=True)
@@ -2855,11 +2871,30 @@ def phase_wide_kernels(df, gen):
     for k in STREAM_KS:
         lin, yd, _ = random_inputs(gen, N_ML, M_ML, k, 6144, False, 0.045)
         for bf16 in (False, True):
-            kernel = df.dense_kernel(k, bf16)
+            # the unfused route timed at its width past the cluster
+            # kernel's widest row: K = 2600 f32, K = 3100 bf16
+            timed = k == STREAM_KS[bf16]
             fig = check_wide_dense(df, lin, yd, False, bf16,
-                                   5 if kernel not in out else 0)
-            out.setdefault(kernel, fig)
+                                   20 if timed else 0)
+            if timed:
+                kernel = df.dense_kernel(k, bf16)
+                beside, streamed = unfused_beside(df, lin, yd, bf16, fig)
+                out[kernel] = dict(fig, **beside)
+                out["wide_stream" + kernel[7:]] = streamed
         del lin, yd
+    uf = out["unfused_f32"]
+    ok = uf["ms"] < uf["plain_ms"] and uf["f64_rel_err"] <= F64_WIDE_MAX
+    say(f"wide ml-1m K={STREAM_KS[0]} f32 route (the unfused route): "
+        f"{uf['ms']:.4f} ms one call a window against its plain version's "
+        f"{uf['plain_ms']:.4f} ms ({uf['plain_ms'] / uf['ms']:.2f}x), "
+        f"{uf['f64_rel_err']:.3e} from f64 sums (at most "
+        f"{F64_WIDE_MAX:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the f32 unfused route is not faster than its plain "
+                         "version at ML-1M K = 2600, or moved further from "
+                         "f64 sums")
+    out["crossover_ml1m"] = crossover(df, gen, N_ML, M_ML, CROSS_KS,
+                                      random_inputs, 10)
     cl = out["cluster_f32"]
     met = ["met" if cl[k] < cl["plain_" + k] else "missed"
            for k in ("ms", "ms_batch5")]
@@ -2886,19 +2921,114 @@ def phase_wide_kernels(df, gen):
     return out
 
 
-def phase_wide_netflix(df, gen):
+def unfused_beside(df, lin, y, bf16, fig):
+    """The streamed kernel (on no route now) on the unfused route's inputs
+    at ML-1M shape, held to the plain version in its mode (F32_TOL,
+    BF16_REL), two launches bitwise, timed the same way (median of 5, one
+    call a window) beside the route's `fig`; on the f32 route both
+    kernels' and the plain version's distance to f64 sums. Returns the
+    figures to add to the route's and the streamed kernel's own."""
+    k = lin[0].shape[1]
+    stream = "wide_stream" + ("" if bf16 else "_f32")
+
+    def streamed():
+        return df._unpack(*df.launch_dense(*lin, y, kernel=stream), k, False)
+    got, again = streamed(), streamed()
+    torch.cuda.synchronize()
+    err, ok = compare(got, df.fused_dense_sweep_reference(*lin, y,
+                                                          bf16=bf16), bf16)
+    ok = ok and all(torch.equal(a, b) for a, b in zip(got, again))
+    del got, again
+    out = dict(streamed_ms=median_ms(streamed, 5))
+    text = ""
+    if not bf16:
+        out["f64_rel_err"] = f64_rel_err(df.fused_dense_sweep(*lin, y), lin,
+                                         y)
+        out["streamed_f64_rel_err"] = f64_rel_err(streamed(), lin, y)
+        out["plain_f64_rel_err"] = f64_rel_err(
+            df.fused_dense_sweep_reference(*lin, y), lin, y)
+        text = (f"; relative to f64 sums: unfused {out['f64_rel_err']:.3e}, "
+                f"streamed {out['streamed_f64_rel_err']:.3e}, plain "
+                f"{out['plain_f64_rel_err']:.3e}")
+    say(f"wide ml-1m K={k} {'bf16' if bf16 else 'f32'}: the unfused route "
+        f"{fig['ms']:.4f} ms, the streamed kernel on the same inputs (on no "
+        f"route) {out['streamed_ms']:.4f} ms "
+        f"({out['streamed_ms'] / fig['ms']:.2f}x; max_abs_err {err:.3e} "
+        f"{'ok' if ok else 'FAIL'}), plain {fig['plain_ms']:.4f} ms, bound "
+        f"{fig['bound_ms']:.4f} ms, the route at "
+        f"{fig['ms'] / fig['bound_ms']:.2f}x it{text}")
+    if not ok:
+        raise SystemExit(f"the streamed kernel disagrees with plain or "
+                         f"itself at ML-1M K = {k}")
+    own = dict(kq=df.packed_width(k, stream), windows=df.windows(
+        df.packed_width(k, stream), stream), max_abs_err=err,
+        ms=out["streamed_ms"], plain_ms=fig["plain_ms"],
+        bound_ms=fig["bound_ms"], bound_by=fig["bound_by"], library_ms=None)
+    if not bf16:
+        own["f64_rel_err"] = out["streamed_f64_rel_err"]
+    return out, own
+
+
+def crossover(df, gen, n, m, ks, make, reps, y=None):
+    """The cluster kernel beside the unfused route at each K of `ks`, both
+    precisions, on one input each (`make` gives the factors, and Y unless
+    `y` is given): the unfused route held to the plain version (F32_TOL,
+    BF16_REL), both timed (median of `reps`, one call a window, the
+    cluster kernel before and after), and which one the route takes.
+    Returns {"k{K}_{f32|bf16}": figures}."""
+    out = {}
+    for k in ks:
+        if y is None:
+            lin, yk, _ = make(gen, n, m, k, -(-n // 512) * 512, False, 0.045)
+        else:
+            lin, yk = make(gen, n, m, k, False)[:2], y
+        for bf16 in (False, True):
+            cluster = "cluster" + ("" if bf16 else "_f32")
+            unfused = "unfused" + ("" if bf16 else "_f32")
+
+            def run(kernel):
+                return df._unpack(*df.launch_dense(*lin, yk, kernel=kernel),
+                                  k, False)
+            got = run(unfused)
+            torch.cuda.synchronize()
+            err, ok = compare(got, df.fused_dense_sweep_reference(
+                *lin, yk, bf16=bf16), bf16)
+            del got
+            c0 = median_ms(lambda: run(cluster), reps)
+            u = median_ms(lambda: run(unfused), reps)
+            c1 = median_ms(lambda: run(cluster), reps)
+            cl = min(c0, c1)
+            say(f"crossover {n}x{m}x{k} {'bf16' if bf16 else 'f32'} (the "
+                f"route takes {df.dense_kernel(k, bf16)}): the cluster "
+                f"kernel {c0:.4f} / "
+                f"{c1:.4f} ms, the unfused route {u:.4f} ms (max_abs_err "
+                f"{err:.3e} {'ok' if ok else 'FAIL'}): the unfused route "
+                f"{'wins' if u < cl else 'loses'}, {u / cl:.2f}x the "
+                f"cluster kernel's time")
+            if not ok:
+                raise SystemExit(f"the unfused route disagrees with plain at "
+                                 f"{n}x{m}x{k}")
+            out[f"k{k}_{'bf16' if bf16 else 'f32'}"] = dict(
+                cluster_ms=[c0, c1], unfused_ms=u, unfused_wins=u < cl)
+        del lin
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_wide_netflix(df, gen, unfused_rows=False):
     """Both wide dense routes at Netflix shape and K_WIDE against the
     plain version, each timed beside its bound (15.5 ms bf16, 93.2 f32 on
-    the H100's rates), the streamed kernel (the design before the
-    resident one) on the same inputs, and the plan's issued FLOPs and
-    staged bytes of both; the f32 route must beat its plain version. The
-    f32 route's cluster kernel on two CTAs (kq = 384) is timed there too,
-    beside the resident one. Its distance to f64 sums on a slice of the
-    users beside the streamed kernel's and the plain version's, at most
-    F64_WIDE_MAX. Then, on the same Y, the f32 route at K = 200 and
-    K = 254 with bias (256 packed values) beside dense_simt.cu, which it
-    must beat, and the cluster kernel at NF_CLUSTER_KS
-    (phase_cluster_netflix)."""
+    the H100's rates), the unfused route (not routed at this width) on
+    the same inputs, and the plan's issued FLOPs and staged bytes of
+    both; the f32 route must beat its plain version. The f32 route's
+    cluster kernel on two CTAs (kq = 384) is timed there too, beside the
+    resident one. Its distance to f64 sums on a slice of the users beside
+    the unfused route's and the plain version's, at most F64_WIDE_MAX.
+    Then, on the same Y, the f32 route at K = 200 and K = 254 with bias
+    (256 packed values) beside dense_simt.cu, which it must beat, the
+    cluster kernel at NF_CLUSTER_KS (phase_cluster_netflix), the
+    crossover at NF_CROSS_K and, with `unfused_rows`, the unfused route
+    at NF_UNFUSED_KS (phase_unfused_netflix)."""
     rows = -(-N_NF // 512) * 512
     t0 = time.perf_counter()
     lin, y, nnz = random_inputs(gen, N_NF, M_NF, K_WIDE, rows, False, 0.01)
@@ -2909,24 +3039,24 @@ def phase_wide_netflix(df, gen):
     out = {}
     for bf16 in (True, False):
         kernel = df.dense_kernel(K_WIDE, bf16)
-        stream = "wide_stream" + ("" if bf16 else "_f32")
+        other = "unfused" + ("" if bf16 else "_f32")
 
         def call():
             return df.fused_dense_sweep(*lin, y, bf16=bf16)
 
-        def streamed():
-            return df._unpack(*df.launch_dense(*lin, y, kernel=stream),
+        def unfused():
+            return df._unpack(*df.launch_dense(*lin, y, kernel=other),
                               K_WIDE, False)
         got = call()
         torch.cuda.synchronize()
         err, ok = compare(got, ref, bf16)
         del got
-        got = streamed()
+        got = unfused()
         torch.cuda.synchronize()
         err_s, ok_s = compare(got, ref, bf16)
         del got
         ms = median_ms(call, 3)
-        stream_ms = median_ms(streamed, 3)
+        other_ms = median_ms(unfused, 3)
         plain_ms = median_ms(
             lambda: df.fused_dense_sweep_reference(*lin, y, bf16=bf16), 3)
         if not bf16:
@@ -2951,7 +3081,7 @@ def phase_wide_netflix(df, gen):
         bound_ms, bound_by = (dense_bound(N_NF, M_NF, K_WIDE) if bf16 else
                               dense_bound_f32(N_NF, M_NF, K_WIDE))
         plan, text = plan_text(N_NF, M_NF, K_WIDE, kernel)
-        plan_s, text_s = plan_text(N_NF, M_NF, K_WIDE, stream)
+        plan_o, text_o = plan_text(N_NF, M_NF, K_WIDE, other)
         faster = bf16 or ms < plain_ms
         say(f"wide netflix {N_NF}x{M_NF}x{K_WIDE} ({text}): vs f32 plain "
             f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}; kernel "
@@ -2959,11 +3089,11 @@ def phase_wide_netflix(df, gen):
             f"{'' if faster else ' NOT FASTER: FAIL'}; "
             f"{6 * N_NF * M_NF * K_WIDE / ms / 1e9:.1f} TFLOP/s of 6 N M K, "
             f"{plan['issued'] / ms / 1e9:.1f} issued; bound {bound_ms:.2f} ms "
-            f"({bound_by}), kernel at {ms / bound_ms:.2f}x it; the streamed "
-            f"kernel on the same inputs ({text_s}) {stream_ms:.2f} ms "
-            f"(max_abs_err {err_s:.3e}), {stream_ms / ms:.2f}x the "
-            f"resident one's time, staging "
-            f"{plan['staged'] / plan_s['staged']:.3f} of its bytes")
+            f"({bound_by}), kernel at {ms / bound_ms:.2f}x it; the unfused "
+            f"route on the same inputs ({text_o}) {other_ms:.2f} ms "
+            f"(max_abs_err {err_s:.3e}), {other_ms / ms:.2f}x the "
+            f"resident one's time, which stages "
+            f"{plan['staged'] / plan_o['staged']:.3f} of its bytes")
         if not (ok and ok_s and faster):
             raise SystemExit(f"the wide {kernel} route disagrees with plain "
                              f"at Netflix shape or is not faster than it")
@@ -2974,22 +3104,22 @@ def phase_wide_netflix(df, gen):
                            bound_ms_netflix=bound_ms,
                            issued_tflop_netflix=plan["issued"] / 1e12,
                            staged_tb_netflix=plan["staged"] / 1e12,
-                           streamed_ms_netflix=stream_ms,
-                           streamed_issued_tflop_netflix=plan_s["issued"]
+                           unfused_ms_netflix=other_ms,
+                           unfused_issued_tflop_netflix=plan_o["issued"]
                            / 1e12,
-                           streamed_staged_tb_netflix=plan_s["staged"] / 1e12)
+                           unfused_staged_tb_netflix=plan_o["staged"] / 1e12)
     del ref
     sl = [lin[0][:65536].contiguous(), lin[1]]
     ys = y[:65536]
     rel = {"wide_f32": f64_rel_err(df.fused_dense_sweep(*sl, ys), sl, ys),
-           "wide_stream_f32": f64_rel_err(df._unpack(*df.launch_dense(
-               *sl, ys, kernel="wide_stream_f32"), K_WIDE, False), sl, ys),
+           "unfused_f32": f64_rel_err(df._unpack(*df.launch_dense(
+               *sl, ys, kernel="unfused_f32"), K_WIDE, False), sl, ys),
            "plain": f64_rel_err(df.fused_dense_sweep_reference(*sl, ys), sl,
                                 ys)}
     ok = rel["wide_f32"] <= F64_WIDE_MAX
     say(f"wide netflix f32 route relative to f64 sums on the first 65,536 "
         f"users: resident kernel {rel['wide_f32']:.3e} (at most "
-        f"{F64_WIDE_MAX:.3e}), streamed kernel {rel['wide_stream_f32']:.3e}, "
+        f"{F64_WIDE_MAX:.3e}), unfused route {rel['unfused_f32']:.3e}, "
         f"plain {rel['plain']:.3e} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the f32 wide route moved further from f64 sums")
@@ -3029,6 +3159,10 @@ def phase_wide_netflix(df, gen):
             bound_ms_netflix=bound_ms, kq=plan["kq"])
         del lin
     out.update(phase_cluster_netflix(df, gen, y))
+    out["crossover_netflix"] = crossover(df, gen, N_NF, M_NF, (NF_CROSS_K,),
+                                         random_lin, 3, y)
+    if unfused_rows:
+        out.update(phase_unfused_netflix(df, gen, y))
     del y
     torch.cuda.empty_cache()
     return out
@@ -3038,7 +3172,8 @@ def phase_cluster_netflix(df, gen, y):
     """The cluster kernel at Netflix shape on the Y `y`, at each (K, bf16)
     of NF_CLUSTER_KS: against the plain version (F32_TOL, BF16_REL), two
     launches bitwise, timed (median of 3) beside the plain version, the
-    streamed kernel on the same inputs and the bound, with each plan's
+    unfused route (not routed at these widths) on the same inputs and the
+    bound, with each plan's
     issued FLOPs and staged bytes; the f32 route must beat its plain
     version and stay within F64_WIDE_MAX of f64 sums on the first 65,536
     users. Returns the figures by kernel."""
@@ -3046,13 +3181,13 @@ def phase_cluster_netflix(df, gen, y):
     for k, bf16 in NF_CLUSTER_KS:
         lin = random_lin(gen, N_NF, M_NF, k, False)[:2]
         kernel = df.dense_kernel(k, bf16)
-        stream = "wide_stream" + ("" if bf16 else "_f32")
+        other = "unfused" + ("" if bf16 else "_f32")
 
         def call():
             return df.fused_dense_sweep(*lin, y, bf16=bf16)
 
-        def streamed():
-            return df._unpack(*df.launch_dense(*lin, y, kernel=stream), k,
+        def unfused():
+            return df._unpack(*df.launch_dense(*lin, y, kernel=other), k,
                               False)
         ref = df.fused_dense_sweep_reference(*lin, y)
         got = call()
@@ -3061,18 +3196,18 @@ def phase_cluster_netflix(df, gen, y):
         err, ok = compare(got, ref, bf16)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         del got, again
-        got = streamed()
+        got = unfused()
         torch.cuda.synchronize()
         err_s, ok_s = compare(got, ref, bf16)
         del got, ref
         ms = median_ms(call, 3)
-        stream_ms = median_ms(streamed, 3)
+        other_ms = median_ms(unfused, 3)
         plain_ms = median_ms(
             lambda: df.fused_dense_sweep_reference(*lin, y, bf16=bf16), 3)
         bound_ms, bound_by = (dense_bound(N_NF, M_NF, k) if bf16 else
                               dense_bound_f32(N_NF, M_NF, k))
         plan, text = plan_text(N_NF, M_NF, k, kernel)
-        plan_s, text_s = plan_text(N_NF, M_NF, k, stream)
+        plan_o, text_o = plan_text(N_NF, M_NF, k, other)
         faster = bf16 or ms < plain_ms
         say(f"cluster netflix {N_NF}x{M_NF}x{k} {'bf16' if bf16 else 'f32'} "
             f"({text}, {plan['cluster']} CTAs a cluster): vs f32 plain "
@@ -3082,11 +3217,11 @@ def phase_cluster_netflix(df, gen, y):
             f"{'' if faster else ' NOT FASTER: FAIL'}; "
             f"{6 * N_NF * M_NF * k / ms / 1e9:.1f} TFLOP/s of 6 N M K, "
             f"{plan['issued'] / ms / 1e9:.1f} issued; bound {bound_ms:.2f} ms "
-            f"({bound_by}), kernel at {ms / bound_ms:.2f}x it; the streamed "
-            f"kernel on the same inputs ({text_s}) {stream_ms:.2f} ms "
-            f"(max_abs_err {err_s:.3e}), {stream_ms / ms:.2f}x the cluster "
-            f"kernel's time, staging {plan['staged'] / plan_s['staged']:.3f} "
-            f"of its bytes")
+            f"({bound_by}), kernel at {ms / bound_ms:.2f}x it; the unfused "
+            f"route on the same inputs ({text_o}) {other_ms:.2f} ms "
+            f"(max_abs_err {err_s:.3e}), {other_ms / ms:.2f}x the cluster "
+            f"kernel's time, which stages "
+            f"{plan['staged'] / plan_o['staged']:.3f} of its bytes")
         if not (ok and ok_s and same and faster):
             raise SystemExit(f"the cluster kernel ({kernel}) disagrees with "
                              f"plain or itself at Netflix shape K = {k}, or "
@@ -3096,21 +3231,21 @@ def phase_cluster_netflix(df, gen, y):
                    kq_netflix=plan["kq"], cluster_netflix=plan["cluster"],
                    issued_tflop_netflix=plan["issued"] / 1e12,
                    staged_tb_netflix=plan["staged"] / 1e12,
-                   streamed_ms_netflix=stream_ms,
-                   streamed_issued_tflop_netflix=plan_s["issued"] / 1e12,
-                   streamed_staged_tb_netflix=plan_s["staged"] / 1e12)
+                   unfused_ms_netflix=other_ms,
+                   unfused_issued_tflop_netflix=plan_o["issued"] / 1e12,
+                   unfused_staged_tb_netflix=plan_o["staged"] / 1e12)
         if not bf16:
             sl, ys = [lin[0][:65536].contiguous(), lin[1]], y[:65536]
             rel = {kernel: f64_rel_err(df.fused_dense_sweep(*sl, ys), sl, ys),
-                   stream: f64_rel_err(df._unpack(*df.launch_dense(
-                       *sl, ys, kernel=stream), k, False), sl, ys),
+                   other: f64_rel_err(df._unpack(*df.launch_dense(
+                       *sl, ys, kernel=other), k, False), sl, ys),
                    "plain": f64_rel_err(df.fused_dense_sweep_reference(
                        *sl, ys), sl, ys)}
             ok = rel[kernel] <= F64_WIDE_MAX
             say(f"cluster netflix K={k} f32 route relative to f64 sums on the "
                 f"first 65,536 users: cluster kernel {rel[kernel]:.3e} (at "
-                f"most {F64_WIDE_MAX:.3e}), streamed kernel "
-                f"{rel[stream]:.3e}, plain {rel['plain']:.3e} "
+                f"most {F64_WIDE_MAX:.3e}), unfused route "
+                f"{rel[other]:.3e}, plain {rel['plain']:.3e} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit("the f32 cluster kernel moved further from "
@@ -3120,6 +3255,58 @@ def phase_cluster_netflix(df, gen, y):
         out[kernel] = fig
         del lin
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_unfused_netflix(df, gen, y):
+    """The unfused route (the route past the cluster kernel's widths) at
+    Netflix shape on the Y `y`, at each (K, bf16) of NF_UNFUSED_KS: against
+    the f32 plain version (F32_TOL, BF16_REL), timed (median of 3) beside
+    the plain version in its mode and the bound, with its plan's slabs,
+    issued FLOPs, W's bytes and staged bytes. Returns the figures by
+    kernel."""
+    out = {}
+    for k, bf16 in NF_UNFUSED_KS:
+        lin = random_lin(gen, N_NF, M_NF, k, False)[:2]
+        kernel = df.dense_kernel(k, bf16)
+
+        def call():
+            return df.fused_dense_sweep(*lin, y, bf16=bf16)
+
+        def plain():
+            return df.fused_dense_sweep_reference(*lin, y, bf16=bf16)
+        got = call()
+        torch.cuda.synchronize()
+        err, ok = compare(got, df.fused_dense_sweep_reference(*lin, y),
+                          bf16)
+        del got
+        ms = median_ms(call, 3)
+        plain_ms = median_ms(plain, 3)
+        bound_ms, bound_by = (dense_bound(N_NF, M_NF, k) if bf16 else
+                              dense_bound_f32(N_NF, M_NF, k))
+        plan = df.unfused_plan(N_NF, M_NF, df.packed_width(k, kernel), kernel)
+        staged = sum(plan["staged"].values())
+        say(f"unfused netflix {N_NF}x{M_NF}x{k} {'bf16' if bf16 else 'f32'} "
+            f"({kernel}: {len(plan['slabs'])} slabs of {plan['slab_rows']} "
+            f"users, {plan['issued'] / 1e12:.2f} TFLOP issued, W "
+            f"{plan['w_written'] / 1e9:.2f} GB written and read twice, "
+            f"{staged / 1e12:.3f} TB staged): vs f32 plain max_abs_err "
+            f"{err:.3e} {'ok' if ok else 'FAIL'}; kernels {ms:.2f} ms, plain "
+            f"{plain_ms:.2f} ms (median of 3), "
+            f"{6 * N_NF * M_NF * k / ms / 1e9:.1f} TFLOP/s of 6 N M K; "
+            f"bound {bound_ms:.2f} ms ({bound_by}), the route at "
+            f"{ms / bound_ms:.2f}x it")
+        if not ok:
+            raise SystemExit(f"the unfused route disagrees with plain at "
+                             f"Netflix shape K = {k}")
+        out[kernel] = dict(ms_netflix=ms, plain_ms_netflix=plain_ms,
+                           bound_ms_netflix=bound_ms, k_netflix=k,
+                           kq_netflix=plan["kq"],
+                           slabs_netflix=len(plan["slabs"]),
+                           issued_tflop_netflix=plan["issued"] / 1e12,
+                           w_gb_netflix=plan["w_written"] / 1e9,
+                           staged_tb_netflix=staged / 1e12)
+        del lin
     return out
 
 
@@ -3197,8 +3384,8 @@ WIDE_RUNS = (
     # past the resident kernel's widths: the cluster kernels
     ("cluster_highest", ["-hier", "-k", "400"]),
     ("cluster_bf16", ["-hier", "-k", "400", "-precision", "default"]),
-    # past the cluster kernel's widths: the streamed wide kernels, on the
-    # small dataset (WIDE_SMALL), so that the CPU runs stay short
+    # past the cluster kernel's widths: the unfused route, on the small
+    # dataset (WIDE_SMALL), so that the CPU runs stay short
     ("stream_highest", ["-hier", "-k", "3100"]),
     ("stream_bf16", ["-hier", "-k", "3100", "-precision", "default"]),
     # past 1024 values: the CSR passes in two column windows
@@ -3258,7 +3445,7 @@ def phase_wide_paths(df, tf, datdir, small_dir, root, cpu_runs):
     K_WIDE in both precisions, with -sweep segment-chunked -logl, HPF
     -bias at K = 255 (257 packed values), a hybrid in both precisions,
     K = 400 (the cluster kernel) in both precisions, K = 3100 (the
-    streamed one) in both on the small catalog WIDE_SMALL and K = 1100
+    unfused route) in both on the small catalog WIDE_SMALL and K = 1100
     segment-chunked, each on the card (in-process,
     every kernel's count set to 0 just before it and read just after)
     against its CPU run (`cpu_runs`, start_wide_cpu_runs), validation ll
@@ -3305,8 +3492,8 @@ def phase_wide_paths(df, tf, datdir, small_dir, root, cpu_runs):
         want = {"highest": "wide_f32", "bf16": "wide", "bias": "wide_f32",
                 "hybrid_bf16": "wide", "hybrid_highest": "wide_f32",
                 "cluster_highest": "cluster_f32", "cluster_bf16": "cluster",
-                "stream_highest": "wide_stream_f32",
-                "stream_bf16": "wide_stream"}
+                "stream_highest": "unfused_f32",
+                "stream_bf16": "unfused"}
         took = launches[name]
         ok = ok and (took.get(want[name], 0) > 0 if name in want else
                      took["segment"] > 0) and \
@@ -3325,9 +3512,10 @@ def phase_wide_paths(df, tf, datdir, small_dir, root, cpu_runs):
     return launches
 
 
-def phase_wide(df, tf, gen, smi, root, tr):
-    """The wide routes' phase (`--wide`): kernels at ML-1M shape, Netflix,
-    the EchoNest tail and store at K_WIDE (on the hybrid Trainer `tr`'s
+def phase_wide(df, tf, gen, smi, root, tr, unfused_rows=False):
+    """The wide routes' phase (`--wide`): kernels at ML-1M shape, Netflix
+    (with `unfused_rows` also the unfused route's Netflix rows), the
+    EchoNest tail and store at K_WIDE (on the hybrid Trainer `tr`'s
     layout), then the user's paths on an ML-1M dataset. Returns the
     figures of the kernels line's wide entries."""
     from hgaprec_tpu_torch.data.synthetic import write_pf_dataset
@@ -3341,7 +3529,7 @@ def phase_wide(df, tf, gen, smi, root, tr):
                      scale=0.7)
     cpu_runs = start_wide_cpu_runs(datdir, small_dir, root)
     fig = phase_wide_kernels(df, gen)
-    fig["netflix"] = phase_wide_netflix(df, gen)
+    fig["netflix"] = phase_wide_netflix(df, gen, unfused_rows)
     fig["echonest_tail"], fig["echonest_segment"] = \
         phase_wide_echonest(tr, gen)
     fig["launches"] = phase_wide_paths(df, tf, datdir, small_dir, root,
@@ -3407,8 +3595,8 @@ def main():
                     "Potential Performance Loss" in line:
                 say(f"  {line.strip()}")
         # the production routes' kernels must build with no spills
-        for src in ("dense_wgmma.cu", "dense_simt.cu", "tail_bf16.cu",
-                    "segment_sweep.cu"):
+        for src in ("dense_wgmma.cu", "dense_unfused.cu", "dense_simt.cu",
+                    "tail_bf16.cu", "segment_sweep.cu"):
             start = log.index(f"== {src}")
             end = log.find("\n==", start)
             spills = [x.strip()
@@ -3422,13 +3610,14 @@ def main():
         # ptxas serializes wgmma where a fragment may be touched in flight
         # (csrc/dense_wgmma.cu, hazard 5): the bf16 route's main width,
         # every width of the f32 route's split kernel (all <= 128), every
-        # stage of the probe included, and the three wide kernels must
-        # build without it
+        # stage of the probe included, the three wide kernels and the
+        # unfused route's two must build without it
         serial = [x.strip() for x in log.splitlines()
                   if "Potential Performance Loss" in x and
                   ("dense_wgmma_kernelILi112E" in x or
                    "dense_split_kernel" in x or "dense_wide_kernel" in x or
-                   "dense_res_kernel" in x or "dense_cluster_kernel" in x)]
+                   "dense_res_kernel" in x or "dense_cluster_kernel" in x or
+                   "dense_w_kernel" in x or "dense_contract_kernel" in x)]
         if serial:
             raise SystemExit(f"wgmma serialized at kq <= 128 or in a "
                              f"wide kernel: {serial}")
@@ -3444,10 +3633,13 @@ def main():
             df.CLUSTER_SHARES[k][0], df.CLUSTER_SHARES[k][1] + 1)]
             for k in ("cluster", "cluster_f32")) and \
         all(sorted(hgmma[k]) == [df.KERNELS[k].window]
-            for k in ("wide_stream", "wide_stream_f32"))
+            for k in ("wide_stream", "wide_stream_f32")) and \
+        all(sorted(hgmma[k]) == [0, 1, 2] for k in df.UNFUSED_KERNELS)
     say(f"warpgroup tensor-core instructions (HGMMA) in the SASS of "
-        f"csrc/dense_wgmma.cu, by kernel and packed width kq: {hgmma} (the "
-        f"main path runs kq = {main_kq}) {'ok' if hgmma_ok else 'FAIL'}")
+        f"csrc/dense_wgmma.cu and csrc/dense_unfused.cu, by kernel and packed "
+        f"width kq (the unfused route's by pass: 0 dense_w_kernel, 1 and 2 "
+        f"dense_contract_kernel): {hgmma} (the main path runs kq = "
+        f"{main_kq}) {'ok' if hgmma_ok else 'FAIL'}")
     if not hgmma_ok:
         raise SystemExit("an instantiation of a wgmma kernel has no wgmma "
                          "in its SASS")
@@ -3513,7 +3705,7 @@ def main():
     if only == "wide":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
             tr = echonest_trainer(root)
-            phase_wide(df, tf, gen, smi, root, tr)
+            phase_wide(df, tf, gen, smi, root, tr, unfused_rows=True)
         say(f"wide phases passed in {time.perf_counter() - t_start:.1f} s "
             f"(no result line: --wide runs only the wide routes' phase)")
         return 0
@@ -3679,8 +3871,11 @@ def main():
          "ms_per_iter_echonest_segment": seg["ms_iter"],
          "peak_gb_echonest_segment": seg["peak"]},
         *[{"name": f"fused_dense_sweep_{key}", "route": "cuda",
-           "source": "hgaprec_tpu_torch/csrc/dense_wgmma.cu",
+           "source": "hgaprec_tpu_torch/csrc/" + (
+               "dense_unfused.cu" if key in df.UNFUSED_KERNELS
+               else "dense_wgmma.cu"),
            "kernel": instance,
+           "on_route": not key.startswith("wide_stream"),
            "replaces": "hgaprec_tpu/ops/dense_pallas.py:50",
            "launches": sum(w.get(key, 0) for w in wide["launches"].values()),
            "launches_by_path": {f"ml1m_cli_{r}": w.get(key, 0)
@@ -3690,6 +3885,10 @@ def main():
               if key == "wide_f32" else {}),
            **({"netflix_k300_two_ctas": wide["netflix"]["cluster_f32_k300"]}
               if key == "cluster_f32" else {}),
+           **({"crossover_ml1m": {
+               c: v for c, v in wide["crossover_ml1m"].items()
+               if c.endswith("bf16") == (key == "unfused")}}
+              if key in df.UNFUSED_KERNELS else {}),
            "hgmma": hgmma[key]}
           for key, instance in (
               ("wide", "dense_res_kernel<1, 5 or 6, 64>"),
@@ -3697,7 +3896,11 @@ def main():
               ("cluster", "dense_cluster_kernel<1, 4 to 6, 64>"),
               ("cluster_f32", "dense_cluster_kernel<3, 3 to 5, 32>"),
               ("wide_stream", "dense_wide_kernel<1, 256>"),
-              ("wide_stream_f32", "dense_wide_kernel<3, 128>"))],
+              ("wide_stream_f32", "dense_wide_kernel<3, 128>"),
+              ("unfused", "dense_w_kernel<1, 3>, "
+                          "dense_contract_kernel<1, 3, 0 and 1>"),
+              ("unfused_f32", "dense_w_kernel<3, 2>, "
+                              "dense_contract_kernel<3, 2, 0 and 1>"))],
         {"name": "fused_half_sweep_wide", "route": "cuda",
          "source": "hgaprec_tpu_torch/csrc/row_sweep.cuh",
          "kernel": "wide_pass_kernel (entry in csrc/tail_bf16.cu)",

@@ -13,12 +13,14 @@
 //     memory: f32 rows of 129-320 packed values, bf16 rows of 257-384 (see
 //     "the resident design");
 //   * dense_cluster_kernel, the same design on a thread-block cluster that
-//     splits the row between its CTAs: f32 rows of 321-2560, bf16 rows of
-//     385-3072 (see "the cluster design" at the end of the file);
-//   * dense_wide_kernel, both modes past those widths (see "wide rows").
-// csrc/dense_simt.cu computes the f32 mode up to 256 values on the FP32
-// pipes; no route takes it, and chip_smoke.py times the f32 routes
-// against it.
+//     splits the row between its CTAs: built for f32 rows of 321-2560 and
+//     bf16 rows of 385-3072, taken up to 960 (see "the cluster design" at
+//     the end of the file); from 1024 values csrc/dense_unfused.cu's
+//     unfused route takes both modes.
+// dense_wide_kernel (see "wide rows") takes both modes at any width and
+// csrc/dense_simt.cu the f32 mode up to 256 values on the FP32 pipes; no
+// route takes either, and chip_smoke.py times the unfused route and the
+// f32 routes against them.
 //
 // The bf16 route. For a uint8 count matrix
 // Y [N, M] (row stride ldy) and packed factor rows a = [A | ba | 1] bf16
@@ -179,6 +181,7 @@
 #include <stdint.h>
 
 #include "dense_roles.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -207,92 +210,6 @@ struct Plan {
   static constexpr int kAccN = kKq < 128 ? kKq : 128;
   static constexpr int kAccChunks = kKq / kAccN;
 };
-
-// ---- PTX wrappers --------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// until the phase of parity `parity` has completed. A wait of more than
-// 2^35 cycles (~17 s) can only be a lost arrival: trap, so that the launch
-// fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - t0 > (1ll << 35)) __trap();
-}
-
-// 2-D TMA load of one box at (c0 = column, c1 = row), completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets in 16-byte units
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
-         ((uint64_t)sbo << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
-}
-
-// keep the compiler from moving register reads and writes across the
-// asynchronous products that own these registers
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 // D[64 x N] (+)= A B: m64nNk16, bf16 inputs, f32 accumulators, N / 2 per
 // thread. SS: A and B from shared memory (both K-major), scale_d = 0
@@ -417,22 +334,6 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
 }
 
 // ---- the W stage ---------------------------------------------------------
-
-// byte `sel & 3` of v as an exact f32: prmt builds 0x4B0000yy = 2^23 + y
-__device__ __forceinline__ float widen_u8(uint32_t v, uint32_t sel) {
-  return __uint_as_float(__byte_perm(v, 0x4B000000u, sel)) - 8388608.f;
-}
-
-__device__ __forceinline__ float rcp_approx(float x) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 __device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
   uint32_t v;
@@ -796,23 +697,9 @@ dense_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 // two split operands is the six bf16 products whose pieces' exponents sum
 // to at most 4 (1-based): the terms dropped are below 2^-24 of it.
 
-constexpr int kPieces = 3;
-constexpr int kPairs = 6;
-constexpr int kMaxSmem = 232448;   // shared memory one CTA may opt in to
 // two consumer warpgroups and no producer warp: eight warps leave ptxas up
 // to 255 registers a thread (a ninth caps them at 168)
 constexpr int kThreadsSplit = kConsumers;
-
-// The six (X or W piece, Z piece) pairs, 0-based, smallest first: the
-// tensor cores' adder truncates each sum to the accumulator's largest
-// term, so the small products are summed among themselves before the
-// large one arrives.
-__host__ __device__ constexpr int pair_x(int p) {
-  return p == 0 ? 1 : p == 1 ? 2 : p == 2 ? 0 : p == 3 ? 1 : 0;
-}
-__host__ __device__ constexpr int pair_z(int p) {
-  return p == 0 ? 1 : p == 1 ? 0 : p == 2 ? 2 : p == 3 ? 0 : p == 4 ? 1 : 0;
-}
 
 // Shared-memory plan of the split kernel at width kKq <= 128: the three
 // pieces of the stationary tile, then kStages of (three Z pieces, Y tile),
@@ -864,31 +751,6 @@ struct SplitRing {
     return bars + 8 * (P::kStages + t % P::kStages);
   }
 };
-
-// whether the phase of parity `parity` has completed, without waiting
-__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// 3-D TMA load of one box at (c0 = column, c1 = row, c2 = piece)
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map, int c0,
-                                            int c1, int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
 
 // Fills the ring from inside the consumer warpgroups (there is no
 // producer warp): tile t's Z pieces and Y tile into stage t % kStages.
@@ -1003,30 +865,6 @@ __device__ __forceinline__ void issue_c_split(
       wgmma_rs<N>(acc, wf[pair_x(p)][zk],
                   dz + ((pair_z(p) * P::kZPiece + zk * 2048) >> 4));
   wgmma_commit();
-}
-
-// W = y / b for b = max(S, 1e-30) >= 2^-100, with no call (a call in the
-// kernel makes ptxas serialize every wgmma): quotient() where it is exact,
-// below 2^100; above, the divisor is scaled by 2^-64 and the quotient by
-// 2^-64 (both exact, but for a quotient below 2^-126, whose last bit may
-// round twice); an infinite S gives 0.
-__device__ __forceinline__ float w_of(float y, float b) {
-  const bool big = !(b < 0x1p100f);
-  const float q = quotient(y, big ? b * 0x1p-64f : b);
-  return big ? (b == __int_as_float(0x7f800000) ? 0.f : q * 0x1p-64f) : q;
-}
-
-// The three bf16x2 pieces of the pair (lo, hi): p1 = bf16(v),
-// p2 = bf16(v - p1), p3 = bf16(v - p1 - p2), each difference exact in f32.
-__device__ __forceinline__ void split3(float lo, float hi, uint32_t& p1,
-                                       uint32_t& p2, uint32_t& p3) {
-  p1 = pack_bf16x2(lo, hi);
-  lo -= __uint_as_float(p1 << 16);
-  hi -= __uint_as_float(p1 & 0xFFFF0000u);
-  p2 = pack_bf16x2(lo, hi);
-  lo -= __uint_as_float(p2 << 16);
-  hi -= __uint_as_float(p2 & 0xFFFF0000u);
-  p3 = pack_bf16x2(lo, hi);
 }
 
 // W for this thread's S elements, split into the A fragments of its three
@@ -1241,46 +1079,6 @@ dense_split_kernel(const __grid_constant__ CUtensorMap map_a,
 
 // ---- host side -----------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// row-major [rows, cols] at `row_bytes` per row, loaded in boxes of
-// box_rows x box_cols; out-of-range elements load as zero
-bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-               uint64_t cols, uint64_t rows, uint64_t row_bytes,
-               uint32_t box_cols, uint32_t box_rows, CUtensorMapSwizzle sw) {
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return encoder()(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
-                   unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int kKq, int kStage = kProd>
 int launch_wgmma(const void* a, const void* b, const void* y, void* acc_a,
                  void* acc_b, void* part_a, void* part_b, int n, int m,
@@ -1314,21 +1112,6 @@ int launch_wgmma(const void* a, const void* b, const void* y, void* acc_a,
                          split_b, stream);
 }
 
-// [3, rows, cols] bf16 pieces, row-major, loaded in 64 x 64 boxes of one
-// piece with the 128-byte swizzle; out-of-range elements load as zero
-bool encode_pieces(CUtensorMap* map, const void* ptr, uint64_t cols,
-                   uint64_t rows) {
-  const cuuint64_t dims[3] = {cols, rows, kPieces};
-  const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                   const_cast<void*>(ptr), dims, strides, box, unit,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int kKq, int kStage = kProd>
 int launch_split(const void* a, const void* b, const void* y, void* acc_a,
                  void* acc_b, void* part_a, void* part_b, int n, int m,
@@ -1338,7 +1121,8 @@ int launch_split(const void* a, const void* b, const void* y, void* acc_a,
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   CUtensorMap ma, mb, myu, myi;
-  if (!encode_pieces(&ma, a, kKq, n) || !encode_pieces(&mb, b, kKq, m) ||
+  if (!encode_packed(&ma, a, kKq, n, kPieces, 64, 1) ||
+      !encode_packed(&mb, b, kKq, m, kPieces, 64, 1) ||
       !encode_2d(&myu, u8, y, m, n, ldy, P::kTc, kX,
                  CU_TENSOR_MAP_SWIZZLE_64B) ||
       !encode_2d(&myi, u8, y, m, n, ldy, kX, P::kTc,
@@ -1507,10 +1291,13 @@ extern "C" int hpf_dense_split_probe_f32(const void* a, const void* b,
   }
 }
 
-// ---- wide rows: the streamed design, both routes past the cluster one ----
+// ---- wide rows: the streamed design, on no route ---------------------------
 //
-// dense_wide_kernel takes the packed rows wider than dense_cluster_kernel
-// (below) holds: f32 rows past 2560 values, bf16 rows past 3072. Neither
+// dense_wide_kernel takes packed rows of any width; no route sends it any
+// (csrc/dense_unfused.cu takes the widest rows), and chip_smoke.py times
+// the unfused route beside it. It took the rows wider than
+// dense_cluster_kernel (below) holds: f32 rows past 2560 values, bf16 rows
+// past 3072. Neither
 // narrow kernel can hold them: a wgmma makes at most 256 output columns,
 // the bf16 kernel's accumulator already takes 128 registers a thread at
 // kq = 256, and the split kernel's resident stationary pieces (96 KB at
@@ -1828,21 +1615,6 @@ dense_wide_kernel(const __grid_constant__ CUtensorMap map_a,
     }
 }
 
-// [pieces, rows, cols] bf16, row-major, loaded in 64 x 64 boxes of one
-// piece with the 128-byte swizzle; out-of-range elements load as zero
-bool encode_wide(CUtensorMap* map, const void* ptr, uint64_t cols,
-                 uint64_t rows, uint64_t pieces) {
-  const cuuint64_t dims[3] = {cols, rows, pieces};
-  const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                   const_cast<void*>(ptr), dims, strides, box, unit,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int kP, int kWn>
 int launch_wide(const void* a, const void* b, const void* y, void* acc_a,
                 void* acc_b, void* part_a, void* part_b, int n, int m,
@@ -1852,7 +1624,8 @@ int launch_wide(const void* a, const void* b, const void* y, void* acc_a,
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   CUtensorMap ma, mb, myu, myi;
-  if (!encode_wide(&ma, a, kq, n, kP) || !encode_wide(&mb, b, kq, m, kP) ||
+  if (!encode_packed(&ma, a, kq, n, kP, 64, 1) ||
+      !encode_packed(&mb, b, kq, m, kP, 64, 1) ||
       !encode_2d(&myu, u8, y, m, n, ldy, P::kTc, kX,
                  CU_TENSOR_MAP_SWIZZLE_64B) ||
       !encode_2d(&myi, u8, y, m, n, ldy, kX, P::kTc,
@@ -2720,22 +2493,6 @@ dense_res_kernel(const __grid_constant__ CUtensorMap map_ax,
         ring, xs, xch, 1, r0, q, role, nx);
 }
 
-// [pieces, rows, cols] bf16, row-major, loaded in boxes of 64 columns x
-// box_rows rows x every piece with the 128-byte swizzle; out-of-range
-// elements load as zero
-bool encode_res(CUtensorMap* map, const void* ptr, uint64_t cols,
-                uint64_t rows, uint32_t pieces, uint32_t box_rows) {
-  const cuuint64_t dims[3] = {cols, rows, pieces};
-  const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};
-  const cuuint32_t box[3] = {64, box_rows, pieces};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                   const_cast<void*>(ptr), dims, strides, box, unit,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int kP, int kKb, int kTm>
 int launch_res(const void* a, const void* b, const void* y, void* acc_a,
                void* acc_b, void* part_a, void* part_b, int n, int m,
@@ -2744,10 +2501,10 @@ int launch_res(const void* a, const void* b, const void* y, void* acc_a,
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   CUtensorMap mxa, mxb, mza, mzb, myu, myi;
-  if (!encode_res(&mxa, a, P::kKq, n, kP, kXr) ||
-      !encode_res(&mxb, b, P::kKq, m, kP, kXr) ||
-      !encode_res(&mza, a, P::kKq, n, kP, kTm) ||
-      !encode_res(&mzb, b, P::kKq, m, kP, kTm) ||
+  if (!encode_packed(&mxa, a, P::kKq, n, kP, kXr, kP) ||
+      !encode_packed(&mxb, b, P::kKq, m, kP, kXr, kP) ||
+      !encode_packed(&mza, a, P::kKq, n, kP, kTm, kP) ||
+      !encode_packed(&mzb, b, P::kKq, m, kP, kTm, kP) ||
       !encode_2d(&myu, u8, y, m, n, ldy, kTm, kXr,
                  kTm == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                            : CU_TENSOR_MAP_SWIZZLE_NONE) ||
@@ -2828,9 +2585,10 @@ extern "C" int hpf_dense_res_f32(const void* a, const void* b, const void* y,
 //
 // dense_cluster_kernel takes kernel #1's wide routes past the resident
 // kernel's widths, up to the widest a cluster of 8 CTAs holds: f32 rows
-// of 321-2560 packed values, bf16 rows of 385-3072 (dense_wide_kernel, the
-// streamed design, keeps the wider rows). It replaces the TPU kernel
-// dense_pallas.py::_kernel at those widths.
+// of 321-2560 packed values, bf16 rows of 385-3072; the route sends it
+// rows up to 960 values and the unfused route (csrc/dense_unfused.cu) the
+// wider ones. It replaces the TPU kernel dense_pallas.py::_kernel at
+// those widths.
 //
 // What stops dense_res_kernel past 320 f32 / 384 bf16 values is one CTA's
 // room: its 64 resident stationary rows take 6 bytes a value on the f32
@@ -3175,10 +2933,10 @@ int launch_cluster(const void* a, const void* b, const void* y, void* acc_a,
   const int kq = c * P::kKq;
   const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   CUtensorMap mxa, mxb, mza, mzb, myu, myi;
-  if (!encode_res(&mxa, a, kq, n, kP, kXr) ||
-      !encode_res(&mxb, b, kq, m, kP, kXr) ||
-      !encode_res(&mza, a, kq, n, kP, kTm) ||
-      !encode_res(&mzb, b, kq, m, kP, kTm) ||
+  if (!encode_packed(&mxa, a, kq, n, kP, kXr, kP) ||
+      !encode_packed(&mxb, b, kq, m, kP, kXr, kP) ||
+      !encode_packed(&mza, a, kq, n, kP, kTm, kP) ||
+      !encode_packed(&mzb, b, kq, m, kP, kTm, kP) ||
       !encode_2d(&myu, u8, y, m, n, ldy, kTm, kXr,
                  kTm == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                            : CU_TENSOR_MAP_SWIZZLE_NONE) ||

@@ -27,16 +27,23 @@ the packed width kq (K, plus 2 with bias, zero-padded):
     64 stationary rows resident in shared memory, stages each moving
     tile once into a ring of k-block slots and forms S once per tile,
     split in half by k-steps between its two warpgroups, which split the
-    output columns in half the other way; past those widths
-    `dense_cluster_kernel` ("cluster": bf16 rows of 385-3072 packed
-    values, "cluster_f32": f32 rows of 321-2560), the same design on a
-    thread-block cluster of c CTAs, each holding 1/c of the row's
-    k-blocks and owning their output columns, the S partials summed
-    through distributed shared memory; past those widths
-    `dense_wide_kernel`
-    ("wide_stream", "wide_stream_f32"), the streamed design: column
-    windows of 256 (bf16) or 128 (f32), S formed per window with both
-    operands' k-blocks streamed by TMA, any width.
+    output columns in half the other way; past those widths, below
+    UNFUSED_FROM (1024) packed values, `dense_cluster_kernel` ("cluster":
+    bf16 rows of 385-960, "cluster_f32": f32 rows of 321-960; it is built
+    for rows up to 3072 and 2560), the same design on a thread-block
+    cluster of c CTAs, each holding 1/c of the row's k-blocks and owning
+    their output columns, the S partials summed through distributed
+    shared memory; from 1024 values the unfused route of
+    `csrc/dense_unfused.cu` ("unfused", "unfused_f32"): per
+    slab of users (`unfused_plan`) `dense_w_kernel` forms S and W into
+    an HBM slab of W (W's three bf16 pieces on the f32 route), then
+    `dense_contract_kernel` forms W B and adds W^T A, three GEMM-shaped
+    wgmma passes that issue the function's own 6 N M kq products;
+  * `dense_wide_kernel` of `csrc/dense_wgmma.cu` ("wide_stream",
+    "wide_stream_f32"; column windows of 256 bf16 or 128 f32, S formed
+    per window with both operands' k-blocks streamed by TMA, any width)
+    is on no route: `chip_smoke.py` times the unfused route beside it at
+    ML-1M shape.
   * `csrc/dense_simt.cu` (register-tiled FP32 FMAs fed by a cp.async
     ring, any Y row stride) computes the f32 function up to kq = 256 and
     no route takes it: it is the yardstick `chip_smoke.py` times the f32
@@ -46,7 +53,8 @@ The choice is by width between hand-written kernels, not a fallback: a
 launch that fails raises. A sweep costs 8 N M kq FLOPs (four products of
 2 N M kq: both of the narrow kernels' two deterministic roles recompute
 S; the resident and cluster wide kernels form S once a role as well),
-six bf16 products each on the f32 routes, against two uint8 reads of Y,
+6 N M kq on the unfused route (S once, W through HBM), six bf16 products
+each on the f32 routes, against two uint8 reads of Y,
 so it is compute-bound on the H100. The two-role design trades the
 fourth product for sums without atomics and no item-count limit. The two narrow wgmma
 kernels are also built once per stage of the stage probe
@@ -79,8 +87,18 @@ RES_WIDTHS = {"wide": (320, 384), "wide_f32": (192, 256, 320)}
 # CTAs a cluster has; wider rows take the streamed wide kernel
 CLUSTER_SHARES = {"cluster": (4, 6), "cluster_f32": (3, 5)}
 CLUSTER_MAX = 8
-_BF16_KERNELS = ("wgmma", "wide", "cluster", "wide_stream")
-_PIECE_KERNELS = ("f32", "wide_f32", "cluster_f32", "wide_stream_f32")
+# the unfused route's budget for W's slab in bytes (its pieces included):
+# the slabs are as many users as fit, whole multiples of 128
+UNFUSED_W_BYTES = 2 << 30
+# the packed width (rows padded to k-blocks of 64) from which both
+# precisions take the unfused route in place of the cluster kernel: it
+# measured faster there at ML-1M K = 1000 and 2000 and Netflix K = 1000
+# (PERF.md, section 6)
+UNFUSED_FROM = 1024
+UNFUSED_KERNELS = ("unfused", "unfused_f32")
+_BF16_KERNELS = ("wgmma", "wide", "cluster", "wide_stream", "unfused")
+_PIECE_KERNELS = ("f32", "wide_f32", "cluster_f32", "wide_stream_f32",
+                  "unfused_f32")
 
 
 class _Kernel(NamedTuple):
@@ -123,14 +141,25 @@ KERNELS = {
     "wide_stream": _Kernel("hpf_dense_wide_bf16", None, 0, 128, 1, 8, 256),
     "wide_stream_f32": _Kernel("hpf_dense_wide_f32", None, 0, 128, 1, 8,
                                128),
+    # from UNFUSED_FROM packed values the unfused route (csrc/
+    # dense_unfused.cu): per slab of users dense_w_kernel and the two
+    # dense_contract_kernel passes, tiles of 192 rows (three consumer
+    # warpgroups) by 256 columns (bf16) or 128 by 128 (f32); no stages
+    "unfused": _Kernel("hpf_dense_unfused_bf16", None, 0, 192, 1, 8),
+    "unfused_f32": _Kernel("hpf_dense_unfused_f32", None, 0, 128, 1, 8),
 }
 _CLAMP = 1e-30
 # (a, b, y, acc_a, acc_b, part_a, part_b, n, m, kq, ldy, split_a, split_b
 # [, stage], stream)
 _ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+# the unfused entries: (a, b, y, acc_a, acc_b, w, n, m, kq, ldy,
+# slab_rows, ldw, stream)
+_UNFUSED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _ARGTYPES = {
     **{k.entry: _ARGS + [ctypes.c_void_p] for k in KERNELS.values()},
+    **{KERNELS[k].entry: _UNFUSED_ARGS for k in UNFUSED_KERNELS},
     **{k.probe: _ARGS + [ctypes.c_int, ctypes.c_void_p]
        for k in KERNELS.values() if k.probe},
 }
@@ -196,12 +225,13 @@ def packed_width(kaug: int, kernel: str) -> int:
     without bias), the resident wide kernel for RES_WIDTHS ("wide" 320
     and 384, "wide_f32" 192, 256 and 320), the cluster kernel
     (`cluster_shape`) c equal shares of whole k-blocks, and the streamed
-    wide kernels ("wide_stream", "wide_stream_f32") any whole number of
-    k-blocks. "simt" copies rows in 16-byte chunks (multiples of 4
-    values; the kernel loops over this true width) up to 256. A kernel
+    wide kernels ("wide_stream", "wide_stream_f32") and the unfused route
+    ("unfused", "unfused_f32") any whole number of k-blocks. "simt"
+    copies rows in 16-byte chunks (multiples of 4 values; the kernel
+    loops over this true width) up to 256. A kernel
     refuses a wider row with a ValueError that names the kernel its route
     takes there."""
-    if kernel in ("wide_stream", "wide_stream_f32"):
+    if kernel in ("wide_stream", "wide_stream_f32") + UNFUSED_KERNELS:
         return -(-kaug // 64) * 64
     if kernel in CLUSTER_SHARES:
         c, kb = cluster_shape(kaug, kernel)
@@ -253,32 +283,34 @@ def cluster_size(kq: int, kernel: str) -> int:
 def dense_kernel(kaug: int, bf16: bool) -> str:
     """The kernel (a key of KERNELS) a sweep takes for `kaug` values:
     bf16 "wgmma" up to 256 packed values, the resident wide kernel
-    ("wide") up to 384, the cluster kernel ("cluster") up to 3072 and the
-    streamed one ("wide_stream") past it; f32 `f32_kernel`'s."""
+    ("wide") up to 384, the cluster kernel ("cluster") up to 960 and the
+    unfused route ("unfused") from UNFUSED_FROM (1024 once padded to
+    whole k-blocks); f32 `f32_kernel`'s."""
     if not bf16:
         return f32_kernel(kaug)
     if kaug <= KP_MAX:
         return "wgmma"
-    return _wide_kernel(kaug, "wide", "cluster", "wide_stream")
+    return _wide_kernel(kaug, "wide", "cluster", "unfused")
 
 
 def f32_kernel(kaug: int) -> str:
     """The f32 route's kernel (a key of KERNELS) for `kaug` values: the
     split-product wgmma kernel ("f32") up to kq = 128, the resident wide
     kernel's f32 route ("wide_f32") up to 320, the cluster kernel's
-    ("cluster_f32") up to 2560, the streamed one ("wide_stream_f32")
-    above. dense_simt.cu ("simt") is on no route."""
+    ("cluster_f32") up to 960, the unfused route ("unfused_f32") from
+    UNFUSED_FROM. dense_simt.cu ("simt") and the streamed kernel
+    ("wide_stream_f32") are on no route."""
     if kaug <= SPLIT_KQ_MAX:
         return "f32"
-    return _wide_kernel(kaug, "wide_f32", "cluster_f32", "wide_stream_f32")
+    return _wide_kernel(kaug, "wide_f32", "cluster_f32", "unfused_f32")
 
 
-def _wide_kernel(kaug: int, res: str, cluster: str, stream: str) -> str:
+def _wide_kernel(kaug: int, res: str, cluster: str, unfused: str) -> str:
     if kaug <= RES_WIDTHS[res][-1]:
         return res
-    if kaug <= 64 * CLUSTER_SHARES[cluster][1] * CLUSTER_MAX:
+    if -(-kaug // 64) * 64 < UNFUSED_FROM:
         return cluster
-    return stream
+    return unfused
 
 
 def windows(kq: int, kernel: str) -> int:
@@ -292,18 +324,24 @@ def windows(kq: int, kernel: str) -> int:
 
 def wide_plan(n: int, m: int, kaug: int, kernel: str) -> Dict[str, float]:
     """What a launch of a wide kernel ("wide", "wide_f32", "cluster",
-    "cluster_f32", "wide_stream", "wide_stream_f32") on an N x M sweep of
-    `kaug` values issues and stages, from its plan: kq; CTAs a cluster;
-    windows; S formations per (stationary, moving) pair; `issued`, the
-    FLOPs of its tensor-core products (both roles; x 6 bf16 products on
-    the f32 routes); `staged`, the bytes its TMA loads bring into shared
-    memory (every CTA's stationary rows and every moving tile and Y tile
-    it sweeps: the streamed kernel restages the stationary k-blocks per
-    moving tile and the moving tile per window, the resident one stages
-    each once, the cluster kernel each factor once and Y once per CTA of
-    a cluster)."""
-    spec = KERNELS[kernel]
+    "cluster_f32", "wide_stream", "wide_stream_f32", "unfused",
+    "unfused_f32") on an N x M sweep of `kaug` values issues and stages,
+    from its plan: kq; CTAs a cluster; windows; S formations per
+    (stationary, moving) pair; `issued`, the FLOPs of its tensor-core
+    products (both roles; x 6 bf16 products on the f32 routes); `staged`,
+    the bytes its TMA loads bring into shared memory (every CTA's
+    stationary rows and every moving tile and Y tile it sweeps: the
+    streamed kernel restages the stationary k-blocks per moving tile and
+    the moving tile per window, the resident one stages each once, the
+    cluster kernel each factor once and Y once per CTA of a cluster; the
+    unfused route its three passes' k-blocks, `unfused_plan`)."""
     kq = packed_width(kaug, kernel)
+    if kernel in UNFUSED_KERNELS:
+        plan = unfused_plan(n, m, kq, kernel)
+        return dict(kq=kq, cluster=1, windows=1, s_forms=1,
+                    issued=plan["issued"],
+                    staged=sum(plan["staged"].values()))
+    spec = KERNELS[kernel]
     nwin = windows(kq, kernel)
     c = cluster_size(kq, kernel)
     pieces = 3 if kernel.endswith("f32") else 1
@@ -324,6 +362,45 @@ def wide_plan(n: int, m: int, kaug: int, kernel: str) -> Dict[str, float]:
     issued = 4 * n * m * kq * (forms + 1) * (6 if pieces == 3 else 1)
     return dict(kq=kq, cluster=c, windows=nwin, s_forms=forms,
                 issued=issued, staged=staged)
+
+
+def unfused_plan(n: int, m: int, kq: int, kernel: str,
+                 slab_rows: Optional[int] = None) -> Dict:
+    """The unfused route's slabs and what they move, for an N x M sweep of
+    packed width kq (whole k-blocks of 64) by `kernel` ("unfused",
+    "unfused_f32"): `slab_rows`, the users a slab holds (a whole multiple
+    of 128: as many as W's slab fits in UNFUSED_W_BYTES, its pieces
+    included, unless `slab_rows` is given, as the tests and chip_smoke.py
+    do to force several slabs; never more than N rounded up to 128);
+    `slabs`, their row ranges [u0, u1) in order, covering the users;
+    `ldw`, W's row stride (M padded to 8 values); `issued`, the FLOPs of
+    the tensor-core products (6 N M kq, x 6 bf16 products on the f32
+    route: the function's own); `w_written` and `w_read`, W's bytes to
+    HBM and back (written once, read by both contractions); `staged`, the
+    bytes each pass's TMA loads bring into shared memory (every CTA's
+    k-blocks of both operands, all pieces, zero-filled edges included)."""
+    pieces = 3 if kernel == "unfused_f32" else 1
+    rows, cols = KERNELS[kernel].tile, 256 if pieces == 1 else 128
+    ldw = -(-m // 8) * 8
+    if slab_rows is None:
+        slab_rows = max(1, UNFUSED_W_BYTES // (pieces * ldw * 2 * 128)) * 128
+    if slab_rows <= 0 or slab_rows % 128:
+        raise ValueError(f"slab_rows={slab_rows} is not a whole multiple of "
+                         f"128 rows")
+    slab_rows = min(slab_rows, max(128, -(-n // 128) * 128))
+    slabs = [(u0, min(u0 + slab_rows, n)) for u0 in range(0, n, slab_rows)]
+    stage = pieces * (rows + cols) * 128       # one k-block of both operands
+    staged = dict(w=0, contract_a=0, contract_b=0)
+    for u0, u1 in slabs:
+        tiles = -(-(u1 - u0) // rows)
+        staged["w"] += tiles * -(-m // cols) * (kq // 64) * stage
+        staged["contract_a"] += tiles * -(-kq // cols) * -(-m // 64) * stage
+        staged["contract_b"] += (-(-m // rows) * -(-kq // cols) *
+                                 -(-(u1 - u0) // 64) * stage)
+    w_written = pieces * n * m * 2
+    return dict(kq=kq, slab_rows=slab_rows, slabs=slabs, ldw=ldw,
+                issued=6 * n * m * kq * (6 if pieces == 3 else 1),
+                w_written=w_written, w_read=2 * w_written, staged=staged)
 
 
 def check_tma_layout(dense_y: torch.Tensor) -> None:
@@ -470,13 +547,15 @@ def fused_dense_sweep(a_lin: torch.Tensor, b_lin: torch.Tensor,
 
 
 def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
-                 kernel: str, stage: Optional[int] = None):
+                 kernel: str, stage: Optional[int] = None,
+                 slab_rows: Optional[int] = None):
     """Pack the factors, launch `kernel` (a key of KERNELS) on the card and
     return the raw packed outputs (f32 [N, kq], [M, kq]). An int `stage`
     (ops/dense_probe.py's STAGES) runs that kernel built for that stage of
     the stage probe, on rows packed to the probe's width (112, for both
-    wgmma kernels; "simt" has no stages). Inputs are checked by the
-    caller; the wgmma kernels' Y layout is checked here."""
+    wgmma kernels; "simt" has no stages). `slab_rows` (the unfused route
+    only) sets the users of a slab (`unfused_plan`). Inputs are checked
+    by the caller; the wgmma kernels' Y layout is checked here."""
     n, k = a_lin.shape
     m = b_lin.shape[0]
     spec = KERNELS[kernel]
@@ -499,6 +578,9 @@ def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
     acc_b = torch.empty((m, kq), dtype=torch.float32, device=a.device)
     if n == 0 or m == 0:
         return acc_a.zero_(), acc_b.zero_()
+    if kernel in UNFUSED_KERNELS:
+        _launch_unfused(a, b, dense_y, acc_a, acc_b, kernel, slab_rows)
+        return acc_a, acc_b
     split_a, split_b = splits_for(
         n, m, torch.cuda.get_device_properties(a.device).multi_processor_count,
         kernel, windows(kq, kernel), kq)
@@ -522,6 +604,30 @@ def launch_dense(a_lin, b_lin, dense_y, ba_lin=None, bb_lin=None, *,
     return acc_a, acc_b
 
 
+def _launch_unfused(a, b, dense_y, acc_a, acc_b, kernel, slab_rows):
+    """The unfused route on the packed tables a, b ([3, rows, kq] pieces
+    on the f32 route): one C call runs every slab of `unfused_plan` in
+    order on the current stream, W's slab scratch from the caching
+    allocator (a captured graph keeps it in its pool). Raises
+    RuntimeError naming the kernel, the shape and the slab on a failed
+    launch."""
+    n, m, kq = acc_a.shape[0], acc_b.shape[0], acc_a.shape[1]
+    plan = unfused_plan(n, m, kq, kernel, slab_rows)
+    w = torch.empty((3 if kernel == "unfused_f32" else 1, plan["slab_rows"],
+                     plan["ldw"]), dtype=torch.bfloat16, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _entry(KERNELS[kernel].entry)(
+            a.data_ptr(), b.data_ptr(), dense_y.data_ptr(), acc_a.data_ptr(),
+            acc_b.data_ptr(), w.data_ptr(), n, m, kq, dense_y.stride(0),
+            plan["slab_rows"], plan["ldw"], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"dense sweep launch failed: cudaError {err} (kernel={kernel}: "
+            f"dense_w_kernel, dense_contract_kernel; n={n}, m={m}, kq={kq}, "
+            f"slab of {plan['slab_rows']} rows, {len(plan['slabs'])} slabs)")
+
+
 fused_dense_sweep.launches = 0
 fused_dense_sweep.launches_by_kernel = {kernel: 0 for kernel in KERNELS}
 
@@ -529,7 +635,9 @@ fused_dense_sweep.launches_by_kernel = {kernel: 0 for kernel in KERNELS}
 # each wgmma kernel's production instantiations in the machine code: the
 # pattern and what its number times gives the packed width (the resident
 # wide kernel's k-blocks x 64; the cluster kernel's: the width of one CTA's
-# share; the streamed ones': the window width)
+# share; the streamed ones': the window width); the unfused route's (unit
+# 0) are keyed by pass: 0 dense_w_kernel, 1 and 2 dense_contract_kernel's
+# roles 0 (W B) and 1 (W^T A)
 _PRODUCTION = {"wgmma": (r"dense_wgmma_kernelILi(\d+)ELi0EE", 1),
                "f32": (r"dense_split_kernelILi(\d+)ELi0EE", 1),
                "wide": (r"dense_res_kernelILi1ELi(\d+)ELi64EE", 64),
@@ -538,18 +646,24 @@ _PRODUCTION = {"wgmma": (r"dense_wgmma_kernelILi(\d+)ELi0EE", 1),
                "cluster_f32": (r"dense_cluster_kernelILi3ELi(\d+)ELi32EE",
                                64),
                "wide_stream": (r"dense_wide_kernelILi1ELi(\d+)EE", 1),
-               "wide_stream_f32": (r"dense_wide_kernelILi3ELi(\d+)EE", 1)}
+               "wide_stream_f32": (r"dense_wide_kernelILi3ELi(\d+)EE", 1),
+               "unfused": (r"dense_w_kernelILi1ELi3EE|"
+                           r"dense_contract_kernelILi1ELi3ELi([01])EE", 0),
+               "unfused_f32": (r"dense_w_kernelILi3ELi2EE|"
+                               r"dense_contract_kernelILi3ELi2ELi([01])EE",
+                               0)}
 
 
 def hgmma_counts() -> Dict[str, Dict[int, int]]:
     """{kernel: {kq: count}}: warpgroup tensor-core instructions (HGMMA)
     in the machine code of each wgmma kernel ("wgmma" bf16, "f32" split,
     the resident "wide" and "wide_f32", the cluster kernel's "cluster"
-    and "cluster_f32", the streamed "wide_stream" and "wide_stream_f32"),
-    by production instantiation (packed width kq; a CTA's share for the
-    cluster kernel, the window width for the streamed ones; the stage
-    probe's other stages are not counted): a width whose count is zero
-    had its products folded away."""
+    and "cluster_f32", the streamed "wide_stream" and "wide_stream_f32",
+    the unfused route's "unfused" and "unfused_f32"), by production
+    instantiation (packed width kq; a CTA's share for the cluster kernel,
+    the window width for the streamed ones, the pass for the unfused
+    route; the stage probe's other stages are not counted): a width whose
+    count is zero had its products folded away."""
     counts: Dict[str, Dict[int, int]] = {k: {} for k in _PRODUCTION}
     cur = None
     for line in build.sass().splitlines():
@@ -558,7 +672,9 @@ def hgmma_counts() -> Dict[str, Dict[int, int]]:
             for kernel, (pattern, unit) in _PRODUCTION.items():
                 hit = re.search(pattern, line)
                 if hit:
-                    cur, kq = counts[kernel], int(hit.group(1)) * unit
+                    cur = counts[kernel]
+                    kq = (int(hit.group(1)) * unit if unit else
+                          0 if hit.group(1) is None else 1 + int(hit.group(1)))
                     cur[kq] = 0
         elif cur is not None and "HGMMA" in line:
             cur[kq] += 1

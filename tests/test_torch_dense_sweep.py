@@ -74,13 +74,15 @@ def test_plain_matches_jax(rng, case):
 
 
 @pytest.mark.parametrize("k,bias", [(300, False), (255, True), (200, False),
-                                    (130, True), (400, False)])
+                                    (130, True), (400, False),
+                                    (2600, False), (2600, True)])
 def test_plain_matches_jax_wide(rng, k, bias):
     """The widths of the wide routes: past 256 packed values (K = 300;
     K = 255 with bias, 257 values) the JAX fused kernel pads the rows to
     kp = 384, at K = 200 and K = 130 with bias (the f32 route's resident
     wide kernel at kq = 256 and 192) to 256, at K = 400 (the f32 route's
-    cluster kernel, kq = 512 on two CTAs) to 512, and runs in the
+    cluster kernel, kq = 512 on two CTAs) to 512, at K = 2600 (the f32
+    route's unfused kernels, kq = 2624) to 2688, and runs in the
     interpreter; the port's fused_dense_sweep on the CPU (the plain
     version the wide kernels are held to) agrees at the f32 bound, bias
     sums included."""
@@ -97,19 +99,26 @@ def test_plain_matches_jax_wide(rng, k, bias):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32)
 
 
-def test_plain_matches_jax_wide_bf16(rng):
+@pytest.mark.parametrize("k,bias,kernel", [(640, False, "cluster"),
+                                           (3100, False, "unfused"),
+                                           (3100, True, "unfused")])
+def test_plain_matches_jax_wide_bf16(rng, k, bias, kernel):
     """K = 640 in bf16 (the bf16 route's cluster kernel, kq = 640 on two
-    CTAs): the JAX fused kernel in bf16 mode in the interpreter and the
+    CTAs) and K = 3100 with and without bias (its unfused kernels, kq =
+    3136): the JAX fused kernel in bf16 mode in the interpreter and the
     port's plain version, both rounding A, B and W to bf16, agree at the
-    bf16 bound (max |g - r| / max(|r|, 1e-3) < 2e-2)."""
-    elogs, y = _inputs(rng, 40, 30, 640, 16, False, 0, 0)
+    bf16 bound (max |g - r| / max(|r|, 1e-3) < 2e-2), bias sums
+    included."""
+    elogs, y = _inputs(rng, 40, 30, k, 16, bias, 0, 0)
     j_lin = [jnp.exp(jnp.asarray(e)) for e in elogs]
     t_lin = [torch.exp(torch.from_numpy(e)) for e in elogs]
-    j_raw = j_fused(*j_lin, jnp.asarray(y), bf16=True, tile_u=8, tile_c=16,
-                    interpret=True)
-    t_raw = df.fused_dense_sweep(*t_lin, torch.from_numpy(y), bf16=True)
-    assert df.dense_kernel(640, True) == "cluster"
-    assert len(t_raw) == len(j_raw) == 2 and t_raw[0].shape == (40, 640)
+    j_raw = j_fused(*j_lin[:2], jnp.asarray(y), *j_lin[2:], bf16=True,
+                    tile_u=8, tile_c=16, interpret=True)
+    t_raw = df.fused_dense_sweep(*t_lin[:2], torch.from_numpy(y),
+                                 *t_lin[2:], bf16=True)
+    assert df.dense_kernel(k + 2 * bias, True) == kernel
+    assert len(t_raw) == len(j_raw) == (4 if bias else 2)
+    assert t_raw[0].shape == (40, k)
     for got, ref in zip(t_raw, j_raw):
         ref = torch.from_numpy(np.asarray(ref))
         assert ((got - ref).abs() / ref.abs().clamp_min(1e-3)).max() < 2e-2
@@ -233,7 +242,7 @@ def test_packed_width_rejects_wide_rows(kernel):
     kernel), where the streamed kernel would run two (bf16) or three
     (f32). The resident kernel refuses rows past its widths the same
     way, naming the cluster kernel, and the cluster kernel rows past
-    eight CTAs, naming the streamed one."""
+    eight CTAs, naming the unfused route's kernel."""
     bf16 = kernel == "wgmma"
     wide = "wide" if bf16 else "wide_f32"
     with pytest.raises(ValueError, match=wide):
@@ -245,7 +254,7 @@ def test_packed_width_rejects_wide_rows(kernel):
         (2 if bf16 else 3)
     with pytest.raises(ValueError, match="cluster"):
         df.packed_width(385 if bf16 else 321, wide)
-    with pytest.raises(ValueError, match="wide_stream"):
+    with pytest.raises(ValueError, match="unfused"):
         df.packed_width(3073 if bf16 else 2561,
                         wide.replace("wide", "cluster"))
 
@@ -256,57 +265,61 @@ def test_packed_width_rejects_wide_rows(kernel):
                                        (257, "wide_f32"), (302, "wide_f32"),
                                        (320, "wide_f32"),
                                        (321, "cluster_f32"),
-                                       (2560, "cluster_f32"),
-                                       (2561, "wide_stream_f32")])
+                                       (960, "cluster_f32"),
+                                       (961, "unfused_f32"),
+                                       (2560, "unfused_f32"),
+                                       (2561, "unfused_f32")])
 def test_f32_route_takes_the_kernel_of_its_width(kaug, want):
     """Up to 128 packed values the f32 route runs the split-product wgmma
     kernel, up to 320 the resident wide kernel's f32 route (rows padded
-    to 192, 256 or 320), up to 2560 the cluster kernel's, above that the
-    streamed one; the split kernel, the resident and the cluster kernel
-    refuse wider rows, and dense_simt.cu, on no route now, still takes up
-    to 256."""
+    to 192, 256 or 320), up to 960 the cluster kernel's, from 961 (1024
+    padded) the unfused route's; the split kernel and the resident
+    kernel refuse wider rows, the cluster kernel rows past 2560, and
+    dense_simt.cu, on no route now, still takes up to 256."""
     assert df.f32_kernel(kaug) == want
     if want != "f32":
         with pytest.raises(ValueError, match="128"):
             df.packed_width(kaug, "f32")
     if want == "wide_f32":
         assert df.packed_width(kaug, "wide_f32") in (192, 256, 320)
-    if want in ("cluster_f32", "wide_stream_f32"):
+    if want in ("cluster_f32", "unfused_f32"):
         with pytest.raises(ValueError, match=want):
             df.packed_width(kaug, "wide_f32")
-    if want == "wide_stream_f32":
-        with pytest.raises(ValueError, match="wide_stream_f32"):
+    if kaug > 2560:
+        with pytest.raises(ValueError, match="unfused_f32"):
             df.packed_width(kaug, "cluster_f32")
     if kaug <= 256:
         assert df.packed_width(kaug, "simt") == -(-kaug // 4) * 4
 
 
-@pytest.mark.parametrize("kaug", [257, 320, 1024, 2560])
+@pytest.mark.parametrize("kaug", [257, 320, 1024, 2560, 2561, 3072, 3073])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_wide_routing(kaug, bf16):
     """Past 256 packed values both precisions take a wide kernel, rows
     padded to whole k-blocks of 64: up to 320 (f32) or 384 (bf16) the
-    resident one, one window, 64-row stationary tiles; past them, up to
-    2560 (f32) or 3072 (bf16), the cluster kernel, the same tiles in
+    resident one, one window, 64-row stationary tiles; past them, below
+    1024 values (UNFUSED_FROM), the cluster kernel, the same tiles in
     clusters of c CTAs, rows padded to c equal shares; the CTAs fill the
-    card (at ML-1M shape, 132 SMs)."""
+    card (at ML-1M shape, 132 SMs). From there the unfused route, in one
+    window and, at ML-1M shape, one slab of 128-row tiles
+    (tests/test_torch_dense_unfused.py holds its plan)."""
     kernel = df.dense_kernel(kaug, bf16)
     resident = kaug <= 320
-    cluster = not resident and kaug <= (3072 if bf16 else 2560)
+    cluster = not resident and -(-kaug // 64) * 64 < df.UNFUSED_FROM
     assert kernel == ("wide" if resident else "cluster" if cluster else
-                      "wide_stream") + ("" if bf16 else "_f32")
+                      "unfused") + ("" if bf16 else "_f32")
     kq = df.packed_width(kaug, kernel)
     c = df.cluster_size(kq, kernel)
     assert kq % 64 == 0 and kaug <= kq < kaug + 64 * c
-    window = 0 if resident or cluster else (256 if bf16 else 128)
-    assert df.KERNELS[kernel].window == window
-    nwin = df.windows(kq, kernel)
-    assert nwin == (1 if window == 0 else -(-kq // window))
+    assert df.KERNELS[kernel].window == 0 and df.windows(kq, kernel) == 1
     tile = df.KERNELS[kernel].tile
-    assert tile == (128 if window else 64)
-    split_a, split_b = df.splits_for(6040, 3681, 132, kernel, nwin, kq)
-    ctas = nwin * c * (-(-6040 // tile) * split_a +
-                       -(-3681 // tile) * split_b)
+    if kernel in df.UNFUSED_KERNELS:
+        assert c == 1 and tile == (192 if bf16 else 128)
+        assert len(df.unfused_plan(6040, 3681, kq, kernel)["slabs"]) == 1
+        return
+    assert tile == 64
+    split_a, split_b = df.splits_for(6040, 3681, 132, kernel, 1, kq)
+    ctas = c * (-(-6040 // tile) * split_a + -(-3681 // tile) * split_b)
     assert 2 * 132 <= ctas <= (16 if cluster else 8) * 132
 
 
@@ -344,13 +357,16 @@ def test_wide_plan_stages_each_operand_once(kaug, bf16):
     (2560, False, 8, 5), (385, True, 2, 4), (704, True, 2, 6),
     (1088, True, 3, 6), (3072, True, 8, 6)])
 def test_cluster_routing(kaug, bf16, c, kb):
-    """Past the resident kernel's widths both routes take the cluster
-    kernel, up to eight CTAs of at most five (f32) or six (bf16)
-    k-blocks: c = max(2, ceil(kq / 320 or 384)) CTAs of equal shares,
-    the packed row zero-padded to c shares, by less than a k-block a
-    CTA; one past its widest row the route takes the streamed kernel."""
-    kernel = df.dense_kernel(kaug, bf16)
-    assert kernel == ("cluster" if bf16 else "cluster_f32")
+    """The cluster kernel takes rows up to eight CTAs of at most five
+    (f32) or six (bf16) k-blocks: c = max(2, ceil(kq / 320 or 384)) CTAs
+    of equal shares, the packed row zero-padded to c shares, by less than
+    a k-block a CTA. Past the resident kernel's widths both routes take
+    it below UNFUSED_FROM (1024) packed values, the unfused route's
+    kernels from there on and one past its widest row."""
+    kernel = "cluster" if bf16 else "cluster_f32"
+    assert df.dense_kernel(kaug, bf16) == (
+        kernel if -(-kaug // 64) * 64 < df.UNFUSED_FROM else
+        "unfused" + kernel[7:])
     kq = df.packed_width(kaug, kernel)
     fewest, most = df.CLUSTER_SHARES[kernel]
     assert df.cluster_shape(kaug, kernel) == (c, kb)
@@ -360,7 +376,7 @@ def test_cluster_routing(kaug, bf16, c, kb):
     assert kaug <= kq and kq // 64 - -(-kaug // 64) < c
     wider = 3073 if bf16 else 2561
     assert df.dense_kernel(wider, bf16) == \
-        ("wide_stream" if bf16 else "wide_stream_f32")
+        ("unfused" if bf16 else "unfused_f32")
 
 
 @pytest.mark.parametrize("n,m", [(6040, 3681), (480189, 17770),
@@ -372,8 +388,9 @@ def test_cluster_splits_fill_the_card_in_whole_clusters(n, m, kaug, bf16):
     """The cluster kernel's splits plan in clusters: 132 // c clusters of
     c CTAs fit the card at once, and each role block is one cluster, so
     the launch is c CTAs for every role block and fills at least two
-    waves of clusters where the chunks of eight moving tiles allow."""
-    kernel = df.dense_kernel(kaug, bf16)
+    waves of clusters where the chunks of eight moving tiles allow (at
+    every width it is built for, routed or not)."""
+    kernel = "cluster" if bf16 else "cluster_f32"
     kq = df.packed_width(kaug, kernel)
     c = df.cluster_size(kq, kernel)
     spec = df.KERNELS[kernel]
@@ -398,7 +415,7 @@ def test_cluster_plan_stages_each_operand_once(kaug, bf16, c):
     streamed kernel on the same rows restages the stationary k-blocks per
     moving tile and the moving tile per window."""
     n, m = 480189, 17770
-    kernel = df.dense_kernel(kaug, bf16)
+    kernel = "cluster" if bf16 else "cluster_f32"
     plan = df.wide_plan(n, m, kaug, kernel)
     stream = df.wide_plan(n, m, kaug,
                           "wide_stream" if bf16 else "wide_stream_f32")
@@ -470,7 +487,8 @@ def test_f32_route_runs_the_simt_kernel():
     holds their stage probe's entries, dense_simt.cu none; the mma.sync
     design (csrc/dense_fused.cu) is gone."""
     assert {df.f32_kernel(k) for k in range(1, 321)} == {"f32", "wide_f32"}
-    assert {df.f32_kernel(k) for k in range(321, 2561)} == {"cluster_f32"}
+    assert {df.f32_kernel(k) for k in range(321, 961)} == {"cluster_f32"}
+    assert {df.f32_kernel(k) for k in range(961, 2700)} == {"unfused_f32"}
     for kernel, src in (("f32", "dense_wgmma.cu"), ("wgmma", "dense_wgmma.cu"),
                         ("simt", "dense_simt.cu")):
         with open(f"{build.CSRC_DIR}/{src}") as f:
@@ -481,12 +499,18 @@ def test_f32_route_runs_the_simt_kernel():
     assert df.KERNELS["simt"].probe is None
     assert set(df.KERNELS) == {"wgmma", "f32", "simt", "wide", "wide_f32",
                                "cluster", "cluster_f32", "wide_stream",
-                               "wide_stream_f32"}
+                               "wide_stream_f32", "unfused", "unfused_f32"}
     with open(f"{build.CSRC_DIR}/dense_wgmma.cu") as f:
         text = f.read()
     for kernel in ("wide", "wide_f32", "cluster", "cluster_f32",
                    "wide_stream", "wide_stream_f32"):
         # the wide kernels, no stages
+        assert df.KERNELS[kernel].probe is None
+        assert f'extern "C" int {df.KERNELS[kernel].entry}(' in text
+    # the unfused route's kernels have a source of their own, no stages
+    with open(f"{build.CSRC_DIR}/dense_unfused.cu") as f:
+        text = f.read()
+    for kernel in df.UNFUSED_KERNELS:
         assert df.KERNELS[kernel].probe is None
         assert f'extern "C" int {df.KERNELS[kernel].entry}(' in text
     assert build.CSRC_DIR + "/dense_fused.cu" not in build.sources()
@@ -558,7 +582,10 @@ def test_entries_are_typed_once(monkeypatch):
         for name, types in df._ARGTYPES.items():
             assert df._entry(name) is df._entry(name)
             assert df._entry(name).argtypes == types
-            assert len(types) == 14 + (name.endswith(("probe_bf16",
+            # the unfused entries take W's slab, its rows and its stride
+            # in place of the splits and their scratch
+            assert len(types) == (13 if "unfused" in name else
+                                  14 + name.endswith(("probe_bf16",
                                                       "probe_f32")))
         assert len(loads) == len(df._ARGTYPES)
     finally:
@@ -605,7 +632,14 @@ def test_hgmma_counts_per_instantiation(monkeypatch):
         "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
         "Function : _Z20dense_cluster_kernelILi3ELi3ELi32EEv14CUtensorMap_s",
         "  HGMMA.64x32x16.F32.BF16 R24, gdesc[UR4], RZ ;",
-        "  HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR6], R24 ;"])
+        "  HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR6], R24 ;",
+        "Function : _Z14dense_w_kernelILi1ELi3EEv14CUtensorMap_stS0_PKhP",
+        "  HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24 ;",
+        "Function : _Z21dense_contract_kernelILi1ELi3ELi1EEv14CUtensorMap",
+        "  HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;",
+        "Function : _Z21dense_contract_kernelILi3ELi2ELi0EEv14CUtensorMap",
+        "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR6], R24 ;"])
     monkeypatch.setattr(build, "sass", lambda: sass)
     assert df.hgmma_counts() == {"wgmma": {112: 2, 128: 0},
                                  "f32": {112: 3, 64: 0},
@@ -614,7 +648,9 @@ def test_hgmma_counts_per_instantiation(monkeypatch):
                                  "cluster": {384: 1},
                                  "cluster_f32": {192: 2},
                                  "wide_stream": {256: 1},
-                                 "wide_stream_f32": {128: 2}}
+                                 "wide_stream_f32": {128: 2},
+                                 "unfused": {0: 1, 2: 1},
+                                 "unfused_f32": {1: 2}}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contig", "ystride",
@@ -737,7 +773,7 @@ WIDE_CARD = [  # (n, m, k, bias, bf16): the wide kernel each route takes
     (333, 129, 254, True, False),        # 256 packed values
     (300, 200, 330, False, True),        # bf16 resident, kq = 384
     (300, 200, 330, False, False),       # f32 past 320: the cluster kernel
-    (64, 1, 2600, False, False),         # past 2560 f32: the streamed one
+    (64, 1, 2600, False, False),         # past 2560 f32: the unfused route
     (300, 200, 3100, False, True),       # past 3072 bf16
 ]
 
@@ -746,8 +782,8 @@ WIDE_CARD = [  # (n, m, k, bias, bf16): the wide kernel each route takes
 @pytest.mark.parametrize("n,m,k,bias,bf16", WIDE_CARD)
 def test_wide_kernel_matches_plain_and_repeats(n, m, k, bias, bf16):
     """The wide kernels (resident up to 320 f32 / 384 bf16 packed values,
-    the cluster kernel up to 2560 / 3072, streamed past them): on ragged
-    shapes within rtol=2e-4, atol=1e-5
+    the cluster kernel up to 960, the unfused route from 1024 padded):
+    on ragged shapes within rtol=2e-4, atol=1e-5
     (f32) or bf16 relative 2e-2 (clamp 1e-3) of the plain version, two
     launches bitwise equal, each counted under its kernel."""
     if not torch.cuda.is_available():
@@ -759,8 +795,8 @@ def test_wide_kernel_matches_plain_and_repeats(n, m, k, bias, bf16):
     wide = "wide" if bf16 else "wide_f32"
     assert kernel == (wide if kaug <= (384 if bf16 else 320) else
                       wide.replace("wide", "cluster")
-                      if kaug <= (3072 if bf16 else 2560) else
-                      wide.replace("wide", "wide_stream"))
+                      if -(-kaug // 64) * 64 < df.UNFUSED_FROM else
+                      "unfused" + wide[4:])
     by_kernel = df.fused_dense_sweep.launches_by_kernel[kernel]
     got = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
     again = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
@@ -785,18 +821,26 @@ def test_cluster_kernel_matches_plain_and_repeats(kaug, bf16):
     two, three, seven and eight CTAs a cluster, on a ragged shape with
     bias slots: within rtol=2e-4, atol=1e-5 (f32) or bf16 relative 2e-2
     (clamp 1e-3) of the plain version, two launches bitwise equal, each
-    counted under its kernel."""
+    counted under its kernel where the route takes it (below 1024 packed
+    values; wider rows, which the unfused route takes, launched as the
+    cluster kernel directly)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     lin, y = _card_inputs(517, 300, kaug - 2, True, aligned=True, seed=kaug)
-    kernel = df.dense_kernel(kaug, bf16)
-    assert kernel == ("cluster" if bf16 else "cluster_f32")
-    by_kernel = df.fused_dense_sweep.launches_by_kernel[kernel]
-    got = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
-    again = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
+    kernel = "cluster" if bf16 else "cluster_f32"
+    if df.dense_kernel(kaug, bf16) == kernel:
+        by_kernel = df.fused_dense_sweep.launches_by_kernel[kernel]
+        got = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
+        again = df.fused_dense_sweep(*lin[:2], y, *lin[2:], bf16=bf16)
+        assert df.fused_dense_sweep.launches_by_kernel[kernel] == \
+            by_kernel + 2
+    else:
+        def call():
+            return df._unpack(*df.launch_dense(*lin[:2], y, *lin[2:],
+                                               kernel=kernel), kaug - 2, True)
+        got, again = call(), call()
     torch.cuda.synchronize()
-    assert df.fused_dense_sweep.launches_by_kernel[kernel] == by_kernel + 2
     ref = df.fused_dense_sweep_reference(*lin[:2], y, *lin[2:], bf16=bf16)
     for gg, aa, r in zip(got, again, ref):
         assert torch.equal(gg, aa)

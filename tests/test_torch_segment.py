@@ -513,8 +513,8 @@ def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
     shutil.copytree(build.CSRC_DIR, csrc)
     monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
     assert [os.path.basename(h) for h in build.headers()] == [
-        "dense_roles.cuh", "row_sweep.cuh"]
-    for header in ("dense_roles.cuh", "row_sweep.cuh"):
+        "dense_roles.cuh", "row_sweep.cuh", "wgmma_common.cuh"]
+    for header in ("dense_roles.cuh", "row_sweep.cuh", "wgmma_common.cuh"):
         before = build.library_path()
         with open(csrc / header, "a") as f:
             f.write("// changed\n")
