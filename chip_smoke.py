@@ -50,16 +50,22 @@ the device's busy share and longest kernels read from the trace), with
 `-sweep segment-chunked -logl` (kernel #4 counted), and runs each mode on
 the trained model (-rmse, -gen-ranking, -msr, -resume, the model read
 back from its TSVs, -test, -nmf). The sharded run (parallel/) follows:
-A, the command line's `-devices 2 -logl`, clamped to this card's world of
-one (NCCL, in-process) and held to the single-device CLI run, training
-ELBO included; B, the same
-data through `build_sharded_run` over a world of one in both precisions,
-held to the single-device Trainer, with its step time, the all-reduce's
-device time per step and a report's gathers; C, two ranks sharing the
-card over gloo (NCCL refuses two ranks on one device; a test harness,
-not a product path) on a small hybrid store at "highest" and in bf16 and
-a segment run, each rank launching kernels #1, #2 and #4, the gathered
-state held to the single-device Trainer. The f32 route's kernel
+A, the command line's `-devices 2 -logl -trace`, clamped to this card's
+world of one (NCCL, in-process) and held to the single-device CLI run,
+training ELBO included, every step but the warm-up replayed
+(cudaGraphLaunch in the trace); B, the same data through
+`build_sharded_run` over a world of one in both precisions, its steps
+replayed from one captured step with its all-reduces, bit for bit the
+same run on the loop and the single-device Trainer, its step time
+replayed beside the loop, the single-device replay and the
+single-device loop, the all-reduce's device time per step and a
+report's gathers, then the small 20,000 x 70,000 store as a world of one
+in hybrid at "highest" and in segment mode, replayed against the loop;
+C, two ranks sharing the card over gloo (NCCL refuses two ranks on one
+device; a test harness, not a product path) on that store in hybrid at
+"highest" and in bf16 and a segment run, each rank launching kernels
+#1, #2 and #4 on the loop (gloo's collectives cannot be captured), the
+gathered state held to the single-device Trainer. The f32 route's kernel
 (`dense_split_kernel`, f32-accurate products from three bf16 pieces on
 the tensor cores) must beat `csrc/dense_simt.cu`, run on the same inputs
 as its yardstick, and the plain version at Netflix shape and on the
@@ -1367,32 +1373,41 @@ def phase_cli(df, datdir, root, cpu_ref):
 
 # ---------------------------------------------------------------------------
 # the sharded run (hgaprec_tpu_torch/parallel/): one card, so a world of one
-# over NCCL, and two ranks sharing the card over gloo
+# over NCCL (its steps replayed), and two ranks sharing the card over gloo
+# (the loop)
 # ---------------------------------------------------------------------------
 
 SHARD_TOL = dict(rtol=1e-4, atol=1e-7)       # tests/test_torch_engine.py
+RECAPTURES = 10
 SMALL_N, SMALL_M, SMALL_DRAWS, SMALL_T = 20000, 70000, 300000, 1024
 
 
 def phase_sharded_cli(df, datdir, root, ref_dir):
-    """Phase A: `-devices 2 -logl` through the command line on one card
-    clamps to one device and trains the sharded loop in-process over a
-    world of one (NCCL); its validation ll and its training ELBO (the
-    sharded logl: each rank's nonzero sums all-reduced) are held to the
-    single-device run in `ref_dir` at every report, and kernel #1's f32
-    launches are counted. Returns (launches, wall seconds)."""
+    """Phase A: `-devices 2 -logl -trace DIR` through the command line on
+    one card clamps to one device and trains the sharded loop in-process
+    over a world of one (NCCL); its validation ll and its training ELBO
+    (the sharded logl: each rank's nonzero sums all-reduced) are held to
+    the single-device run in `ref_dir` at every report, kernel #1's f32
+    launches are counted, and the trace must show every step but the
+    warm-up replayed (one cudaGraphLaunch each: the rank's steps with
+    their all-reduces in one captured graph). Returns (launches, wall
+    seconds, graph replays)."""
     if torch.cuda.device_count() != 1:
         raise SystemExit("the sharded CLI phase needs exactly one visible "
                          "card (set CUDA_VISIBLE_DEVICES)")
     out = os.path.join(root, "cli_devices")
+    trace_dir = os.path.join(root, "cli_devices_trace")
     df.fused_dense_sweep.launches = 0
     t0 = time.perf_counter()
     text = cli_in_process(
         ["-dir", datdir, "-n", str(N_ML), "-m", str(M_ML), "-k", str(K),
          "-hier", "-rfreq", "5", "-max-iterations", "10", "-devices", "2",
-         "-logl", "-outdir", out])
+         "-logl", "-outdir", out, "-trace", trace_dir])
     wall = time.perf_counter() - t0
     launches = df.fused_dense_sweep.launches
+    trace = trace_summary(trace_dir)
+    nccl = sum(n for name, n in trace["launches"].items()
+               if name.startswith("nccl"))
     g, c = validation_ll(out), validation_ll(ref_dir)
     worst = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(g, c))
     elbo, elbo_ref = logl_rows(out), logl_rows(ref_dir)
@@ -1401,20 +1416,25 @@ def phase_sharded_cli(df, datdir, root, ref_dir):
     missing = [f for f in ("model.npz", "precision.txt", "ranking.tsv")
                if not os.path.exists(os.path.join(out, f))]
     ok = "+ only 1 devices available (requested 2)" in text and \
-        "+ sharding over 1 devices" in text and launches > 0 and \
+        "+ sharding over 1 devices" in text and launches == 11 and \
+        trace["graph_launches"] == launches - 1 and \
         [a[0] for a in g] == [b[0] for b in c] and worst < CPU_REL and \
         len(elbo) == len(elbo_ref) == len(g) and worst_elbo < CPU_REL and \
         not missing
     say(f"sharded A: python -m hgaprec_tpu_torch.cli ... -devices 2 -logl "
-        f"(in-process, clamped to a world of one over NCCL) in {wall:.1f} s "
-        f"wall; f32 dense kernel launches {launches}; validation ll "
+        f"-trace (in-process, clamped to a world of one over NCCL) in "
+        f"{wall:.1f} s wall; f32 dense kernel launches {launches}; graph "
+        f"replays (cudaGraphLaunch) {trace['graph_launches']} (one eager "
+        f"step, then every step replayed); NCCL kernels seen in the trace "
+        f"{nccl}; device busy {100 * trace['busy_share']:.2f}% of the "
+        f"traced window; validation ll "
         f"{[(i, round(v, 6)) for i, v in g]} against the single-device run: "
         f"worst relative gap {worst:.3e}; training ELBO {elbo}: worst "
         f"relative gap {worst_elbo:.3e} (bound {CPU_REL}); files "
         f"{'present' if not missing else missing} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"the sharded CLI run failed its checks: {text}")
-    return launches, wall
+    return launches, wall, trace["graph_launches"]
 
 
 def compare_states(got, want, bf16=False):
@@ -1465,21 +1485,44 @@ def allreduce_ms_per_step(run, steps=10):
     return ar_ms, sum(by_kernel.values())
 
 
-def phase_sharded_run(df, datdir, root):
-    """Phase B: ML-1M HPF K=100 through build_sharded_run over a world of
-    one (NCCL) in both precisions, held to the single-device Trainer
-    after the same steps; ms/iter of both, the all-reduce device time
-    per step, and a report's gather seconds for both leaf sets. Returns
-    {precision: dict of numbers}."""
+def runner_counts(runner):
+    """(eager steps, captures, replays) of a models/step.py runner."""
+    return (runner.eager_steps, runner.captures, runner.replays)
+
+
+def states_equal(a, b):
+    """Whether two ModelStates hold the same bits in every tensor."""
+    from hgaprec_tpu_torch.models.step import tensor_leaves
+    return all(torch.equal(x, y) for (_, x), (_, y) in
+               zip(tensor_leaves(a), tensor_leaves(b)))
+
+
+def phase_sharded_run(df, datdir, root, graphs=None):
+    """Phase B, over a world of one (NCCL): ML-1M HPF K=100 through
+    build_sharded_run in both precisions, its steps replayed from one
+    captured step with its all-reduces (ShardedRun.multi_step: one eager
+    step, one capture, replays), held bit for bit to the same run on the
+    loop and to the single-device Trainer after the same steps, kernel
+    #1's launches counted through the replays; ms/iter replayed beside
+    the loop, the single-device replay (measured here, and phase_graph's
+    figure where `graphs` has it) and the single-device loop; the shard
+    stepped with no group, the all-reduce device time per step, and a
+    report's gather seconds for both leaf sets. Then the small 20,000 x
+    70,000 store in hybrid at "highest" and in segment mode, replayed
+    against the loop, bitwise, kernels #1, #2 and #4 launched. Returns
+    {precision or small run: dict of numbers}."""
     import torch.distributed as dist
-    from hgaprec_tpu_torch.config import set_matmul_precision
+    from hgaprec_tpu_torch.config import ModelConfig, set_matmul_precision
     from hgaprec_tpu_torch.models.state import state_to_numpy
     from hgaprec_tpu_torch.models.step import cavi_step, make_multi_step
+    from hgaprec_tpu_torch.ops import segment_fused as sf
+    from hgaprec_tpu_torch.ops import tail_fused as tf
     from hgaprec_tpu_torch.parallel import distributed
     from hgaprec_tpu_torch.parallel.sharded import build_sharded_run
     distributed.initialize_from_env(
         "cuda", init_method="file://" + os.path.join(root, "pg_world1"),
         world_size=1, rank=0)
+    world = dist.group.WORLD
     out = {}
     try:
         for precision in ("highest", "default"):
@@ -1488,25 +1531,45 @@ def phase_sharded_run(df, datdir, root):
             for _ in range(5):
                 tr.step(tr.state, tr.data)
             want = state_to_numpy(tr.state)
-            # the single-device loop: the sharded step is a loop too
             loop = make_multi_step(tr.mcfg, graph=False)
             single_ms = window_ms(lambda n: loop(tr.state, tr.data, n))[0]
+            replay = make_multi_step(tr.mcfg)
+            single_replay_ms = window_ms(
+                lambda n: replay(tr.state, tr.data, n))[0]
+            replay.reset()
             store, mcfg = tr.store, tr.mcfg
             tr.close()
-            del tr
+            del tr, replay
             torch.cuda.empty_cache()
             set_matmul_precision(precision)
             t0 = time.perf_counter()
-            run = build_sharded_run(store, mcfg, dist.group.WORLD, "cuda")
+            run = build_sharded_run(store, mcfg, world, "cuda")
             build_s = time.perf_counter() - t0
+            looped = build_sharded_run(store, mcfg, world, "cuda")
+            looped.runner = make_multi_step(mcfg, graph=False)
             df.fused_dense_sweep.launches = 0
-            for _ in range(5):
-                run.step()
+            run.multi_step(5)
             torch.cuda.synchronize()
             launches = df.fused_dense_sweep.launches
-            err, worst = compare_states(state_to_numpy(run.unsharded_state()),
-                                        want)
+            counts = runner_counts(run.runner)
+            looped.multi_step(5)
+            torch.cuda.synchronize()
+            same_loop = states_equal(run.state, looped.state)
+            got = state_to_numpy(run.unsharded_state())
+            same_single = sorted(got) == sorted(want) and all(
+                np.array_equal(got[k], want[k]) for k in want)
+            err, worst = compare_states(got, want)
+            ok = counts == (1, 1, 4) and launches == 5 and same_loop and \
+                same_single
+            # 500 replays leave the allocated memory as it was (the
+            # all-reduce's recorded streams hold nothing across replays)
+            mem0 = torch.cuda.memory_allocated()
             ms, ms_lo, ms_hi = window_ms(run.multi_step)
+            mem1 = torch.cuda.memory_allocated()
+            loop_ms, loop_lo, loop_hi = window_ms(looped.multi_step)
+            counts_after = runner_counts(run.runner)
+            ok = ok and mem1 == mem0
+            del looped
             # the same shard stepped with no group: the layout and the row
             # mask without the collectives
             local_ms = window_ms(lambda n: [cavi_step(
@@ -1523,29 +1586,101 @@ def phase_sharded_run(df, datdir, root):
                     torch.cuda.synchronize()
                     secs.append(time.perf_counter() - t0)
                 gather[leaves] = statistics.median(secs)
+            # the capture again and again: a graph dropped, the watchdog
+            # of the process group given time to visit the last warm-up
+            # step's collectives, then a warm-up step and a capture anew
+            for _ in range(RECAPTURES):
+                run.close()
+                time.sleep(0.15)
+                run.multi_step(2)
+            torch.cuda.synchronize()
+            recaptured = runner_counts(run.runner)[1] - 1
+            ok = ok and recaptured == RECAPTURES
+            fig = (graphs or {}).get(precision)
             say(f"sharded B {precision}: build_sharded_run (world of one, "
                 f"NCCL) {run.true_n}x{run.cfg.m} in {build_s:.2f} s; "
-                f"kernel #1 launches {launches} in 5 steps; state after 5 "
-                f"steps against the single-device Trainer's: max abs error "
-                f"{err:.3e} ({worst}; rtol 1e-4, atol 1e-7) ok; steady "
-                f"{ms:.3f} ms/iter (median of 5 windows of 100; range "
-                f"{ms_lo:.3f}-{ms_hi:.3f}) against "
-                f"{single_ms:.3f} single-device (loop) and {local_ms:.3f} "
-                f"for the "
-                f"shard stepped with no group; the step's two all-reduces "
-                f"{ar_ms:.4f} ms (CUDA events) beside {dev_ms:.3f} device "
-                f"ms per step (torch.profiler); "
-                f"report gather full {gather['full'] * 1e3:.2f} ms, eval "
-                f"{gather['eval'] * 1e3:.2f} ms")
-            if launches == 0:
-                raise SystemExit("the sharded run never launched kernel #1")
+                f"ShardedRun.multi_step(5): (eager steps, captures, "
+                f"replays) {counts}, kernel #1 launches {launches} through "
+                f"the replays; state after 5 steps "
+                f"{'bitwise equal' if same_loop else 'NOT bitwise equal'} "
+                f"to the same run on the loop and "
+                f"{'bitwise equal' if same_single else 'NOT bitwise equal'} "
+                f"to the single-device Trainer's (max abs error {err:.3e}, "
+                f"{worst}); steady ms/iter (median of 5 windows of 100): "
+                f"replayed {ms:.3f} (range {ms_lo:.3f}-{ms_hi:.3f}), loop "
+                f"{loop_ms:.3f} (range {loop_lo:.3f}-{loop_hi:.3f}), "
+                f"{loop_ms / ms:.2f}x; single-device replay "
+                f"{single_replay_ms:.3f}"
+                + (f" (phase_graph's {fig['replay']['ms']:.3f})"
+                   if fig else "")
+                + f", single-device loop {single_ms:.3f}; "
+                f"{recaptured} captures more, each after 0.15 s idle, all "
+                f"ended; {counts_after[2]} replays after the windows, "
+                f"memory allocated {mem0} bytes before them and {mem1} "
+                f"after; "
+                f"{local_ms:.3f} for the shard stepped with no group "
+                f"(loop); the step's two all-reduces {ar_ms:.4f} ms (CUDA "
+                f"events) beside {dev_ms:.3f} device ms per step "
+                f"(torch.profiler); report gather full "
+                f"{gather['full'] * 1e3:.2f} ms, eval "
+                f"{gather['eval'] * 1e3:.2f} ms {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the sharded run at {precision} did not "
+                                 f"replay its steps or disagrees with the "
+                                 f"loop or the single-device Trainer")
             out[precision] = dict(launches=launches, max_abs_err=err,
-                                  ms_per_iter=ms, single_ms_per_iter=single_ms,
+                                  counts=counts, ms_per_iter=ms,
+                                  loop_ms_per_iter=loop_ms,
+                                  single_ms_per_iter=single_ms,
+                                  single_replay_ms_per_iter=single_replay_ms,
                                   no_group_ms_per_iter=local_ms,
                                   allreduce_ms_per_step=ar_ms,
                                   gather_full_s=gather["full"],
                                   gather_eval_s=gather["eval"])
             del run
+            torch.cuda.empty_cache()
+        store, _ = small_store()
+        counters = (df.fused_dense_sweep, tf.fused_half_sweep,
+                    sf.fused_segment_sweep)
+        for name, kw in GLOO_RUNS:
+            if name == "hybrid_bf16":
+                continue
+            set_matmul_precision(kw["matmul_precision"])
+            cfg = ModelConfig(n=store.n, m=store.m, k=K, **kw)
+            run = build_sharded_run(store, cfg, world, "cuda")
+            looped = build_sharded_run(store, cfg, world, "cuda")
+            looped.runner = make_multi_step(cfg, graph=False)
+            for c in counters:
+                c.launches = 0
+            run.multi_step(GLOO_STEPS)
+            torch.cuda.synchronize()
+            launches = [c.launches for c in counters]
+            counts = runner_counts(run.runner)
+            looped.multi_step(GLOO_STEPS)
+            torch.cuda.synchronize()
+            same = states_equal(run.state, looped.state)
+            ms = window_ms(run.multi_step, windows=3, steps=20)[0]
+            loop_ms = window_ms(looped.multi_step, windows=3, steps=20)[0]
+            need = [1, 1, 0] if name.startswith("hybrid") else [0, 0, 1]
+            ok = same and counts == (1, 1, GLOO_STEPS - 1) and all(
+                c > 0 for c, n in zip(launches, need) if n)
+            say(f"sharded B small {name}: world of one (NCCL), "
+                f"{store.n}x{store.m} nnz={store.nratings:,}, "
+                f"ShardedRun.multi_step({GLOO_STEPS}): (eager steps, "
+                f"captures, replays) {counts}, launches [dense, tail, CSR] "
+                f"{launches} through the replays; state "
+                f"{'bitwise equal' if same else 'NOT bitwise equal'} to the "
+                f"same run on the loop; ms/iter replayed {ms:.3f}, loop "
+                f"{loop_ms:.3f} (median of 3 windows of 20) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the small store's world of one ({name}) "
+                                 f"did not replay, launched no kernel, or "
+                                 f"disagrees with the loop")
+            out[f"small_{name}"] = dict(launches=launches, counts=counts,
+                                        ms_per_iter=ms,
+                                        loop_ms_per_iter=loop_ms)
+            del run, looped
             torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
@@ -1615,12 +1750,15 @@ def sharded_rank(rank, world, workdir):
         state = state_to_numpy(run.unsharded_state())
         dist.barrier()
         ms = window_ms(run.multi_step, windows=3, steps=5)[0]
+        r = run.runner
+        looped = dict(replays_on=r.replays_on(run.state, run.group),
+                      counts=[r.eager_steps, r.captures, r.replays])
         if rank == 0:
             np.savez(os.path.join(workdir, f"{name}.step1.npz"), **first)
             np.savez(os.path.join(workdir, f"{name}.npz"), **state)
         with open(os.path.join(workdir, f"{name}.rank{rank}.json"), "w") as f:
             json.dump(dict(launches=launches, n_local=run.n_local,
-                           ms_per_iter=ms,
+                           ms_per_iter=ms, looped=looped,
                            tail_nnz=(run.data.tail.nnz if run.data.tail
                                      is not None else 0)), f)
         del run
@@ -1703,6 +1841,9 @@ def phase_sharded_gloo(root):
         need = [1, 1, 0] if name.startswith("hybrid") else [0, 0, 1]
         ok = all(all(c > 0 for c, n in zip(x["launches"], need) if n)
                  for x in ranks)
+        # gloo's collectives cannot be captured: every rank takes the loop
+        loop_ok = all(x["looped"] == dict(replays_on=False,
+                                          counts=[0, 0, 0]) for x in ranks)
         say(f"sharded C {name}: 2 gloo ranks on one card, "
             f"{store.n}x{store.m} nnz={store.nratings:,}, n_local "
             f"{ranks[0]['n_local']}, tail nonzeros per rank "
@@ -1712,9 +1853,14 @@ def phase_sharded_gloo(root):
             f"error {err1:.3e} ({worst1}; rtol 1e-4, atol 1e-7), after "
             f"{GLOO_STEPS} {err:.3e} ({worst}; {bound}); "
             f"ms/iter per rank "
-            f"{[round(v, 3) for v in ms[name]]} {'ok' if ok else 'FAIL'}")
+            f"{[round(v, 3) for v in ms[name]]}; ShardedRun.multi_step took "
+            f"the loop on every rank (gloo: replays_on False, (eager steps, "
+            f"captures, replays) {[x['looped']['counts'] for x in ranks]}) "
+            f"{'ok' if ok and loop_ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"a gloo rank of {name} launched no kernel")
+        if not loop_ok:
+            raise SystemExit(f"a gloo rank of {name} did not take the loop")
     say(f"sharded C: {wall:.1f} s wall (rank start-up, store, builds, "
         f"runs; the single-device references meanwhile)")
     return launches, ms
@@ -2082,7 +2228,8 @@ def phase_echonest_segment(df, tf, hybrid, root, smi):
                              sweep="segment-chunked"),
                  RunConfig(datdir=hybrid.rcfg.datdir,
                            outdir=os.path.join(root, "en_seg"), rfreq=5,
-                           max_iterations=5, logl=True), device="cuda")
+                           max_iterations=5, logl=True,
+                           write_marginals=False), device="cuda")
     torch.cuda.synchronize()
     data = tr.data
     mode = _resolve_mode(tr.mcfg, data)
@@ -2362,13 +2509,15 @@ def echonest_trainer(root):
             ModelConfig(n=store.n, m=store.m, k=K, variant="hpf",
                         matmul_precision="default"),
             RunConfig(datdir=datdir, outdir=os.path.join(root, "en_out"),
-                      rfreq=5, max_iterations=10), device="cuda")
+                      rfreq=5, max_iterations=10, write_marginals=False),
+            device="cuda")
     finally:
         engine.build_device_data = real
     torch.cuda.synchronize()
     say(f"echonest Trainer built in {time.perf_counter() - t0:.1f} s host "
         f"(device layout {layout[0]:.1f} s; the rest is the initial state "
-        f"and the marginals)")
+        f"and the evaluation's indexes; the marginals, which the ML-1M "
+        f"command line writes and checks, are not written)")
     return tr
 
 
@@ -3412,16 +3561,18 @@ def wide_run_flags(name, args, datdir, small_dir):
     return ["-dir", datdir, *WIDE_BASE, *depth, *args]
 
 
-def start_wide_cpu_runs(datdir, small_dir, root):
-    """The WIDE_RUNS on the CPU, one command-line subprocess after the
-    other in a thread, so that they run while the card works. Returns the
-    thread; its `secs` holds each run's wall seconds, its `failed` the
-    runs that did not exit 0."""
+def start_wide_cpu_runs(datdir, small_dir, root, workers=2):
+    """The WIDE_RUNS on the CPU, command-line subprocesses in `workers`
+    threads, each running its share of the runs one after the other, so
+    that they run while the card works and end sooner than one after
+    another. Returns a thread that joins them; its
+    `secs` holds each run's wall seconds, its `failed` the runs that did
+    not exit 0."""
     import threading
     here = os.path.dirname(os.path.abspath(__file__))
 
-    def work():
-        for name, args in WIDE_RUNS:
+    def work(runs):
+        for name, args in runs:
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [sys.executable, "-m", "hgaprec_tpu_torch.cli",
@@ -3434,7 +3585,16 @@ def start_wide_cpu_runs(datdir, small_dir, root):
             if proc.returncode != 0:
                 thread.failed[name] = proc.stdout[-2000:] + \
                     proc.stderr[-2000:]
-    thread = threading.Thread(target=work, daemon=True)
+
+    def all_work():
+        shares = [threading.Thread(target=work,
+                                   args=(WIDE_RUNS[w::workers],),
+                                   daemon=True) for w in range(workers)]
+        for t in shares:
+            t.start()
+        for t in shares:
+            t.join()
+    thread = threading.Thread(target=all_work, daemon=True)
     thread.secs, thread.failed = {}, {}
     thread.start()
     return thread
@@ -3470,8 +3630,9 @@ def phase_wide_paths(df, tf, datdir, small_dir, root, cpu_runs):
     t0 = time.perf_counter()
     cpu_runs.join()
     say(f"wide paths: the card's runs took {sum(secs.values()):.1f} s, the "
-        f"CPU's {sum(cpu_runs.secs.values()):.1f} s beside the card's work "
-        f"(waited {time.perf_counter() - t0:.1f} s for them)")
+        f"CPU's {sum(cpu_runs.secs.values()):.1f} s in all (two at a time) "
+        f"beside the card's work (waited {time.perf_counter() - t0:.1f} s "
+        f"for them)")
     if cpu_runs.failed:
         raise SystemExit(f"wide CPU runs failed: {cpu_runs.failed}")
     for name, args in WIDE_RUNS:
@@ -3677,10 +3838,10 @@ def main():
             datdir = os.path.join(root, "data")
             write_pf_dataset(datdir, np.random.default_rng(SEED), N_ML,
                              M_ML, k=8, a=0.3, ap=1.8, b=0.3, scale=0.7)
-            phase_cpu_reference(df, datdir, root)
+            graph_highest = phase_cpu_reference(df, datdir, root)[2]
             phase_sharded_cli(df, datdir, root,
                               os.path.join(root, "cpu_highest"))
-            phase_sharded_run(df, datdir, root)
+            phase_sharded_run(df, datdir, root, {"highest": graph_highest})
             phase_sharded_gloo(root)
         say(f"sharded phases passed in {time.perf_counter() - t_start:.1f} "
             f"s (no result line: --sharded runs only the sharded paths)")
@@ -3737,9 +3898,10 @@ def main():
             phase_cpu_reference(df, datdir, root)
         cli_f32, cli_seg = phase_cli(
             df, datdir, root, os.path.join(root, "cpu_highest"))
-        sh_cli, sh_cli_s = phase_sharded_cli(df, datdir, root,
-                                             os.path.join(root, "cli"))
-        sh_run = phase_sharded_run(df, datdir, root)
+        sh_cli, sh_cli_s, sh_cli_replays = phase_sharded_cli(
+            df, datdir, root, os.path.join(root, "cli"))
+        sh_run = phase_sharded_run(df, datdir, root, {
+            "highest": graph_highest, "default": graph_bf16})
         gloo, gloo_ms = phase_sharded_gloo(root)
 
         phase_tail_layouts(gen)
@@ -3785,6 +3947,8 @@ def main():
                  "echonest_hybrid_highest_steady": en["launches_highest"],
                  "ml1m_cli_devices_world1": sh_cli,
                  "ml1m_sharded_world1_highest": sh_run["highest"]["launches"],
+                 "small_world1_hybrid_highest":
+                     sh_run["small_hybrid_highest"]["launches"][0],
                  "gloo2_hybrid_highest_per_rank":
                      per_rank("hybrid_highest", 0)}
     say(json.dumps({"kernels": [
@@ -3806,6 +3970,7 @@ def main():
          "ms_per_iter_echonest_hybrid": en["ms_iter"],
          "sass_sha256": digests,
          "sharded": {"cli_devices_world1_s": sh_cli_s,
+                     "cli_devices_world1_graph_replays": sh_cli_replays,
                      "world1": sh_run, "gloo2_ms_per_iter_per_rank":
                          gloo_ms}},
         {"name": "fused_dense_sweep_f32", "route": "cuda",
@@ -3837,6 +4002,8 @@ def main():
          "launches_f32_by_path": {
              "echonest_hybrid_highest_steady":
                  en["tail_launches_highest"],
+             "small_world1_hybrid_highest":
+                 sh_run["small_hybrid_highest"]["launches"][1],
              "gloo2_hybrid_highest_per_rank":
                  per_rank("hybrid_highest", 1)},
          "ms_f32_trained": en["tail_f32_ms_trained"],
@@ -3860,9 +4027,12 @@ def main():
          "source": "hgaprec_tpu_torch/csrc/segment_sweep.cu",
          "replaces": "docs/design/pallas_csr_sweep.py:80",
          "launches": seg["launches"] + cli_seg +
+         sh_run["small_segment"]["launches"][2] +
          sum(per_rank("segment", 2)),
          "launches_by_path": {"echonest_segment": seg["launches"],
                               "ml1m_cli_segment": cli_seg,
+                              "small_world1_segment":
+                                  sh_run["small_segment"]["launches"][2],
                               "small_segment_vs_cpu": seg_small,
                               "gloo2_segment_per_rank":
                                   per_rank("segment", 2)},

@@ -164,13 +164,16 @@ class Trainer:
 
     def close(self):
         """Finish the run's files and let go of what the run held: the
-        captured step's graph and memory pool, the process group (its
-        backend's threads end with the last reference, which must go
-        before the caller's destroy_process_group, so that none of them
-        lives on into interpreter exit) and the SIGTERM handler, which
-        would keep this Trainer alive."""
+        captured step's graph and memory pool (a sharded run's first:
+        its graph holds work of the group's communicator), the process
+        group (its backend's threads end with the last reference, which
+        must go before the caller's destroy_process_group, so that none
+        of them lives on into interpreter exit) and the SIGTERM handler,
+        which would keep this Trainer alive."""
         self._join_save()
         self.multi_step.reset()
+        if self.sharded is not None:
+            self.sharded.close()
         for f in self._files.values():
             f.close()
         self._files = {}
@@ -502,8 +505,9 @@ class Trainer:
             if cap is not None and self.iteration > cap:
                 break
             # every iteration up to the next report boundary back to back,
-            # with no host round trip in between: on one card replayed
-            # from one captured step (models/step.py::GraphMultiStep)
+            # with no host round trip in between: on a card replayed from
+            # one captured step (models/step.py::GraphMultiStep; a
+            # sharded run's over NCCL, its all-reduces inside the graph)
             n_steps, bound = self.next_chunk(cap)
             if self.sharded is not None:
                 self.sharded.multi_step(n_steps)

@@ -24,14 +24,21 @@ def make_nonzero(x: torch.Tensor) -> torch.Tensor:
                                               device=x.device))
 
 
-def expectations(shape: torch.Tensor, rate: torch.Tensor):
+def expectations(shape: torch.Tensor, rate: torch.Tensor, out=None):
     """E[v] = a/b, Elog[v] = digamma(a) - log b  (gpbase.hh:248-262).
 
     `rate` broadcasts against `shape` (global per-factor rates are a [K]
-    vector against an [N, K] shape, gpbase.hh:583-597).
+    vector against an [N, K] shape, gpbase.hh:583-597). With `out`, a
+    pair of tensors of `shape`'s shape, the two are computed into it
+    (the CAVI step's in-place update); returns (e, elog) either way.
     """
     a = make_nonzero(shape)
     b = make_nonzero(rate)
+    if out is not None:
+        e, elog = out
+        torch.div(a, b, out=e)
+        torch.sub(torch.special.digamma(a), torch.log(b), out=elog)
+        return e, elog
     e = a / b
     elog = torch.special.digamma(a) - torch.log(b)
     return e, elog.expand_as(e)

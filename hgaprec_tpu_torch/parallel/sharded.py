@@ -20,6 +20,15 @@ arrays are padded to the global maximum shapes; here each rank runs its
 own eager program and keeps its own lengths. Only the state's rows are
 padded, so the gathered state has the shape of the single-device one.
 
+A rank's iterations between two reports (`ShardedRun.multi_step`, the
+JAX package's `fori_loop` over the shard-mapped step) go through the
+run's `models/step.py::GraphMultiStep`: over NCCL one eager step, one
+captured step with its all-reduces inside the CUDA graph, and replays of
+it for every other step; over gloo and on the CPU the loop, since gloo's
+all-reduce of a CUDA tensor is a round trip through the host that no
+capture can hold (`_gloo_cuda`). `ShardedRun.close()` drops the graph,
+which holds work of the group's communicator, before the group goes.
+
 The ranking eval shards the items instead (`sharded_masked_topk`): each
 rank scores its item block, masks it, takes a local top-k, and an
 all-gather and merge give the global top-k. Where each rank ingested only
@@ -42,7 +51,8 @@ from hgaprec_tpu_torch.data.ratings import RatingsStore
 from hgaprec_tpu_torch.models.state import (ARRAY_FIELDS, GAM_FIELDS, Gam,
                                             ModelState, init_arrays,
                                             state_from_numpy)
-from hgaprec_tpu_torch.models.step import cavi_multi_step, cavi_step
+from hgaprec_tpu_torch.models.step import (GraphMultiStep, cavi_step,
+                                           make_multi_step)
 
 _PARTS = ("shape", "rate", "e", "elog")
 
@@ -92,17 +102,32 @@ class ShardedRun:
     data: DeviceData           # this rank's nonzeros, local user ids
     row_mask: torch.Tensor     # f32[n_local]: 1 on real rows, 0 on padding
     state: ModelState          # theta-side: this rank's rows; beta: replica
+    # the run's fused multi-step (default: make_multi_step(cfg))
+    runner: Optional[GraphMultiStep] = None
+
+    def __post_init__(self):
+        if self.runner is None:
+            self.runner = make_multi_step(self.cfg)
 
     def step(self) -> ModelState:
+        """One sharded iteration, eager."""
         return cavi_step(self.state, self.data, self.cfg, self.group,
                          self.row_mask)
 
     def multi_step(self, n_steps: int) -> ModelState:
-        """n_steps sharded iterations back to back, no host sync between:
-        the loop (gloo's collectives cannot be captured in a CUDA graph;
-        NCCL's all-reduces are not captured yet)."""
-        return cavi_multi_step(self.state, self.data, self.cfg, n_steps,
-                               self.group, self.row_mask)
+        """n_steps sharded iterations back to back, no host sync between,
+        through the run's runner: replayed from one captured step (its
+        all-reduces inside the graph) over NCCL on a card, the loop over
+        gloo (its collectives cannot be captured: module docstring) and
+        on the CPU. Every rank calls it with the same n_steps."""
+        return self.runner(self.state, self.data, n_steps, self.group,
+                           self.row_mask)
+
+    def close(self) -> None:
+        """Drop the captured step's graph and its memory pool (the graph
+        holds work of the group's communicator, so this comes before the
+        group is destroyed); a later multi_step captures anew."""
+        self.runner.reset()
 
     def unsharded_state(self, leaves: str = "full") -> ModelState:
         """The global state on this rank's device, padding rows stripped,

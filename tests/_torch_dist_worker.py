@@ -1,4 +1,5 @@
-"""One rank of the port's sharded tests (tests/test_torch_sharded.py).
+"""One rank of the port's sharded tests (tests/test_torch_sharded.py,
+tests/test_torch_sharded_graph.py).
 
     python _torch_dist_worker.py RANK WORLD WORKDIR
 
@@ -9,6 +10,7 @@ each task's result as `WORKDIR/<name>.rank<RANK>.npz`. Stores come from
 test with the JAX package's generator). Imports the port only.
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -20,8 +22,10 @@ import torch.distributed as dist
 from hgaprec_tpu_torch.config import ModelConfig, RunConfig
 from hgaprec_tpu_torch.data.ratings import RatingsStore
 from hgaprec_tpu_torch.eval.score import Scorer
+from hgaprec_tpu_torch.models import step as step_mod
 from hgaprec_tpu_torch.models.state import state_to_numpy
-from hgaprec_tpu_torch.models.step import _resolve_mode
+from hgaprec_tpu_torch.models.step import (GraphMultiStep, _resolve_mode,
+                                           captures_collectives)
 from hgaprec_tpu_torch.parallel import distributed
 from hgaprec_tpu_torch.parallel.sharded import (build_sharded_run,
                                                 sharded_masked_topk)
@@ -146,8 +150,154 @@ def task_report(task, workdir):
                 outdir=np.asarray(tr.outdir))
 
 
+class FakeGraph:
+    """A capture object for the CPU (tests/test_torch_multistep.py's):
+    `capture` runs the step's Python, its collectives included, as a CUDA
+    capture records them, and puts the state back (a capture runs no
+    kernel); `replay` runs the step again and takes back the launches the
+    kernel wrappers counted (a replay runs no Python)."""
+    made = 0
+
+    def __init__(self, device):
+        self.fn = None
+        self.replays = 0
+        FakeGraph.made += 1
+
+    def capture(self, fn):
+        state = fn.args[0]
+        leaves = [t for _, t in step_mod.tensor_leaves(state)]
+        saved = [t.clone() for t in leaves]
+        fn()
+        for t, s in zip(leaves, saved):
+            t.copy_(s)
+        self.fn = fn
+
+    def replay(self):
+        self.replays += 1
+        before = step_mod._launch_counts()
+        self.fn()
+        step_mod._add_launches(step_mod._launches_since(before), -1)
+
+
+def replaying(cfg):
+    """A runner with the fake graph whose injected predicate stands for
+    the card's NCCL check: it replays over this gloo group on the CPU."""
+    return GraphMultiStep(cfg, new_graph=FakeGraph,
+                          capturable=lambda state, group: True)
+
+
+def counts(runner):
+    return np.asarray([runner.eager_steps, runner.captures, runner.replays])
+
+
+def task_graph(task, workdir):
+    """`steps` sharded iterations through ShardedRun.multi_step in two
+    calls, replayed by the group-aware runner (fake graph, injected
+    predicate), and the same steps on the run's default runner, which
+    takes the loop here; both gathered states, the counts."""
+    store = load_store(workdir, task["store"])
+    cfg = ModelConfig(n=store.n, m=store.m, **task["cfg"])
+    group = dist.group.WORLD
+    steps, first = task["steps"], task["steps"] // 2
+    loop = build_sharded_run(store, cfg, group, "cpu", seed=task["seed"])
+    loop.multi_step(first)
+    loop.multi_step(steps - first)
+    FakeGraph.made = 0
+    run = build_sharded_run(store, cfg, group, "cpu", seed=task["seed"])
+    run.runner = replaying(run.cfg)
+    run.multi_step(first)
+    run.multi_step(steps - first)
+    out = {f"replay:{k}": v
+           for k, v in state_to_numpy(run.unsharded_state()).items()}
+    out.update({f"loop:{k}": v
+                for k, v in state_to_numpy(loop.unsharded_state()).items()})
+    out["counts"] = counts(run.runner)
+    out["loop_counts"] = counts(loop.runner)
+    out["graphs"] = np.asarray([FakeGraph.made, run.runner.graph.replays])
+    out["layout"] = np.asarray([run.data.dense_y is not None,
+                                run.data.head_dense_y is not None,
+                                run.data.tail is not None])
+    out["mode"] = np.asarray(_resolve_mode(run.cfg, run.data))
+    run.close()
+    out["closed"] = np.asarray([run.runner.graph is None,
+                                run.runner._held is None])
+    return out
+
+
+def task_graph_keys(task, workdir):
+    """What makes the runner capture anew (a new row mask, a new group, a
+    state tensor at a new address), what close() drops, that a gloo
+    group with no injected predicate makes no graph, and that
+    Trainer.close drops a sharded run's graph while the group is still
+    held."""
+    from hgaprec_tpu_torch.models.engine import Trainer
+    store = load_store(workdir, task["store"])
+    cfg = ModelConfig(n=store.n, m=store.m, **task["cfg"])
+    world = dist.group.WORLD
+    out = {}
+    # the default runner over gloo: the loop, no graph
+    FakeGraph.made = 0
+    plain = build_sharded_run(store, cfg, world, "cpu", seed=task["seed"])
+    plain.runner.new_graph = FakeGraph
+    out["gloo_replays_on"] = np.asarray(
+        [plain.runner.replays_on(plain.state, world),
+         captures_collectives(world), captures_collectives(None)])
+    plain.multi_step(7)
+    out["gloo_counts"] = np.append(counts(plain.runner), FakeGraph.made)
+    out.update({f"loop:{k}": v for k, v in
+                state_to_numpy(plain.unsharded_state()).items()})
+    # the replaying runner: a capture at each change of what it holds
+    run = build_sharded_run(store, cfg, world, "cpu", seed=task["seed"])
+    run.runner = replaying(run.cfg)
+    seen = []
+    run.multi_step(2)
+    seen.append(counts(run.runner))
+    run.row_mask = run.row_mask.clone()
+    run.multi_step(1)
+    seen.append(counts(run.runner))
+    run.group = dist.new_group(list(range(dist.get_world_size())))
+    run.multi_step(2)
+    seen.append(counts(run.runner))
+    theta = dataclasses.replace(run.state.theta, e=run.state.theta.e.clone())
+    run.state = dataclasses.replace(run.state, theta=theta)
+    run.multi_step(1)
+    seen.append(counts(run.runner))
+    run.close()
+    out["closed"] = np.asarray([run.runner.graph is None,
+                                run.runner._held is None])
+    run.multi_step(1)
+    seen.append(counts(run.runner))
+    out["seen"] = np.stack(seen)
+    out.update({f"replay:{k}": v for k, v in
+                state_to_numpy(run.unsharded_state()).items()})
+    run.close()
+    # the Trainer: close() drops the graph while it still holds the group
+    rcfg = RunConfig(datdir=workdir, outdir=os.path.join(workdir, "gk"),
+                     rfreq=2, max_iterations=4,
+                     enforce_max_iterations=True)
+    tr = Trainer(store, {}, {}, cfg, rcfg, device="cpu", build_data=False)
+    held = []
+    try:
+        tr.shard(world)
+        runner = tr.sharded.runner = replaying(cfg)
+        tr.run()
+        out["trainer_counts"] = counts(runner)
+        real_reset = runner.reset
+
+        def spy():
+            held.append(tr.sharded is not None and
+                        tr.eval_group is not None)
+            real_reset()
+        runner.reset = spy
+    finally:
+        tr.close()
+    out["close_dropped"] = np.asarray([runner.graph is None] + held)
+    return out
+
+
 TASKS = {"step": task_step, "topk": task_topk, "report": task_report,
-         "elbo": task_elbo}
+         "elbo": task_elbo, "graph": task_graph,
+         "graph_keys": task_graph_keys}
 
 
 def main():

@@ -117,9 +117,8 @@ class FakeGraph:
 def _replaying(cfg):
     """A runner with the fake graph that replays on the CPU too."""
     FakeGraph.made = []
-    runner = GraphMultiStep(cfg, new_graph=FakeGraph)
-    runner.replays_on = lambda state: True
-    return runner
+    return GraphMultiStep(cfg, new_graph=FakeGraph,
+                          capturable=lambda state, group: True)
 
 
 def _state(cfg):
@@ -312,3 +311,56 @@ def test_card_replay_equals_loop(rng, layout, precision):
         else:
             assert torch.equal(g, w), name
     runner.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,precision", [
+    ("dense", "highest"), ("dense", "default"), ("segment-chunked", "highest"),
+    ("hybrid", "highest"), ("hybrid", "default")])
+def test_card_sharded_replay_equals_loop(tmp_path, rng, layout, precision):
+    """On the card, a sharded run over a world of one joined through a
+    file rendezvous (NCCL): ShardedRun.multi_step makes one eager step,
+    captures one step with its all-reduces and replays it; after 4 steps
+    the state is the loop's bit for bit, each replay adds one step's
+    launches to the counts, and close() drops the graph before the group
+    is destroyed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs, NCCL and the kernels "
+                    "have no CPU mode")
+    import torch.distributed as dist
+    from hgaprec_tpu_torch.parallel import distributed
+    from hgaprec_tpu_torch.parallel.sharded import build_sharded_run
+    js, _, _ = make_synthetic(rng, n=300, m=200, density=0.2)
+    cfg = TCfg(n=js.n, m=js.m, k=20, variant="hpf", matmul_precision=precision,
+               **LAYOUTS[layout])
+    store = port_store(js)
+    distributed.initialize_from_env(
+        "cuda", init_method="file://" + str(tmp_path / "pg"), world_size=1,
+        rank=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        loop = build_sharded_run(store, cfg, dist.group.WORLD, "cuda", seed=3)
+        loop.runner = make_multi_step(cfg, graph=False)
+        run = build_sharded_run(store, cfg, dist.group.WORLD, "cuda", seed=3)
+        assert _resolve_mode(run.cfg, run.data) == layout
+        assert run.runner.replays_on(run.state, run.group)
+        loop.multi_step(4)
+        counters = (df.fused_dense_sweep, tf.fused_half_sweep,
+                    sf.fused_segment_sweep)
+        before = [w.launches for w in counters]
+        run.multi_step(1)
+        one = [w.launches - b for w, b in zip(counters, before)]
+        run.multi_step(3)
+        torch.cuda.synchronize()
+        runner = run.runner
+        assert (runner.eager_steps, runner.captures, runner.replays) == \
+            (1, 1, 3)
+        assert [w.launches - b for w, b in zip(counters, before)] == \
+            [4 * n for n in one] and sum(one) > 0
+        for (name, g), (_, w) in zip(step_mod.tensor_leaves(run.state),
+                                     step_mod.tensor_leaves(loop.state)):
+            assert torch.equal(g, w), name
+        run.close()
+        assert runner.graph is None
+    finally:
+        dist.destroy_process_group()

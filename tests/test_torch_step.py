@@ -12,6 +12,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import reference_impl as R
 from conftest import make_synthetic
@@ -23,8 +24,11 @@ from hgaprec_tpu.models.step import make_step as j_make_step
 from hgaprec_tpu_torch.config import ModelConfig as TCfg
 from hgaprec_tpu_torch.data.device import build_device_data as t_build
 from hgaprec_tpu_torch.data.ratings import RatingsStore as TStore
-from hgaprec_tpu_torch.models.state import state_from_numpy, state_to_numpy
+from hgaprec_tpu_torch.models import step as step_mod
+from hgaprec_tpu_torch.models.state import (init_state, state_from_numpy,
+                                            state_to_numpy)
 from hgaprec_tpu_torch.models.step import make_multi_step, make_step
+from hgaprec_tpu_torch.ops.gamma import expectations
 
 CASES = [("hpf", {}), ("bpf", {}), ("bpf", {"bias": True}),
          ("bpf", {"bias": True, "vb": False}), ("hpf", {"bias": True})]
@@ -170,3 +174,60 @@ def test_golden_cases_match_jax_and_oracle(tmp_path, rng, variant, kw, mode):
     for key, okey in pairs:
         np.testing.assert_allclose(got[key].astype(np.float64), oracle[okey],
                                    rtol=5e-3, atol=1e-5, err_msg=key)
+
+
+def _copying_update(g, shape, rate, row_mask=None):
+    """The update as it stood before it wrote in place: the shape, the
+    rate and their expectations as fresh tensors, then four copies into
+    g's buffers. `shape` and `rate` take models/step.py::_update's forms
+    (a pair (x, y) for x + y, or a number)."""
+    def value(v, like):
+        return v[0] + v[1] if isinstance(v, tuple) else \
+            torch.full_like(like, v)
+    shape, rate = value(shape, g.shape), value(rate, g.rate)
+    e, elog = expectations(shape, rate)
+    if row_mask is not None:
+        e = e * row_mask.reshape((-1,) + (1,) * (e.dim() - 1))
+    g.shape.copy_(shape)
+    g.rate.copy_(rate)
+    g.e.copy_(e)
+    g.elog.copy_(elog)
+
+
+# the six variants, and the three that take a bias with it
+INPLACE_CASES = [("bpf", {}), ("bpf", {"vb": False}), ("hpf", {}),
+                 ("mle_user", {}), ("mle_item", {}), ("canny", {}),
+                 ("bpf", {"bias": True}),
+                 ("bpf", {"bias": True, "vb": False}),
+                 ("hpf", {"bias": True})]
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all_rows",
+                                                       "row_mask"])
+@pytest.mark.parametrize("variant,kw", INPLACE_CASES,
+                         ids=["-".join([v, *kw]) for v, kw in INPLACE_CASES])
+def test_inplace_update_equals_copying(rng, monkeypatch, variant, kw,
+                                       masked):
+    """The step computing its updates into the state's buffers gives the
+    bits of the step that computed fresh tensors and copied them in, over
+    4 steps (with a row mask zeroing the last rows' expectations, as a
+    sharded run's padding rows; MLE-user takes none), and leaves every
+    state tensor at its address."""
+    js, _, _ = make_synthetic(rng, n=25, m=19, density=0.4)
+    cfg = TCfg(n=js.n, m=js.m, k=4, variant=variant, sweep="dense", **kw)
+    data = t_build(port_store(js), "cpu", pad_multiple=128)
+    mask = None
+    if masked:
+        mask = (torch.arange(js.n) < js.n - 3).float()
+    inplace = init_state(cfg, seed=7, device="cpu")
+    copying = init_state(cfg, seed=7, device="cpu")
+    ptrs = [t.data_ptr() for _, t in step_mod.tensor_leaves(inplace)]
+    for _ in range(4):
+        step_mod.cavi_step(inplace, data, cfg, None, mask)
+    assert ptrs == [t.data_ptr() for _, t in step_mod.tensor_leaves(inplace)]
+    monkeypatch.setattr(step_mod, "_update", _copying_update)
+    for _ in range(4):
+        step_mod.cavi_step(copying, data, cfg, None, mask)
+    want = state_to_numpy(copying)
+    for key, v in state_to_numpy(inplace).items():
+        np.testing.assert_array_equal(v, want[key], key)
