@@ -20,9 +20,11 @@ Extensions: -sweep dense|segment|segment-chunked|hybrid|auto,
 -head-gib G (hybrid head byte budget), -precision highest|default,
 -outdir PATH, -cpu (run on the CPU; without it the run needs a CUDA
 device), -trace DIR (run training under torch.profiler and write a
-TensorBoard trace), -devices D (shard training over D devices: user rows
-split across ranks, parallel/sharded.py). -tail mxu (the TPU's one-hot
-MXU tail) is rejected by name.
+TensorBoard trace, in which the port's spans (trace.py) name the
+multi-step's warm-up, capture and key walk and the report's phases),
+-devices D (shard training over D devices: user rows split across
+ranks, parallel/sharded.py). -tail mxu (the TPU's one-hot MXU tail) is
+rejected by name.
 
 Multi-GPU: under torchrun (WORLD_SIZE set) each process is one rank,
 binds cuda:LOCAL_RANK (the CPU with -cpu, over gloo), ingests only its

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from hgaprec_tpu_torch.data.ratings import RatingsStore
-from hgaprec_tpu_torch.ops.tail import TailStream, build_tail_stream
+from hgaprec_tpu_torch.ops.tail import TailStream, build_tail_stream, upload
+from hgaprec_tpu_torch.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,9 +92,9 @@ def _scatter_counts(rows: int, cols: int, u: np.ndarray, c: np.ndarray,
     """uint8 [rows, cols] (16-byte row stride) holding min(y, 255) at
     (u, c), scattered on the device."""
     out = dense_count_matrix(rows, cols, device)
-    out[torch.from_numpy(u.astype(np.int64)).to(device),
-        torch.from_numpy(c.astype(np.int64)).to(device)] = \
-        torch.from_numpy(np.minimum(y, 255).astype(np.uint8)).to(device)
+    out[upload(u.astype(np.int64), device),
+        upload(c.astype(np.int64), device)] = \
+        upload(np.minimum(y, 255).astype(np.uint8), device)
     return out
 
 
@@ -110,23 +111,29 @@ def build_device_data(store: RatingsStore, device, *,
     nonzeros into a head block over the top-T items by degree and a tail
     stream; when the head budget cannot fit 512 columns no head is built,
     and a catalog that neither densifies nor gets a head keeps only the
-    COO (the JAX package's layout rules)."""
+    COO (the JAX package's layout rules). Spanned as `layout`, its
+    parts as `layout.*` (trace.py)."""
     n, m = store.n, store.m
-    t = head_width(n, m, hybrid_head_items, head_limit_bytes,
-                   dense_row_multiple) if store.coo_u.size > 0 else 0
-    head_ids = top_degree_items(np.bincount(store.coo_i, minlength=m), t) \
-        if t > 0 else None
-    return build_layout(store.coo_u, store.coo_i, store.coo_y, n, m, device,
-                        head_ids=head_ids,
-                        dense=n * m <= dense_limit_bytes and n > 0 and m > 0,
-                        pad_multiple=pad_multiple,
-                        dense_row_multiple=dense_row_multiple)
+    with span("layout"):
+        with span("layout.select"):
+            t = head_width(n, m, hybrid_head_items, head_limit_bytes,
+                           dense_row_multiple) if store.coo_u.size > 0 else 0
+            head_ids = top_degree_items(
+                np.bincount(store.coo_i, minlength=m), t) if t > 0 else None
+        return build_layout(store.coo_u, store.coo_i, store.coo_y, n, m,
+                            device, head_ids=head_ids,
+                            dense=(n * m <= dense_limit_bytes and n > 0
+                                   and m > 0),
+                            pad_multiple=pad_multiple,
+                            dense_row_multiple=dense_row_multiple)
 
 
 def top_degree_items(degrees: np.ndarray, t: int) -> np.ndarray:
     """i32[t]: the t items of highest degree (ties to the lower id),
     ascending: the head set of the hybrid layout."""
-    return np.sort(np.argsort(-degrees, kind="stable")[:t]).astype(np.int32)
+    with span("layout.sort"):
+        return np.sort(np.argsort(-degrees, kind="stable")[:t]).astype(
+            np.int32)
 
 
 def build_layout(u: np.ndarray, i: np.ndarray, y: np.ndarray, n: int, m: int,
@@ -147,26 +154,30 @@ def build_layout(u: np.ndarray, i: np.ndarray, y: np.ndarray, n: int, m: int,
 
     head_items = head_dense = tail = None
     if head_ids is not None:
-        col_of = np.full(m, -1, np.int32)
-        col_of[head_ids] = np.arange(head_ids.size, dtype=np.int32)
-        in_head = col_of[i] >= 0
-        head_dense = _scatter_counts(npad, head_ids.size, u[in_head],
-                                     col_of[i[in_head]], y[in_head], device)
-        head_items = torch.from_numpy(head_ids).to(device)
-        tail = build_tail_stream(u[~in_head], i[~in_head], y[~in_head],
-                                 device)
+        with span("layout.head"):
+            col_of = np.full(m, -1, np.int32)
+            col_of[head_ids] = np.arange(head_ids.size, dtype=np.int32)
+            in_head = col_of[i] >= 0
+            head_dense = _scatter_counts(npad, head_ids.size, u[in_head],
+                                         col_of[i[in_head]], y[in_head],
+                                         device)
+            head_items = upload(head_ids, device)
+        with span("layout.tail"):
+            rest = ~in_head
+            tail = build_tail_stream(u[rest], i[rest], y[rest], device)
 
     dense_y = None
     if dense:
         big = n * m > (1 << 28)
         # scatter on the device: the host never holds the [N, M] matrix
-        dense_y = _scatter_counts(npad if (big or n > 4096) else n, m, u, i,
-                                  y, device)
+        with span("layout.head"):
+            dense_y = _scatter_counts(npad if (big or n > 4096) else n, m, u,
+                                      i, y, device)
 
-    return DeviceData(**sorted_coo(u, i, y, n if pad_row is None
-                                   else pad_row + 1, m, device,
-                                   pad_multiple),
-                      dense_y=dense_y, head_items=head_items,
+    with span("layout.coo"):
+        coo = sorted_coo(u, i, y, n if pad_row is None else pad_row + 1, m,
+                         device, pad_multiple)
+    return DeviceData(**coo, dense_y=dense_y, head_items=head_items,
                       head_dense_y=head_dense, tail=tail)
 
 
@@ -183,11 +194,9 @@ def sorted_coo(u: np.ndarray, i: np.ndarray, y: np.ndarray, n: int, m: int,
     i = np.concatenate([i.astype(np.int32),
                         np.full(p - nnz, max(m - 1, 0), np.int32)])
     y = np.concatenate([y.astype(np.float32), np.zeros(p - nnz, np.float32)])
-    item_order = np.lexsort((u, i)).astype(np.int32)
-
-    def dev(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
-    return dict(u_ids=dev(u), i_ids=dev(i), y=dev(y),
-                item_order=dev(item_order), i_ids_sorted=dev(i[item_order]),
-                u_ids_by_item=dev(u[item_order]))
+    with span("layout.sort"):
+        item_order = np.lexsort((u, i)).astype(np.int32)
+    return dict(u_ids=upload(u, device), i_ids=upload(i, device),
+                y=upload(y, device), item_order=upload(item_order, device),
+                i_ids_sorted=upload(i[item_order], device),
+                u_ids_by_item=upload(u[item_order], device))

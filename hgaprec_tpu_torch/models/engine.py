@@ -63,6 +63,7 @@ from hgaprec_tpu_torch.models.state import (ModelState, init_state,
                                             state_to_numpy)
 from hgaprec_tpu_torch.models.step import make_multi_step, make_step
 from hgaprec_tpu_torch.parallel import distributed, sharded
+from hgaprec_tpu_torch.trace import span
 
 
 def _pairs_tensors(cmap: CountMap, device):
@@ -449,25 +450,33 @@ class Trainer:
         return None
 
     def report(self):
+        """One report; its phases are spanned as `report.*` (trace.py),
+        which a `-trace` profile shows."""
         # every rank: the validation likelihood drives the stopping rule
-        self.compute_likelihood(True)
+        with span("report.loglik"):
+            self.compute_likelihood(True)
         if self._stop_requested:
             return
         if self.primary:
-            self.compute_likelihood(False)
+            with span("report.loglik"):
+                self.compute_likelihood(False)
             if not self.mcfg.mle:
-                self.save_model()
+                with span("report.save"):
+                    self.save_model()
         # with eval_group, precision is a collective: every rank calls it
         if self.primary or self.eval_group is not None:
-            self.compute_precision(False)
+            with span("report.precision"):
+                self.compute_precision(False)
         if self.primary:
             if (self.mcfg.variant in ("bpf", "hpf", "canny")
                     and not self.mcfg.bias):
                 # reference: vb/vb_hier/vb_canny also run itemrank
-                self.compute_itemrank(False)
+                with span("report.itemrank"):
+                    self.compute_itemrank(False)
         # a sharded run's ELBO is a collective: every rank calls it
         if self.rcfg.logl and (self.primary or self.sharded is not None):
-            self.logl()
+            with span("report.elbo"):
+                self.logl()
 
     def run(self, max_iters: Optional[int] = None) -> ModelState:
         """Train until the stopping rule fires (or an iteration cap).
@@ -475,7 +484,10 @@ class Trainer:
         With rcfg.trace_dir set, the whole loop runs under torch.profiler
         (host ops, and the card's kernels on a CUDA device) and the trace
         is written to that directory as `*.pt.trace.json` for TensorBoard
-        (engine.py:414-424 runs jax.profiler.trace there)."""
+        (engine.py:414-424 runs jax.profiler.trace there). The port's spans
+        (trace.py) appear in it under their own names: the multi-step's
+        warm-up, capture and key walk, the slab streams' builds and the
+        report's phases."""
         if not self.rcfg.trace_dir:
             return self._run_loop(max_iters)
         from torch.profiler import (ProfilerActivity, profile,

@@ -45,6 +45,7 @@ from hgaprec_tpu_torch.models.state import Gam, ModelState
 from hgaprec_tpu_torch.ops import dense_fused, segment_fused, tail_fused
 from hgaprec_tpu_torch.ops.gamma import expectations
 from hgaprec_tpu_torch.ops.sweep import sweep
+from hgaprec_tpu_torch.trace import span
 
 
 def _write(buf: torch.Tensor, value) -> None:
@@ -372,7 +373,11 @@ class GraphMultiStep:
         loop ask for. On the card a failed capture or replay raises;
         nothing falls back to the loop.
 
-    `eager_steps`, `captures` and `replays` count what the runner did.
+    `eager_steps`, `captures` and `replays` count what the runner did;
+    the warm-up step, the capture and the key's walk are spanned as
+    `multistep.warmup`, `multistep.capture` and `multistep.key`
+    (trace.py; only the last opens on the replay path, and it launches
+    nothing).
     `new_graph` makes the capture object (`CudaGraph`) and `capturable`
     decides where steps replay (`graph_capturable`); the tests inject
     fakes of both."""
@@ -407,13 +412,17 @@ class GraphMultiStep:
         if not self.replays_on(state, group):
             return cavi_multi_step(state, data, self.cfg, n_steps, group,
                                    row_mask)
-        key = (self.cfg, _storage_key(state, data, group, row_mask))
-        if self.graph is None or key != self._key:
+        with span("multistep.key"):
+            key = (self.cfg, _storage_key(state, data, group, row_mask))
+            stale = self.graph is None or key != self._key
+        if stale:
             self.reset()
-            cavi_step(state, data, self.cfg, group, row_mask)   # warm-up
+            with span("multistep.warmup"):
+                cavi_step(state, data, self.cfg, group, row_mask)
             self.eager_steps += 1
             n_steps -= 1
-            self._capture(state, data, group, row_mask)
+            with span("multistep.capture"):
+                self._capture(state, data, group, row_mask)
             self._key = key
         for _ in range(n_steps):
             self.graph.replay()

@@ -40,6 +40,7 @@ from hgaprec_tpu_torch.data.device import DeviceData
 from hgaprec_tpu_torch.ops import build
 from hgaprec_tpu_torch.ops.segment import segment_sweep_reference
 from hgaprec_tpu_torch.ops.tail import tail_tables
+from hgaprec_tpu_torch.trace import span
 
 RANGE = 128            # nonzeros per range (a multiple of 32)
 SLAB_BYTES = 24 << 20  # a slab's A rows and weights: half the H100's L2
@@ -128,11 +129,21 @@ def slab_stream(u_ids: torch.Tensor, item_order: torch.Tensor,
     and read once, where plain item order costs one; slab order saves it
     an HBM gather of A per entry. With fill > 0 an item keeps slab order
     only where its entries outnumber fill times its p - 1 extra pair rows;
-    the others lead the stream in (item, user) order, one pair each."""
+    the others lead the stream in (item, user) order, one pair each. A
+    build is spanned as `slabs.build` (trace.py)."""
     key = (n, m, kq, slab_bytes, fill)
     got = cache.get(key)
-    if got is not None:
-        return got
+    if got is None:
+        with span("slabs.build"):
+            got = cache[key] = _build_slab_stream(
+                u_ids, item_order, i_by_item, u_by_item, n, m, kq,
+                slab_bytes, fill)
+    return got
+
+
+def _build_slab_stream(u_ids, item_order, i_by_item, u_by_item, n, m, kq,
+                       slab_bytes, fill) -> SlabStream:
+    """`slab_stream`'s stream, built on the device."""
     slab = user_slabs(u_ids, n, kq, slab_bytes)[u_by_item.long()]
     cold = 0
     if fill > 0:
@@ -152,14 +163,12 @@ def slab_stream(u_ids: torch.Tensor, item_order: torch.Tensor,
     item_start = torch.zeros(m + 1, dtype=torch.int64, device=slab.device)
     item_start[1:] = torch.cumsum(torch.bincount(pair_item.long(),
                                                  minlength=m), 0)
-    got = SlabStream(
+    return SlabStream(
         pair=(torch.cumsum(run_start, 0) - 1).int(),
         u=u_by_item[perm], order=item_order[perm],
         pair_item=pair_item, item_start=item_start.int(),
         item_pairs=torch.sort(pair_item, stable=True).indices.int(),
         slabs=int(torch.unique_consecutive(slab[cold:]).numel()), cold=cold)
-    cache[key] = got
-    return got
 
 
 def data_slabs(data: DeviceData, n: int, m: int, kq: int,

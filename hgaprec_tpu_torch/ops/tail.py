@@ -31,6 +31,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from hgaprec_tpu_torch.trace import span
+
 _CLAMP = 1e-30
 
 
@@ -66,14 +68,20 @@ def build_tail_stream(u: np.ndarray, i: np.ndarray, y: np.ndarray,
     u = np.ascontiguousarray(u, np.int32)
     i = np.ascontiguousarray(i, np.int32)
     y = np.ascontiguousarray(y, np.float32)
-    order = np.argsort(i, kind="stable")
+    with span("layout.sort"):
+        order = np.argsort(i, kind="stable")
+    return TailStream(u=upload(u, device), i=upload(i, device),
+                      y=upload(y, device), i_by_item=upload(i[order], device),
+                      u_by_item=upload(u[order], device),
+                      y_by_item=upload(y[order], device),
+                      order=upload(order.astype(np.int32), device))
 
-    def dev(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
-    return TailStream(u=dev(u), i=dev(i), y=dev(y), i_by_item=dev(i[order]),
-                      u_by_item=dev(u[order]), y_by_item=dev(y[order]),
-                      order=dev(order.astype(np.int32)))
+def upload(x: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`, the copy spanned as `layout.copy`."""
+    x = np.ascontiguousarray(x)
+    with span("layout.copy"):
+        return torch.from_numpy(x).to(device)
 
 
 def augment(x: torch.Tensor, col_a: Optional[torch.Tensor],

@@ -1,0 +1,35 @@
+"""The port's own span record, as the benchmark's readers take it: the
+per-name totals of `hgaprec_tpu_torch.trace.snapshot()`, which the run's
+set-up (the layout build, the multi-step's warm-up and capture) and its
+window have filled by the time the metrics are read.
+
+A program without the recorder (the module is absent) reads as no span
+at all, so each reader returns None there and its metric is left out.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, Optional
+
+RECORDER = "hgaprec_tpu_torch.trace"
+
+
+def totals() -> Dict[str, dict]:
+    """{span name: {"calls", "seconds", "self_seconds"}}; empty for a
+    program that records no spans."""
+    try:
+        mod = importlib.import_module(RECORDER)
+    except ModuleNotFoundError as exc:
+        if exc.name != RECORDER:
+            raise
+        return {}
+    return mod.snapshot()["totals"]
+
+
+def seconds(*names: str) -> Optional[float]:
+    """The seconds of every span of these names, summed; None where none
+    of them was recorded."""
+    got = totals()
+    found = [got[n]["seconds"] for n in names if n in got]
+    return sum(found) if found else None
