@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--segment | --tail | --cli | --sharded | --wide
-                           | --wide-sparse]
+                           | --wide-sparse | --echonest]
 
 With `--wide` it runs only the build and the wide routes' phase (every
 wide route against its plain version at ML-1M shape at K = 255 with
@@ -36,7 +36,8 @@ phases (the CSR sweep on every layout and at EchoNest shape), with
 `--tail` only the build and the tail kernel's phases (every layout and the
 EchoNest tail), with `--cli` only the build, the ML-1M runs at "highest"
 on the card and the CPU, and the command line's phase, with `--sharded`
-only the build, those ML-1M runs and the sharded phases below, and
+only the build, those ML-1M runs and the sharded phases below, with
+`--echonest` only the build and the EchoNest hybrid Trainer's phase, and
 prints no result line. Without arguments it builds the port's CUDA kernels from
 `hgaprec_tpu_torch/csrc/`, holds each
 against its plain PyTorch version on the card, sweeps once at Netflix
@@ -76,7 +77,9 @@ against its plain version on adversarial layouts and on the EchoNest
 tail (where its f32 route, the CSR sweep's two passes, must take less
 than 1.5x its bf16 route's time), HPF K=100 at the
 EchoNest preset shape (1,019,318 x 384,546, 45M nonzeros) through the
-Trainer, and a small hybrid run on the card against the CPU. Then the segment path: the CSR sweep kernel against its plain
+Trainer (its bf16 head's kernels, and the f32 split kernel over the
+narrower head that the card's rule keeps at "highest", against their
+plain versions), and a small hybrid run on the card against the CPU. Then the segment path: the CSR sweep kernel against its plain
 version on adversarial layouts, HPF K=100 at the EchoNest preset shape
 through the Trainer with `sweep="segment-chunked"` and the training ELBO
 (every nonzero through the CSR kernel, no head block, no tail), and five
@@ -2626,27 +2629,41 @@ def phase_echonest(df, tf, tr, gen, smi):
     from hgaprec_tpu_torch.ops import tail as tl
     data = tr.data
     mode = _resolve_mode(tr.mcfg, data)
+    from hgaprec_tpu_torch.data.device import (card_head_width, head_width,
+                                               top_degree_items)
     t = data.head_items.shape[0]
+    nnz, mc = tr.store.nratings, tr.mcfg
     deg = np.bincount(tr.store.coo_i, minlength=tr.store.m)
-    cover = float(np.sort(deg)[::-1][:t].sum()) / tr.store.nratings
+    top = np.sort(deg)[::-1]
+    # the card's head width (data/device.py::card_head_width) within the
+    # JAX width, EN_T; the generator's data facts are at EN_T
+    jax_t = head_width(tr.store.n, tr.store.m, mc.hybrid_head_items,
+                       mc.head_limit_bytes)
+    want_t = card_head_width(deg, data.head_dense_y.shape[0], jax_t,
+                             mc.matmul_precision, K)
+    share = float(top[:t].sum()) / nnz
+    cover = float(top[:EN_T].sum()) / nnz
     say(f"echonest layout: mode {mode}; dense_y "
         f"{'built' if data.dense_y is not None else 'none'}; head "
-        f"{tuple(data.head_dense_y.shape)} u8 (T={t}, expected {EN_T}; "
-        f"{data.head_dense_y.numel() / 1e9:.2f} GB), coverage {cover:.4f} "
-        f"(harness {EN_COVERAGE}); tail {data.tail.nnz:,} nonzeros "
-        f"(harness {EN_TAIL:,}); card memory "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-    in_tail = tr.store.nratings - data.tail.nnz
-    if (mode != "hybrid" or data.dense_y is not None or t != EN_T or
-            abs(cover - EN_COVERAGE) > 2e-3 or
-            abs(in_tail / tr.store.nratings - cover) > 1e-6 or
-            abs(data.tail.nnz / EN_TAIL - 1) > 1e-2):
+        f"{tuple(data.head_dense_y.shape)} u8 (T={t}, the card's rule at "
+        f"{mc.matmul_precision!r} expects {want_t} within the JAX width "
+        f"{jax_t}; {data.head_dense_y.numel() / 1e9:.2f} GB), head share "
+        f"{share:.4f}; tail {data.tail.nnz:,} nonzeros; the top {EN_T} "
+        f"items' coverage {cover:.4f} (harness {EN_COVERAGE}), tail "
+        f"{nnz - int(top[:EN_T].sum()):,} (harness {EN_TAIL:,}); card "
+        f"memory {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    in_head = nnz - data.tail.nnz
+    if (mode != "hybrid" or data.dense_y is not None or t != want_t or
+            jax_t != EN_T or abs(cover - EN_COVERAGE) > 2e-3 or
+            abs(in_head / nnz - share) > 1e-6 or
+            abs((nnz - top[:EN_T].sum()) / EN_TAIL - 1) > 1e-2):
         raise SystemExit("the EchoNest layout is not the expected hybrid")
 
-    # the head kernels at the head shape (offsets past 2^31 bytes of Y):
-    # each twice (bitwise equal) beside its bound; the f32 route's split
-    # kernel faster than dense_simt.cu on the same inputs and than the
-    # plain version, and no further from f64 sums than dense_simt.cu
+    # the head kernels at the head shape (the card's width, so no longer
+    # offsets past 2^31 bytes of Y): each twice (bitwise equal) beside its
+    # bound; the f32 route's split kernel faster than dense_simt.cu on the
+    # same inputs and than the plain version, and no further from f64 sums
+    # than dense_simt.cu
     from hgaprec_tpu_torch.ops import dense_probe as dp
     n, m = tr.store.n, tr.store.m
     a_lin = torch.exp(0.3 * torch.randn((n, K), device="cuda",
@@ -2700,7 +2717,44 @@ def phase_echonest(df, tf, tr, gen, smi):
         raise SystemExit("the f32 route's split kernel is slower than "
                          "dense_simt.cu or the plain version on the EchoNest "
                          "head, or further from f64 than dense_simt.cu")
-    del a_lin, b_head, ref
+    # kernel #1 at the main path's shape at "highest" (the benchmark's
+    # default cell): the f32 split kernel over the head that the card's
+    # rule keeps at "highest", this head's densest columns, twice (bitwise
+    # equal) against its plain version beside its bound
+    hi_t = card_head_width(deg, hy.shape[0], jax_t, "highest", K)
+    ids = data.head_items.cpu().numpy()
+    hi_ids = top_degree_items(deg, hi_t)
+    if not 0 < hi_t <= t or not np.isin(hi_ids, ids).all():
+        raise SystemExit(f"the \"highest\" head ({hi_t} items) is not "
+                         f"within this head ({t} items)")
+    cols = torch.from_numpy(np.searchsorted(ids, hi_ids)).cuda()
+    hy_hi, b_hi = hy.index_select(1, cols), b_head.index_select(0, cols)
+    ref = df.fused_dense_sweep_reference(a_lin, b_hi, hy_hi)
+
+    def call():
+        return df.fused_dense_sweep(a_lin, b_hi, hy_hi)
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    err, ok = compare(got, ref, False)
+    ok &= all(torch.equal(a, b) for a, b in zip(got, again))
+    rel["f32_highest_head"] = f64_rel_err(got, [a_lin, b_hi], hy_hi)
+    del got, again
+    ms = median_ms(call, 5)
+    plain_ms = median_ms(
+        lambda: df.fused_dense_sweep_reference(a_lin, b_hi, hy_hi), 3)
+    bound_ms, bound_by = dense_bound_f32(n, hi_t, K)
+    say(f"head kernel at the \"highest\" rule's head {n}x{hi_t}x{K} "
+        f"(share {float(top[:hi_t].sum()) / nnz:.4f}) f32: max_abs_err vs "
+        f"f32 plain {err:.3e}, two launches bitwise equal "
+        f"{'ok' if ok else 'FAIL'}; relative to f64 sums "
+        f"{rel['f32_highest_head']:.3e}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms; {tflops(n, hi_t, K, ms, 'f32')}; bound "
+        f"{bound_ms:.3f} ms ({bound_by}), kernel at {ms / bound_ms:.2f}x it")
+    if not ok:
+        raise SystemExit("the f32 head kernel at the \"highest\" rule's "
+                         "head disagrees with its plain version or itself")
+    head["f32_highest"] = (ms, plain_ms, bound_ms)
+    del a_lin, b_head, ref, hy_hi, b_hi
 
     tail = phase_echonest_tail(data, n, m, gen, smi)
     report_s, topk_calls = [], []
@@ -3714,9 +3768,10 @@ def main():
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if sys.argv[1:] not in ([], ["--segment"], ["--tail"], ["--cli"],
-                            ["--sharded"], ["--wide"], ["--wide-sparse"]):
+                            ["--sharded"], ["--wide"], ["--wide-sparse"],
+                            ["--echonest"]):
         print("usage: chip_smoke.py [--segment | --tail | --cli | "
-              "--sharded | --wide | --wide-sparse]",
+              "--sharded | --wide | --wide-sparse | --echonest]",
               file=sys.stderr)
         return 2
     only = sys.argv[1][2:] if sys.argv[1:] else None
@@ -3863,6 +3918,13 @@ def main():
         say("wide-sparse phase passed (no result line: --wide-sparse runs "
             "only the sparse kernels' wide routes)")
         return 0
+    if only == "echonest":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+            phase_echonest(df, tf, echonest_trainer(root), gen, smi)
+        say(f"echonest phase passed in {time.perf_counter() - t_start:.1f} s "
+            f"(no result line: --echonest runs only the EchoNest hybrid "
+            f"Trainer's phase)")
+        return 0
     if only == "wide":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
             tr = echonest_trainer(root)
@@ -3985,6 +4047,9 @@ def main():
          "plain_ms_echonest_head": head32[1],
          "bound_ms_echonest_head": head32[2],
          "simt_ms_echonest_head": en["head"]["simt"][0],
+         "ms_echonest_highest_head": en["head"]["f32_highest"][0],
+         "plain_ms_echonest_highest_head": en["head"]["f32_highest"][1],
+         "bound_ms_echonest_highest_head": en["head"]["f32_highest"][2],
          "f64_rel_err_echonest_head": en["head_f64_rel_err"],
          "simt_source": "hgaprec_tpu_torch/csrc/dense_simt.cu",
          "ms_per_iter_ml1m_highest": ms_iter_ml1m_highest,

@@ -21,7 +21,9 @@ Extensions: -sweep dense|segment|segment-chunked|hybrid|auto,
 -outdir PATH, -cpu (run on the CPU; without it the run needs a CUDA
 device), -trace DIR (run training under torch.profiler and write a
 TensorBoard trace, in which the port's spans (trace.py) name the
-multi-step's warm-up, capture and key walk and the report's phases),
+multi-step's warm-up, capture and key walk and the report's phases,
+and whose metadata holds the hybrid head's width and share of the
+nonzeros under "hgaprec_layout"),
 -devices D (shard training over D devices: user rows split across
 ranks, parallel/sharded.py). -tail mxu (the TPU's one-hot MXU tail) is
 rejected by name.

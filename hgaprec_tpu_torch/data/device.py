@@ -18,6 +18,13 @@ the JAX package): the top-T items by degree form a dense uint8 head block
 [npad, T] that the same kernel sweeps, and the remaining nonzeros form the
 tail stream (ops/tail.py::TailStream). Both Y blocks are scattered on the
 device, so the host never holds a multi-GB matrix.
+
+The head's width T: on the CPU the JAX package's (`head_width`). On a
+CUDA device `head_width` is only the cap, and `card_head_width` keeps the
+top items in groups of 128 while each group costs the card more on the
+sparse passes than on the dense kernel, which sweeps every cell of the
+head block, zero or not; the costs are kernel #1's route's, which the
+precision and the factor count choose.
 """
 
 from __future__ import annotations
@@ -29,8 +36,9 @@ import numpy as np
 import torch
 
 from hgaprec_tpu_torch.data.ratings import RatingsStore
+from hgaprec_tpu_torch.ops.dense_fused import dense_kernel
 from hgaprec_tpu_torch.ops.tail import TailStream, build_tail_stream, upload
-from hgaprec_tpu_torch.trace import span
+from hgaprec_tpu_torch.trace import note, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +95,53 @@ def head_width(n: int, m: int, hybrid_head_items: int,
     return t
 
 
+# The card's break-even density of a group of head columns, by kernel #1's
+# route for the head (ops/dense_fused.py::dense_kernel): a group whose
+# nonzeros fill more than this share of its npad x HEAD_GROUP cells costs
+# more on the sparse passes than on the dense kernel, which sweeps every
+# cell, zero or not. Each is the dense kernel's seconds a cell over the
+# sparse passes' seconds a nonzero, least-squares slopes of the layers'
+# device time in the replayed step against the head's cells and the
+# tail's nonzeros over T = 128-4096, scripts/head_width_costs.py on the
+# EchoNest benchmark draw (1,019,318 x 384,546, 48,373,586 nonzeros),
+# NVIDIA H100 80GB HBM3 at 700 W. The narrow routes were measured at
+# K = 100, the resident wide kernel's at K = 300 (the sparse passes on
+# their wide lanes). The cluster kernel's and the unfused route's widths
+# were not measured: there the head keeps the JAX width.
+BREAK_EVEN_DENSITY = {
+    "f32": 7.421e-12 / 1.791e-10,        # "highest", K = 100: 4.14%
+    "wgmma": 1.327e-12 / 1.586e-10,      # bf16, K = 100: 0.84%
+    "wide_f32": 3.580e-11 / 3.385e-10,   # "highest", K = 300: 10.58%
+    "wide": 8.831e-12 / 3.993e-10,       # bf16, K = 300: 2.21%
+}
+# the head's unit: the dense kernels' stationary tile
+# (ops/dense_fused.py: KERNELS["f32"].tile, KERNELS["wgmma"].tile)
+HEAD_GROUP = 128
+
+
+def card_head_width(degrees: np.ndarray, npad: int, t_max: int,
+                    precision: str = "highest", kaug: int = 0) -> int:
+    """Head items T on a CUDA device: the items in descending degree
+    (`top_degree_items`' order), taken in groups of HEAD_GROUP while a
+    group's nonzeros fill more than BREAK_EVEN_DENSITY of its npad x
+    HEAD_GROUP cells, never past t_max (the last group clipped to it).
+    Degrees fall, so the first group that does not pay ends the head; 0
+    when none pays. The density is that of kernel #1's route at
+    `precision` for `kaug` packed values (K, K + 2 with bias; the default,
+    0, as any width up to 128, takes the narrow routes'); a route with
+    none measured keeps t_max."""
+    density = BREAK_EVEN_DENSITY.get(
+        dense_kernel(kaug, precision == "default"))
+    if density is None:
+        return t_max
+    top = -np.sort(-np.asarray(degrees, np.int64))[:t_max]
+    pays = density * npad * HEAD_GROUP
+    t = 0
+    while t < top.size and top[t:t + HEAD_GROUP].sum() > pays:
+        t = min(t + HEAD_GROUP, top.size)
+    return t
+
+
 def _scatter_counts(rows: int, cols: int, u: np.ndarray, c: np.ndarray,
                     y: np.ndarray, device) -> torch.Tensor:
     """uint8 [rows, cols] (16-byte row stride) holding min(y, 255) at
@@ -103,7 +158,9 @@ def build_device_data(store: RatingsStore, device, *,
                       dense_row_multiple: int = 512,
                       dense_limit_bytes: int = 10 << 30,
                       hybrid_head_items: int = 0,
-                      head_limit_bytes: int = 4 << 30) -> DeviceData:
+                      head_limit_bytes: int = 4 << 30,
+                      precision: str = "highest",
+                      kaug: int = 0) -> DeviceData:
     """Build the static-shape device tensors from a finalized host store.
 
     `dense_y` is built when the catalog densifies (n * m <=
@@ -111,21 +168,53 @@ def build_device_data(store: RatingsStore, device, *,
     nonzeros into a head block over the top-T items by degree and a tail
     stream; when the head budget cannot fit 512 columns no head is built,
     and a catalog that neither densifies nor gets a head keeps only the
-    COO (the JAX package's layout rules). Spanned as `layout`, its
-    parts as `layout.*` (trace.py)."""
+    COO (the JAX package's layout rules). On a CUDA device T is
+    `card_head_width`'s at `precision` (the sweep's matmul precision) and
+    `kaug` (K, K + 2 with bias), within the JAX width; no group that pays
+    gives no head. Spanned as `layout`, its parts as `layout.*`
+    (trace.py); T and the head's share
+    of the nonzeros are then noted as `layout.head_items` and
+    `layout.head_share` (`head_notes`)."""
     n, m = store.n, store.m
     with span("layout"):
         with span("layout.select"):
             t = head_width(n, m, hybrid_head_items, head_limit_bytes,
                            dense_row_multiple) if store.coo_u.size > 0 else 0
-            head_ids = top_degree_items(
-                np.bincount(store.coo_i, minlength=m), t) if t > 0 else None
-        return build_layout(store.coo_u, store.coo_i, store.coo_y, n, m,
+            head_ids = None
+            if t > 0:
+                degrees = np.bincount(store.coo_i, minlength=m)
+                if torch.device(device).type == "cuda":
+                    npad = -(-n // dense_row_multiple) * dense_row_multiple
+                    t = card_head_width(degrees, npad, t, precision,
+                                        kaug)
+                if t > 0:
+                    head_ids = top_degree_items(degrees, t)
+        data = build_layout(store.coo_u, store.coo_i, store.coo_y, n, m,
                             device, head_ids=head_ids,
                             dense=(n * m <= dense_limit_bytes and n > 0
                                    and m > 0),
                             pad_multiple=pad_multiple,
                             dense_row_multiple=dense_row_multiple)
+    note_head(data)
+    return data
+
+
+def head_notes(data: DeviceData) -> dict:
+    """A layout's hybrid head: {"layout.head_items": its width T (0: no
+    head), "layout.head_share": its share of the layout's nonzeros (0.0
+    without a head)}."""
+    t = 0 if data.head_items is None else int(data.head_items.numel())
+    share = 0.0
+    if t:
+        nnz = int((data.y > 0).sum())   # the COO's padding holds y = 0
+        share = 1.0 - data.tail.nnz / max(nnz, 1)
+    return {"layout.head_items": t, "layout.head_share": share}
+
+
+def note_head(data: DeviceData) -> None:
+    """Note a layout's `head_notes` in the trace (trace.py)."""
+    for name, value in head_notes(data).items():
+        note(name, value)
 
 
 def top_degree_items(degrees: np.ndarray, t: int) -> np.ndarray:
@@ -154,17 +243,8 @@ def build_layout(u: np.ndarray, i: np.ndarray, y: np.ndarray, n: int, m: int,
 
     head_items = head_dense = tail = None
     if head_ids is not None:
-        with span("layout.head"):
-            col_of = np.full(m, -1, np.int32)
-            col_of[head_ids] = np.arange(head_ids.size, dtype=np.int32)
-            in_head = col_of[i] >= 0
-            head_dense = _scatter_counts(npad, head_ids.size, u[in_head],
-                                         col_of[i[in_head]], y[in_head],
-                                         device)
-            head_items = upload(head_ids, device)
-        with span("layout.tail"):
-            rest = ~in_head
-            tail = build_tail_stream(u[rest], i[rest], y[rest], device)
+        head_items, head_dense, tail = head_and_tail(u, i, y, m, npad,
+                                                     head_ids, device)
 
     dense_y = None
     if dense:
@@ -179,6 +259,24 @@ def build_layout(u: np.ndarray, i: np.ndarray, y: np.ndarray, n: int, m: int,
                          device, pad_multiple)
     return DeviceData(**coo, dense_y=dense_y, head_items=head_items,
                       head_dense_y=head_dense, tail=tail)
+
+
+def head_and_tail(u: np.ndarray, i: np.ndarray, y: np.ndarray, m: int,
+                  npad: int, head_ids: np.ndarray, device):
+    """(head_items, head_dense_y, tail) of the hybrid layout: the uint8
+    [npad, T] block over the items `head_ids` and the tail stream of the
+    other nonzeros of the (int32 user, int32 item, f32 count) COO."""
+    with span("layout.head"):
+        col_of = np.full(m, -1, np.int32)
+        col_of[head_ids] = np.arange(head_ids.size, dtype=np.int32)
+        in_head = col_of[i] >= 0
+        head_dense = _scatter_counts(npad, head_ids.size, u[in_head],
+                                     col_of[i[in_head]], y[in_head], device)
+        head_items = upload(head_ids, device)
+    with span("layout.tail"):
+        rest = ~in_head
+        tail = build_tail_stream(u[rest], i[rest], y[rest], device)
+    return head_items, head_dense, tail
 
 
 def sorted_coo(u: np.ndarray, i: np.ndarray, y: np.ndarray, n: int, m: int,

@@ -37,6 +37,7 @@ report files into `.proc{rank}` under it.
 
 from __future__ import annotations
 
+import json
 import os
 import signal
 import threading
@@ -49,7 +50,8 @@ import torch.distributed as dist
 
 from hgaprec_tpu_torch.config import (ModelConfig, RunConfig,
                                       set_matmul_precision)
-from hgaprec_tpu_torch.data.device import DeviceData, build_device_data
+from hgaprec_tpu_torch.data.device import (DeviceData, build_device_data,
+                                           head_notes)
 from hgaprec_tpu_torch.data.ratings import (CountMap, RatingsStore,
                                             leave_one_out_map,
                                             validation_users_of_movie)
@@ -64,6 +66,10 @@ from hgaprec_tpu_torch.models.state import (ModelState, init_state,
 from hgaprec_tpu_torch.models.step import make_multi_step, make_step
 from hgaprec_tpu_torch.parallel import distributed, sharded
 from hgaprec_tpu_torch.trace import span
+
+# the key of a `-trace` profile's metadata that holds the Trainer's layout
+# figures (data/device.py::head_notes)
+LAYOUT_KEY = "hgaprec_layout"
 
 
 def _pairs_tensors(cmap: CountMap, device):
@@ -118,15 +124,18 @@ class Trainer:
             # the JAX package's layout decision (engine.py:96-116):
             # catalogs too wide to densify get the hybrid head/tail layout
             # under "auto"; an explicit "hybrid" always builds the head.
-            # No head fits the byte budget -> COO only, and _resolve_mode
-            # then picks the segment sweep.
+            # No head fits the byte budget (or, on a card, no group of
+            # head items pays: data/device.py::card_head_width) -> COO
+            # only, and _resolve_mode then picks the segment sweep.
             will_densify = store.n * store.m <= mcfg.dense_limit_bytes
             head = (mcfg.hybrid_head_items if mcfg.sweep == "hybrid" or
                     (mcfg.sweep == "auto" and not will_densify) else 0)
             self.data = build_device_data(
                 store, self.device, hybrid_head_items=head,
                 dense_limit_bytes=mcfg.dense_limit_bytes,
-                head_limit_bytes=mcfg.head_limit_bytes)
+                head_limit_bytes=mcfg.head_limit_bytes,
+                precision=mcfg.matmul_precision,
+                kaug=mcfg.k + 2 * mcfg.bias)
         self.step = make_step(mcfg)
         self.multi_step = make_multi_step(mcfg)
         self.state: ModelState = init_state(mcfg, seed=rcfg.seed,
@@ -487,7 +496,8 @@ class Trainer:
         (engine.py:414-424 runs jax.profiler.trace there). The port's spans
         (trace.py) appear in it under their own names: the multi-step's
         warm-up, capture and key walk, the slab streams' builds and the
-        report's phases."""
+        report's phases. The metadata holds this Trainer's layout figures,
+        its head width and head share, under `LAYOUT_KEY`."""
         if not self.rcfg.trace_dir:
             return self._run_loop(max_iters)
         from torch.profiler import (ProfilerActivity, profile,
@@ -496,7 +506,9 @@ class Trainer:
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities, on_trace_ready=
-                     tensorboard_trace_handler(self.rcfg.trace_dir)):
+                     tensorboard_trace_handler(self.rcfg.trace_dir)) as prof:
+            prof.add_metadata_json(LAYOUT_KEY,
+                                   json.dumps(head_notes(self.data)))
             return self._run_loop(max_iters)
 
     def _gather(self):

@@ -46,7 +46,8 @@ import torch.distributed as dist
 
 from hgaprec_tpu_torch.config import ModelConfig
 from hgaprec_tpu_torch.data.device import (DeviceData, build_layout,
-                                           head_width, top_degree_items)
+                                           card_head_width, head_width,
+                                           note_head, top_degree_items)
 from hgaprec_tpu_torch.data.ratings import RatingsStore
 from hgaprec_tpu_torch.models.state import (ARRAY_FIELDS, GAM_FIELDS, Gam,
                                             ModelState, init_arrays,
@@ -169,7 +170,9 @@ class ShardedRun:
 def build_sharded_data(store: RatingsStore, n_local: int, group, device, *,
                        dense: bool = True, dense_limit_bytes: int = 10 << 30,
                        hybrid_head_items: int = 0,
-                       head_limit_bytes: int = 4 << 30) -> DeviceData:
+                       head_limit_bytes: int = 4 << 30,
+                       precision: str = "highest",
+                       kaug: int = 0) -> DeviceData:
     """This rank's layout (sharded.py:205-374 of the JAX package): the
     nonzeros of users [rank * n_local, (rank + 1) * n_local) with local
     user ids, built by data/device.py::build_layout.
@@ -180,8 +183,11 @@ def build_sharded_data(store: RatingsStore, n_local: int, group, device, *,
       * else, with hybrid_head_items > 0, the hybrid layout: the head
         block over the GLOBAL top-T items by degree (degrees all-reduced
         over the group, so every rank holds the same head set and the
-        same T, which depends only on n_local, M and the byte budget),
-        and this rank's tail stream (local user ids, global item ids);
+        same T: the JAX width, which depends only on n_local, M and the
+        byte budget, and on a CUDA device data/device.py::
+        card_head_width's within it, from the global degrees and user
+        rows at `precision` and `kaug`), and this rank's tail stream
+        (local user ids, global item ids);
       * the dual-sorted COO, its padding entries on the last real row.
 
     The store may hold every user's nonzeros or only this rank's
@@ -198,11 +204,17 @@ def build_sharded_data(store: RatingsStore, n_local: int, group, device, *,
         if t > 0:
             deg = torch.from_numpy(np.bincount(i, minlength=m)
                                    .astype(np.int64)).to(device)
-            head_ids = top_degree_items(all_reduce(deg, group).cpu().numpy(),
-                                        t)
+            deg = all_reduce(deg, group).cpu().numpy()
+            if torch.device(device).type == "cuda":
+                t = card_head_width(deg, -(-world * n_local // 512) * 512,
+                                    t, precision, kaug)
+            if t > 0:
+                head_ids = top_degree_items(deg, t)
     real_rows = max(0, min(n - lo, n_local))
-    return build_layout(u, i, y, n_local, m, device, head_ids=head_ids,
+    data = build_layout(u, i, y, n_local, m, device, head_ids=head_ids,
                         dense=want_dense, pad_row=max(real_rows - 1, 0))
+    note_head(data)
+    return data
 
 
 def build_sharded_run(store: RatingsStore, cfg: ModelConfig, group, device,
@@ -242,7 +254,9 @@ def build_sharded_run(store: RatingsStore, cfg: ModelConfig, group, device,
     data = build_sharded_data(store, n_local, group, device, dense=dense,
                               dense_limit_bytes=cfg.dense_limit_bytes,
                               hybrid_head_items=head,
-                              head_limit_bytes=cfg.head_limit_bytes)
+                              head_limit_bytes=cfg.head_limit_bytes,
+                              precision=cfg.matmul_precision,
+                              kaug=cfg.k + 2 * cfg.bias)
     if arrays is None:
         arrays = init_arrays(dataclasses.replace(cfg, n=n), seed)
 

@@ -9,7 +9,9 @@ same thread) and its start and end on `time.perf_counter_ns`. The
 recorder keeps per-name totals (calls, seconds, self seconds: the
 duration less what child spans cover) and the individual records up to
 `RECORD_CAP`, counting those past it as dropped, so a long run stays
-bounded. `snapshot()` returns both; `reset()` clears them.
+bounded. `note(name, value)` keeps a number the code chose or counted
+(the last value under each name). `snapshot()` returns all three;
+`reset()` clears them.
 
 While a `torch.profiler` runs, a span also opens
 `torch.profiler.record_function(name)`, so it sits on the profiler's
@@ -45,6 +47,12 @@ Names are dotted, the layer first:
   report.precision  its precision report
   report.itemrank   its itemrank report
   report.elbo       its training ELBO (-logl)
+
+Notes, under names of the same form (of the last layout built in the
+process; a Trainer's `-trace` profile holds its own layout's):
+
+  layout.head_items  the hybrid head's width T (0: no head)
+  layout.head_share  the head's share of the nonzeros (0.0 without one)
 """
 
 from __future__ import annotations
@@ -130,28 +138,37 @@ class Recorder:
     def span(self, name: str) -> _Span:
         return _Span(self, name)
 
+    def note(self, name: str, value: float) -> None:
+        """Keep `value` under `name`, replacing an earlier one."""
+        with self._lock:
+            self._notes[name] = value
+
     def reset(self) -> None:
-        """Forget every finished span (open ones still record on exit)."""
+        """Forget every finished span (open ones still record on exit)
+        and every note."""
         with self._lock:
             self._totals: Dict[str, List[int]] = {}
             self._records: List[tuple] = []
             self._dropped = 0
+            self._notes: Dict[str, float] = {}
 
     def snapshot(self) -> dict:
         """{"totals": {name: {"calls", "seconds", "self_seconds"}},
         "records": [Record, ...] in the order the spans ended,
-        "dropped": records past the cap}."""
+        "dropped": records past the cap, "notes": {name: value}}."""
         with self._lock:
             return {"totals": {name: {"calls": c, "seconds": ns * 1e-9,
                                       "self_seconds": own * 1e-9}
                                for name, (c, ns, own) in
                                self._totals.items()},
                     "records": [Record(*r) for r in self._records],
-                    "dropped": self._dropped}
+                    "dropped": self._dropped,
+                    "notes": dict(self._notes)}
 
 
 # the process's recorder, which every span of the port records into
 RECORDER = Recorder()
 span = RECORDER.span
+note = RECORDER.note
 snapshot = RECORDER.snapshot
 reset = RECORDER.reset

@@ -28,12 +28,17 @@ from hgaprec_tpu.models.step import _resolve_mode as j_resolve
 from hgaprec_tpu.ops.sweep import sweep_hybrid as j_sweep_hybrid
 from hgaprec_tpu_torch.config import ModelConfig as TCfg
 from hgaprec_tpu_torch.config import RunConfig as TRun
+from hgaprec_tpu_torch import trace
+from hgaprec_tpu_torch.data import device as device_mod
 from hgaprec_tpu_torch.data.device import build_device_data as t_build
-from hgaprec_tpu_torch.data.device import head_width
+from hgaprec_tpu_torch.data.device import card_head_width, head_width
 from hgaprec_tpu_torch.models.engine import Trainer as TTrainer
 from hgaprec_tpu_torch.models.step import _resolve_mode as t_resolve
 from hgaprec_tpu_torch.ops import tail_fused as tf
-from hgaprec_tpu_torch.ops.sweep import sweep, sweep_hybrid
+from hgaprec_tpu_torch.ops.dense_fused import dense_kernel
+from hgaprec_tpu_torch.models import engine
+from hgaprec_tpu_torch.ops.sweep import (sweep, sweep_hybrid,
+                                         sweep_segment_chunked)
 from test_torch_step import port_store
 
 F32 = dict(rtol=2e-4, atol=1e-5)
@@ -241,3 +246,243 @@ def test_auto_builds_the_hybrid_for_a_wide_catalog(tmp_path, monkeypatch):
     ttr.close()
     assert calls[:2] == [js.n, js.m]      # one user-sorted, one item-sorted
     assert len(calls) == 2 * 3            # iterations 0, 1, 2
+
+
+# --- the card's head width (data/device.py::card_head_width) -------------
+
+G = device_mod.HEAD_GROUP
+# the head block's rows in the synthetic cases: many, so that a group's
+# break-even is hundreds of nonzeros an item
+NPAD = 1 << 24
+
+
+def _pays(precision, npad, kaug=0):
+    """The nonzeros at which a group of G columns over npad rows costs the
+    sparse passes as much as the dense kernel."""
+    route = dense_kernel(kaug, precision == "default")
+    return device_mod.BREAK_EVEN_DENSITY[route] * npad * G
+
+
+def _degrees(group_sums, rest, seed=0):
+    """Item degrees whose groups of G (in descending order) sum to about
+    `group_sums`, then `rest` items of degree 1, in a shuffled id order."""
+    deg = np.concatenate([np.full(G, int(round(s / G))) for s in
+                          group_sums] + [np.ones(rest, np.int64)])
+    return np.random.default_rng(seed).permutation(deg)
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("paying", [1, 2, 3])
+def test_card_head_width_keeps_groups_while_they_pay(precision, paying):
+    npad = NPAD
+    g = _pays(precision, npad)
+    # `paying` groups above the break-even, falling, then groups just
+    # below it: the walk stops at the first that does not pay
+    sums = [g * (4.0 - j) for j in range(paying - 1)] + [1.05 * g] + \
+        [0.95 * g, 0.9 * g]
+    deg = _degrees(sums, 3000)
+    assert card_head_width(deg, npad, 4096, precision) == paying * G
+
+
+@pytest.mark.parametrize("t_max", [100, 128, 300, 512])
+def test_card_head_width_never_passes_t_max(t_max):
+    npad = NPAD
+    deg = _degrees([10 * _pays("highest", npad)] * 5, 100)
+    assert card_head_width(deg, npad, t_max, "highest") == t_max
+    assert card_head_width(deg, npad, 0, "highest") == 0
+    # a group cut short by the cap still costs the kernel a whole tile:
+    # one item holding 10/128 of a group's break-even does not pay for it
+    assert card_head_width(deg, npad, 1, "highest") == 0
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_card_head_width_is_zero_when_no_group_pays(precision):
+    npad = NPAD
+    deg = _degrees([0.95 * _pays(precision, npad)] * 4, 5000)
+    assert card_head_width(deg, npad, 4096, precision) == 0
+    assert card_head_width(np.zeros(0, np.int64), npad, 4096,
+                           precision) == 0
+
+
+def test_card_head_width_is_wider_in_bf16():
+    npad = NPAD
+    hi, lo = _pays("highest", npad), _pays("default", npad)
+    assert lo < hi                      # a cell costs less in bf16
+    deg = _degrees([3 * hi, (hi + lo) / 2, lo / 2], 2000)
+    assert card_head_width(deg, npad, 4096, "highest") == G
+    assert card_head_width(deg, npad, 4096, "default") == 2 * G
+
+
+@pytest.mark.parametrize("precision,route", [("highest", "wide_f32"),
+                                             ("default", "wide")])
+def test_card_head_width_takes_the_costs_of_its_route(precision, route):
+    """K = 300 runs kernel #1's resident wide kernel and the sparse wide
+    lanes, whose break-even lies above the narrow routes' at K = 100: a
+    group between the two pays at K = 100 and not at K = 300."""
+    npad = NPAD
+    assert dense_kernel(300, precision == "default") == route
+    narrow, wide = _pays(precision, npad, 100), _pays(precision, npad, 300)
+    assert narrow < wide
+    deg = _degrees([3 * wide, (narrow + wide) / 2, narrow / 2], 2000)
+    assert card_head_width(deg, npad, 4096, precision, 100) == 2 * G
+    assert card_head_width(deg, npad, 4096, precision, 300) == G
+    # with bias the head's packed row is K + 2 values: K = 300 + bias
+    # is still the resident kernel's, K = 126 + bias the narrow route's
+    assert card_head_width(deg, npad, 4096, precision, 302) == G
+    assert card_head_width(deg, npad, 4096, precision, 128) == 2 * G
+
+
+@pytest.mark.parametrize("precision,kaug", [("highest", 400),
+                                            ("highest", 2600),
+                                            ("default", 640),
+                                            ("default", 3100)])
+def test_card_head_width_keeps_t_max_where_no_cost_was_measured(precision,
+                                                                 kaug):
+    """The cluster kernel's and the unfused route's widths have no
+    measured costs: there the head keeps the JAX width."""
+    assert dense_kernel(kaug, precision == "default") not in \
+        device_mod.BREAK_EVEN_DENSITY
+    deg = _degrees([0.5 * _pays(precision, NPAD)] * 4, 5000)
+    assert card_head_width(deg, NPAD, 512, precision, kaug) == 512
+    assert card_head_width(deg, NPAD, 512, precision) == 0
+
+
+def test_card_head_width_from_per_rank_degrees():
+    """A sharded build all-reduces each rank's item degrees: the sum is
+    the whole store's degrees, so every rank finds the same T."""
+    js = _power_law_store(3000, 2000, 200000, seed=3)
+    ts = port_store(js)
+    whole = np.bincount(ts.coo_i, minlength=ts.m)
+    ranks = np.array_split(np.arange(ts.coo_u.size), 4)
+    summed = sum(np.bincount(ts.coo_i[r], minlength=ts.m) for r in ranks)
+    np.testing.assert_array_equal(summed, whole)
+    npad = 3072
+    for precision in ("highest", "default"):
+        t = card_head_width(whole, npad, 1024, precision)
+        assert card_head_width(summed, npad, 1024, precision) == t
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_cpu_layout_keeps_the_jax_head_width(monkeypatch, precision):
+    """On the CPU the head is the JAX package's width at either precision:
+    the card's rule is not asked, and the notes give T and its share."""
+    js = _power_law_store(100, 1500, 6000, seed=17)
+    ts = port_store(js)
+    monkeypatch.setattr(device_mod, "card_head_width",
+                        lambda *a, **k: pytest.fail("card rule on the CPU"))
+    trace.reset()
+    td = t_build(ts, "cpu", pad_multiple=64, hybrid_head_items=1024,
+                 dense_limit_bytes=64, precision=precision)
+    t = head_width(ts.n, ts.m, 1024, 4 << 30)
+    assert t == 1024 and td.head_dense_y.shape == (512, t)
+    jd = j_build(js, pad_multiple=64, hybrid_head_items=1024,
+                 dense_limit_bytes=64)
+    _assert_hybrid_equal(jd, td, td.tail.nnz)
+    notes = trace.snapshot()["notes"]
+    assert notes["layout.head_items"] == t
+    assert notes["layout.head_share"] == pytest.approx(
+        1 - td.tail.nnz / ts.coo_u.size)
+    t_build(ts, "cpu", pad_multiple=64, dense_limit_bytes=64)
+    assert trace.snapshot()["notes"] == {"layout.head_items": 0,
+                                         "layout.head_share": 0.0}
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_trainer_builds_the_layout_at_its_precision(tmp_path, monkeypatch,
+                                                   precision):
+    seen = []
+    real = engine.build_device_data
+
+    def spy(*args, **kw):
+        seen.append((kw["precision"], kw["kaug"]))
+        return real(*args, **kw)
+    monkeypatch.setattr(engine, "build_device_data", spy)
+    js, val, test = make_synthetic(np.random.default_rng(5), n=60, m=45,
+                                   density=0.25)
+    ttr = TTrainer(port_store(js), val, test,
+                   TCfg(n=js.n, m=js.m, k=3, variant="hpf",
+                        matmul_precision=precision, hybrid_head_items=8,
+                        dense_limit_bytes=64),
+                   TRun(outdir=str(tmp_path / "o"), rfreq=2,
+                        max_iterations=2), device="cpu")
+    ttr.close()
+    assert seen == [(precision, 3)]
+
+
+def test_trainer_builds_the_layout_at_its_packed_width(tmp_path,
+                                                       monkeypatch):
+    """With bias the head's packed row holds K + 2 values, the width that
+    picks kernel #1's route and so the card rule's costs."""
+    seen = []
+    real = engine.build_device_data
+
+    def spy(*args, **kw):
+        seen.append(kw["kaug"])
+        return real(*args, **kw)
+    monkeypatch.setattr(engine, "build_device_data", spy)
+    js, val, test = make_synthetic(np.random.default_rng(6), n=60, m=45,
+                                   density=0.25)
+    ttr = TTrainer(port_store(js), val, test,
+                   TCfg(n=js.n, m=js.m, k=4, variant="bpf", bias=True,
+                        hybrid_head_items=8, dense_limit_bytes=64),
+                   TRun(outdir=str(tmp_path / "o"), rfreq=2,
+                        max_iterations=2), device="cpu")
+    ttr.close()
+    assert seen == [6]
+
+
+def _card_store(seed):
+    """20,000 users x 3,000 items: 128 items at 20% density, 128 at 2%,
+    the rest at 0.1%, every item present."""
+    rng = np.random.default_rng(seed)
+    n, m = 20000, 3000
+    keys = []
+    for lo, hi, density in ((0, 128, 0.2), (128, 256, 0.02),
+                            (256, m, 0.001)):
+        cells = n * (hi - lo)
+        flat = rng.choice(cells, int(cells * density), replace=False)
+        keys.append((flat % n) * m + lo + flat // n)
+    keys.append(rng.integers(0, n, m) * m + np.arange(m))
+    key = np.unique(np.concatenate(keys))
+    perm = rng.permutation(m)             # degree order is not id order
+    u, i = key // m, perm[key % m]
+    js = JStore(n, m)
+    js.add_training(u + 1, i + 1, rng.integers(1, 6, u.size))
+    js.finalize()
+    return port_store(js)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_card_layout_takes_the_card_head_width(precision):
+    """On the card the head is card_head_width's, narrower than the JAX
+    width here, and the hybrid sweep at that width ("highest") matches
+    the port's plain sweep, run on the CPU in float64 over the COO, at
+    the f32 bound, as does the CSR sweep on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the layout rule and the CUDA "
+                    "kernels run only on a card")
+    ts = _card_store(23)
+    t_max = head_width(ts.n, ts.m, 1024, 4 << 30)
+    trace.reset()
+    td = t_build(ts, "cuda", hybrid_head_items=1024, dense_limit_bytes=64,
+                 precision=precision, kaug=100)
+    npad = -(-ts.n // 512) * 512
+    t = card_head_width(np.bincount(ts.coo_i, minlength=ts.m), npad, t_max,
+                        precision, 100)
+    assert 0 < t < t_max
+    assert td.head_dense_y.shape == (npad, t)
+    assert trace.snapshot()["notes"]["layout.head_items"] == t
+    if precision != "highest":
+        return
+    elogs = _elogs(np.random.default_rng(29), ts.n, ts.m, 100, False)
+    te = [torch.from_numpy(e).cuda() for e in elogs] + [None, None]
+    got = sweep(*te, td, "hybrid", precision=precision)
+    csr = sweep(*te, td, "segment-chunked")
+    want = sweep_segment_chunked(
+        *[torch.from_numpy(e).double() for e in elogs], None, None,
+        t_build(ts, "cpu", dense_limit_bytes=64))
+    torch.cuda.synchronize()
+    for g, c, w in zip(got[:2], csr[:2], want[:2]):
+        torch.testing.assert_close(g.cpu().double(), w, **F32)
+        torch.testing.assert_close(c.cpu().double(), w, **F32)

@@ -2,13 +2,14 @@
 it opens at the layer boundaries, on the CPU:
 
   * the recorder: nesting and parents, self time, the record cap and the
-    count past it, `reset()`;
+    count past it, notes, `reset()`;
   * the profiler: no `record_function` opens while no profiler runs;
     under a CPU `torch.profiler` the spans are host events under their
     own names;
   * the layout build's sorts and copies, the multi-step's warm-up,
     capture and key walk (with the tests' fake graph), the slab streams'
-    builds, and the report's phases in a `-trace` profile.
+    builds, and the report's phases and the layout's notes in a
+    `-trace` profile.
 """
 
 import glob
@@ -26,7 +27,7 @@ from hgaprec_tpu_torch import trace
 from hgaprec_tpu_torch.config import ModelConfig as TCfg
 from hgaprec_tpu_torch.config import RunConfig as TRun
 from hgaprec_tpu_torch.data.device import build_device_data
-from hgaprec_tpu_torch.models.engine import Trainer
+from hgaprec_tpu_torch.models.engine import LAYOUT_KEY, Trainer
 from hgaprec_tpu_torch.models.step import make_multi_step
 from hgaprec_tpu_torch.ops import segment_fused as sf
 from hgaprec_tpu_torch.ops import tail_fused as tf
@@ -103,12 +104,29 @@ def test_reset_clears_totals_records_and_overflow():
     for name in ("a", "b"):
         with rec.span(name):
             pass
+    rec.note("n", 1)
     rec.reset()
-    assert rec.snapshot() == {"totals": {}, "records": [], "dropped": 0}
+    assert rec.snapshot() == {"totals": {}, "records": [], "dropped": 0,
+                              "notes": {}}
     # a span open across the reset still records when it closes
     with rec.span("open"):
         rec.reset()
     assert list(rec.snapshot()["totals"]) == ["open"]
+
+
+def test_note_keeps_the_last_value_beside_the_spans():
+    rec = trace.Recorder()
+    rec.note("layout.head_items", 4096)
+    with rec.span("layout"):
+        rec.note("layout.head_items", 128)
+    rec.note("layout.head_share", 0.5)
+    snap = rec.snapshot()
+    assert snap["notes"] == {"layout.head_items": 128,
+                             "layout.head_share": 0.5}
+    assert snap["totals"]["layout"]["calls"] == 1
+    snap["notes"]["x"] = 1              # a copy: the recorder keeps its own
+    assert "x" not in rec.snapshot()["notes"]
+    assert trace.note == trace.RECORDER.note
 
 
 def test_spans_of_two_threads_keep_their_own_parents():
@@ -260,3 +278,30 @@ def test_report_phases_in_the_trace(tmp_path, spans):
     assert {"report.loglik", "report.save", "report.precision",
             "report.itemrank", "report.elbo", "multistep.warmup",
             "multistep.capture", "multistep.key"} <= names
+
+
+def test_trace_profile_holds_the_layout_notes(tmp_path, spans):
+    """The `-trace` profile's metadata carries the Trainer's own layout
+    figures, the head's width and its share of the nonzeros, even where
+    the process built another layout after it."""
+    js, val, test = make_synthetic(np.random.default_rng(5), n=40, m=30,
+                                   density=0.3)
+    ts = port_store(js)
+    tr = Trainer(ts, val, test,
+                 TCfg(n=js.n, m=js.m, k=3, variant="hpf",
+                      **LAYOUTS["hybrid"]),
+                 TRun(datdir=str(tmp_path), outdir=str(tmp_path / "o"),
+                      rfreq=3, max_iterations=3, seed=1,
+                      enforce_max_iterations=True,
+                      trace_dir=str(tmp_path / "trace")), device="cpu")
+    t = tr.data.head_items.numel()
+    share = 1 - tr.data.tail.nnz / ts.coo_u.size
+    build_device_data(ts, "cpu", dense_limit_bytes=64)   # no head
+    assert spans.snapshot()["notes"]["layout.head_items"] == 0
+    tr.run()
+    tr.close()
+    files = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
+    with open(files[0]) as f:
+        notes = json.load(f)[LAYOUT_KEY]
+    assert t > 0 and notes["layout.head_items"] == t
+    assert notes["layout.head_share"] == pytest.approx(share)
