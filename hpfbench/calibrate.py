@@ -12,13 +12,17 @@ state, and the numbers that a run compares (compare.py) for each cell.
 
 For each control seed, the same numbers of:
 
-  * the control: the reference in place of the program, its sweep's
-    products in TF32 (refs/<reference>.py, tf32=True), the rest float32,
-    one precision below the configuration's float32 with TF32 off;
+  * the control of each precision that the traffic mixes state: the
+    reference in place of the program, its sweep's products' operands
+    rounded one precision below (refs/<reference>.py, `BELOW`: TF32 below
+    "highest", float32 with TF32 off; FP8 E4M3 below "default",
+    bfloat16), the rest float32;
   * faults planted in the reference put in the program's place: a step
     that returns its state unchanged; half of the nonzeros left out and
     the other half's counts doubled (the mean over the rest); one
-    element of the new theta shape altered by 1% where it is produced.
+    element of the new theta shape altered where it is produced, by the
+    precision's share (compare.ALTERED: 1% at "highest", 25% at
+    "default").
 
 Prints one JSON line per seed and cell (and appends it to --out). The
 benchmark's own runs never run this.
@@ -35,7 +39,7 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 
-def planted(kind, ref, st, coo, k, priors):
+def planted(kind, ref, st, coo, k, priors, altered=0.01):
     """One step of the reference with fault `kind` planted, in float32."""
     import torch
     if kind == "unchanged":
@@ -46,12 +50,9 @@ def planted(kind, ref, st, coo, k, priors):
                             k, priors)
     if kind == "altered":
         out = ref.hpf_step(st, coo.u, coo.i, coo.y, k, priors)
-        out["theta.shape"][0, 0] *= 1.01
+        out["theta.shape"][0, 0] *= 1.0 + altered
         return out
     raise ValueError(kind)
-
-
-FAULTS = ("unchanged", "half_batch", "altered")
 
 
 def readings(chain, ref_chain):
@@ -79,7 +80,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from hpfbench import data, manifest, program
+    from hpfbench import compare, data, manifest, program
     from hpfbench.run import CHECKED_STEPS, host_copy, seed_bits
     from hpfbench.state_init import hpf_initial_state
 
@@ -91,7 +92,8 @@ def main(argv=None) -> int:
     cfg = manifest.config(bench, args.config, args.root)
     ref = manifest.module("refs", cfg["reference"])
     k, priors = cfg["k"], cfg["priors"]
-    traffics = {t: manifest.traffic(t) for t in args.traffic}
+    traffics = {t: manifest.traffic(t, args.root) for t in args.traffic}
+    precisions = sorted({t["matmul_precision"] for t in traffics.values()})
     steps = CHECKED_STEPS
 
     def emit(line):
@@ -144,21 +146,29 @@ def main(argv=None) -> int:
                   "info": info, "layout_s": layout_s})
         if seed in args.control_seeds:
             st32 = {n_: v.to(device, copy=True) for n_, v in init.items()}
-            chain = [st32]
-            for _ in range(steps):
-                chain.append(ref.hpf_step(chain[-1], dcoo.u, dcoo.i, dcoo.y,
-                                          k, priors, tf32=True))
-            nums, leaves = readings(chain, ref_chain)
-            emit({**base, "kind": "control_tf32", "numbers": nums,
-                  "worst_leaves": leaves})
-            for fault in FAULTS:
+
+            def emit_chain(tags, one_step):
                 chain = [st32]
                 for _ in range(steps):
-                    chain.append(planted(fault, ref, chain[-1], dcoo, k,
-                                         priors))
+                    chain.append(one_step(chain[-1]))
                 nums, leaves = readings(chain, ref_chain)
-                emit({**base, "kind": f"fault_{fault}", "numbers": nums,
+                emit({**base, **tags, "numbers": nums,
                       "worst_leaves": leaves})
+
+            for prec in precisions:
+                low = ref.BELOW[prec]
+                emit_chain({"kind": f"control_{low}", "precision": prec},
+                           lambda st: ref.hpf_step(st, dcoo.u, dcoo.i,
+                                                   dcoo.y, k, priors,
+                                                   low=low))
+                emit_chain({"kind": "fault_altered", "precision": prec},
+                           lambda st: planted("altered", ref, st, dcoo, k,
+                                              priors, compare.ALTERED[prec]))
+            # the faults that read alike at every precision
+            for fault in ("unchanged", "half_batch"):
+                emit_chain({"kind": f"fault_{fault}"},
+                           lambda st: planted(fault, ref, st, dcoo, k,
+                                              priors))
         del ref_chain, st, dcoo
         if cuda:
             torch.cuda.empty_cache()

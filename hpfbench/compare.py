@@ -45,6 +45,13 @@ def step_name(step: int) -> str:
     return f"step{step}_gap"
 
 
+# the planted fault "altered": the share by which one element of the new
+# theta shape is altered where it is produced, by the precision a cell
+# states; each reads at least ten times the program's sound readings at
+# that precision (PERF.md, 2.1)
+ALTERED = {"highest": 0.01, "default": 0.25}
+
+
 def judge(numbers: Dict[str, float], limits: Dict[str, float]):
     """(correct, failed names): every number at or under its limit."""
     failed = [k for k, v in numbers.items() if not v <= limits[k]]

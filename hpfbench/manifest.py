@@ -8,6 +8,10 @@ references, metric readers), each a file of its own under this directory.
   gen/<generator>.py       draw(cfg, gen, device) -> (keys, counts)
   refs/<reference>.py      the plain reference of one iteration
   metrics/<metric>.py      read(ctx) -> value or None, one per metric
+
+The data files (BENCHMARK.json, configurations, traffic mixes, limits)
+are read under a checkout's root, by default this one's; the plug-in
+modules are this directory's own.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import List
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+DIR = os.path.basename(HERE)
 
 
 def _json(path: str) -> dict:
@@ -47,12 +52,12 @@ def config(manifest: dict, name: str, root: str = ROOT) -> dict:
                                            "config")["file"]))
 
 
-def traffic(name: str) -> dict:
-    return _json(os.path.join(HERE, "traffic", f"{name}.json"))
+def traffic(name: str, root: str = ROOT) -> dict:
+    return _json(os.path.join(root, DIR, "traffic", f"{name}.json"))
 
 
-def limits(cell: str) -> dict:
-    return _json(os.path.join(HERE, "limits", f"{cell}.json"))
+def limits(cell: str, root: str = ROOT) -> dict:
+    return _json(os.path.join(root, DIR, "limits", f"{cell}.json"))
 
 
 def metrics(manifest: dict, cell: str, trace: bool) -> List[dict]:

@@ -1,14 +1,17 @@
 """The system under test, as the benchmark drives it: the port's layout,
 state types, fused multi-step and kernel library (`hgaprec_tpu_torch`).
 
-This is the only module of the benchmark that imports the port. The
-layout is the port's own `build_device_data`, which decides whether the
-catalog densifies and how wide the hybrid head is; the one choice made
-here is the Trainer's (models/engine.py), which the port keeps inline
-and the benchmark cannot call without building a Trainer: the head is
-asked for (`hybrid_head_items`) under `hybrid`, and under `auto` when
-users x items does not fit `dense_limit_bytes`. The step's route is the
-port's `_resolve_mode`, inside the multi-step.
+The modules of the benchmark that import the port are this one, which
+drives it, and `spans.py`, which reads its span record. The layout is
+the port's own `build_device_data`, which decides whether the catalog
+densifies and how wide the hybrid head is, given the arguments the
+Trainer (models/engine.py) hands it: the matmul precision and the packed
+width (K, + 2 with bias). The one choice made here is
+the Trainer's, which the port keeps inline and the benchmark cannot call
+without building a Trainer: the head is asked for (`hybrid_head_items`)
+under `hybrid`, and under `auto` when users x items does not fit
+`dense_limit_bytes`. The step's route is the port's `_resolve_mode`,
+inside the multi-step.
 """
 
 from __future__ import annotations
@@ -63,7 +66,9 @@ def layout(mcfg: ModelConfig, u: np.ndarray, i: np.ndarray, y: np.ndarray,
     t0 = time.perf_counter()
     data = build_device_data(store, device, hybrid_head_items=head,
                              dense_limit_bytes=mcfg.dense_limit_bytes,
-                             head_limit_bytes=mcfg.head_limit_bytes)
+                             head_limit_bytes=mcfg.head_limit_bytes,
+                             precision=mcfg.matmul_precision,
+                             kaug=mcfg.k + 2 * mcfg.bias)
     if data.y.is_cuda:
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0

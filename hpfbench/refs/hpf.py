@@ -21,14 +21,16 @@ the phi denominator floored at 1e-30.
 A state is a dict of tensors keyed by leaf name (`theta.shape`, ...,
 `beta_prior_elog`). Plain torch only: this module imports nothing of the
 program under test. `dtype` sets the precision of every operation;
-`tf32=True` rounds the operands of the sweep's three products (A B^T,
-W B, W^T A) to TF32 as a TF32 matrix unit would, accumulating in `dtype`:
-the control, one precision below the configuration's float32.
+`low` names a rounding of the operands of the sweep's three products
+(A B^T, W B, W^T A), accumulating in `dtype`: the control, one precision
+below the one a cell states (`BELOW`): "tf32" as a TF32 matrix unit
+reads a float32 operand, below "highest" (float32); "fp8" as an FP8 E4M3
+matrix unit reads one scaled by row, below "default" (bfloat16).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -49,6 +51,29 @@ def to_tf32(x: torch.Tensor) -> torch.Tensor:
     return rounded.view(torch.float32)
 
 
+# FP8 E4M3's largest finite value
+FP8_MAX = 448.0
+
+
+def to_fp8(x: torch.Tensor) -> torch.Tensor:
+    """float32 `x` rounded to FP8 E4M3 (3 explicit mantissa bits), to
+    nearest, with one power-of-two scale per row (along the last
+    dimension) that brings the row's largest magnitude within FP8_MAX, as
+    a row-wise scaled FP8 product reads its operands; returned unscaled."""
+    x = x.to(torch.float32)
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.exp2(torch.floor(torch.log2(
+        FP8_MAX / amax.clamp_min(torch.finfo(torch.float32).tiny))))
+    return (x * scale).to(torch.float8_e4m3fn).to(torch.float32) / scale
+
+
+# the rounding a control applies to the products' operands, by name, and
+# the control one step below each precision that a cell states (the
+# port's matmul precision: "highest" float32, "default" bfloat16)
+ROUNDINGS = {"tf32": to_tf32, "fp8": to_fp8}
+BELOW = {"highest": "tf32", "default": "fp8"}
+
+
 def expectations(shape: torch.Tensor, rate: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     a = torch.where(shape > 0, shape, torch.full_like(shape, FLOOR))
@@ -57,22 +82,25 @@ def expectations(shape: torch.Tensor, rate: torch.Tensor
 
 
 def sweep(a_lin: torch.Tensor, b_lin: torch.Tensor, u: torch.Tensor,
-          i: torch.Tensor, y: torch.Tensor, tf32: bool = False,
+          i: torch.Tensor, y: torch.Tensor, low: Optional[str] = None,
           chunk: int = 1 << 21) -> Tuple[torch.Tensor, torch.Tensor]:
     """(acc_a [N, K], acc_b [M, K]): the sums of y phi over each user's
     and each item's nonzeros, streamed over chunks of the COO."""
     acc_a = torch.zeros_like(a_lin)
     acc_b = torch.zeros_like(b_lin)
     dt = a_lin.dtype
-    a_op = to_tf32(a_lin).to(dt) if tf32 else a_lin
-    b_op = to_tf32(b_lin).to(dt) if tf32 else b_lin
+    rnd = ROUNDINGS[low] if low else None
+    a_op = rnd(a_lin).to(dt) if rnd else a_lin
+    b_op = rnd(b_lin).to(dt) if rnd else b_lin
     for j0 in range(0, u.shape[0], chunk):
         uu = u[j0:j0 + chunk].long()
         ii = i[j0:j0 + chunk].long()
         s = (a_op[uu] * b_op[ii]).sum(1)
         w = y[j0:j0 + chunk].to(dt) / torch.clamp_min(s, FLOOR)
-        if tf32:
-            w = to_tf32(w).to(dt)
+        if rnd:
+            # each nonzero's weight a row of its own, so that the rounding
+            # of one chunk does not depend on another's
+            w = rnd(w[:, None])[:, 0].to(dt)
         # acc_a = A (.) (W B) and acc_b = B (.) (W^T A): the outer factor
         # multiplies the finished sum, as in the sweep's matrix form
         acc_a.index_add_(0, uu, w[:, None] * b_op[ii])
@@ -84,13 +112,13 @@ def sweep(a_lin: torch.Tensor, b_lin: torch.Tensor, u: torch.Tensor,
 
 def hpf_step(st: Dict[str, torch.Tensor], u: torch.Tensor, i: torch.Tensor,
              y: torch.Tensor, k: int, priors: Dict[str, float],
-             tf32: bool = False, chunk: int = 1 << 21
+             low: Optional[str] = None, chunk: int = 1 << 21
              ) -> Dict[str, torch.Tensor]:
     """One iteration from state `st` (left unchanged); returns the new
     state, every leaf a fresh tensor of st's dtype."""
     p = priors
     acc_a, acc_b = sweep(torch.exp(st["theta.elog"]),
-                         torch.exp(st["beta.elog"]), u, i, y, tf32, chunk)
+                         torch.exp(st["beta.elog"]), u, i, y, low, chunk)
     xi_e, eta_e = st["theta_rate.e"], st["beta_rate.e"]
     out = {"theta_prior_e": xi_e.clone(),
            "theta_prior_elog": st["theta_rate.elog"].clone(),

@@ -122,15 +122,15 @@ def execute(cell: str, seed: int, seconds: float, trace: bool, device,
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from hpfbench import compare, data, manifest, program
+    from hpfbench import compare, data, manifest, program, spans
     from hpfbench.state_init import hpf_initial_state
     from hpfbench.trace import CHUNK, SYNC, WINDOW, Trace
 
     bench = manifest.load(root)
     wl = manifest.workload(bench, cell)
     cfg = manifest.config(bench, wl["config"], root)
-    traffic = manifest.traffic(wl["traffic"])
-    limits = manifest.limits(cell)
+    traffic = manifest.traffic(wl["traffic"], root)
+    limits = manifest.limits(cell, root)
     ref = manifest.module("refs", cfg["reference"])
     device = torch.device(device)
     cuda = device.type == "cuda"
@@ -154,6 +154,7 @@ def execute(cell: str, seed: int, seconds: float, trace: bool, device,
         mcfg, coo_host.u.numpy(), coo_host.i.numpy(), coo_host.y.numpy(),
         device)
     marks.append(("layout", time.perf_counter()))
+    say(f"layout: {info}; notes {spans.notes()}")
     leaves0 = hpf_initial_state(coo_host.n, coo_host.m, cfg["k"],
                                 cfg["priors"], gen, device)
     check_s = 0.0

@@ -104,15 +104,29 @@ def test_tf32_rounding():
     assert hpf.to_tf32(x).tolist() == want
 
 
-@pytest.mark.parametrize("tf32", [False, True])
-def test_chunks_do_not_change_the_sums(tf32):
+def test_fp8_rounding():
+    # one row: scaled by 2**-3 so that its largest, 3000, is within 448;
+    # E4M3 keeps 3 explicit mantissa bits (ties to even), normals from
+    # 2**-6 and subnormals in steps of 2**-9, here times 2**3
+    x = torch.tensor([[3000.0, 1.0 + 2.0 ** -4, 1.0 + 3 * 2.0 ** -4,
+                       1.0 + 2.0 ** -3, 2.0 ** -10, -9.5]])
+    want = [[3072.0, 1.0, 1.25, 1.125, 0.0, -10.0]]
+    assert hpf.to_fp8(x).tolist() == want
+    # rows are scaled apart: a small row keeps its own bits
+    y = torch.tensor([[1e-3, 1.1e-3], [5.0, 300.0]])
+    assert torch.allclose(hpf.to_fp8(y), y, rtol=2.0 ** -4)
+    assert hpf.BELOW == {"highest": "tf32", "default": "fp8"}
+
+
+@pytest.mark.parametrize("low", [None, "tf32", "fp8"])
+def test_chunks_do_not_change_the_sums(low):
     gen = torch.Generator().manual_seed(0)
     a = torch.rand((30, 4), generator=gen) + 0.1
     b = torch.rand((20, 4), generator=gen) + 0.1
     u = torch.sort(torch.randint(0, 30, (200,), generator=gen))[0].int()
     i = torch.randint(0, 20, (200,), generator=gen).int()
     y = torch.randint(1, 5, (200,), generator=gen).float()
-    whole = hpf.sweep(a.double(), b.double(), u, i, y, tf32, chunk=1 << 20)
-    parts = hpf.sweep(a.double(), b.double(), u, i, y, tf32, chunk=7)
+    whole = hpf.sweep(a.double(), b.double(), u, i, y, low, chunk=1 << 20)
+    parts = hpf.sweep(a.double(), b.double(), u, i, y, low, chunk=7)
     for x, z in zip(whole, parts):
         assert torch.allclose(x, z, rtol=1e-12)
