@@ -40,7 +40,7 @@ from hgaprec_tpu_torch.data.device import DeviceData
 from hgaprec_tpu_torch.ops import build
 from hgaprec_tpu_torch.ops.segment import segment_sweep_reference
 from hgaprec_tpu_torch.ops.tail import tail_tables
-from hgaprec_tpu_torch.trace import span
+from hgaprec_tpu_torch.trace import note, span
 
 RANGE = 128            # nonzeros per range (a multiple of 32)
 SLAB_BYTES = 24 << 20  # a slab's A rows and weights: half the H100's L2
@@ -130,7 +130,10 @@ def slab_stream(u_ids: torch.Tensor, item_order: torch.Tensor,
     an HBM gather of A per entry. With fill > 0 an item keeps slab order
     only where its entries outnumber fill times its p - 1 extra pair rows;
     the others lead the stream in (item, user) order, one pair each. A
-    build is spanned as `slabs.build` (trace.py)."""
+    build is spanned as `slabs.build` and noted (trace.py): its slabs as
+    `slabs.count`, the item pass's pair buffer as `slabs.pair_rows` and
+    `slabs.pair_bytes` (a row of kq f32 a pair, as `item_pass` allocates
+    it); a cache hit notes nothing."""
     key = (n, m, kq, slab_bytes, fill)
     got = cache.get(key)
     if got is None:
@@ -138,6 +141,9 @@ def slab_stream(u_ids: torch.Tensor, item_order: torch.Tensor,
             got = cache[key] = _build_slab_stream(
                 u_ids, item_order, i_by_item, u_by_item, n, m, kq,
                 slab_bytes, fill)
+            note("slabs.count", got.slabs)
+            note("slabs.pair_rows", got.pairs)
+            note("slabs.pair_bytes", got.pairs * kq * 4)
     return got
 
 

@@ -48,11 +48,17 @@ Names are dotted, the layer first:
   report.itemrank   its itemrank report
   report.elbo       its training ELBO (-logl)
 
-Notes, under names of the same form (of the last layout built in the
-process; a Trainer's `-trace` profile holds its own layout's):
+Notes, under names of the same form, of the last layout built in the
+process (a Trainer's `-trace` profile holds its own layout's):
 
   layout.head_items  the hybrid head's width T (0: no head)
   layout.head_share  the head's share of the nonzeros (0.0 without one)
+
+and of the last slab stream built (ops/segment_fused.py::slab_stream):
+
+  slabs.count       its user slabs
+  slabs.pair_rows   the rows of the item pass's pair buffer
+  slabs.pair_bytes  the pair buffer's bytes (rows x kq f32)
 """
 
 from __future__ import annotations

@@ -248,6 +248,27 @@ def test_slab_stream_spans_a_miss_and_not_a_hit(rng, spans):
     assert _calls(spans.snapshot(), "slabs.build") == 2
 
 
+@pytest.mark.parametrize("fill", [0, 4])
+def test_slab_stream_notes_its_pair_buffer(rng, spans, fill):
+    """A build notes its slabs and the item pass's pair buffer (a row of
+    kq f32 a pair); a cache hit notes nothing."""
+    _, cfg, data, _, _ = _case(rng, "segment-chunked", "hpf")
+    n, m, kq, cache = cfg.n, cfg.m, 12, {}
+    args = (data.u_ids, data.item_order, data.i_ids_sorted,
+            data.u_ids_by_item, cache, n, m, kq, 150, fill)
+    spans.reset()                       # the layout's own notes
+    got = sf.slab_stream(*args)
+    # fill 4: every item here is too sparse for its pair rows, no slab
+    assert got.pairs > 0 and (got.slabs > 1) == (fill == 0)
+    assert spans.snapshot()["notes"] == {
+        "slabs.count": got.slabs,
+        "slabs.pair_rows": got.pair_item.shape[0],
+        "slabs.pair_bytes": got.pair_item.shape[0] * kq * 4}
+    spans.reset()
+    assert sf.slab_stream(*args) is got
+    assert spans.snapshot()["notes"] == {}
+
+
 def test_report_phases_in_the_trace(tmp_path, spans):
     """A Trainer run under `-trace DIR` (the fake graph standing in for
     the card's): the report's phases and the multi-step's spans are host
